@@ -18,9 +18,12 @@ def __getattr__(name):
     if name in ("get_model", "MODEL_REGISTRY"):
         from . import models
         return getattr(models, name)
-    if name == "iter_batches":
+    if name in ("iter_batches", "fit", "evaluate", "train_test_split"):
         from .train import loop
-        return loop.iter_batches
+        return getattr(loop, name)
+    if name == "make_optimizer":
+        from .train import optimizers
+        return optimizers.make_optimizer
     if name in ("Scorer", "export_model", "load_scorer"):
         from . import serving
         return getattr(serving, name)
@@ -29,6 +32,7 @@ def __getattr__(name):
 
 __all__ = [
     "DenseSpec", "SparseSpec", "SeqSpec", "FeatureSet", "criteo_feature_set",
-    "get_model", "MODEL_REGISTRY", "iter_batches", "Scorer", "export_model",
+    "get_model", "MODEL_REGISTRY", "iter_batches", "fit", "evaluate",
+    "train_test_split", "make_optimizer", "Scorer", "export_model",
     "load_scorer",
 ]

@@ -1,18 +1,22 @@
-"""Fused CIN layer forward: a CUDA kernel for Hopper and its plain version.
+"""Fused CIN layer: CUDA kernels for Hopper, forward and backward, and their
+plain versions.
 
-Counterpart of ``ml_function_tpu/ops/kernels/cin.py``. The kernel
-(``csrc/cin_fwd.cu``) replaces the Pallas ``_fwd_kernel``; its source note
-says what bounds it on the H100 and how the design answers that. Like the TPU
-kernel it never writes the interaction tensor Z (B, H·F, D) or the product
-U (B, F·O) to device memory.
+Counterpart of ``ml_function_tpu/ops/kernels/cin.py``. The kernels
+(``csrc/cin_fwd.cu``, ``csrc/cin_bwd.cu``) replace the Pallas ``_fwd_kernel``
+and ``_bwd_kernel``; each source note says what bounds it on the H100 and how
+the design answers that. Like the TPU kernels they never write the
+interaction tensor Z (B, H·F, D), the product U (B, F·O) or its cotangent to
+device memory.
 
     y[d,b,o] = Σ_f x0[d,b,f] · Σ_h bf16(xk[d,b,h]) · bf16(w1[h, f·O+o])
 
-Products and sums are f32; only ``xk`` and ``w1`` are rounded to bf16.
+Products and sums are f32; the forward rounds only ``xk`` and ``w1`` to bf16,
+and the backward rounds ``xk``, ``w1`` and ``du = x0·dy`` as the TPU kernel
+does (``cin_layer_t_backward_reference``).
 
-``cin_layer_t`` runs the plain version for tensors on the CPU and launches
-the kernel for CUDA tensors; it never falls back from one to the other. The
-backward (the Pallas ``_bwd_kernel``) comes with the training slice.
+``cin_layer_t`` is a ``torch.autograd.Function``: for tensors on the CPU both
+directions run the plain versions, for CUDA tensors they launch the kernels;
+it never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -28,8 +32,9 @@ BLOCK_B = 256
 # Shared memory a block may use on the H100 (232,448 bytes).
 MAX_SMEM_BYTES = 232_448
 
-# Launches of the CUDA kernel since the count was last set to 0.
+# Launches of each CUDA kernel since its count was last set to 0.
 cin_fwd_launches = 0
+cin_bwd_launches = 0
 
 
 def supports(b: int, f: int, o: int, d: int) -> bool:
@@ -38,14 +43,60 @@ def supports(b: int, f: int, o: int, d: int) -> bool:
     return b % BLOCK_B == 0 and o % 128 == 0 and f >= 1 and d >= 1
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.bfloat16().float()
+
+
 def cin_layer_t_reference(xk_t: torch.Tensor, x0_t: torch.Tensor,
                           w1: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version with the kernel's rounding sites:
     xk_t (D, B, H), x0_t (D, B, F), w1 (H, F·O) → (D, B, O)."""
     d, b, _ = xk_t.shape
     f = x0_t.shape[2]
-    u = torch.matmul(xk_t.bfloat16().float(), w1.bfloat16().float())
+    u = torch.matmul(_bf16(xk_t), _bf16(w1))
     return (u.view(d, b, f, -1) * x0_t.unsqueeze(-1)).sum(dim=2)
+
+
+def cin_layer_t_backward_reference(xk_t: torch.Tensor, x0_t: torch.Tensor,
+                                   w1: torch.Tensor, dy_t: torch.Tensor):
+    """Plain PyTorch version of the backward, with the TPU kernel's rounding
+    sites written out (not autograd of the forward, which rounds elsewhere):
+    U = bf16(xk) @ bf16(w1) recomputed, dx0 = Σ_o U·dy, du = x0·dy in f32,
+    dxk = bf16(du) @ bf16(w1)ᵀ and dW = Σ_{d,b} bf16(xk)ᵀ·bf16(du).
+    Returns (dxk_t (D, B, H), dx0_t (D, B, F), dw1 (H, F·O)), all f32."""
+    d, b, h = xk_t.shape
+    f = x0_t.shape[2]
+    xb, wb = _bf16(xk_t), _bf16(w1)
+    u = torch.matmul(xb, wb).view(d, b, f, -1)
+    dx0 = (u * dy_t.unsqueeze(2)).sum(dim=-1)
+    du = _bf16((x0_t.unsqueeze(-1) * dy_t.unsqueeze(2)).reshape(d, b, -1))
+    dxk = torch.matmul(du, wb.t())
+    dw = torch.matmul(xb.reshape(-1, h).t(), du.reshape(d * b, -1))
+    return dxk, dx0, dw
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+class CINLayer(torch.autograd.Function):
+    """One CIN layer with the TPU kernel's custom vjp: the backward recomputes
+    U from the saved inputs rather than saving it. ``xk_t`` may be ``x0_t``
+    itself (the first layer); autograd then adds the two gradients."""
+
+    @staticmethod
+    def forward(ctx, xk_t, x0_t, w1):
+        ctx.save_for_backward(xk_t, x0_t, w1)
+        if _on_cpu(xk_t, x0_t, w1):
+            return cin_layer_t_reference(xk_t, x0_t, w1)
+        return _launch_fwd(xk_t, x0_t, w1)
+
+    @staticmethod
+    def backward(ctx, dy_t):
+        xk_t, x0_t, w1 = ctx.saved_tensors
+        if _on_cpu(xk_t, x0_t, w1, dy_t):
+            return cin_layer_t_backward_reference(xk_t, x0_t, w1, dy_t)
+        return cin_layer_t_backward(xk_t, x0_t, w1, dy_t.contiguous())
 
 
 def cin_layer_t(xk_t: torch.Tensor, x0_t: torch.Tensor,
@@ -53,13 +104,48 @@ def cin_layer_t(xk_t: torch.Tensor, x0_t: torch.Tensor,
     """One CIN layer on TRANSPOSED activations: xk_t (D, B, H),
     x0_t (D, B, F), w1 (H, F·O) → (D, B, O). ``w1`` is the (H·F, O) layer
     weight viewed as ``W.reshape(H, F, O).reshape(H, F·O)``."""
-    if all(t.device.type == "cpu" for t in (xk_t, x0_t, w1)):
-        return cin_layer_t_reference(xk_t, x0_t, w1)
-    return _launch(xk_t, x0_t, w1)
+    return CINLayer.apply(xk_t, x0_t, w1)
+
+
+def _check(what: str, **tensors: torch.Tensor) -> None:
+    """The kernels take contiguous f32 tensors on one CUDA device; ``w1`` is
+    2-d, the activations 3-d."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        ndim = 2 if name == "w1" else 3
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{what}: {name} is on {t.device}; all inputs "
+                             "must be on one CUDA device (or all on the CPU)")
+        if t.dtype != torch.float32 or t.dim() != ndim or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous "
+                             f"{ndim}-d float32 tensor, got {t.dtype} "
+                             f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def _shape(name: str, xk_t, x0_t, w1):
+    """(D, B, H, F, O) of a layer; raises on shapes the kernels do not take."""
+    d, b, h = xk_t.shape
+    f = x0_t.shape[2]
+    if x0_t.shape[:2] != (d, b) or w1.shape[0] != h or f == 0 or w1.shape[1] % f:
+        raise ValueError(f"{name}: shapes xk_t {tuple(xk_t.shape)}, x0_t "
+                         f"{tuple(x0_t.shape)}, w1 {tuple(w1.shape)} do not "
+                         "form (D,B,H), (D,B,F), (H,F·O)")
+    o = w1.shape[1] // f
+    if d > 65535 or max(d * b * h, d * b * f, d * b * o, h * f * o) >= 2 ** 31:
+        raise ValueError(f"{name}: shape (D={d}, B={b}, H={h}, F={f}, "
+                         f"O={o}) is beyond the kernel's int32 indexing")
+    return d, b, h, f, o
+
+
+def _refuse_smem(what: str, smem: int, h: int, f: int) -> None:
+    if smem > MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"{what}: H={h}, F={f} need {smem} bytes of shared memory "
+            f"per block, more than the {MAX_SMEM_BYTES} a block may use")
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
+def _lib_fwd() -> ctypes.CDLL:
     lib = _build.load("cin_fwd")
     lib.cin_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.cin_fwd.restype = ctypes.c_int
@@ -70,40 +156,31 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(xk_t: torch.Tensor, x0_t: torch.Tensor,
-            w1: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("cin_bwd")
+    lib.cin_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.cin_bwd.restype = ctypes.c_int
+    lib.cin_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.cin_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.cin_bwd_scratch_cols.argtypes = [ctypes.c_int]
+    lib.cin_bwd_scratch_cols.restype = ctypes.c_int
+    lib.cin_bwd_splits.argtypes = [ctypes.c_int] * 4
+    lib.cin_bwd_splits.restype = ctypes.c_int
+    return lib
+
+
+def _launch_fwd(xk_t: torch.Tensor, x0_t: torch.Tensor,
+                w1: torch.Tensor) -> torch.Tensor:
     global cin_fwd_launches
-    tensors = (xk_t, x0_t, w1)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError("CIN backward kernel: training slice")
+    _check("cin_layer_t", xk_t=xk_t, x0_t=x0_t, w1=w1)
+    d, b, h, f, o = _shape("cin_layer_t", xk_t, x0_t, w1)
     dev = xk_t.device
-    for name, t, ndim in (("xk_t", xk_t, 3), ("x0_t", x0_t, 3), ("w1", w1, 2)):
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"cin_layer_t: {name} is on {t.device}; all inputs "
-                             "must be on one CUDA device (or all on the CPU)")
-        if t.dtype != torch.float32 or t.dim() != ndim or not t.is_contiguous():
-            raise ValueError(f"cin_layer_t: {name} must be a contiguous "
-                             f"{ndim}-d float32 tensor, got {t.dtype} "
-                             f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
-    d, b, h = xk_t.shape
-    f = x0_t.shape[2]
-    if x0_t.shape[:2] != (d, b) or w1.shape[0] != h or f == 0 or w1.shape[1] % f:
-        raise ValueError(f"cin_layer_t: shapes xk_t {tuple(xk_t.shape)}, x0_t "
-                         f"{tuple(x0_t.shape)}, w1 {tuple(w1.shape)} do not "
-                         "form (D,B,H), (D,B,F), (H,F·O)")
-    o = w1.shape[1] // f
-    if d > 65535 or max(d * b * h, d * b * f, d * b * o, h * f * o) >= 2 ** 31:
-        raise ValueError(f"cin_layer_t: shape (D={d}, B={b}, H={h}, F={f}, "
-                         f"O={o}) is beyond the kernel's int32 indexing")
     y = torch.empty((d, b, o), dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y
-    lib = _lib()
-    smem = lib.cin_fwd_smem_bytes(h, f)
-    if smem > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"CIN kernel: H={h}, F={f} need {smem} bytes of shared memory "
-            f"per block, more than the {MAX_SMEM_BYTES} a block may use")
+    lib = _lib_fwd()
+    _refuse_smem("CIN kernel", lib.cin_fwd_smem_bytes(h, f), h, f)
     wt = torch.empty((f * o, lib.cin_fwd_scratch_cols(h)), dtype=torch.bfloat16,
                      device=dev)
     with torch.cuda.device(dev):
@@ -114,3 +191,40 @@ def _launch(xk_t: torch.Tensor, x0_t: torch.Tensor,
         raise RuntimeError(f"cin_fwd launch failed with CUDA error {err}")
     cin_fwd_launches += 1
     return y
+
+
+def cin_layer_t_backward(xk_t: torch.Tensor, x0_t: torch.Tensor,
+                         w1: torch.Tensor, dy_t: torch.Tensor):
+    """The backward kernel (``csrc/cin_bwd.cu``) on CUDA tensors: the
+    contract of ``cin_layer_t_backward_reference``. Raises on anything the
+    kernel does not take; never runs the plain version."""
+    global cin_bwd_launches
+    name = "cin_layer_t backward"
+    _check(name, xk_t=xk_t, x0_t=x0_t, w1=w1, dy_t=dy_t)
+    d, b, h, f, o = _shape(name, xk_t, x0_t, w1)
+    if tuple(dy_t.shape) != (d, b, o):
+        raise ValueError(f"{name}: dy_t {tuple(dy_t.shape)} is not (D, B, O) "
+                         f"= {(d, b, o)}")
+    dev = xk_t.device
+    dxk = torch.empty((d, b, h), dtype=torch.float32, device=dev)
+    dx0 = torch.empty((d, b, f), dtype=torch.float32, device=dev)
+    dw = torch.empty((h, f * o), dtype=torch.float32, device=dev)
+    if d * b == 0 or h * o == 0:   # empty sums
+        return dxk.zero_(), dx0.zero_(), dw.zero_()
+    lib = _lib_bwd()
+    _refuse_smem("CIN backward kernel", lib.cin_bwd_smem_bytes(h, f), h, f)
+    wt = torch.empty((f * o, lib.cin_bwd_scratch_cols(h)), dtype=torch.bfloat16,
+                     device=dev)
+    splits = lib.cin_bwd_splits(d * b, h, f, o)
+    part = torch.empty((splits if splits > 1 else 0, h, f * o),
+                       dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.cin_bwd(xk_t.data_ptr(), x0_t.data_ptr(), w1.data_ptr(),
+                          dy_t.data_ptr(), dxk.data_ptr(), dx0.data_ptr(),
+                          dw.data_ptr(), wt.data_ptr(), part.data_ptr(),
+                          d, b, h, f, o,
+                          torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"cin_bwd launch failed with CUDA error {err}")
+    cin_bwd_launches += 1
+    return dxk, dx0, dw

@@ -1,7 +1,8 @@
-"""Where the time of one xDeepFM scoring batch goes on the CUDA card.
+"""Where the time of one xDeepFM scoring batch, or train step, goes on the
+CUDA card.
 
     python -m ml_function_tpu_torch.tools.profile_scoring [--batch 4096]
-        [--out profile_scoring.json]
+        [--train] [--out profile_scoring.json]
 
 Builds full-width xDeepFM (Criteo schema: 26 fields of 100k ids, dim 8,
 CIN (128, 128), MLP (256, 128)) with seeded random weights on the card and
@@ -15,6 +16,12 @@ measures at one batch size:
   call (the wrapper's host time shows when it exceeds the device time),
   50 calls back to back between two events, and device time as the profiler
   records it.
+
+With ``--train`` the same model takes Adam train steps instead (forward,
+``backward()``, update) on a batch already on the card: device time by CUDA
+events over steps issued back to back, a trace of 20 steps (device time by
+kernel, busy share), and the CIN backward kernel alone at each layer shape,
+its four launches (weight prep, rows, dW partials, reduction) by name.
 
 Prints the card's name and power limit first; needs a CUDA device.
 """
@@ -36,10 +43,13 @@ from .timing import event_ms
 
 
 def _kernel_intervals(prof):
-    """(name, start_us, end_us) of every kernel the trace saw on the card."""
+    """(name, start_us, end_us) of every kernel the trace saw on the card.
+    Ranges that annotate the device timeline (``Optimizer.step#Adam.step``)
+    span gaps and are not kernels: they are left out."""
     out = []
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             out.append((evt.name, evt.time_range.start, evt.time_range.end))
     return out
 
@@ -70,37 +80,16 @@ def _profile(fn, n: int):
             busy / 1e3 / n, wall * 1e3 / n)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=4096)
-    ap.add_argument("--out", help="also write the results as JSON here")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_scoring: needs a CUDA device")
+def _print_kernels(kernels, top: int = 15):
+    for name, ms in list(kernels.items())[:top]:
+        print(f"  {ms:9.4f} ms  {name[:110]}")
 
-    from ..features.schema import criteo_feature_set
-    from ..features.synthetic import make_criteo_like
-    from ..models import get_model
-    from ..ops.kernels import cin as cin_mod
+
+def _score(model, batch, data, cin_mod, result):
     from ..serving import Scorer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60, check=True).stdout.strip()
-    print(card)
-    result = {"card": card, "torch": torch.__version__, "batch": args.batch}
-
-    b = args.batch
-    fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
-    model = get_model("xdeepfm", fs, device="cuda",
-                      generator=torch.Generator().manual_seed(0),
-                      cin_hidden=(128, 128), hidden=(256, 128))
-    _, data = make_criteo_like(n_rows=3 * b, vocab_size=100_000, seed=0)
-    batch = {k: torch.as_tensor(v[:b], device="cuda")
-             for k, v in data.items() if k in ("dense", "sparse")}
-
+    b = result["batch"]
+    batch = {k: batch[k] for k in ("dense", "sparse")}
     with torch.inference_mode():
         fwd = lambda: model(batch)  # noqa: E731
         result["forward_ms_events"] = event_ms(fwd)
@@ -120,8 +109,7 @@ def main(argv=None) -> int:
           f"predict_proba {result['predict_proba_ms_per_batch']:.4f} ms/batch; "
           f"profiled window {window_ms:.4f} ms/forward, device busy "
           f"{busy_ms:.4f} ms ({100 * busy_ms / window_ms:.1f}%)")
-    for name, ms in list(kernels.items())[:15]:
-        print(f"  {ms:9.4f} ms  {name[:110]}")
+    _print_kernels(kernels)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     result["cin_layers"] = []
@@ -142,6 +130,79 @@ def main(argv=None) -> int:
               f"{b2b:.4f} ms, device (profiler) {prof_busy:.4f} ms of a "
               f"{prof_window:.4f} ms window: "
               + ", ".join(f"{k[:40]} {v:.4f}" for k, v in prof_kernels.items()))
+
+
+def _train(model, batch, cin_mod, result):
+    from ..train.loop import make_train_step
+    from ..train.optimizers import make_optimizer
+
+    b = result["batch"]
+    step = make_train_step(model, make_optimizer("adam", 1e-3).init(model))
+    fn = lambda: step(batch)  # noqa: E731
+    result["train_step_ms_events"] = event_ms(fn, reps=10, inner=5)
+    kernels, busy_ms, window_ms = _profile(fn, 20)
+    result["train_profile"] = {"window_ms": window_ms, "busy_ms": busy_ms,
+                               "busy_share": busy_ms / window_ms,
+                               "device_ms_by_kernel": kernels}
+    print(f"B={b}: train step {result['train_step_ms_events']:.4f} ms (events, "
+          f"back to back); profiled window {window_ms:.4f} ms/step, device busy "
+          f"{busy_ms:.4f} ms ({100 * busy_ms / window_ms:.1f}%)")
+    _print_kernels(kernels, 25)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    result["cin_bwd_layers"] = []
+    for h in (26, 128):
+        d, f, o = 8, 26, 128
+        xk = torch.randn(d, b, h, device="cuda", generator=gen)
+        x0 = torch.randn(d, b, f, device="cuda", generator=gen) * 0.05
+        w1 = torch.randn(h, f * o, device="cuda", generator=gen) * 0.05
+        dy = torch.randn(d, b, o, device="cuda", generator=gen)
+        call = lambda: cin_mod.cin_layer_t_backward(xk, x0, w1, dy)  # noqa: E731
+        b2b = event_ms(call, reps=5, inner=50)
+        prof_kernels, prof_busy, prof_window = _profile(call, 20)
+        result["cin_bwd_layers"].append({
+            "H": h, "back_to_back_ms": b2b, "profiled_device_ms": prof_busy,
+            "device_ms_by_kernel": prof_kernels})
+        print(f"cin_bwd H={h}: back to back {b2b:.4f} ms, device (profiler) "
+              f"{prof_busy:.4f} ms: "
+              + ", ".join(f"{k[:60]} {v:.4f}" for k, v in prof_kernels.items()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--train", action="store_true",
+                    help="profile Adam train steps instead of scoring")
+    ap.add_argument("--out", help="also write the results as JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_scoring: needs a CUDA device")
+
+    from ..features.schema import criteo_feature_set
+    from ..features.synthetic import make_criteo_like
+    from ..models import get_model
+    from ..ops.kernels import cin as cin_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    print(card)
+    result = {"card": card, "torch": torch.__version__, "batch": args.batch}
+
+    b = args.batch
+    fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+    model = get_model("xdeepfm", fs, device="cuda",
+                      generator=torch.Generator().manual_seed(0),
+                      cin_hidden=(128, 128), hidden=(256, 128))
+    _, data = make_criteo_like(n_rows=3 * b, vocab_size=100_000, seed=0)
+    batch = {k: torch.as_tensor(v[:b], device="cuda") for k, v in data.items()}
+
+    if args.train:
+        _train(model, batch, cin_mod, result)
+    else:
+        _score(model, batch, data, cin_mod, result)
 
     if args.out:
         out = Path(args.out)

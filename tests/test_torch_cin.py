@@ -1,10 +1,14 @@
 """CIN parity: the port (ml_function_tpu_torch) against the JAX package.
 
-On the CPU the port's ``cin_layer_t`` runs its plain version; the JAX one
-runs the Pallas kernel in interpret mode, as tests/test_cin_kernel.py does.
-Both round xk and w1 to bf16 and sum in f32, so they differ only in the f32
-summation order: rtol 1e-3 with atol 1e-3·max|ref| covers that with room,
-while a wrong rounding site (bf16 x0, or bf16 Z) shows at the 1e-2 level.
+On the CPU the port's ``cin_layer_t`` runs its plain versions, forward and
+backward; the JAX one runs the Pallas kernels in interpret mode, as
+tests/test_cin_kernel.py does. Both round xk and w1 (and, backward, du =
+x0·dy) to bf16 and sum in f32, so they differ only in the f32 summation
+order: rtol 1e-3 with atol 1e-3·max|ref| covers that with room, while a
+wrong rounding site (bf16 x0, or bf16 Z) shows at the 1e-2 level. The
+layer's gradients are held tighter, to 1e-4: with the rounding sites equal
+they agree to about 3e-7, and a backward that rounds elsewhere (autograd of
+the plain forward) misses by about 2e-3.
 """
 
 import jax
@@ -56,6 +60,74 @@ def test_cin_layer_t_matches_jax_kernel(hidden):
         xk_t, h_prev = want, h
 
 
+def _layer_inputs(d, b, h, f, o, seed):
+    rng = np.random.default_rng(seed)
+    xk = rng.normal(0, 1, (d, b, h)).astype(np.float32)
+    x0 = rng.normal(0, 1, (d, b, f)).astype(np.float32)
+    w1 = (rng.normal(0, 1, (h, f * o)) * 0.1).astype(np.float32)
+    dy = rng.normal(0, 1, (d, b, o)).astype(np.float32)
+    return xk, x0, w1, dy
+
+
+def _jax_layer_vjp(xk, x0, w1, dy, same):
+    if same:   # layer 0: x_k is x_0, the two gradients add
+        _, vjp = jax.vjp(lambda e, w: jcin.cin_layer_t(e, e, w),
+                         jnp.asarray(x0), jnp.asarray(w1))
+    else:
+        _, vjp = jax.vjp(jcin.cin_layer_t, jnp.asarray(xk), jnp.asarray(x0),
+                         jnp.asarray(w1))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+
+
+def _torch_layer_grads(layer, xk, x0, w1, dy, same):
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in ((x0, w1) if same else (xk, x0, w1))]
+    ins = (leaves[0], leaves[0], leaves[1]) if same else tuple(leaves)
+    layer(*ins).backward(torch.from_numpy(dy))
+    return [t.grad.numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("d,b,h,f,o,same", [
+    (4, 256, 16, 5, 128, False),   # H != F
+    (4, 256, 5, 5, 128, True),     # layer 0: xk is x0
+    (2, 256, 7, 3, 128, False),    # odd H
+])
+def test_cin_layer_t_gradients_match_jax_vjp(d, b, h, f, o, same):
+    xk, x0, w1, dy = _layer_inputs(d, b, h, f, o, seed=4)
+    want = _jax_layer_vjp(xk, x0, w1, dy, same)
+    got = _torch_layer_grads(tcin.cin_layer_t, xk, x0, w1, dy, same)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4,
+                                   atol=1e-4 * float(np.abs(w).max()))
+
+
+def test_autograd_of_the_plain_forward_rounds_elsewhere():
+    """Autograd of the plain forward leaves du in f32 and rounds its
+    cotangents instead: dxk and dW then miss the JAX kernel's backward by
+    about 2e-3 of max|ref|, which the custom backward repairs."""
+    xk, x0, w1, dy = _layer_inputs(4, 256, 16, 5, 128, seed=4)
+    want = _jax_layer_vjp(xk, x0, w1, dy, same=False)
+    got = _torch_layer_grads(tcin.cin_layer_t_reference, xk, x0, w1, dy,
+                             same=False)
+    rel = [float(np.abs(g - w).max() / np.abs(w).max())
+           for g, w in zip(got, want)]
+    assert rel[0] > 5e-4 and rel[2] > 5e-4, rel   # dxk, dW
+    assert rel[1] < 1e-5, rel                     # dx0 rounds nowhere
+
+
+def test_cin_backward_reference_rounds_du_to_bf16():
+    xk, x0, w1, dy = (torch.from_numpy(a)
+                      for a in _layer_inputs(2, 8, 4, 3, 8, seed=5))
+    dxk, dx0, dw = tcin.cin_layer_t_backward_reference(xk, x0, w1, dy)
+    du = (x0.unsqueeze(-1) * dy.unsqueeze(2)).reshape(2, 8, -1).double()
+    dxk_f32_du = du @ w1.bfloat16().double().t()
+    dxk_bf16_du = du.bfloat16().double() @ w1.bfloat16().double().t()
+    np.testing.assert_allclose(dxk.numpy(), dxk_bf16_du.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert not np.allclose(dxk.numpy(), dxk_f32_du.numpy(), rtol=1e-4, atol=0)
+    assert dx0.shape == (2, 8, 3) and dw.shape == (4, 24)
+
+
 def test_cin_layer_t_keeps_x0_in_f32():
     """x0 is not rounded to bf16: an x0 with low bits set changes y."""
     d, b, h, f, o = 2, 8, 4, 3, 8
@@ -94,6 +166,40 @@ def test_cin_features_matches_jax(b, f, d, hidden, route, monkeypatch):
     assert jcin.supports(b, f, hidden[0], d) == tcin.supports(b, f, hidden[0], d)
     _close(got_feats.numpy(), jm.features(params, jnp.asarray(e)))
     _close(got_logit.numpy(), jm(params, jnp.asarray(e)))
+
+
+@pytest.mark.parametrize("b,hidden,kernel,route", [
+    (256, (128, 128), "auto", "kernel"),
+    (96, (64,), "auto", "einsum"),
+    (256, (128,), "off", "einsum"),
+])
+def test_cin_gradients_match_jax(b, hidden, kernel, route, monkeypatch):
+    """Parameter and input gradients of the whole block against jax.grad;
+    1e-3·max|g| per tensor, as for the forward."""
+    f, d = 5, 4
+    jm = JCIN(f, d, hidden=hidden, out_logit=True, kernel=kernel)
+    params = _jax_params(jm, seed=6)
+    rng = np.random.default_rng(6)
+    e = rng.normal(0, 1, (b, f, d)).astype(np.float32)
+    r = rng.normal(0, 1, (b,)).astype(np.float32)
+    gp, ge = jax.grad(lambda p, x: jnp.sum(jm(p, x) * r), argnums=(0, 1))(
+        params, jnp.asarray(e))
+
+    tm = TCIN(f, d, hidden=hidden, out_logit=True, kernel=kernel)
+    params_from_numpy(tm, params)
+    calls = []
+    real = tinteractions.cin_layer_t
+    monkeypatch.setattr(tinteractions, "cin_layer_t",
+                        lambda *a: calls.append(1) or real(*a))
+    et = torch.from_numpy(e).requires_grad_()
+    (tm(et) * torch.from_numpy(r)).sum().backward()
+    assert bool(calls) == (route == "kernel")
+    _close(et.grad.numpy(), ge)
+    for name, p in tm.named_parameters():
+        want = gp
+        for k in name.split("."):
+            want = want[k]
+        _close(p.grad.numpy(), want)
 
 
 @pytest.mark.parametrize("kernel", ["pallas", "off"])

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ml_function_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package; CPU runs never launch a
-kernel; a CUDA input either launches the kernel or raises; and chip_smoke.py
+chip_smoke.py, imports JAX or the JAX package; CPU runs, forward and
+training, never launch a kernel; a CUDA input either launches the kernel or
+raises, in training too; and chip_smoke.py
 refuses to run, printing no result, where there is no CUDA device."""
 
 import ast
@@ -76,6 +77,33 @@ def test_cpu_forward_launches_no_kernel():
     assert tcin.cin_fwd_launches == 0
 
 
+def test_cpu_train_step_launches_no_kernel():
+    from ml_function_tpu_torch.train.loop import make_train_step
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+    fs, data = make_criteo_like(n_rows=256, n_dense=2, n_sparse=4,
+                                vocab_size=20, embed_dim=4)
+    model = get_model("xdeepfm", fs, device="cpu", cin_hidden=(128,),
+                      hidden=(8,))
+    step = make_train_step(model, make_optimizer("adam", 1e-3).init(model))
+    tcin.cin_fwd_launches = tcin.cin_bwd_launches = 0
+    out = step(data)
+    assert torch.isfinite(out["loss"]) and model.cin.w0.grad is not None
+    assert tcin.cin_fwd_launches == tcin.cin_bwd_launches == 0
+
+
+def test_training_entry_points_default_to_the_card():
+    """get_model (and so fit, which trains the model where it is) and the
+    learning-curve tool run on the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is the card")
+    from ml_function_tpu_torch.tools import learning_curve
+    fs, _ = make_criteo_like(n_rows=8, n_dense=1, n_sparse=2, vocab_size=5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("xdeepfm", fs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        learning_curve.main(["--vocab", "5"])
+
+
 def test_non_cpu_inputs_never_fall_back():
     """Inputs that are not all on the CPU go to the kernel's checks, never to
     the plain version (``meta`` tensors stand in for the card here)."""
@@ -87,16 +115,17 @@ def test_non_cpu_inputs_never_fall_back():
         tcin.cin_layer_t(xk, x0, w1)
     with pytest.raises(ValueError, match="CUDA"):
         tcin.cin_layer_t(xk, torch.zeros(2, 256, 3), torch.zeros(3, 384))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="CUDA"):   # training as well
         tcin.cin_layer_t(xk, x0, w1.requires_grad_())
     assert tcin.cin_fwd_launches == before
 
 
 def test_kernel_builds_from_the_repo_sources_only():
     from ml_function_tpu_torch.ops.kernels import _build
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"cin_fwd"}
-    so = _build.library_path("cin_fwd")
-    assert so.parent == _build.BUILD and so.name.startswith("libcin_fwd-")
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"cin_fwd", "cin_bwd"}
+    for name in ("cin_fwd", "cin_bwd"):
+        so = _build.library_path(name)
+        assert so.parent == _build.BUILD and so.name.startswith(f"lib{name}-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored, "the build directory must be git-ignored"
