@@ -9,9 +9,10 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..ops.base import init_parameters
 from .base import Model
-from .interaction import DeepFM, xDeepFM
+from .interaction import AutoInt, DeepFM, xDeepFM
 
 MODEL_REGISTRY = {
+    "autoint": AutoInt,
     "deepfm": DeepFM,
     "xdeepfm": xDeepFM,
 }
@@ -33,4 +34,5 @@ def get_model(name: str, feature_set, device: DeviceLike = None,
     return model.to(dev)
 
 
-__all__ = ["Model", "MODEL_REGISTRY", "get_model", "DeepFM", "xDeepFM"]
+__all__ = ["Model", "MODEL_REGISTRY", "get_model", "AutoInt", "DeepFM",
+           "xDeepFM"]

@@ -65,10 +65,11 @@ def embed_inputs(fe: FusedEmbedding, batch: Mapping[str, Any],
             "emb_override (the cold-start hook) comes with the slice of the "
             "remaining models")
     out: Dict[str, Any] = {"dense": batch.get("dense")}
-    emb, lin = fe.sparse_all(batch["sparse"])
-    out["emb"] = emb
     if with_linear:
-        out["linear"] = lin
+        emb, out["linear"] = fe.sparse_all(batch["sparse"])
+    else:
+        emb = fe.sparse(batch["sparse"])
+    out["emb"] = emb
     out["l2"] = fe.l2_from_sparse(emb) if l2 else emb.new_zeros(())
     return out
 

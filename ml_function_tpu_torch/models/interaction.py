@@ -1,4 +1,4 @@
-"""Feature-interaction models of the port: DeepFM and xDeepFM.
+"""Feature-interaction models of the port: DeepFM, xDeepFM and AutoInt.
 
 Counterpart of ``ml_function_tpu/models/interaction.py``; the other models of
 that file come with later slices.
@@ -12,8 +12,9 @@ import torch
 from torch import nn
 
 from ..features.schema import FeatureSet
+from ..ops.attention import MultiHeadAttention
 from ..ops.base import zeros
-from ..ops.core import MLP, flatten_concat
+from ..ops.core import MLP, Dense, flatten_concat
 from ..ops.embedding import FusedEmbedding
 from ..ops.interactions import CIN, LinearUnit, fm_interaction
 from .base import Model, embed_inputs, stateless
@@ -77,3 +78,33 @@ def xDeepFM(fs: FeatureSet, cin_hidden: Tuple[int, ...] = (128, 128),
         return logit, {"emb_l2": inp["l2"]}
 
     return stateless("xDeepFM", fs, parts, fwd)
+
+
+def AutoInt(fs: FeatureSet, n_layers: int = 2, num_heads: int = 2,
+            head_dim: int = 16) -> Model:
+    """AutoInt: stacked multi-head self-attention over the field embeddings
+    (``mha0`` … ``mha{n-1}``), then flatten → logit (``head``). Dense
+    features join as one projected pseudo-field (``dense_proj``), the last.
+    The embedding keeps its ``linear`` table, as the reference's does, and
+    does not read it. The reference's pipeline-parallel branch comes with
+    the parallelism slice."""
+    f, d, nd = _dims(fs)
+    n_fields = f + (1 if nd else 0)
+    parts = {"embedding": FusedEmbedding(fs), "head": Dense(n_fields * d, 1)}
+    if nd:
+        parts["dense_proj"] = Dense(nd, d)
+    for i in range(n_layers):
+        parts[f"mha{i}"] = MultiHeadAttention(d, num_heads, head_dim,
+                                              use_res=True, use_ln=True)
+
+    def fwd(m, batch, train):
+        inp = embed_inputs(m.embedding, batch, with_linear=False)
+        e = inp["emb"]
+        if nd:
+            e = torch.cat([e, m.dense_proj(inp["dense"])[:, None, :]], dim=1)
+        for i in range(n_layers):
+            e = getattr(m, f"mha{i}")(e)
+        logit = m.head(e.reshape(e.shape[0], -1))
+        return logit[:, 0], {"emb_l2": inp["l2"]}
+
+    return stateless("AutoInt", fs, parts, fwd)

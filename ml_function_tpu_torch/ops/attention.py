@@ -1,0 +1,119 @@
+"""Multi-head attention of the port: field self-attention (AutoInt).
+
+Counterpart of ``MultiHeadAttention`` and ``attention_mask_bias`` in
+``ml_function_tpu/ops/attention.py``; ``TransformerBlock``, target attention,
+LSH attention and the positional encodings come with the sequence slices.
+Parameter names are the JAX pytree's keys (``q``, ``k``, ``v``, ``o``,
+``ln``), so ``params/mha0/q`` is the state-dict key ``mha0.q``.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .base import bf16_matmul, glorot_uniform
+from .core import LayerNorm
+from .kernels.field_attention import MAX_HEAD_DIM, MAX_SCORES, field_attention
+
+NEG_INF = -1e9
+
+
+def attention_mask_bias(mask: torch.Tensor) -> torch.Tensor:
+    """(…, L) bool → (…, 1, L) additive bias (0 keep / −1e9 drop)."""
+    return torch.where(mask[..., None, :], 0.0, NEG_INF)
+
+
+class MultiHeadAttention(nn.Module):
+    """softmax(QKᵀ/√d)V with fused projections, then the output projection,
+    the residual and LayerNorm (``use_res``/``use_ln``).
+
+    Its routes are the reference's, in the same order:
+    - flash attention when ``flash`` is 'always', or 'auto' with a key
+      length of at least ``flash_min_len`` and no ``extra_bias``: that is
+      the long-sequence slice's kernel and raises here;
+    - the field-attention kernel (``kernels/field_attention.py``), opt-in by
+      ``ML_FUNCTION_TPU_FIELD_ATTN=1`` read at call time, for lq·lk ≤ 4096,
+      head dim ≤ 64, no ``extra_bias`` and not causal;
+    - the small-L multiply-reduce route under the same size gate;
+    - the einsum route.
+    """
+
+    def __init__(self, dim: int, num_heads: int = 2,
+                 head_dim: Optional[int] = None, use_res: bool = True,
+                 use_ln: bool = True, causal: bool = False,
+                 flash: str = "auto", flash_min_len: int = 512):
+        super().__init__()
+        self.dim, self.num_heads = dim, num_heads
+        self.hd = head_dim or max(dim // num_heads, 1)
+        self.use_res, self.use_ln, self.causal = use_res, use_ln, causal
+        self.flash, self.flash_min_len = flash, flash_min_len
+        proj = num_heads * self.hd
+        for name, shape in (("q", (dim, proj)), ("k", (dim, proj)),
+                            ("v", (dim, proj)), ("o", (proj, dim))):
+            self.register_parameter(name, nn.Parameter(torch.empty(shape)))
+        if use_ln:
+            self.ln = LayerNorm(dim)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in ("q", "k", "v", "o"):
+            w = getattr(self, name)
+            w.copy_(glorot_uniform(w.shape, generator))
+
+    def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None,
+                extra_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B, Lq, D); kv: (B, Lk, D) (defaults to x); mask: (B, Lk)
+        valid-key mask; extra_bias: (B, Lq, Lk) additive."""
+        kv = x if kv is None else kv
+        b, lq, _ = x.shape
+        lk = kv.shape[1]
+        h, hd = self.num_heads, self.hd
+        q = bf16_matmul(x, self.q).reshape(b, lq, h, hd)
+        k = bf16_matmul(kv, self.k).reshape(b, lk, h, hd)
+        v = bf16_matmul(kv, self.v).reshape(b, lk, h, hd)
+        small = lq * lk <= MAX_SCORES and hd <= MAX_HEAD_DIM
+        if self.flash == "always" or (self.flash == "auto" and lk >= self.flash_min_len
+                                      and extra_bias is None):
+            raise NotImplementedError(
+                "flash attention (kernel K5, the reference's ops/kernels/"
+                "flash_attention.py) comes with slice 5, the long-sequence tier; "
+                f"this call has Lk = {lk} with flash={self.flash!r}")
+        if (small and os.environ.get("ML_FUNCTION_TPU_FIELD_ATTN") == "1"
+                and extra_bias is None and not self.causal):
+            bias = (torch.zeros((b, lk), dtype=torch.float32, device=x.device)
+                    if mask is None else torch.where(mask, 0.0, NEG_INF))
+            out = field_attention(q, k, v, bias, 1.0 / math.sqrt(hd))
+        elif small:
+            # the reference's multiply-reduce: logits in (B, lq, lk, H)
+            lg = (q[:, :, None] * k[:, None, :]).sum(dim=-1) / math.sqrt(hd)
+            if mask is not None:
+                lg = lg + torch.where(mask, 0.0, NEG_INF)[:, None, :, None]
+            if extra_bias is not None:
+                lg = lg + extra_bias[..., None]
+            if self.causal:
+                tril = torch.ones((lq, lk), dtype=torch.bool, device=x.device).tril()
+                lg = torch.where(tril[None, :, :, None], lg, NEG_INF)
+            a = torch.softmax(lg, dim=2)
+            out = (a[..., None] * v[:, None]).sum(dim=2)      # (B, lq, H, hd)
+        else:
+            logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
+            if mask is not None:
+                logits = logits + torch.where(mask, 0.0, NEG_INF)[:, None, None, :]
+            if extra_bias is not None:
+                logits = logits + extra_bias[:, None, :, :]
+            if self.causal:
+                tril = torch.ones((lq, lk), dtype=torch.bool, device=x.device).tril()
+                logits = torch.where(tril[None, None], logits, NEG_INF)
+            a = torch.softmax(logits, dim=-1)
+            out = torch.einsum("bhqk,bkhd->bqhd", a, v)
+        out = bf16_matmul(out.reshape(b, lq, h * hd), self.o)
+        if self.use_res:
+            out = out + x
+        if self.use_ln:
+            out = self.ln(out)
+        return out

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` beside
-this file at first use; the hash covers the source and the flags, so an edited
-source builds anew. Building needs the CUDA toolkit and happens only on the
+this file at first use; the hash covers the source, the headers it may
+include from ``csrc/`` and the flags, so an edited source builds anew. Building needs the CUDA toolkit and happens only on the
 machine with the card; importing this module builds nothing.
 """
 
@@ -37,8 +37,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """The library's path; its hash covers the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 

@@ -27,8 +27,11 @@ import functools
 import torch
 
 from . import _build
+from ._checks import check_cuda_inputs, on_cpu
 
 BLOCK_B = 256
+# The kernels' inputs: 3-d activations, the 2-d weight.
+NDIMS = {"xk_t": 3, "x0_t": 3, "w1": 2, "dy_t": 3}
 # Shared memory a block may use on the H100 (232,448 bytes).
 MAX_SMEM_BYTES = 232_448
 
@@ -75,10 +78,6 @@ def cin_layer_t_backward_reference(xk_t: torch.Tensor, x0_t: torch.Tensor,
     return dxk, dx0, dw
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
-
-
 class CINLayer(torch.autograd.Function):
     """One CIN layer with the TPU kernel's custom vjp: the backward recomputes
     U from the saved inputs rather than saving it. ``xk_t`` may be ``x0_t``
@@ -87,14 +86,14 @@ class CINLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xk_t, x0_t, w1):
         ctx.save_for_backward(xk_t, x0_t, w1)
-        if _on_cpu(xk_t, x0_t, w1):
+        if on_cpu(xk_t, x0_t, w1):
             return cin_layer_t_reference(xk_t, x0_t, w1)
         return _launch_fwd(xk_t, x0_t, w1)
 
     @staticmethod
     def backward(ctx, dy_t):
         xk_t, x0_t, w1 = ctx.saved_tensors
-        if _on_cpu(xk_t, x0_t, w1, dy_t):
+        if on_cpu(xk_t, x0_t, w1, dy_t):
             return cin_layer_t_backward_reference(xk_t, x0_t, w1, dy_t)
         return cin_layer_t_backward(xk_t, x0_t, w1, dy_t.contiguous())
 
@@ -105,21 +104,6 @@ def cin_layer_t(xk_t: torch.Tensor, x0_t: torch.Tensor,
     x0_t (D, B, F), w1 (H, F·O) → (D, B, O). ``w1`` is the (H·F, O) layer
     weight viewed as ``W.reshape(H, F, O).reshape(H, F·O)``."""
     return CINLayer.apply(xk_t, x0_t, w1)
-
-
-def _check(what: str, **tensors: torch.Tensor) -> None:
-    """The kernels take contiguous f32 tensors on one CUDA device; ``w1`` is
-    2-d, the activations 3-d."""
-    dev = next(iter(tensors.values())).device
-    for name, t in tensors.items():
-        ndim = 2 if name == "w1" else 3
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{what}: {name} is on {t.device}; all inputs "
-                             "must be on one CUDA device (or all on the CPU)")
-        if t.dtype != torch.float32 or t.dim() != ndim or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be a contiguous "
-                             f"{ndim}-d float32 tensor, got {t.dtype} "
-                             f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
 def _shape(name: str, xk_t, x0_t, w1):
@@ -173,7 +157,7 @@ def _lib_bwd() -> ctypes.CDLL:
 def _launch_fwd(xk_t: torch.Tensor, x0_t: torch.Tensor,
                 w1: torch.Tensor) -> torch.Tensor:
     global cin_fwd_launches
-    _check("cin_layer_t", xk_t=xk_t, x0_t=x0_t, w1=w1)
+    check_cuda_inputs("cin_layer_t", NDIMS, xk_t=xk_t, x0_t=x0_t, w1=w1)
     d, b, h, f, o = _shape("cin_layer_t", xk_t, x0_t, w1)
     dev = xk_t.device
     y = torch.empty((d, b, o), dtype=torch.float32, device=dev)
@@ -200,7 +184,7 @@ def cin_layer_t_backward(xk_t: torch.Tensor, x0_t: torch.Tensor,
     kernel does not take; never runs the plain version."""
     global cin_bwd_launches
     name = "cin_layer_t backward"
-    _check(name, xk_t=xk_t, x0_t=x0_t, w1=w1, dy_t=dy_t)
+    check_cuda_inputs(name, NDIMS, xk_t=xk_t, x0_t=x0_t, w1=w1, dy_t=dy_t)
     d, b, h, f, o = _shape(name, xk_t, x0_t, w1)
     if tuple(dy_t.shape) != (d, b, o):
         raise ValueError(f"{name}: dy_t {tuple(dy_t.shape)} is not (D, B, O) "

@@ -1,0 +1,170 @@
+"""Field attention: CUDA kernels for Hopper, forward and backward, and their
+plain versions.
+
+Counterpart of ``ml_function_tpu/ops/kernels/field_attention.py``. The
+kernels (``csrc/field_attn_fwd.cu``, ``csrc/field_attn_bwd.cu``) replace the
+Pallas ``_fwd_kernel`` and ``_bwd_kernel``; the source notes say what bounds
+them on the H100 and how the design answers that. Attention over a few
+positions (AutoInt's feature fields) at a large batch:
+
+    o = softmax(q·kᵀ·scale + bias) · v
+
+with q (B, Lq, H, Dh), k and v (B, Lk, H, Dh), an additive key bias (B, Lk)
+and o (B, Lq, H, Dh), all f32, for lq·lk ≤ 4096 and Dh ≤ 64 (the gate of
+``MultiHeadAttention``). The backward recomputes the probabilities from the
+saved inputs, as the reference's custom vjp does; the bias gets no gradient.
+
+``field_attention`` is a ``torch.autograd.Function``: for tensors on the CPU
+both directions run the plain versions, for CUDA tensors they launch the
+kernels; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from ._checks import check_cuda_inputs, on_cpu
+
+# The reference's gate (``ml_function_tpu/ops/attention.py``): the kernels
+# hold the (Lq, Lk) score matrix of one (batch row, head) on chip.
+MAX_SCORES = 4096
+MAX_HEAD_DIM = 64
+# The kernels' inputs: (B, L, H, Dh) activations, the (B, Lk) bias.
+NDIMS = {"q": 4, "k": 4, "v": 4, "bias": 2, "do": 4}
+
+# Launches of each CUDA kernel since its count was last set to 0.
+field_attn_fwd_launches = 0
+field_attn_bwd_launches = 0
+
+
+def _probs(q, k, bias, scale):
+    """(B, H, Lq, Lk) softmax weights: scale, then add the bias, as the
+    reference forms the logits."""
+    lg = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    return torch.softmax(lg + bias[:, None, None, :], dim=-1)
+
+
+def field_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain PyTorch version of the forward: (B, Lq, H, Dh)."""
+    return torch.einsum("bhqk,bkhd->bqhd", _probs(q, k, bias, scale), v)
+
+
+def field_attention_backward_reference(q, k, v, bias, do, scale: float):
+    """Plain PyTorch version of the backward, the TPU kernel's formulas
+    written out (not autograd of the forward): with a recomputed,
+    dV = aᵀ·dO, dA = dO·Vᵀ, dS = a ⊙ (dA − Σₖ a·dA), dQ = scale·dS·K and
+    dK = scale·dSᵀ·Q. Returns (dq, dk, dv) in the layouts of q, k, v."""
+    a = _probs(q, k, bias, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", a, do)
+    da = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = a * (da - (a * da).sum(dim=-1, keepdim=True))
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    return dq, dk, dv
+
+
+class FieldAttention(torch.autograd.Function):
+    """The reference's custom vjp: the backward recomputes the softmax
+    weights from the saved q, k, v and bias rather than saving them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        if on_cpu(q, k, v, bias):
+            return field_attention_reference(q, k, v, bias, scale)
+        return _launch_fwd(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias = ctx.saved_tensors
+        if on_cpu(q, k, v, bias, do):
+            grads = field_attention_backward_reference(q, k, v, bias, do, ctx.scale)
+        else:
+            grads = field_attention_backward(q, k, v, bias, do.contiguous(), ctx.scale)
+        return (*grads, None, None)
+
+
+def field_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, scale: float) -> torch.Tensor:
+    """softmax(q·kᵀ·scale + bias)·v: q (B, Lq, H, Dh), k/v (B, Lk, H, Dh),
+    bias (B, Lk) additive → (B, Lq, H, Dh), f32."""
+    return FieldAttention.apply(q, k, v, bias, scale)
+
+
+def _shape(what: str, q, k, v, bias):
+    """(B, Lq, Lk, H, Dh); raises on shapes the kernels do not take."""
+    b, lq, h, dh = q.shape
+    lk = k.shape[1]
+    if (k.shape != (b, lk, h, dh) or v.shape != k.shape
+            or bias.shape != (b, lk)):
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, bias {tuple(bias.shape)} do not "
+                         "form (B,Lq,H,Dh), (B,Lk,H,Dh) twice, (B,Lk)")
+    if lq * lk > MAX_SCORES or dh > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: Lq·Lk = {lq * lk} and Dh = {dh} are beyond "
+                         f"the kernel's gate (Lq·Lk ≤ {MAX_SCORES}, "
+                         f"Dh ≤ {MAX_HEAD_DIM})")
+    if b > 2 ** 31 - 1 or h > 65535 or b * max(lq, lk) * h * dh >= 2 ** 31:
+        raise ValueError(f"{what}: shape (B={b}, Lq={lq}, Lk={lk}, H={h}, "
+                         f"Dh={dh}) is beyond the kernel's int32 indexing")
+    return b, lq, lk, h, dh
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    n_ptr = 5 if name == "field_attn_fwd" else 8
+    fn = getattr(lib, name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_float]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch_fwd(q, k, v, bias, scale: float) -> torch.Tensor:
+    global field_attn_fwd_launches
+    check_cuda_inputs("field_attention", NDIMS, q=q, k=k, v=v, bias=bias)
+    b, lq, lk, h, dh = _shape("field_attention", q, k, v, bias)
+    o = torch.empty_like(q)
+    if b * h == 0:   # no (b, h) pair: o is empty
+        return o
+    with torch.cuda.device(q.device):
+        err = _lib("field_attn_fwd").field_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            o.data_ptr(), scale, b, lq, lk, h, dh,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"field_attn_fwd launch failed with CUDA error {err}")
+    field_attn_fwd_launches += 1
+    return o
+
+
+def field_attention_backward(q, k, v, bias, do, scale: float):
+    """The backward kernel (``csrc/field_attn_bwd.cu``) on CUDA tensors: the
+    contract of ``field_attention_backward_reference``. Raises on anything
+    the kernel does not take; never runs the plain version."""
+    global field_attn_bwd_launches
+    name = "field_attention backward"
+    check_cuda_inputs(name, NDIMS, q=q, k=k, v=v, bias=bias, do=do)
+    b, lq, lk, h, dh = _shape(name, q, k, v, bias)
+    if do.shape != q.shape:
+        raise ValueError(f"{name}: do {tuple(do.shape)} is not the shape of "
+                         f"q {tuple(q.shape)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b * h == 0:   # no (b, h) pair: the gradients are empty
+        return dq, dk, dv
+    with torch.cuda.device(q.device):
+        err = _lib("field_attn_bwd").field_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scale,
+            b, lq, lk, h, dh, torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"field_attn_bwd launch failed with CUDA error {err}")
+    field_attn_bwd_launches += 1
+    return dq, dk, dv

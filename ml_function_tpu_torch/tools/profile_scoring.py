@@ -1,27 +1,30 @@
-"""Where the time of one xDeepFM scoring batch, or train step, goes on the
-CUDA card.
+"""Where the time of one scoring batch, or train step, of xDeepFM or AutoInt
+goes on the CUDA card.
 
-    python -m ml_function_tpu_torch.tools.profile_scoring [--batch 4096]
-        [--train] [--out profile_scoring.json]
+    python -m ml_function_tpu_torch.tools.profile_scoring [--model xdeepfm]
+        [--batch 4096] [--train] [--out profile_scoring.json]
 
-Builds full-width xDeepFM (Criteo schema: 26 fields of 100k ids, dim 8,
-CIN (128, 128), MLP (256, 128)) with seeded random weights on the card and
-measures at one batch size:
+Builds a full-width model on the Criteo schema (26 fields of 100k ids,
+dim 8) with seeded random weights on the card: xDeepFM with CIN (128, 128)
+and MLP (256, 128), or AutoInt with 2 layers of 2 heads of 16 on its
+field-attention kernel (the tool sets ``ML_FUNCTION_TPU_FIELD_ATTN=1``).
+It measures at one batch size:
 
 - one forward on a batch already on the card: device time by CUDA events,
   and the wall time of ``Scorer.predict_proba`` over full batches;
 - a ``torch.profiler`` trace of 20 forwards: device time by kernel name and
   the device's busy share of the window;
-- the CIN kernel alone at each layer shape, three ways: events around each
-  call (the wrapper's host time shows when it exceeds the device time),
-  50 calls back to back between two events, and device time as the profiler
-  records it.
+- the model's kernel alone at each shape its forward gives it (the CIN at
+  each layer, field attention at (B, 27, 27, 2, 16)), three ways: events
+  around each call (the wrapper's host time shows when it exceeds the
+  device time), 50 calls back to back between two events, and device time
+  as the profiler records it.
 
 With ``--train`` the same model takes Adam train steps instead (forward,
 ``backward()``, update) on a batch already on the card: device time by CUDA
 events over steps issued back to back, a trace of 20 steps (device time by
-kernel, busy share), and the CIN backward kernel alone at each layer shape,
-its four launches (weight prep, rows, dW partials, reduction) by name.
+kernel, busy share), and the backward kernel alone at each shape, its
+launches by name.
 
 Prints the card's name and power limit first; needs a CUDA device.
 """
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -85,7 +89,7 @@ def _print_kernels(kernels, top: int = 15):
         print(f"  {ms:9.4f} ms  {name[:110]}")
 
 
-def _score(model, batch, data, cin_mod, result):
+def _score(model, batch, data, result):
     from ..serving import Scorer
 
     b = result["batch"]
@@ -111,28 +115,54 @@ def _score(model, batch, data, cin_mod, result):
           f"{busy_ms:.4f} ms ({100 * busy_ms / window_ms:.1f}%)")
     _print_kernels(kernels)
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    result["cin_layers"] = []
-    for h in (26, 128):
-        d, f, o = 8, 26, 128
-        xk = torch.randn(d, b, h, device="cuda", generator=gen)
-        x0 = torch.randn(d, b, f, device="cuda", generator=gen) * 0.05
-        w1 = torch.randn(h, f * o, device="cuda", generator=gen) * 0.05
-        call = lambda: cin_mod.cin_layer_t(xk, x0, w1)  # noqa: E731
+    result["kernel_alone"] = []
+    for label, call in _kernel_calls(result["model"], b, train=False):
         per_call = event_ms(call, inner=1)
         b2b = event_ms(call, reps=5, inner=50)
         prof_kernels, prof_busy, prof_window = _profile(call, 20)
-        row = {"H": h, "per_call_ms": per_call, "back_to_back_ms": b2b,
-               "profiled_device_ms": prof_busy, "profiled_window_ms": prof_window,
-               "device_ms_by_kernel": prof_kernels}
-        result["cin_layers"].append(row)
-        print(f"cin_fwd H={h}: per call {per_call:.4f} ms, back to back "
+        result["kernel_alone"].append({
+            "call": label, "per_call_ms": per_call, "back_to_back_ms": b2b,
+            "profiled_device_ms": prof_busy, "profiled_window_ms": prof_window,
+            "device_ms_by_kernel": prof_kernels})
+        print(f"{label}: per call {per_call:.4f} ms, back to back "
               f"{b2b:.4f} ms, device (profiler) {prof_busy:.4f} ms of a "
               f"{prof_window:.4f} ms window: "
               + ", ".join(f"{k[:40]} {v:.4f}" for k, v in prof_kernels.items()))
 
 
-def _train(model, batch, cin_mod, result):
+def _kernel_calls(model_name: str, b: int, train: bool):
+    """(label, call) of the model's kernel alone at each shape its forward
+    gives it: the CIN layer (or its backward) at H 26 and H 128, or field
+    attention (or its backward) at AutoInt's (B, 27, 27, 2, 16)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    calls = []
+    if model_name == "xdeepfm":
+        from ..ops.kernels import cin
+        for h in (26, 128):
+            d, f, o = 8, 26, 128
+            xk = torch.randn(d, b, h, device="cuda", generator=gen)
+            x0 = torch.randn(d, b, f, device="cuda", generator=gen) * 0.05
+            w1 = torch.randn(h, f * o, device="cuda", generator=gen) * 0.05
+            if train:
+                dy = torch.randn(d, b, o, device="cuda", generator=gen)
+                calls.append((f"cin_bwd H={h}", lambda xk=xk, x0=x0, w1=w1, dy=dy:
+                              cin.cin_layer_t_backward(xk, x0, w1, dy)))
+            else:
+                calls.append((f"cin_fwd H={h}", lambda xk=xk, x0=x0, w1=w1:
+                              cin.cin_layer_t(xk, x0, w1)))
+        return calls
+    from ..ops.kernels import field_attention as fa
+    q, k, v, do = (torch.randn(b, 27, 2, 16, device="cuda", generator=gen)
+                   for _ in range(4))
+    bias = torch.zeros(b, 27, device="cuda")
+    if train:
+        return [("field_attn_bwd (B, 27, 27, 2, 16)",
+                 lambda: fa.field_attention_backward(q, k, v, bias, do, 0.25))]
+    return [("field_attn_fwd (B, 27, 27, 2, 16)",
+             lambda: fa.field_attention(q, k, v, bias, 0.25))]
+
+
+def _train(model, batch, result):
     from ..train.loop import make_train_step
     from ..train.optimizers import make_optimizer
 
@@ -149,27 +179,21 @@ def _train(model, batch, cin_mod, result):
           f"{busy_ms:.4f} ms ({100 * busy_ms / window_ms:.1f}%)")
     _print_kernels(kernels, 25)
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    result["cin_bwd_layers"] = []
-    for h in (26, 128):
-        d, f, o = 8, 26, 128
-        xk = torch.randn(d, b, h, device="cuda", generator=gen)
-        x0 = torch.randn(d, b, f, device="cuda", generator=gen) * 0.05
-        w1 = torch.randn(h, f * o, device="cuda", generator=gen) * 0.05
-        dy = torch.randn(d, b, o, device="cuda", generator=gen)
-        call = lambda: cin_mod.cin_layer_t_backward(xk, x0, w1, dy)  # noqa: E731
+    result["kernel_alone"] = []
+    for label, call in _kernel_calls(result["model"], b, train=True):
         b2b = event_ms(call, reps=5, inner=50)
         prof_kernels, prof_busy, prof_window = _profile(call, 20)
-        result["cin_bwd_layers"].append({
-            "H": h, "back_to_back_ms": b2b, "profiled_device_ms": prof_busy,
+        result["kernel_alone"].append({
+            "call": label, "back_to_back_ms": b2b, "profiled_device_ms": prof_busy,
             "device_ms_by_kernel": prof_kernels})
-        print(f"cin_bwd H={h}: back to back {b2b:.4f} ms, device (profiler) "
+        print(f"{label}: back to back {b2b:.4f} ms, device (profiler) "
               f"{prof_busy:.4f} ms: "
               + ", ".join(f"{k[:60]} {v:.4f}" for k, v in prof_kernels.items()))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("xdeepfm", "autoint"), default="xdeepfm")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--train", action="store_true",
                     help="profile Adam train steps instead of scoring")
@@ -181,7 +205,6 @@ def main(argv=None) -> int:
     from ..features.schema import criteo_feature_set
     from ..features.synthetic import make_criteo_like
     from ..models import get_model
-    from ..ops.kernels import cin as cin_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -189,20 +212,26 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     print(card)
-    result = {"card": card, "torch": torch.__version__, "batch": args.batch}
+    result = {"card": card, "torch": torch.__version__, "model": args.model,
+              "batch": args.batch}
 
     b = args.batch
     fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
-    model = get_model("xdeepfm", fs, device="cuda",
-                      generator=torch.Generator().manual_seed(0),
-                      cin_hidden=(128, 128), hidden=(256, 128))
+    if args.model == "xdeepfm":
+        hp = {"cin_hidden": (128, 128), "hidden": (256, 128)}
+    else:
+        # AutoInt's attention takes the kernel only with the reference's switch
+        os.environ["ML_FUNCTION_TPU_FIELD_ATTN"] = "1"
+        hp = {"n_layers": 2, "num_heads": 2, "head_dim": 16}
+    model = get_model(args.model, fs, device="cuda",
+                      generator=torch.Generator().manual_seed(0), **hp)
     _, data = make_criteo_like(n_rows=3 * b, vocab_size=100_000, seed=0)
     batch = {k: torch.as_tensor(v[:b], device="cuda") for k, v in data.items()}
 
     if args.train:
-        _train(model, batch, cin_mod, result)
+        _train(model, batch, result)
     else:
-        _score(model, batch, data, cin_mod, result)
+        _score(model, batch, data, result)
 
     if args.out:
         out = Path(args.out)

@@ -1,5 +1,10 @@
 """Tests of the port that need the CUDA card; here they skip.
 
+The field-attention kernels are held to their plain versions at the shapes
+chip_smoke.py checks: AutoInt's (B 4096, L 27, H 2, Dh 16) and the gate's
+two edges, with a random key mask and one batch row whose keys are all
+masked, where the weights are uniform over all Lk keys.
+
 This file imports nothing of JAX, so it also runs on a machine with the card
 and without JAX, where tests/conftest.py (which imports JAX) and the
 repository's pytest options are left out:
@@ -24,6 +29,7 @@ import torch
 from ml_function_tpu_torch.features.synthetic import make_criteo_like
 from ml_function_tpu_torch.models import get_model
 from ml_function_tpu_torch.ops.kernels import cin as tcin
+from ml_function_tpu_torch.ops.kernels import field_attention as tfa
 from ml_function_tpu_torch.train.loop import make_train_step
 from ml_function_tpu_torch.train.optimizers import make_optimizer
 
@@ -156,3 +162,84 @@ def test_train_step_on_the_card_matches_the_cpu(card):
         for got, want in ((q.grad, p.grad), (q, p)):
             err = (got.cpu() - want).norm() / want.norm()
             assert err <= RTOL, err
+
+
+# (B, Lq, Lk, H, Dh, masked): AutoInt's shape, then the gate's two edges
+FA_SHAPES = [(4096, 27, 27, 2, 16, False), (512, 64, 64, 2, 64, True),
+             (300, 1, 4096, 2, 8, True)]
+
+
+def _fa_inputs(card, b, lq, lk, h, dh, masked):
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, do = (torch.randn(b, lq, h, dh, device=card, generator=gen) for _ in range(2))
+    k, v = (torch.randn(b, lk, h, dh, device=card, generator=gen) for _ in range(2))
+    bias = torch.zeros(b, lk, device=card)
+    if masked:
+        mask = torch.rand(b, lk, device=card, generator=gen) > 0.3
+        mask[:, 0] = True
+        mask[1] = False
+        bias = torch.where(mask, 0.0, -1e9)
+    return q, k, v, bias, do, 1.0 / dh ** 0.5
+
+
+@pytest.mark.parametrize("b,lq,lk,h,dh,masked", FA_SHAPES)
+def test_field_attention_kernels_match_plain_versions(card, b, lq, lk, h, dh, masked):
+    q, k, v, bias, do, scale = _fa_inputs(card, b, lq, lk, h, dh, masked)
+    fwd, bwd = tfa.field_attn_fwd_launches, tfa.field_attn_bwd_launches
+    got = tfa.field_attention(q, k, v, bias, scale)
+    grads = tfa.field_attention_backward(q, k, v, bias, do, scale)
+    torch.cuda.synchronize()
+    assert (tfa.field_attn_fwd_launches, tfa.field_attn_bwd_launches) == (fwd + 1, bwd + 1)
+    _close(got, tfa.field_attention_reference(q, k, v, bias, scale))
+    for g, w in zip(grads, tfa.field_attention_backward_reference(q, k, v, bias, do, scale)):
+        _close(g, w)
+    if masked:   # row 1: every key masked, uniform weights over all Lk
+        _close(got[1], v[1].mean(dim=0, keepdim=True).expand(lq, -1, -1))
+
+
+def test_field_attention_kernel_refuses_what_it_does_not_take(card):
+    q = torch.zeros(8, 5, 2, 16, device=card)
+    bias = torch.zeros(8, 5, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.field_attention(q.transpose(1, 2), q, q, bias, 0.25)
+    with pytest.raises(ValueError, match="float32"):
+        tfa.field_attention(q.double(), q, q, bias, 0.25)
+    with pytest.raises(ValueError, match="float32"):
+        tfa.field_attention(q, q, q, bias.half(), 0.25)
+    big = torch.zeros(2, 65, 2, 8, device=card)
+    with pytest.raises(ValueError, match="gate"):
+        tfa.field_attention(big, big, big, torch.zeros(2, 65, device=card), 0.25)
+    with pytest.raises(ValueError, match="do"):
+        tfa.field_attention_backward(q, q, q, bias, torch.zeros(8, 5, 2, 8, device=card),
+                                     0.25)
+    # an input that requires grad is taken: the backward runs the kernel
+    qq = q.clone().requires_grad_()
+    before = tfa.field_attn_bwd_launches
+    tfa.field_attention(qq, q, q, bias, 0.25).sum().backward()
+    torch.cuda.synchronize()
+    assert tfa.field_attn_bwd_launches == before + 1 and qq.grad.shape == q.shape
+
+
+def test_autoint_on_the_card_matches_the_cpu(card, monkeypatch):
+    """AutoInt through the field-attention kernels, forward and one SGD
+    step, against the same model on the CPU's plain versions."""
+    monkeypatch.setenv("ML_FUNCTION_TPU_FIELD_ATTN", "1")
+    fs, data = make_criteo_like(n_rows=256, n_dense=4, n_sparse=6,
+                                vocab_size=50, embed_dim=4, seed=1)
+    models = [get_model("autoint", fs, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+              for dev in ("cpu", card)]
+    fwd, bwd = tfa.field_attn_fwd_launches, tfa.field_attn_bwd_launches
+    with torch.inference_mode():
+        want, _, _ = models[0](data)
+        got, _, _ = models[1](data)
+    _close(got, want)
+    outs = [make_train_step(m, make_optimizer("sgd", 0.1).init(m))(data) for m in models]
+    assert tfa.field_attn_fwd_launches == fwd + 4 and tfa.field_attn_bwd_launches == bwd + 2
+    _close(outs[1]["loss"], outs[0]["loss"])
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        if p.grad is None:
+            assert q.grad is None
+            continue
+        err = (q.grad.cpu() - p.grad).norm() / p.grad.norm()
+        assert err <= RTOL, err

@@ -1,11 +1,13 @@
 """The port stands alone: no module of ml_function_tpu_torch, and not
 chip_smoke.py, imports JAX or the JAX package; CPU runs, forward and
 training, never launch a kernel; a CUDA input either launches the kernel or
-raises, in training too; and chip_smoke.py
+raises, in training too; every kernel builds from the repository's sources
+(a change to a shared header builds anew); and chip_smoke.py
 refuses to run, printing no result, where there is no CUDA device."""
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -120,13 +122,54 @@ def test_non_cpu_inputs_never_fall_back():
     assert tcin.cin_fwd_launches == before
 
 
-def test_kernel_builds_from_the_repo_sources_only():
+def test_cpu_autoint_launches_no_kernel(monkeypatch):
+    """The field-attention route on the CPU, forward and training, runs the
+    plain versions."""
+    from ml_function_tpu_torch.ops.kernels import field_attention as tfa
+    from ml_function_tpu_torch.train.loop import make_train_step
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+    monkeypatch.setenv("ML_FUNCTION_TPU_FIELD_ATTN", "1")
+    fs, data = make_criteo_like(n_rows=64, n_dense=2, n_sparse=4,
+                                vocab_size=20, embed_dim=4)
+    model = get_model("autoint", fs, device="cpu")
+    tfa.field_attn_fwd_launches = tfa.field_attn_bwd_launches = 0
+    out = make_train_step(model, make_optimizer("adam", 1e-3).init(model))(data)
+    assert torch.isfinite(out["loss"]) and model.mha0.q.grad is not None
+    assert tfa.field_attn_fwd_launches == tfa.field_attn_bwd_launches == 0
+
+
+def test_field_attention_non_cpu_inputs_never_fall_back():
+    from ml_function_tpu_torch.ops.kernels import field_attention as tfa
+    q = torch.zeros(4, 3, 2, 8, device="meta")
+    bias = torch.zeros(4, 3, device="meta")
+    before = tfa.field_attn_fwd_launches, tfa.field_attn_bwd_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.field_attention(q, q, q, bias, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.field_attention(q, q, q, torch.zeros(4, 3), 0.5)
+    with pytest.raises(ValueError, match="CUDA"):   # training as well
+        tfa.field_attention(q.requires_grad_(), q, q, bias, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.field_attention_backward(q, q, q, bias, q, 0.5)
+    assert (tfa.field_attn_fwd_launches, tfa.field_attn_bwd_launches) == before
+
+
+def test_kernel_builds_from_the_repo_sources_only(tmp_path, monkeypatch):
     from ml_function_tpu_torch.ops.kernels import _build
-    assert {p.stem for p in _build.CSRC.glob("*.cu")} == {"cin_fwd", "cin_bwd"}
-    for name in ("cin_fwd", "cin_bwd"):
+    names = {"cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd"}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == names
+    for name in names:
         so = _build.library_path(name)
         assert so.parent == _build.BUILD and so.name.startswith(f"lib{name}-")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    # the hash covers the shared header: an edited copy builds anew
+    before = _build.library_path("field_attn_fwd")
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, copy)
+    monkeypatch.setattr(_build, "CSRC", copy)
+    assert _build.library_path("field_attn_fwd").name == before.name
+    (copy / "field_attn.cuh").write_text((copy / "field_attn.cuh").read_text() + "\n")
+    assert _build.library_path("field_attn_fwd").name != before.name
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored, "the build directory must be git-ignored"
 

@@ -23,6 +23,7 @@ from ml_function_tpu_torch.features.schema import (FeatureSet, SparseSpec,
                                                    criteo_feature_set)
 from ml_function_tpu_torch.features.synthetic import make_criteo_like
 from ml_function_tpu_torch.models import MODEL_REGISTRY, get_model
+from ml_function_tpu_torch.ops import attention as tattention
 from ml_function_tpu_torch.ops import core as tcore
 from ml_function_tpu_torch.ops.base import bf16_matmul, init_parameters
 from ml_function_tpu_torch.ops.embedding import FusedEmbedding, row_tape
@@ -73,11 +74,39 @@ def test_model_logits_and_emb_l2_match_jax(name, hp, batch):
     _close(got_aux["emb_l2"].numpy(), want_aux["emb_l2"])
 
 
+@pytest.mark.parametrize("flag", ["0", "1"])
+def test_autoint_logits_and_emb_l2_match_jax(flag, monkeypatch):
+    """AutoInt at 6 fields (+ the dense pseudo-field), dim 4, 2 layers, on
+    the small-L route (flag 0) and the field-attention route (flag 1), read
+    at call time by both packages."""
+    monkeypatch.setenv("ML_FUNCTION_TPU_FIELD_ATTN", flag)
+    batch = 256
+    fs, data = jax_make(n_rows=batch, n_dense=4, n_sparse=6, vocab_size=50,
+                        embed_dim=4, seed=1)
+    tfs, tdata = make_criteo_like(n_rows=batch, n_dense=4, n_sparse=6,
+                                  vocab_size=50, embed_dim=4, seed=1)
+    jm = jax_get_model("autoint", fs, n_layers=2)
+    params, state = jm.init(jax.random.PRNGKey(0))
+    want, _, want_aux = jm.apply(params, state, {"dense": data["dense"],
+                                                 "sparse": data["sparse"]})
+    tm = get_model("autoint", tfs, device="cpu", n_layers=2)
+    params_from_numpy(tm, _np_tree(params))
+    calls = []
+    real = tattention.field_attention
+    monkeypatch.setattr(tattention, "field_attention",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    with torch.no_grad():
+        got, _, got_aux = tm({"dense": tdata["dense"], "sparse": tdata["sparse"]})
+    assert calls == ([(batch, 7, 2, 16)] * 2 if flag == "1" else [])
+    _close(got.numpy(), want)
+    _close(got_aux["emb_l2"].numpy(), want_aux["emb_l2"])
+
+
 def test_get_model_unknown_name_lists_registry():
     fs = criteo_feature_set([10] * 3, n_dense=2, embed_dim=4)
     with pytest.raises(KeyError, match="deepfm.*xdeepfm"):
         get_model("nope", fs, device="cpu")
-    assert sorted(MODEL_REGISTRY) == ["deepfm", "xdeepfm"]
+    assert sorted(MODEL_REGISTRY) == ["autoint", "deepfm", "xdeepfm"]
 
 
 def test_get_model_defaults_to_the_card():

@@ -29,13 +29,14 @@ from ml_function_tpu_torch.train.loop import iter_batches
 torch.set_num_threads(1)
 
 HP = {"xdeepfm": {"cin_hidden": [128], "hidden": [16, 8]},
-      "deepfm": {"hidden": [16, 8]}}
+      "deepfm": {"hidden": [16, 8]},
+      "autoint": {"n_layers": 2, "num_heads": 2, "head_dim": 16}}
 
 
 def _jax_model(name, seed=0):
     fs, data = make_criteo_like(n_rows=600, n_dense=4, n_sparse=6,
                                 vocab_size=50, embed_dim=4, seed=seed)
-    hp = {k: tuple(v) for k, v in HP[name].items()}
+    hp = {k: tuple(v) if isinstance(v, list) else v for k, v in HP[name].items()}
     model = jax_get_model(name, fs, **hp)
     params, state = model.init(jax.random.PRNGKey(seed))
     return fs, data, model, params, state
@@ -58,6 +59,30 @@ def test_jax_export_scores_the_same_in_the_port(name, tmp_path):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     unlabeled = {k: v for k, v in data.items() if k != "label"}
     np.testing.assert_array_equal(scorer.predict_proba(unlabeled), got)
+
+
+@pytest.mark.parametrize("flag", ["0", "1"])
+@pytest.mark.parametrize("f32,atol", [("1", 1e-5), ("0", 1e-4)])
+def test_jax_autoint_export_scores_the_same_in_the_port(flag, f32, atol,
+                                                        tmp_path, monkeypatch):
+    """AutoInt's hyperparameters travel in model.json; the port scores the
+    JAX export on the small-L (flag 0) and the field-attention route (flag
+    1). With ``ML_FUNCTION_TPU_F32_MATMUL=1`` the scores agree within 1e-5.
+    With the bf16 sites on, an attention output summed in another order can
+    round to the neighbouring bf16 value before a projection (2^-8
+    relative), which moves a few of the 600 scores past 1e-5: atol 1e-4,
+    as for the other models."""
+    monkeypatch.setenv("ML_FUNCTION_TPU_FIELD_ATTN", flag)
+    monkeypatch.setenv("ML_FUNCTION_TPU_F32_MATMUL", f32)
+    fs, data, model, params, state = _jax_model("autoint")
+    want = JaxScorer(model, params, state, batch_size=256).predict_proba(data)
+    jax_export(str(tmp_path / "m"), "autoint", fs, params, state,
+               hyperparams=HP["autoint"])
+    scorer = load_scorer(str(tmp_path / "m"), batch_size=256, device="cpu")
+    assert scorer.model.name == "AutoInt" and scorer.model.mha1.hd == 16
+    got = scorer.predict_proba(data)      # 600 rows: the third batch is padded
+    assert got.shape == (600,) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol)
 
 
 def test_port_export_loads_in_jax(tmp_path):

@@ -125,6 +125,49 @@ def test_model_gradients_match_jax(name, hp, batch):
         _close(p.grad.numpy(), _at(want, pname), 1e-3)
 
 
+@pytest.mark.parametrize("flag", ["0", "1"])
+@pytest.mark.parametrize("f32,tol", [("1", 1e-4), ("0", 1e-3)])
+def test_autoint_adam_step_loss_and_gradients_match_jax(flag, f32, tol,
+                                                        monkeypatch):
+    """One Adam step of AutoInt on the small-L route (flag 0) and through
+    the field-attention Function (flag 1): its loss and the gradients it
+    steps on against jax.grad. With ``ML_FUNCTION_TPU_F32_MATMUL=1`` they
+    agree within 1e-4·max|g|. With the bf16 sites on, both packages return
+    each weight's gradient rounded to bf16, so an element whose f32 sum
+    differs in its last bits lands one bf16 step (2^-8 relative) away:
+    1e-3·max|g|, as for the other models. The unread ``linear`` table gets
+    no gradient here and zeros in JAX."""
+    monkeypatch.setenv("ML_FUNCTION_TPU_FIELD_ATTN", flag)
+    monkeypatch.setenv("ML_FUNCTION_TPU_F32_MATMUL", f32)
+    batch = 256
+    fs, data = jax_make(n_rows=batch, n_dense=4, n_sparse=6, vocab_size=50,
+                        embed_dim=4, seed=1)
+    w = np.ones(batch, np.float32)
+    w[-40:] = 0.0
+    data["weight"] = w
+    jm = jax_get_model("autoint", fs, n_layers=2)
+    params, state = jm.init(jax.random.PRNGKey(0))
+
+    def jloss(p):
+        return jloop.loss_fn(jm, p, state, data, None)[0]
+
+    want_loss, want = jax.value_and_grad(jloss)(params)
+
+    tfs, tdata = make_criteo_like(n_rows=batch, n_dense=4, n_sparse=6,
+                                  vocab_size=50, embed_dim=4, seed=1)
+    tdata["weight"] = w
+    tm = get_model("autoint", tfs, device="cpu", n_layers=2)
+    params_from_numpy(tm, _np_tree(params))
+    out = tloop.make_train_step(tm, toptim.make_optimizer("adam", 1e-3).init(tm))(
+        tdata)
+    _close(out["loss"].item(), want_loss, 1e-5)
+    for pname, p in tm.named_parameters():
+        ref = _at(want, pname)
+        got = np.zeros_like(ref) if p.grad is None else p.grad.numpy()
+        _close(got, ref, tol)
+    assert tm.embedding.linear.grad is None
+
+
 def test_loss_masks_the_padded_tail():
     fs, data = make_criteo_like(n_rows=64, n_dense=2, n_sparse=3,
                                 vocab_size=10, embed_dim=4, seed=2)
