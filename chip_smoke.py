@@ -42,7 +42,31 @@ Phases, each of which stops the run with a non-zero exit if it fails:
 7. AutoInt training, as 5 with the field-attention kernels: 5 Adam steps
    against the plain versions, the rates, and a ``fit`` on the learning
    cell to held-out AUC above 0.6;
-8. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+8. the (AU)GRU kernels and the merge-scatter kernel against their plain
+   versions: gru_fwd and gru_bwd with attention gates and with ones at
+   DIEN's shape (B 4096, L 64, H 16, the masks of real histories), at
+   (B 300, L 7, H 64) with ragged masks, one row masked at every step (its
+   seq must be h0) and a non-zero h0, and at (B 1, L 1, H 8); merge_scatter
+   at DIEN's two sequence lookups (N 262,144 ids of width 8 into 5,202 rows;
+   a quarter of the item ids are the pad id), with all ids equal, with none
+   and with ids at V − 1, twice each (the same bits). Kernel, plain and
+   library times (cuDNN's ``nn.GRU``; ``index_add_``) and bounds;
+9. DIEN serving: full-width DIEN (the JAX package's headline shape: 5,000
+   items, 100 categories, histories of 64, dim 8, GRU hidden 16, MLP
+   (200, 80)) from ``get_model`` exported and scored through
+   ``load_scorer`` with ``kernel = 'pallas'`` set on ``gru1`` and ``gru2``:
+   finite probabilities, two gru_fwd launches a batch and no other, scores
+   within 1e-4 of the plain versions and of the 'scan' route; examples/s
+   and one forward's device time on both routes;
+10. DIEN training with the kernel route and ``_USE_MERGE_SCATTER`` set: 5
+    Adam steps against all three kernels' plain versions (losses to 1e-3,
+    step-1 gradients to 1e-3·max|g|, 2 + 2 + 2 launches a step), the rates
+    on this route and on the 'scan' route without the flag, and ``fit`` on
+    the JAX package's DIEN protocol (120,000 rows, 40 items, 10 categories,
+    histories of 32, split 80/20, B 4096, Adam 1e-3, 3 epochs) on both
+    routes: held-out AUC above 0.55 (or above the scan route's less 0.01,
+    where that one is lower) and within 0.01 of the scan route's;
+11. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Numerics: TF32 is off for matmuls and cuDNN, so every f32 product outside
 the kernels is a full f32 product. Imports nothing of JAX.
@@ -66,7 +90,8 @@ BATCH = 4096
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
-KERNELS = ("cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd")
+KERNELS = ("cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd", "gru_fwd",
+           "gru_bwd", "merge_scatter")
 # AutoInt's attention at Criteo width: 26 fields + the dense pseudo-field,
 # 2 heads of 16; then the gate's two edges (lq·lk = 4096, Dh 64; Lk 4096)
 FA_MAIN = (BATCH, 27, 27, 2, 16)
@@ -77,6 +102,15 @@ RTOL = 1e-3                # same rounding sites; only the f32 summation order d
 # each of the 26,000 embedding rows is seen about 210 times an epoch
 # (``python3 -m ml_function_tpu_torch.tools.learning_curve``).
 LEARN_VOCAB = 100
+# DIEN at the JAX package's headline shape (bench.py's DIEN entry): 5,000
+# items and 100 categories, histories of 64 (lengths 32..64), dim 8, so
+# both recurrences run at H = 2·8 = 16
+DIEN_DATA = dict(n_items=5000, n_cates=100, seq_len=64, embed_dim=8, seed=0)
+# the JAX package's DIEN learning protocol (CONVERGENCE.md, DIEN parity)
+DIEN_LEARN = dict(n_rows=120_000, n_items=40, n_cates=10, seq_len=32, seed=0)
+DIEN_AUC_BAR = 0.55
+# (B, L, H, what): DIEN's recurrences, then the edges
+GRU_SHAPES = ((BATCH, 64, 16, "path"), (300, 7, 64, "ragged"), (1, 1, 8, "tiny"))
 
 
 T_START = time.perf_counter()
@@ -119,20 +153,22 @@ def _check_close(what: str, got, ref) -> tuple:
     return err.max().item(), atol
 
 
-def _entry(name: str, source: str, replaces: str, shapes: list, calls: str) -> dict:
-    """One kernels-line entry: per-shape numbers summed over the main path's
-    two layer shapes (one call each per batch), the per-shape ones beside."""
+def _entry(name: str, replaces: str, shapes: list, calls: str) -> dict:
+    """One kernels-line entry: the numbers summed over the main path's calls
+    (the shapes marked ``path``: the CIN's two layers, DIEN's two
+    recurrences or its two sequence lookups), every shape's beside."""
+    main = [s for s in shapes if s["path"]]
     return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "name": name, "route": "cuda",
+        "source": f"ml_function_tpu_torch/ops/kernels/csrc/{name}.cu",
+        "replaces": replaces,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "ms": sum(s["ms"] for s in shapes),
-        "kernel_ms": sum(s["ms"] for s in shapes),
-        "plain_ms": sum(s["plain_ms"] for s in shapes),
-        "bound_ms": sum(s["bound_ms"] for s in shapes),
-        "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
-        "library_ms": sum(s["library_ms"] for s in shapes),
-        "library_calls": calls,
-        "per_shape": shapes,
+        **{k: sum(s[k] for s in main)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "bound_by": max(main, key=lambda s: s["bound_ms"])["bound_by"],
+        "kernel_ms": sum(s["ms"] for s in main),
+        "per": f"the {len(main)} calls of one pass of the main path",
+        "library_calls": calls, "per_shape": shapes,
     }
 
 
@@ -153,7 +189,7 @@ def check_cin_kernel(cin_mod) -> dict:
         xk_b, w1_b, x0_b = xk.bfloat16(), w1.bfloat16(), x0.bfloat16()
         bound_ms, bound_by = cin_bound(d, b, h, f, o)
         shapes.append({
-            "shape": {"D": d, "B": b, "H": h, "F": f, "O": o},
+            "shape": {"D": d, "B": b, "H": h, "F": f, "O": o}, "path": True,
             "max_abs_err": err, "atol": atol,
             "ms": event_ms(lambda: cin_mod.cin_layer_t(xk, x0, w1)),
             "plain_ms": event_ms(lambda: cin_mod.cin_layer_t_reference(xk, x0, w1)),
@@ -167,8 +203,7 @@ def check_cin_kernel(cin_mod) -> dict:
               f"(atol {s['atol']:.3e}), kernel {s['ms']:.4f} ms, plain "
               f"{s['plain_ms']:.4f} ms, library (2 calls) {s['library_ms']:.4f} ms, "
               f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})")
-    return _entry("cin_fwd", "ml_function_tpu_torch/ops/kernels/csrc/cin_fwd.cu",
-                  "ml_function_tpu/ops/kernels/cin.py:49", shapes,
+    return _entry("cin_fwd", "ml_function_tpu/ops/kernels/cin.py:49", shapes,
                   "torch.matmul (bf16) + torch.einsum F-reduce, per shape")
 
 
@@ -205,7 +240,7 @@ def check_cin_bwd_kernel(cin_mod) -> dict:
 
         bound_ms, bound_by = cin_bound(d, b, h, f, o, backward=True)
         shapes.append({
-            "shape": {"D": d, "B": b, "H": h, "F": f, "O": o},
+            "shape": {"D": d, "B": b, "H": h, "F": f, "O": o}, "path": True,
             "max_abs_err": max(e for e, _ in errs),
             "max_abs_err_dxk_dx0_dw": [e for e, _ in errs],
             "atol_dxk_dx0_dw": [a for _, a in errs],
@@ -223,8 +258,7 @@ def check_cin_bwd_kernel(cin_mod) -> dict:
               f"plain {s['plain_ms']:.4f} ms, library (3 calls) "
               f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
               f"({s['bound_by']})")
-    return _entry("cin_bwd", "ml_function_tpu_torch/ops/kernels/csrc/cin_bwd.cu",
-                  "ml_function_tpu/ops/kernels/cin.py:62", shapes,
+    return _entry("cin_bwd", "ml_function_tpu/ops/kernels/cin.py:62", shapes,
                   "torch.matmul (bf16) for dxk and for dW + torch.einsum for "
                   "dx0, per shape")
 
@@ -357,6 +391,240 @@ def _fa_entry(name: str, replaces: str, shapes: list, calls: str) -> dict:
     }
 
 
+def gru_bound(b: int, l: int, h: int, backward: bool = False):
+    """Least time of one (AU)GRU recurrence on the card: f32 work over the
+    f32 rate against each input read and each output written once.
+    Forward: 2·H·3H for h·wh and about 20 a unit for the gates, per step and
+    row; xw, mask, att, h0 in and seq out. Backward: the recomputed h·wh,
+    wh·dhh and the dwh product, and about 40 a unit for the gates; xw, seq,
+    dseq, mask, att, h0 in and dxw, da, dh0 (and the small dwh) out."""
+    steps = b * l
+    if backward:
+        flops = steps * (18 * h * h + 40 * h)
+        nbytes = 4 * (steps * (3 * h + 2 * h + 2 + 3 * h + 1) + 2 * b * h + 3 * h * h)
+    else:
+        flops = steps * (6 * h * h + 20 * h)
+        nbytes = 4 * (steps * (3 * h + 2 + h) + b * h + 3 * h * h)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _gru_inputs(gen, b, l, h, what, hist_mask):
+    """xw, wh, mask, att (and ones), h0, dseq on the card. The path shape
+    takes the masks of real histories; 'ragged' draws lengths 1..L, masks
+    row 1 at every step and gives a non-zero h0."""
+    xw = torch.randn(b, l, 3 * h, device="cuda", generator=gen) * 0.5
+    wh = torch.randn(h, 3 * h, device="cuda", generator=gen) / h ** 0.5
+    att = torch.rand(b, l, device="cuda", generator=gen)
+    dseq = torch.randn(b, l, h, device="cuda", generator=gen)
+    h0 = torch.zeros(b, h, device="cuda")
+    if what == "path":
+        mask = hist_mask.float()
+    else:
+        lens = torch.randint(1, l + 1, (b,), device="cuda", generator=gen)
+        mask = (torch.arange(l, device="cuda")[None, :] < lens[:, None]).float()
+        if what == "ragged":
+            mask[1] = 0.0
+            h0 = torch.randn(b, h, device="cuda", generator=gen) * 0.5
+    return xw, wh, mask, att, h0, dseq
+
+
+def check_gru_kernels(gru_mod, hist_mask) -> list:
+    """gru_sequence and gru_sequence_backward against their plain versions,
+    with attention gates (gru2, the AUGRU) and with ones (gru1), at DIEN's
+    shape and the edges, with times at DIEN's shape. The library yardstick
+    is cuDNN's ``torch.nn.GRU`` (f32, TF32 off) with input size 3H and
+    hidden H over full-length sequences: the plain GRU once its update gate
+    is negated and b_hn is zero, with no mask and no attention gate, so a
+    yardstick and never on the path; its backward is forward plus backward
+    through ``torch.autograd.grad`` less the forward."""
+    from ml_function_tpu_torch.tools.timing import event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    fwd_shapes, bwd_shapes = [], []
+    for b, l, h, what in GRU_SHAPES:
+        xw, wh, mask, att, h0, dseq = _gru_inputs(gen, b, l, h, what, hist_mask)
+        lib_fwd_ms = lib_bwd_ms = None
+        if what == "path":
+            rnn = torch.nn.GRU(3 * h, h, batch_first=True).cuda()
+            x_in = xw.clone().requires_grad_()
+            with torch.no_grad():
+                lib_fwd_ms = event_ms(lambda: rnn(x_in))
+            lib_both_ms = event_ms(lambda: torch.autograd.grad(
+                rnn(x_in)[0], (x_in, *rnn.parameters()), dseq))
+            lib_bwd_ms = lib_both_ms - lib_fwd_ms
+        for gate, a in (("att", att), ("ones", torch.ones_like(att))):
+            args = (xw, wh, mask, a, h0)
+            where = f"(B={b}, L={l}, H={h}, {what}, {gate})"
+            seq = gru_mod.gru_sequence(*args)
+            grads = gru_mod.gru_sequence_backward(*args, seq, dseq)
+            again = gru_mod.gru_sequence_backward(*args, seq, dseq)
+            torch.cuda.synchronize()
+            ref_seq = gru_mod.gru_sequence_reference(*args)
+            err, atol = _check_close(f"gru_fwd at {where}", seq, ref_seq)
+            if what == "ragged" and not torch.equal(seq[1], h0[1].expand(l, -1)):
+                fail(f"gru_fwd at {where}: the row masked at every step does not "
+                     "carry h0")
+            ref = gru_mod.gru_sequence_backward_reference(*args, seq, dseq)
+            errs = [_check_close(f"gru_bwd {name} at {where}", g, r) for name, g, r
+                    in zip(("dxw", "dwh", "da", "dh0"), grads, ref)]
+            if not torch.equal(grads[1], again[1]):
+                fail(f"gru_bwd dwh differs between two runs at {where}")
+            common = {"shape": {"B": b, "L": l, "H": h}, "case": what, "gate": gate,
+                      "path": what == "path"}
+            fb, fby = gru_bound(b, l, h)
+            bb, bby = gru_bound(b, l, h, backward=True)
+            timed = what == "path"
+            fwd_shapes.append({
+                **common, "max_abs_err": err, "atol": atol,
+                "ms": event_ms(lambda: gru_mod.gru_sequence(*args)) if timed else None,
+                "plain_ms": (event_ms(lambda: gru_mod.gru_sequence_reference(*args),
+                                      reps=5, inner=2) if timed else None),
+                "library_ms": lib_fwd_ms, "bound_ms": fb, "bound_by": fby})
+            bwd_shapes.append({
+                **common, "max_abs_err": max(e for e, _ in errs),
+                "max_abs_err_dxw_dwh_da_dh0": [e for e, _ in errs],
+                "atol_dxw_dwh_da_dh0": [t for _, t in errs],
+                "ms": (event_ms(lambda: gru_mod.gru_sequence_backward(*args, seq, dseq))
+                       if timed else None),
+                "plain_ms": (event_ms(lambda: gru_mod.gru_sequence_backward_reference(
+                    *args, seq, dseq), reps=5, inner=2) if timed else None),
+                "library_ms": lib_bwd_ms, "bound_ms": bb, "bound_by": bby})
+    for s in fwd_shapes:
+        print(f"gru_fwd {s['shape']} {s['case']} {s['gate']}: max_abs_err "
+              f"{s['max_abs_err']:.3e} (atol {s['atol']:.3e}); kernel {s['ms']} ms, "
+              f"plain {s['plain_ms']} ms, library (cuDNN GRU f32) {s['library_ms']} ms, "
+              f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})")
+    for s in bwd_shapes:
+        print(f"gru_bwd {s['shape']} {s['case']} {s['gate']}: max_abs_err dxw/dwh/da/dh0 "
+              + "/".join(f"{e:.3e}" for e in s["max_abs_err_dxw_dwh_da_dh0"])
+              + " (atol " + "/".join(f"{t:.3e}" for t in s["atol_dxw_dwh_da_dh0"])
+              + f"), dwh bit-identical on a second run; kernel {s['ms']} ms, plain "
+              f"{s['plain_ms']} ms, library (cuDNN GRU backward) {s['library_ms']} ms, "
+              f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})")
+    replaces = "ml_function_tpu/ops/kernels/gru.py"
+    return [_entry("gru_fwd", f"{replaces}:54", fwd_shapes,
+                   "torch.nn.GRU (cuDNN, f32, input 3H, hidden H) forward, "
+                   "once a recurrence"),
+            _entry("gru_bwd", f"{replaces}:76", bwd_shapes,
+                   "torch.nn.GRU (cuDNN, f32): torch.autograd.grad of its "
+                   "forward less the forward, once a recurrence")]
+
+
+def ms_bound(n: int, d: int, v: int):
+    """Least time of one merge-scatter on the card: it must read the sorted
+    int64 ids and the f32 cotangents once and write the (V, D) gradient;
+    its adds (N·D) are far below the f32 rate."""
+    t_bytes = (8 * n + 4 * n * d + 4 * v * d) / PEAK_BYTES
+    t_ops = n * d / PEAK_F32_FLOPS
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def check_merge_scatter(eg_mod, lookups: dict, num_rows: int) -> dict:
+    """merge_scatter against dense_grad_reference at DIEN's two sequence
+    lookups (``lookups``: name → (N,) global ids on the card, as a train
+    step flattens them), with all N ids equal (one hot row), with N 0 and
+    with ids at V − 1; each twice, which must give the same bits. Times at
+    the lookups: the kernel alone on sorted input, the whole backward (sort,
+    permutation, kernel), the plain version and the library's
+    ``zeros.index_add_`` on the unsorted ids."""
+    from ml_function_tpu_torch.tools.timing import event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n_path = next(iter(lookups.values())).numel()
+    cases = {**{k: (v, True) for k, v in lookups.items()},
+             "all_equal": (torch.full((n_path,), 17, device="cuda"), False),
+             "empty": (torch.zeros(0, dtype=torch.int64, device="cuda"), False),
+             "last_row": (torch.randint(num_rows - 3, num_rows, (4096,), device="cuda",
+                                        generator=gen), False)}
+    shapes = []
+    for what, (ids, path) in cases.items():
+        d = 8
+        ct = (torch.ones(ids.numel(), d, device="cuda") if what == "all_equal"
+              else torch.randn(ids.numel(), d, device="cuda", generator=gen))
+        s_ids, s_ct = eg_mod._sorted(ids, ct)
+        got = eg_mod.merge_scatter(s_ids, s_ct, num_rows)
+        again = eg_mod.merge_scatter(s_ids, s_ct, num_rows)
+        whole = eg_mod.dense_grad_from_updates(ids, ct, num_rows)
+        torch.cuda.synchronize()
+        ref = eg_mod.dense_grad_reference(ids, ct, num_rows)
+        if what == "empty":
+            if got.abs().max().item() != 0.0:
+                fail("merge_scatter of no ids is not zero")
+            err, atol = 0.0, 0.0
+        else:
+            err, atol = _check_close(f"merge_scatter ({what})", got, ref)
+        if not (torch.equal(got, again) and torch.equal(got, whole)):
+            fail(f"merge_scatter ({what}) differs between runs")
+        if what == "all_equal" and got[17, 0].item() != float(n_path):
+            fail(f"merge_scatter's hot row sums to {got[17, 0].item()}, not {n_path}")
+        bound_ms, bound_by = ms_bound(ids.numel(), d, num_rows)
+        entry = {"case": what, "path": path, "N": ids.numel(), "D": d, "V": num_rows,
+                 "max_abs_err": err, "atol": atol, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "ms": None, "plain_ms": None, "library_ms": None}
+        if path:
+            entry.update(
+                ms=event_ms(lambda: eg_mod.merge_scatter(s_ids, s_ct, num_rows)),
+                whole_backward_ms=event_ms(
+                    lambda: eg_mod.dense_grad_from_updates(ids, ct, num_rows)),
+                plain_ms=event_ms(lambda: eg_mod.dense_grad_reference(ids, ct, num_rows)),
+                library_ms=event_ms(lambda: torch.zeros(num_rows, d, device="cuda")
+                                    .index_add_(0, ids, ct)),
+                pad_share=float((ids == ids.min()).float().mean()))
+        shapes.append(entry)
+    for s in shapes:
+        times = (f"; kernel {s['ms']:.4f} ms, whole backward (sort + permute + kernel) "
+                 f"{s['whole_backward_ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library "
+                 f"(index_add_) {s['library_ms']:.4f} ms, share of the hottest id "
+                 f"{s['pad_share']:.3f}" if s["path"] else "")
+        print(f"merge_scatter {s['case']} (N={s['N']}, D={s['D']}, V={s['V']}): "
+              f"max_abs_err {s['max_abs_err']:.3e} (atol {s['atol']:.3e}), the same "
+              f"bits on a second run{times}; bound {s['bound_ms']:.4f} ms "
+              f"({s['bound_by']})")
+    return _entry("merge_scatter", "ml_function_tpu/ops/kernels/embedding_grad.py:59",
+                  shapes, "torch.zeros(V, D).index_add_(0, ids, ct) on the unsorted "
+                  "ids, once a sequence lookup")
+
+
+def plain_gru(gru_mod):
+    """The (AU)GRU recurrence on its plain versions in both directions, on
+    the card: a hook of this script, not an option of the package."""
+
+    class PlainGRU(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, xw, wh, mask, att, h0):
+            seq = gru_mod.gru_sequence_reference(xw, wh, mask, att, h0)
+            ctx.save_for_backward(xw, wh, mask, att, h0, seq)
+            return seq
+
+        @staticmethod
+        def backward(ctx, dseq):
+            dxw, dwh, da, dh0 = gru_mod.gru_sequence_backward_reference(
+                *ctx.saved_tensors, dseq)
+            return dxw, dwh, None, da, dh0
+
+    return PlainGRU.apply
+
+
+def plain_fused_gather(eg_mod):
+    """``fused_gather`` with the plain dense gradient, on the card: a hook
+    of this script, not an option of the package."""
+
+    class PlainFusedGather(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, table, flat_ids):
+            ctx.save_for_backward(flat_ids)
+            ctx.num_rows = table.shape[0]
+            return table.index_select(0, flat_ids)
+
+        @staticmethod
+        def backward(ctx, ct):
+            (ids,) = ctx.saved_tensors
+            return eg_mod.dense_grad_reference(ids, ct, ctx.num_rows), None
+
+    return PlainFusedGather.apply
+
+
 def plain_field_attention(fa_mod):
     """Field attention on its plain versions in both directions, on the
     card: a hook of this script, not an option of the package."""
@@ -387,6 +655,11 @@ def swapped(module, attr: str, plain):
         setattr(module, attr, real)
 
 
+def _rows(data: dict, n: int) -> dict:
+    """The first n rows of a dataset, ``seq`` included."""
+    return {k: _rows(v, n) if isinstance(v, dict) else v[:n] for k, v in data.items()}
+
+
 def expect(**counts) -> dict:
     """Launch counts of every kernel, 0 where not given."""
     return {name: counts.get(name, 0) for name in KERNELS}
@@ -409,29 +682,19 @@ def plain_cin_layer(cin_mod):
     return PlainCIN.apply
 
 
-def train_phase(model_name: str, plain_route, kernels: tuple, paths: tuple,
-                auc_bar: float, drive, launches_by_path) -> None:
-    """(a) 5 Adam steps on the kernels against the same steps on the plain
-    versions (``plain_route()`` forces both directions there), (b) rates,
-    (c) ``fit`` on the learning cell. ``kernels`` are the model's forward and
-    backward kernels, each launched twice a step; ``paths`` name the parity
-    and fit runs in ``launches_by_path``."""
-    from ml_function_tpu_torch.features.synthetic import make_criteo_like
-    from ml_function_tpu_torch.models import get_model
-    from ml_function_tpu_torch.tools.timing import event_ms
-    from ml_function_tpu_torch.train.loop import (fit, iter_batches,
-                                                  make_train_step, to_device,
-                                                  train_test_split)
+def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path,
+                 path: str, per_step: dict, block_scaled: tuple = ()) -> None:
+    """5 Adam steps on the kernels against the same steps from the same
+    weights on the plain versions (``plain_route()`` forces every kernel of
+    the model there, both directions): losses within 1e-3 relative, step-1
+    gradients within 1e-3·max|g|, and ``per_step`` launches a step. For the
+    parameters under a prefix in ``block_scaled`` max|g| is the block's: the
+    gradients of DIEN's target-attention MLP biases are residues of sums
+    that cancel (the softmax over steps does not see a shift of every
+    score, so its head bias's gradient is zero but for rounding)."""
+    from ml_function_tpu_torch.train.loop import make_train_step
     from ml_function_tpu_torch.train.optimizers import make_optimizer
 
-    fwd, bwd = kernels
-    parity_path, fit_path = paths
-    # (a) parity: the kernels against the plain versions over 5 Adam steps
-    fs, data = make_criteo_like(n_rows=5 * BATCH, vocab_size=100_000, seed=0)
-    model = get_model(model_name, fs, generator=torch.Generator().manual_seed(0))
-    if next(model.parameters()).device.type != "cuda":
-        fail("get_model did not place the model on the card by default")
-    batches = list(iter_batches(data, BATCH))
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
     def five_steps():
@@ -445,33 +708,48 @@ def train_phase(model_name: str, plain_route, kernels: tuple, paths: tuple,
                          for n, p in model.named_parameters() if p.grad is not None}
         return losses, grads
 
-    losses, grads = drive(parity_path, five_steps)
+    losses, grads = drive(path, five_steps)
     with plain_route():
         ref_losses, ref_grads = five_steps()
+    model.load_state_dict(init)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
-    print(f"{model_name} training parity, 5 Adam steps at B={BATCH}: losses {losses}, "
+    print(f"{name} training parity, 5 Adam steps at B={BATCH}: losses {losses}, "
           f"plain versions {ref_losses}, max rel diff {max(rel):.3e}; launches "
-          f"{launches_by_path[parity_path]}")
+          f"{launches_by_path[path]}")
     if not all(np.isfinite(losses)) or max(rel) > 1e-3:
-        fail(f"{model_name} training losses differ from the plain run by more than 1e-3")
+        fail(f"{name} training losses differ from the plain run by more than 1e-3")
     if grads.keys() != ref_grads.keys():
-        fail(f"{model_name}: the kernels' run and the plain run give gradients to "
+        fail(f"{name}: the kernels' run and the plain run give gradients to "
              "different parameters")
     worst = 0.0
+    block_max = {p: max(r.abs().max().item() for n, r in ref_grads.items()
+                        if n.startswith(p)) for p in block_scaled}
     for n, g in grads.items():
         r = ref_grads[n]
-        atol = RTOL * r.abs().max().item()
+        scale = next((v for p, v in block_max.items() if n.startswith(p)),
+                     r.abs().max().item())
+        atol = RTOL * scale
         err = (g - r).abs()
         if not bool((err <= atol + RTOL * r.abs()).all()):
             fail(f"step-1 gradient of {n} differs from the plain run: "
                  f"max |err| {err.max().item()} (atol {atol})")
-        worst = max(worst, err.max().item() / max(r.abs().max().item(), 1e-30))
+        worst = max(worst, err.max().item() / max(scale, 1e-30))
     print(f"step-1 gradients of {len(grads)} parameters agree with the plain "
           f"run: max |err|/max|g| {worst:.3e}")
-    if launches_by_path[parity_path] != expect(**{fwd: 10, bwd: 10}):
-        fail(f"expected 2 launches of {fwd} and of {bwd} per train step")
+    if launches_by_path[path] != expect(**{k: 5 * v for k, v in per_step.items()}):
+        fail(f"expected {per_step} launches per train step")
 
-    # (b) rates at B 4096, on this model at Criteo width
+
+def step_rates(name: str, model, batches, what: str) -> None:
+    """Training examples/s at B 4096 (median of 20 steps, host clock, each
+    batch from the host), device time per step (CUDA events, batch on the
+    card) and peak memory."""
+    from ml_function_tpu_torch.models.base import as_tensors
+    from ml_function_tpu_torch.tools.timing import event_ms
+    from ml_function_tpu_torch.train.loop import make_train_step
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     step = make_train_step(model, make_optimizer("adam", 1e-3).init(model))
     for b in batches[:3]:
         step(b)
@@ -484,53 +762,88 @@ def train_phase(model_name: str, plain_route, kernels: tuple, paths: tuple,
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    on_card = to_device(batches[0], torch.device("cuda"))
+    on_card = as_tensors(batches[0], torch.device("cuda"))
     step_ms = event_ms(lambda: step(on_card), reps=10, inner=5)
     wall = statistics.median(walls)
-    print(f"{model_name} training at B={BATCH} (Criteo width, vocab 100k): "
-          f"{wall * 1e3:.3f} ms a step, {BATCH / wall:.1f} examples/s (median of "
-          f"20, host clock, batch from host); device time per step {step_ms:.4f} ms "
-          f"(CUDA events, batch on the card, {BATCH / step_ms * 1e3:.1f} "
-          f"examples/s); peak memory {peak:.1f} MiB")
-    del model, step, init, grads, ref_grads
+    model.load_state_dict(init)
+    print(f"{name} training at B={BATCH} ({what}): {wall * 1e3:.3f} ms a step, "
+          f"{BATCH / wall:.1f} examples/s (median of 20, host clock, batch from "
+          f"host); device time per step {step_ms:.4f} ms (CUDA events, batch on "
+          f"the card, {BATCH / step_ms * 1e3:.1f} examples/s); peak memory "
+          f"{peak:.1f} MiB")
 
-    # (c) learning through fit, with the reference's early-stopping recipe:
-    # an eval each epoch, patience 2, the best epoch's weights restored
+
+def fit_run(name: str, model, tr, te, drive, launches_by_path, path: str,
+            per_step: dict, per_eval: dict, **fit_kw):
+    """``fit`` on a learning cell with the launches it must make: per_step a
+    train step and per_eval an eval batch. Returns its FitResult."""
+    from ml_function_tpu_torch.train.loop import fit
+
+    t = time.perf_counter()
+    ts, res = drive(path, lambda: fit(model, tr, batch_size=BATCH, eval_data=te,
+                                      seed=0, **fit_kw))
+    fit_s = time.perf_counter() - t
+    evals = (len(res.history.records) if res.history else 0) + 1   # and the last
+    eval_batches = evals * -(-len(te["label"]) // BATCH)
+    got = launches_by_path[path]
+    by_epoch = res.history.series("auc") if res.history else None
+    print(f"{name} fit: {res.steps} steps of B={BATCH} in {fit_s:.1f} s, "
+          f"{res.examples_per_sec:.1f} examples/s (fit's timer); held-out AUC by "
+          f"epoch {by_epoch}, best at step {res.best_step}; train "
+          f"{res.train_metrics}; eval {res.eval_metrics}; launches {got}")
+    want = expect(**{k: per_step.get(k, 0) * res.steps + per_eval.get(k, 0) * eval_batches
+                     for k in set(per_step) | set(per_eval)})
+    if got != want:
+        fail(f"{name} fit launched {got}; expected {want} ({res.steps} steps, "
+             f"{eval_batches} eval batches)")
+    return res
+
+
+def train_phase(model_name: str, plain_route, kernels: tuple, paths: tuple,
+                auc_bar: float, drive, launches_by_path) -> None:
+    """xDeepFM or AutoInt at Criteo width: (a) ``parity_steps``, (b)
+    ``step_rates``, (c) ``fit`` on the learning cell. ``kernels`` are the
+    model's forward and backward kernels, each launched twice a step;
+    ``paths`` name the parity and fit runs in ``launches_by_path``."""
+    from ml_function_tpu_torch.features.synthetic import make_criteo_like
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.train.loop import iter_batches, train_test_split
+
+    fwd, bwd = kernels
+    parity_path, fit_path = paths
+    fs, data = make_criteo_like(n_rows=5 * BATCH, vocab_size=100_000, seed=0)
+    model = get_model(model_name, fs, generator=torch.Generator().manual_seed(0))
+    if next(model.parameters()).device.type != "cuda":
+        fail("get_model did not place the model on the card by default")
+    batches = list(iter_batches(data, BATCH))
+    parity_steps(model_name, model, batches, plain_route, drive, launches_by_path,
+                 parity_path, {fwd: 2, bwd: 2})
+    step_rates(model_name, model, batches, "Criteo width, vocab 100k")
+    del model
+
+    # learning through fit, with the reference's early-stopping recipe: an
+    # eval each epoch, patience 2, the best epoch's weights restored
     fs, data = make_criteo_like(n_rows=262_144, vocab_size=LEARN_VOCAB, seed=0)
     tr, te = train_test_split(data, 0.2, seed=1)
     model = get_model(model_name, fs, generator=torch.Generator().manual_seed(0))
     steps_per_epoch = -(-len(tr["label"]) // BATCH)
-    t = time.perf_counter()
-    ts, res = drive(fit_path, lambda: fit(
-        model, tr, epochs=3, batch_size=BATCH, learning_rate=5e-3,
-        eval_data=te, seed=0, eval_every=steps_per_epoch, patience=2))
-    fit_s = time.perf_counter() - t
+    res = fit_run(model_name, model, tr, te, drive, launches_by_path, fit_path,
+                  {fwd: 2, bwd: 2}, {fwd: 2}, epochs=3, learning_rate=5e-3,
+                  eval_every=steps_per_epoch, patience=2)
     auc = res.eval_metrics["auc"]
-    evals = len(res.history.records) + 1       # each epoch's, and the last
-    eval_batches = evals * -(-len(te["label"]) // BATCH)
-    got = launches_by_path[fit_path]
-    print(f"{model_name} fit: {res.steps} steps of B={BATCH} in {fit_s:.1f} s, "
-          f"{res.examples_per_sec:.1f} examples/s (fit's timer); held-out AUC by "
-          f"epoch {res.history.series('auc')}, best at step {res.best_step}; "
-          f"train {res.train_metrics}; launches {got}")
     print(f"{model_name} held-out AUC {auc:.4f}")
     if not auc > auc_bar:
         fail(f"{model_name} held-out AUC {auc} is not above {auc_bar}")
-    if got != expect(**{fwd: 2 * (res.steps + eval_batches), bwd: 2 * res.steps}):
-        fail(f"fit launched {got}; expected 2 of each kernel per train step "
-             f"and 2 {fwd} per eval batch ({res.steps} steps, {eval_batches} "
-             f"eval batches)")
 
 
 def score_phase(name: str, scorer, data, drive, launches_by_path, plain_route,
-                fwd: str) -> dict:
+                fwd: str, route: str = "kernel") -> dict:
     """Score ``data`` through ``predict_proba`` on the card: finite
     probabilities, 2 launches of ``fwd`` a batch and none of any other
     kernel, and scores within 1e-4 of the same scorer on the plain route;
     then examples/s over full batches and one forward's device time.
-    Returns the batch that forward was timed on, already on the card."""
-    from ml_function_tpu_torch.tools.timing import event_ms
-
+    Returns the scores and the batch that forward was timed on, already on
+    the card."""
     if next(scorer.model.parameters()).device.type != "cuda":
         fail("load_scorer did not place the model on the card by default")
     n_rows = len(data["label"])
@@ -553,10 +866,19 @@ def score_phase(name: str, scorer, data, drive, launches_by_path, plain_route,
     print(f"{name} vs the plain version: max |score diff| {diff:.3e}")
     if diff > 1e-4:
         fail(f"scores differ from the plain version's by {diff}")
+    batch = score_rates(name, scorer, data, route)
+    return scores, batch
 
-    # scoring rate at B = 4096 over full batches: host batching, copies and
-    # the forward, as a caller of predict_proba sees it
-    full = {k: v[:3 * BATCH] for k, v in data.items()}
+
+def score_rates(name: str, scorer, data, route: str) -> dict:
+    """Scoring rate at B = 4096 over 3 full batches (host batching, copies
+    and the forward, as a caller of predict_proba sees it) and one
+    forward's device time on a batch already on the card, which is
+    returned."""
+    from ml_function_tpu_torch.models.base import as_tensors
+    from ml_function_tpu_torch.tools.timing import event_ms
+
+    full = _rows(data, 3 * BATCH)
     scorer.predict_proba(full)
     walls = []
     for _ in range(5):
@@ -565,16 +887,117 @@ def score_phase(name: str, scorer, data, drive, launches_by_path, plain_route,
         scorer.predict_proba(full)
         walls.append(time.perf_counter() - t)
     wall = statistics.median(walls)
-    # the device's share: one forward on a batch already on the card
-    batch = {k: torch.as_tensor(v[:BATCH], device="cuda")
-             for k, v in data.items() if k in ("dense", "sparse")}
+    batch = as_tensors(_rows(data, BATCH), torch.device("cuda"))
     with torch.inference_mode():
         fwd_ms = event_ms(lambda: scorer.model(batch))
-    print(f"{name} at B={BATCH}: predict_proba {wall * 1e3:.3f} ms for "
+    print(f"{name} at B={BATCH} ({route} route): predict_proba {wall * 1e3:.3f} ms for "
           f"{3 * BATCH} rows, {3 * BATCH / wall:.1f} examples/s; one forward on "
           f"the card {fwd_ms:.4f} ms ({BATCH / fwd_ms * 1e3:.1f} examples/s); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return batch
+
+
+@contextlib.contextmanager
+def dien_route(model, kernel: bool):
+    """DIEN on the kernel route (``kernel = 'pallas'`` on ``gru1`` and
+    ``gru2``, and the merge-scatter flag's module attribute set, since the
+    flag is read at import) or on the reference's default ('scan', flag
+    off) inside the block."""
+    from ml_function_tpu_torch.ops import embedding
+
+    saved = (model.gru1.kernel, model.gru2.kernel, embedding._USE_MERGE_SCATTER)
+    model.gru1.kernel = model.gru2.kernel = "pallas" if kernel else "scan"
+    embedding._USE_MERGE_SCATTER = kernel
+    try:
+        yield
+    finally:
+        model.gru1.kernel, model.gru2.kernel, embedding._USE_MERGE_SCATTER = saved
+
+
+def dien_phases(drive, launches_by_path) -> list:
+    """Phases 8-10: the (AU)GRU and merge-scatter kernels against their plain
+    versions, then DIEN serving and training at full width. Returns the
+    three kernels' entries."""
+    from ml_function_tpu_torch.features.synthetic import make_behavior_data
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.ops import embedding, recurrent
+    from ml_function_tpu_torch.ops.kernels import _build
+    from ml_function_tpu_torch.ops.kernels import embedding_grad as eg_mod
+    from ml_function_tpu_torch.ops.kernels import gru as gru_mod
+    from ml_function_tpu_torch.serving import export_model, load_scorer
+    from ml_function_tpu_torch.train.loop import iter_batches, train_test_split
+
+    t = time.perf_counter()
+    fs, data = make_behavior_data(n_rows=5 * BATCH, **DIEN_DATA)
+    print(f"DIEN data: {5 * BATCH} rows in {time.perf_counter() - t:.1f} s, "
+          f"table {fs.total_vocab} rows")
+
+    # 8. the kernels at the path's shapes: the masks and ids of a batch
+    head = _rows(data, BATCH)["seq"]
+    hist_mask = torch.as_tensor(head["hist_item"] != 0, device="cuda")
+    lookups = {name: torch.as_tensor(ids.reshape(-1).astype(np.int64)
+                                     + fs.seq_offset(name), device="cuda")
+               for name, ids in head.items()}
+    entries = [*check_gru_kernels(gru_mod, hist_mask),
+               check_merge_scatter(eg_mod, lookups, fs.total_vocab)]
+
+    @contextlib.contextmanager
+    def plain_dien():
+        with swapped(recurrent, "gru_sequence", plain_gru(gru_mod)), \
+                swapped(embedding, "fused_gather", plain_fused_gather(eg_mod)):
+            yield
+
+    # 9. serving, through the gru_fwd kernel
+    model = get_model("dien", fs, generator=torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        export_model(tmp, "dien", fs, model, hyperparams={})
+        del model
+        scorer = load_scorer(tmp, batch_size=BATCH)
+    serve = _rows(data, 3 * BATCH + 1000)
+    with dien_route(scorer.model, kernel=True):
+        scores, _ = score_phase("dien_serving", scorer, serve, drive, launches_by_path,
+                                plain_dien, "gru_fwd")
+    with dien_route(scorer.model, kernel=False):
+        scan_scores = drive("dien_serving_scan", lambda: scorer.predict_proba(serve))
+        diff = float(np.abs(scores - scan_scores).max())
+        print(f"dien_serving vs the 'scan' route: max |score diff| {diff:.3e}; "
+              f"launches {launches_by_path['dien_serving_scan']}")
+        if diff > 1e-4 or launches_by_path["dien_serving_scan"] != expect():
+            fail(f"DIEN's kernel route scores differ from the 'scan' route's by {diff}, "
+                 "or the scan route launched a kernel")
+        score_rates("dien_serving", scorer, serve, "scan")
+    del scorer
+
+    # 10. training: parity and rates at full width, then fit on both routes
+    per_step = {"gru_fwd": 2, "gru_bwd": 2, "merge_scatter": 2}
+    model = get_model("dien", fs, generator=torch.Generator().manual_seed(0))
+    batches = list(iter_batches(data, BATCH))
+    with dien_route(model, kernel=True):
+        parity_steps("dien", model, batches, plain_dien, drive, launches_by_path,
+                     "dien_training_parity", per_step, block_scaled=("attn.",))
+        step_rates("dien", model, batches, "kernel route, merge-scatter on")
+    with dien_route(model, kernel=False):
+        step_rates("dien", model, batches, "'scan' route, flag off")
+    del model, batches
+
+    fs, data = make_behavior_data(**DIEN_LEARN)
+    tr, te = train_test_split(data, 0.2, seed=0)
+    auc = {}
+    for kernel, path in ((True, "dien_fit"), (False, "dien_fit_scan")):
+        model = get_model("dien", fs, generator=torch.Generator().manual_seed(0))
+        with dien_route(model, kernel):
+            res = fit_run(path, model, tr, te, drive, launches_by_path, path,
+                          per_step if kernel else {}, {"gru_fwd": 2} if kernel else {},
+                          epochs=3, learning_rate=1e-3)
+        auc[kernel] = res.eval_metrics["auc"]
+        print(f"{path}: held-out AUC {auc[kernel]:.4f}, GAUC "
+              f"{res.eval_metrics['gauc']:.4f}")
+        del model
+    bar = DIEN_AUC_BAR if auc[False] >= DIEN_AUC_BAR else auc[False] - 0.01
+    if not (auc[True] > bar and abs(auc[True] - auc[False]) <= 0.01):
+        fail(f"DIEN held-out AUC {auc[True]} (kernel route) is not above {bar} or "
+             f"not within 0.01 of the 'scan' route's {auc[False]}")
+    return entries
 
 
 def main() -> int:
@@ -586,7 +1009,9 @@ def main() -> int:
     from ml_function_tpu_torch.ops import attention, interactions
     from ml_function_tpu_torch.ops.kernels import _build
     from ml_function_tpu_torch.ops.kernels import cin as cin_mod
+    from ml_function_tpu_torch.ops.kernels import embedding_grad as eg_mod
     from ml_function_tpu_torch.ops.kernels import field_attention as fa_mod
+    from ml_function_tpu_torch.ops.kernels import gru as gru_mod
     from ml_function_tpu_torch.serving import export_model, load_scorer
     from ml_function_tpu_torch.tools.timing import event_ms
 
@@ -619,7 +1044,8 @@ def main() -> int:
     counters = {name: (mod, f"{name}_launches")
                 for mod, name in ((cin_mod, "cin_fwd"), (cin_mod, "cin_bwd"),
                                   (fa_mod, "field_attn_fwd"),
-                                  (fa_mod, "field_attn_bwd"))}
+                                  (fa_mod, "field_attn_bwd"), (gru_mod, "gru_fwd"),
+                                  (gru_mod, "gru_bwd"), (eg_mod, "merge_scatter"))}
     launches_by_path = {}
 
     def drive(path, fn):
@@ -666,8 +1092,8 @@ def main() -> int:
         export_model(tmp, "autoint", fs, model, hyperparams=hp)
         del model
         scorer = load_scorer(tmp, batch_size=BATCH)
-    batch = score_phase("autoint_serving", scorer, data, drive, launches_by_path,
-                        plain_fa, "field_attn_fwd")
+    _, batch = score_phase("autoint_serving", scorer, data, drive, launches_by_path,
+                           plain_fa, "field_attn_fwd")
     os.environ.pop("ML_FUNCTION_TPU_FIELD_ATTN")
     with torch.inference_mode():
         small_ms = event_ms(lambda: scorer.model(batch))
@@ -676,12 +1102,15 @@ def main() -> int:
           f"route): {small_ms:.4f} ms ({BATCH / small_ms * 1e3:.1f} examples/s)")
 
     # 7. training AutoInt
-    del scorer, batch
     train_phase("autoint", plain_fa, ("field_attn_fwd", "field_attn_bwd"),
                 ("autoint_training_parity", "autoint_fit"), 0.6, drive,
                 launches_by_path)
 
-    # 8. result lines: each kernel's launches are those of the newest path
+    # 8.-10. DIEN: its kernels, serving and training
+    del scorer, batch
+    kernels += dien_phases(drive, launches_by_path)
+
+    # 11. result lines: each kernel's launches are those of the newest path
     # that runs it (a fit); every path's own counts ride along
     for k in kernels:
         runs = [p for p, c in launches_by_path.items() if c[k["name"]]]

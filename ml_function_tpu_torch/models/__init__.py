@@ -10,10 +10,13 @@ from .._device import DeviceLike, resolve_device
 from ..ops.base import init_parameters
 from .base import Model
 from .interaction import AutoInt, DeepFM, xDeepFM
+from .sequence import DIEN, DIN
 
 MODEL_REGISTRY = {
     "autoint": AutoInt,
     "deepfm": DeepFM,
+    "dien": DIEN,
+    "din": DIN,
     "xdeepfm": xDeepFM,
 }
 
@@ -35,4 +38,4 @@ def get_model(name: str, feature_set, device: DeviceLike = None,
 
 
 __all__ = ["Model", "MODEL_REGISTRY", "get_model", "AutoInt", "DeepFM",
-           "xDeepFM"]
+           "DIEN", "DIN", "xDeepFM"]

@@ -7,12 +7,13 @@ tree's top-level names (``embedding``, ``cin``, ``mlp``, ``bias``, …).
 ``model(batch, train=False) -> (logits, state, aux)`` as the reference's
 ``apply``: ``logits`` (B,) pre-sigmoid scores, ``state`` ({} for stateless
 models), ``aux`` the named auxiliary losses (``emb_l2``). ``batch`` maps
-names to numpy arrays or tensors; numpy arrays move to the model's device.
+names to numpy arrays or tensors, with ``seq`` a nested dict of them;
+numpy arrays move to the model's device, nested ones included.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,6 +26,14 @@ State = Dict[str, Any]
 Aux = Dict[str, torch.Tensor]
 FwdFn = Callable[["Model", Dict[str, Any], bool],
                  Tuple[torch.Tensor, Aux]]
+
+
+def as_tensors(batch: Mapping[str, Any], device: torch.device) -> Dict[str, Any]:
+    """numpy arrays (and nested dicts of them, ``seq``) → tensors on
+    ``device``; anything else passes as it is."""
+    return {k: as_tensors(v, device) if isinstance(v, Mapping)
+            else torch.as_tensor(v, device=device) if isinstance(v, np.ndarray)
+            else v for k, v in batch.items()}
 
 
 class Model(nn.Module):
@@ -48,10 +57,7 @@ class Model(nn.Module):
 
     def forward(self, batch: Mapping[str, Any], train: bool = False
                 ) -> Tuple[torch.Tensor, State, Aux]:
-        dev = next(self.parameters()).device
-        batch = {k: torch.as_tensor(v, device=dev)
-                 if isinstance(v, np.ndarray) else v
-                 for k, v in batch.items()}
+        batch = as_tensors(batch, next(self.parameters()).device)
         logits, aux = self._fwd(self, batch, train)
         return logits, {}, aux
 
@@ -72,6 +78,26 @@ def embed_inputs(fe: FusedEmbedding, batch: Mapping[str, Any],
     out["emb"] = emb
     out["l2"] = fe.l2_from_sparse(emb) if l2 else emb.new_zeros(())
     return out
+
+
+def behavior_inputs(fe: FusedEmbedding, batch: Mapping[str, Any],
+                    candidate: Sequence[str], behavior: Sequence[str]):
+    """Candidate and behavior tensors of the DIN family: (cand (B, k·D),
+    beh (B, L, k·D), mask (B, L), l2, emb (B, F, D)). cand concatenates the
+    named sparse fields' rows, beh the named sequences' rows along the
+    feature axis; the mask is the union of the sequences' masks and l2 covers
+    the sparse and the sequence rows."""
+    fs = fe.feature_set
+    emb = fe.sparse(batch["sparse"])
+    cand = torch.cat([emb[:, fs.sparse_index(n), :] for n in candidate], dim=-1)
+    l2 = fe.l2_from_sparse(emb)
+    seqs, mask = [], None
+    for name in behavior:
+        e, m = fe.seq(name, batch["seq"][name])
+        seqs.append(e)
+        mask = m if mask is None else mask | m
+        l2 = l2 + fe.l2_from_seq(name, e)
+    return cand, torch.cat(seqs, dim=-1), mask, l2, emb
 
 
 def stateless(name: str, fs: FeatureSet,

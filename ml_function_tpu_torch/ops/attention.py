@@ -1,8 +1,10 @@
-"""Multi-head attention of the port: field self-attention (AutoInt).
+"""Attention of the port: field self-attention (AutoInt) and target
+attention (DIN, DIEN).
 
-Counterpart of ``MultiHeadAttention`` and ``attention_mask_bias`` in
-``ml_function_tpu/ops/attention.py``; ``TransformerBlock``, target attention,
-LSH attention and the positional encodings come with the sequence slices.
+Counterpart of ``MultiHeadAttention``, ``TargetAttention`` and
+``attention_mask_bias`` in ``ml_function_tpu/ops/attention.py``;
+``TransformerBlock``, LSH attention and the positional encodings come with
+the slices of the models that use them.
 Parameter names are the JAX pytree's keys (``q``, ``k``, ``v``, ``o``,
 ``ln``), so ``params/mha0/q`` is the state-dict key ``mha0.q``.
 """
@@ -17,7 +19,7 @@ import torch
 from torch import nn
 
 from .base import bf16_matmul, glorot_uniform
-from .core import LayerNorm
+from .core import MLP, LayerNorm
 from .kernels.field_attention import MAX_HEAD_DIM, MAX_SCORES, field_attention
 
 NEG_INF = -1e9
@@ -117,3 +119,38 @@ class MultiHeadAttention(nn.Module):
         if self.use_ln:
             out = self.ln(out)
         return out
+
+
+class TargetAttention(nn.Module):
+    """DIN's activation unit: score_t = MLP([c, s_t, c − s_t, c ⊙ s_t]) for
+    the candidate c (B, D) and each step s_t of a (B, L, D) sequence; padded
+    steps get ``NEG_INF`` before the softmax over steps (so a row with every
+    step padded gets uniform weights), or 0 after a sigmoid without
+    ``softmax_norm``. Its ``mlp`` is ``MLP(4·dim, hidden[:-1] or (36,),
+    activation, out_dim=1)``."""
+
+    def __init__(self, dim: int, hidden=(36, 1), activation: str = "sigmoid",
+                 softmax_norm: bool = True):
+        super().__init__()
+        self.dim, self.softmax_norm = dim, softmax_norm
+        self.mlp = MLP(4 * dim, tuple(hidden[:-1]) or (36,),
+                       activation=activation, out_dim=1)
+
+    def scores(self, cand: torch.Tensor, seq: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+        """cand (B, D), seq (B, L, D), mask (B, L) → (B, L) weights."""
+        c = cand[:, None, :].expand_as(seq)
+        s = self.mlp(torch.cat([c, seq, c - seq, c * seq], dim=-1))[..., 0]
+        s = torch.where(mask, s, NEG_INF)
+        if self.softmax_norm:
+            return torch.softmax(s, dim=-1)
+        return torch.where(mask, torch.sigmoid(s), 0.0)
+
+    def forward(self, cand: torch.Tensor, seq: torch.Tensor,
+                mask: torch.Tensor, return_seq: bool = False) -> torch.Tensor:
+        """The weighted sum (B, D), or the weighted sequence (B, L, D) with
+        ``return_seq``."""
+        w = self.scores(cand, seq, mask)
+        if return_seq:
+            return seq * w[..., None]
+        return torch.einsum("bl,bld->bd", w, seq)

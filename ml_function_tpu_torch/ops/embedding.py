@@ -5,10 +5,16 @@ All vocabs share one ``table`` (V, D) of cross embeddings and one ``linear``
 (V, 1) of first-order weights, addressed by global row ids (per-field id +
 vocab offset). Id 0 of every vocab is the padding row.
 
-A lookup is one ``index_select`` over the global ids, through ``_gather``,
-the single place a later slice routes to a kernel. The reference's forward
-is XLA's ``take`` and no Pallas kernel; its per-vocab grouped gather exists
-for the TPU's scheduling and is not carried over.
+Lookups take the reference's two routes:
+- the sparse lookups (``sparse_all``, ``sparse``, ``sparse_linear``) are one
+  ``index_select`` over the global ids, flag or not, as the reference's
+  grouped gather never reaches its merge-scatter kernel (the grouping
+  itself exists for the TPU's scheduling and is not carried over);
+- sequence lookups (``seq``) go through ``_rows`` → ``_gather``, which takes
+  ``kernels/embedding_grad.fused_gather`` (its backward the merge-scatter
+  kernel) when ``ML_FUNCTION_TPU_MERGE_SCATTER=1``, read once at import into
+  ``_USE_MERGE_SCATTER`` as in the reference, and ``index_select``
+  otherwise.
 
 Routes of the reference that the port does not take yet raise
 ``NotImplementedError``: narrow-width sub-tables (a mixed-width
@@ -18,6 +24,7 @@ FeatureSet) and the RowTape of the sparse-row path here, int8 tables in
 
 from __future__ import annotations
 
+import os
 from typing import Mapping, Optional, Tuple
 
 import numpy as np
@@ -26,6 +33,11 @@ from torch import nn
 
 from ..features.schema import FeatureSet
 from .base import normal_init
+from .kernels.embedding_grad import fused_gather
+
+# ML_FUNCTION_TPU_MERGE_SCATTER=1 takes the merge-scatter backward for
+# sequence lookups; read once, at import, as the reference reads it.
+_USE_MERGE_SCATTER = os.environ.get("ML_FUNCTION_TPU_MERGE_SCATTER") == "1"
 
 
 def row_tape(tape):
@@ -34,10 +46,18 @@ def row_tape(tape):
                               "slice 7, the sparse path and serving")
 
 
-def _gather(table: torch.Tensor, global_ids: torch.Tensor) -> torch.Tensor:
-    """(…,) global row ids → (…, W) rows of one table."""
+def _take(table: torch.Tensor, global_ids: torch.Tensor) -> torch.Tensor:
+    """(…,) global row ids → (…, W) rows of one table (``index_select``,
+    whose backward is PyTorch's ``index_add``)."""
     rows = table.index_select(0, global_ids.reshape(-1))
     return rows.reshape(*global_ids.shape, table.shape[1])
+
+
+def _gather(table: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
+    """(N,) ids → (N, W) rows; the merge-scatter backward under the flag."""
+    if _USE_MERGE_SCATTER:
+        return fused_gather(table, flat_ids)
+    return table.index_select(0, flat_ids)
 
 
 class FusedEmbedding(nn.Module):
@@ -88,19 +108,59 @@ class FusedEmbedding(nn.Module):
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(B, F) ids → ((B, F, D) cross, (B, F) linear or None)."""
         gids = self._global_sparse_ids(ids)
-        cross = _gather(self.table, gids)
+        cross = _take(self.table, gids)
         if self.linear is None:
             return cross, None
-        return cross, _gather(self.linear, gids)[..., 0]
+        return cross, _take(self.linear, gids)[..., 0]
 
     def sparse(self, ids: torch.Tensor) -> torch.Tensor:
         """(B, F) ids → (B, F, D) cross embeddings (no linear lookup)."""
-        return _gather(self.table, self._global_sparse_ids(ids))
+        return _take(self.table, self._global_sparse_ids(ids))
 
     def sparse_linear(self, ids: torch.Tensor) -> torch.Tensor:
         """(B, F) ids → (B, F) first-order weights (no cross lookup)."""
-        return _gather(self.linear, self._global_sparse_ids(ids))[..., 0]
+        return _take(self.linear, self._global_sparse_ids(ids))[..., 0]
+
+    def _rows(self, table: torch.Tensor, global_ids: torch.Tensor) -> torch.Tensor:
+        """(…,) global row ids → (…, W) rows of one table, through
+        ``_gather``."""
+        rows = _gather(table, global_ids.reshape(-1))
+        return rows.reshape(*global_ids.shape, table.shape[1])
+
+    def seq(self, name: str, ids: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, L) ids → ((B, L, D) rows with pad rows zeroed, (B, L) mask)."""
+        mask = ids != 0
+        rows = self._rows(self.table, ids.long() + self.feature_set.seq_offset(name))
+        return rows * mask[..., None], mask
 
     def l2_from_sparse(self, emb: torch.Tensor) -> torch.Tensor:
         """emb_l2-weighted ||rows||² from already-gathered (B, F, D) rows."""
         return (self._l2_coef * emb.square().sum(dim=(0, 2))).sum()
+
+    def l2_from_seq(self, name: str, emb: torch.Tensor) -> torch.Tensor:
+        """The same for a gathered (B, L, D) sequence (pad rows zeroed)."""
+        return self.feature_set.seq_spec(name).emb_l2 * emb.square().sum()
+
+    def l2_loss(self, sparse_ids: Optional[torch.Tensor] = None,
+                seq_ids: Optional[Mapping[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """Σ emb_l2·||rows used||² over the given lookups; looks the rows up
+        again (the models use ``l2_from_*`` on rows they already have)."""
+        total = self.table.new_zeros(())
+        if sparse_ids is not None and len(self.feature_set.sparse):
+            total = total + self.l2_from_sparse(self.sparse(sparse_ids))
+        for name, ids in (seq_ids or {}).items():
+            total = total + self.l2_from_seq(name, self.seq(name, ids)[0])
+        return total
+
+
+def masked_sum_pool(seq: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, L, D), (B, L) → (B, D) sum over the valid steps."""
+    return (seq * mask[..., None]).sum(dim=1)
+
+
+def masked_mean_pool(seq: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, L, D), (B, L) → (B, D) mean over the valid steps (at least 1)."""
+    denom = torch.clamp_min(mask.sum(dim=1, keepdim=True).float(), 1.0)
+    return (seq * mask[..., None]).sum(dim=1) / denom

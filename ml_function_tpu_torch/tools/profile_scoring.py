@@ -1,13 +1,18 @@
-"""Where the time of one scoring batch, or train step, of xDeepFM or AutoInt
-goes on the CUDA card.
+"""Where the time of one scoring batch, or train step, of xDeepFM, AutoInt
+or DIEN goes on the CUDA card.
 
     python -m ml_function_tpu_torch.tools.profile_scoring [--model xdeepfm]
         [--batch 4096] [--train] [--out profile_scoring.json]
 
-Builds a full-width model on the Criteo schema (26 fields of 100k ids,
-dim 8) with seeded random weights on the card: xDeepFM with CIN (128, 128)
+Builds a full-width model with seeded random weights on the card. On the
+Criteo schema (26 fields of 100k ids, dim 8): xDeepFM with CIN (128, 128)
 and MLP (256, 128), or AutoInt with 2 layers of 2 heads of 16 on its
 field-attention kernel (the tool sets ``ML_FUNCTION_TPU_FIELD_ATTN=1``).
+On behavior sequences (5,000 items, 100 categories, histories of 64, dim
+8): DIEN with MLP (200, 80) on its kernel route, ``kernel = 'pallas'`` on
+``gru1`` and ``gru2`` and the merge-scatter embedding gradient on (the
+tool sets the module attribute the flag ``ML_FUNCTION_TPU_MERGE_SCATTER``
+is read into at import).
 It measures at one batch size:
 
 - one forward on a batch already on the card: device time by CUDA events,
@@ -15,7 +20,8 @@ It measures at one batch size:
 - a ``torch.profiler`` trace of 20 forwards: device time by kernel name and
   the device's busy share of the window;
 - the model's kernel alone at each shape its forward gives it (the CIN at
-  each layer, field attention at (B, 27, 27, 2, 16)), three ways: events
+  each layer, field attention at (B, 27, 27, 2, 16), the (AU)GRU at
+  (B, 64, 16) with attention gates and with ones), three ways: events
   around each call (the wrapper's host time shows when it exceeds the
   device time), 50 calls back to back between two events, and device time
   as the profiler records it.
@@ -24,7 +30,8 @@ With ``--train`` the same model takes Adam train steps instead (forward,
 ``backward()``, update) on a batch already on the card: device time by CUDA
 events over steps issued back to back, a trace of 20 steps (device time by
 kernel, busy share), and the backward kernel alone at each shape, its
-launches by name.
+launches by name (for DIEN also the merge-scatter gradient of each
+sequence lookup, N = 64·B ids).
 
 Prints the card's name and power limit first; needs a CUDA device.
 """
@@ -93,7 +100,7 @@ def _score(model, batch, data, result):
     from ..serving import Scorer
 
     b = result["batch"]
-    batch = {k: batch[k] for k in ("dense", "sparse")}
+    batch = {k: v for k, v in batch.items() if k in ("dense", "sparse", "seq")}
     with torch.inference_mode():
         fwd = lambda: model(batch)  # noqa: E731
         result["forward_ms_events"] = event_ms(fwd)
@@ -116,7 +123,8 @@ def _score(model, batch, data, result):
     _print_kernels(kernels)
 
     result["kernel_alone"] = []
-    for label, call in _kernel_calls(result["model"], b, train=False):
+    for label, call in _kernel_calls(result["model"], b, train=False, batch=batch,
+                                     fs=model.feature_set):
         per_call = event_ms(call, inner=1)
         b2b = event_ms(call, reps=5, inner=50)
         prof_kernels, prof_busy, prof_window = _profile(call, 20)
@@ -130,12 +138,16 @@ def _score(model, batch, data, result):
               + ", ".join(f"{k[:40]} {v:.4f}" for k, v in prof_kernels.items()))
 
 
-def _kernel_calls(model_name: str, b: int, train: bool):
+def _kernel_calls(model_name: str, b: int, train: bool, batch=None, fs=None):
     """(label, call) of the model's kernel alone at each shape its forward
-    gives it: the CIN layer (or its backward) at H 26 and H 128, or field
-    attention (or its backward) at AutoInt's (B, 27, 27, 2, 16)."""
+    gives it: the CIN layer (or its backward) at H 26 and H 128, field
+    attention (or its backward) at AutoInt's (B, 27, 27, 2, 16), or DIEN's
+    (AU)GRU recurrence (or its backward, and the merge-scatter gradient of
+    each sequence lookup of ``batch``)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     calls = []
+    if model_name == "dien":
+        return _dien_kernel_calls(gen, b, train, batch, fs)
     if model_name == "xdeepfm":
         from ..ops.kernels import cin
         for h in (26, 128):
@@ -162,6 +174,38 @@ def _kernel_calls(model_name: str, b: int, train: bool):
              lambda: fa.field_attention(q, k, v, bias, 0.25))]
 
 
+def _dien_kernel_calls(gen, b: int, train: bool, batch, fs):
+    from ..ops.kernels import embedding_grad as eg
+    from ..ops.kernels import gru
+
+    seq = batch["seq"]
+    l, h = seq["hist_item"].shape[1], 16
+    mask = (seq["hist_item"] != 0).float()
+    xw = torch.randn(b, l, 3 * h, device="cuda", generator=gen) * 0.5
+    wh = torch.randn(h, 3 * h, device="cuda", generator=gen) / h ** 0.5
+    att = torch.rand(b, l, device="cuda", generator=gen)
+    h0 = torch.zeros(b, h, device="cuda")
+    calls = []
+    for gate, a in (("att", att), ("ones", torch.ones_like(att))):
+        if not train:
+            calls.append((f"gru_fwd (B, {l}, {h}) {gate}",
+                          lambda a=a: gru.gru_sequence(xw, wh, mask, a, h0)))
+            continue
+        out = gru.gru_sequence(xw, wh, mask, a, h0)
+        dseq = torch.randn_like(out)
+        calls.append((f"gru_bwd (B, {l}, {h}) {gate}",
+                      lambda a=a, out=out, dseq=dseq: gru.gru_sequence_backward(
+                          xw, wh, mask, a, h0, out, dseq)))
+    if train:
+        for name, ids in seq.items():   # global row ids, as a lookup flattens them
+            flat = ids.reshape(-1).long() + fs.seq_offset(name)
+            ct = torch.randn(flat.numel(), 8, device="cuda", generator=gen)
+            calls.append((f"merge_scatter {name} (N={flat.numel()}) with its sort",
+                          lambda flat=flat, ct=ct: eg.dense_grad_from_updates(
+                              flat, ct, fs.total_vocab)))
+    return calls
+
+
 def _train(model, batch, result):
     from ..train.loop import make_train_step
     from ..train.optimizers import make_optimizer
@@ -180,7 +224,8 @@ def _train(model, batch, result):
     _print_kernels(kernels, 25)
 
     result["kernel_alone"] = []
-    for label, call in _kernel_calls(result["model"], b, train=True):
+    for label, call in _kernel_calls(result["model"], b, train=True, batch=batch,
+                                     fs=model.feature_set):
         b2b = event_ms(call, reps=5, inner=50)
         prof_kernels, prof_busy, prof_window = _profile(call, 20)
         result["kernel_alone"].append({
@@ -193,7 +238,8 @@ def _train(model, batch, result):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("xdeepfm", "autoint"), default="xdeepfm")
+    ap.add_argument("--model", choices=("xdeepfm", "autoint", "dien"),
+                    default="xdeepfm")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--train", action="store_true",
                     help="profile Adam train steps instead of scoring")
@@ -203,8 +249,10 @@ def main(argv=None) -> int:
         raise SystemExit("profile_scoring: needs a CUDA device")
 
     from ..features.schema import criteo_feature_set
-    from ..features.synthetic import make_criteo_like
+    from ..features.synthetic import make_behavior_data, make_criteo_like
     from ..models import get_model
+    from ..models.base import as_tensors
+    from ..ops import embedding
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -216,17 +264,27 @@ def main(argv=None) -> int:
               "batch": args.batch}
 
     b = args.batch
-    fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+    hp = {}
+    if args.model == "dien":
+        fs, data = make_behavior_data(n_rows=3 * b, n_items=5000, n_cates=100,
+                                      seq_len=64, embed_dim=8, seed=0)
+        # the merge-scatter flag is read at import: set what it was read into
+        embedding._USE_MERGE_SCATTER = True
+    else:
+        fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+        _, data = make_criteo_like(n_rows=3 * b, vocab_size=100_000, seed=0)
     if args.model == "xdeepfm":
         hp = {"cin_hidden": (128, 128), "hidden": (256, 128)}
-    else:
+    elif args.model == "autoint":
         # AutoInt's attention takes the kernel only with the reference's switch
         os.environ["ML_FUNCTION_TPU_FIELD_ATTN"] = "1"
         hp = {"n_layers": 2, "num_heads": 2, "head_dim": 16}
     model = get_model(args.model, fs, device="cuda",
                       generator=torch.Generator().manual_seed(0), **hp)
-    _, data = make_criteo_like(n_rows=3 * b, vocab_size=100_000, seed=0)
-    batch = {k: torch.as_tensor(v[:b], device="cuda") for k, v in data.items()}
+    if args.model == "dien":
+        model.gru1.kernel = model.gru2.kernel = "pallas"
+    batch = as_tensors({k: ({n: a[:b] for n, a in v.items()} if k == "seq" else v[:b])
+                        for k, v in data.items()}, torch.device("cuda"))
 
     if args.train:
         _train(model, batch, result)

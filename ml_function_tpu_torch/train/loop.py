@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..bridge import params_from_numpy
+from ..models.base import as_tensors
 from .control import EarlyStopping, History, MetricMonitor, ReduceLROnPlateau
 from .metrics import (bce_with_logits, calibration, gauc, init_metrics,
                       metrics_summary, update_metrics)
@@ -43,11 +44,7 @@ def _device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, Any]:
-    """numpy arrays (and nested dicts of them, ``seq``) → tensors on ``device``."""
-    return {k: to_device(v, device) if isinstance(v, Mapping)
-            else torch.as_tensor(v, device=device) if isinstance(v, np.ndarray)
-            else v for k, v in batch.items()}
+to_device = as_tensors
 
 
 def _sync(device: torch.device) -> None:

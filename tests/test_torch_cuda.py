@@ -3,7 +3,10 @@
 The field-attention kernels are held to their plain versions at the shapes
 chip_smoke.py checks: AutoInt's (B 4096, L 27, H 2, Dh 16) and the gate's
 two edges, with a random key mask and one batch row whose keys are all
-masked, where the weights are uniform over all Lk keys.
+masked, where the weights are uniform over all Lk keys. The (AU)GRU and
+merge-scatter kernels are held to theirs at DIEN's shapes and the edges
+chip_smoke.py checks (a row masked at every step carries h0; no ids, all ids
+equal, ids at V − 1), and must give the same bits on a second run.
 
 This file imports nothing of JAX, so it also runs on a machine with the card
 and without JAX, where tests/conftest.py (which imports JAX) and the
@@ -29,7 +32,9 @@ import torch
 from ml_function_tpu_torch.features.synthetic import make_criteo_like
 from ml_function_tpu_torch.models import get_model
 from ml_function_tpu_torch.ops.kernels import cin as tcin
+from ml_function_tpu_torch.ops.kernels import embedding_grad as teg
 from ml_function_tpu_torch.ops.kernels import field_attention as tfa
+from ml_function_tpu_torch.ops.kernels import gru as tgru
 from ml_function_tpu_torch.train.loop import make_train_step
 from ml_function_tpu_torch.train.optimizers import make_optimizer
 
@@ -243,3 +248,141 @@ def test_autoint_on_the_card_matches_the_cpu(card, monkeypatch):
             continue
         err = (q.grad.cpu() - p.grad).norm() / p.grad.norm()
         assert err <= RTOL, err
+
+
+# (B, L, H, case): DIEN's recurrences at B 4096, then chip_smoke.py's edges
+GRU_SHAPES = [(4096, 64, 16, "path"), (300, 7, 64, "ragged"), (1, 1, 8, "tiny")]
+
+
+def _gru_inputs(card, b, l, h, case):
+    gen = torch.Generator(device=card).manual_seed(5)
+    xw = torch.randn(b, l, 3 * h, device=card, generator=gen) * 0.5
+    wh = torch.randn(h, 3 * h, device=card, generator=gen) / h ** 0.5
+    att = torch.rand(b, l, device=card, generator=gen)
+    dseq = torch.randn(b, l, h, device=card, generator=gen)
+    lo = l // 2 if case == "path" else 1
+    lens = torch.randint(lo, l + 1, (b,), device=card, generator=gen)
+    mask = (torch.arange(l, device=card)[None, :] < lens[:, None]).float()
+    h0 = torch.zeros(b, h, device=card)
+    if case == "ragged":
+        mask[1] = 0.0
+        h0 = torch.randn(b, h, device=card, generator=gen) * 0.5
+    return xw, wh, mask, att, h0, dseq
+
+
+@pytest.mark.parametrize("gate", ["att", "ones"])
+@pytest.mark.parametrize("b,l,h,case", GRU_SHAPES)
+def test_gru_kernels_match_plain_versions(card, b, l, h, case, gate):
+    xw, wh, mask, att, h0, dseq = _gru_inputs(card, b, l, h, case)
+    args = (xw, wh, mask, att if gate == "att" else torch.ones_like(att), h0)
+    fwd, bwd = tgru.gru_fwd_launches, tgru.gru_bwd_launches
+    seq = tgru.gru_sequence(*args)
+    grads = tgru.gru_sequence_backward(*args, seq, dseq)
+    again = tgru.gru_sequence_backward(*args, seq, dseq)
+    torch.cuda.synchronize()
+    assert (tgru.gru_fwd_launches, tgru.gru_bwd_launches) == (fwd + 1, bwd + 2)
+    _close(seq, tgru.gru_sequence_reference(*args))
+    for g, w in zip(grads, tgru.gru_sequence_backward_reference(*args, seq, dseq)):
+        _close(g, w)
+    assert torch.equal(grads[1], again[1])       # dwh: fixed partials, no atomics
+    if case == "ragged":                         # row 1 is masked at every step
+        assert torch.equal(seq[1], h0[1].expand(l, -1))
+
+
+def test_gru_kernel_refuses_what_it_does_not_take(card):
+    xw, wh, mask, att, h0, _ = _gru_inputs(card, 8, 5, 4, "tiny")
+    with pytest.raises(ValueError, match="contiguous"):
+        tgru.gru_sequence(xw.transpose(0, 1).contiguous().transpose(0, 1), wh, mask, att, h0)
+    with pytest.raises(ValueError, match="float32"):
+        tgru.gru_sequence(xw, wh, mask.bool(), att, h0)
+    with pytest.raises(ValueError, match="shapes"):
+        tgru.gru_sequence(xw, wh, mask[:, :3].contiguous(), att, h0)
+    big = torch.zeros(2, 3, 3 * 65, device=card)
+    with pytest.raises(ValueError, match="hidden size"):
+        tgru.gru_sequence(big, torch.zeros(65, 195, device=card), torch.ones(2, 3, device=card),
+                          torch.ones(2, 3, device=card), torch.zeros(2, 65, device=card))
+    # an input that requires grad is taken: the backward runs the kernel
+    w = wh.clone().requires_grad_()
+    before = tgru.gru_bwd_launches
+    tgru.gru_sequence(xw, w, mask, att, h0).sum().backward()
+    torch.cuda.synchronize()
+    assert tgru.gru_bwd_launches == before + 1 and w.grad.shape == wh.shape
+
+
+def _hist_ids(card, n, v, seed):
+    """n ids like a flattened history: about a quarter the pad id 0."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    ids = torch.randint(1, v, (n,), device=card, generator=gen)
+    return torch.where(torch.rand(n, device=card, generator=gen) < 0.25, 0, ids)
+
+
+@pytest.mark.parametrize("case", ["history", "all_equal", "empty", "last_row"])
+def test_merge_scatter_matches_plain_version(card, case):
+    v, d = 5202, 8
+    ids = {"history": lambda: _hist_ids(card, 262_144, v, 6),
+           "all_equal": lambda: torch.full((262_144,), 17, device=card),
+           "empty": lambda: torch.zeros(0, dtype=torch.int64, device=card),
+           "last_row": lambda: torch.randint(v - 3, v, (4096,), device=card)}[case]()
+    gen = torch.Generator(device=card).manual_seed(7)
+    ct = torch.randn(ids.numel(), d, device=card, generator=gen)
+    before = teg.merge_scatter_launches
+    got = teg.dense_grad_from_updates(ids, ct, v)
+    again = teg.dense_grad_from_updates(ids, ct, v)
+    torch.cuda.synchronize()
+    assert teg.merge_scatter_launches == before + 2
+    assert torch.equal(got, again)               # no atomics: the same bits
+    want = teg.dense_grad_reference(ids, ct, v)
+    if case == "empty":
+        assert got.shape == (v, d) and not got.any()
+    else:
+        _close(got, want)
+
+
+def test_merge_scatter_refuses_what_it_does_not_take(card):
+    ids = torch.arange(8, device=card)
+    ct = torch.zeros(8, 4, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        teg.merge_scatter(ids, ct.t().contiguous().t(), 10)
+    with pytest.raises(ValueError, match="float32"):
+        teg.merge_scatter(ids, ct.double(), 10)
+    with pytest.raises(ValueError, match="int64"):
+        teg.merge_scatter(ids.int(), ct, 10)
+    table = torch.zeros(10, 4, device=card, requires_grad=True)
+    before = teg.merge_scatter_launches
+    teg.fused_gather(table, ids).sum().backward()
+    torch.cuda.synchronize()
+    assert teg.merge_scatter_launches == before + 1
+    assert torch.equal(table.grad[:8], torch.ones(8, 4, device=card))
+
+
+def test_dien_on_the_card_matches_the_cpu(card, monkeypatch):
+    """DIEN on the kernel route with the merge-scatter flag, forward and one
+    SGD step, against the same model on the CPU's plain versions."""
+    from ml_function_tpu_torch.features.synthetic import make_behavior_data
+    from ml_function_tpu_torch.ops import embedding
+    monkeypatch.setattr(embedding, "_USE_MERGE_SCATTER", True)
+    fs, data = make_behavior_data(n_rows=256, n_items=30, n_cates=6, seq_len=8,
+                                  embed_dim=4, seed=1)
+    models = [get_model("dien", fs, device=dev, generator=torch.Generator().manual_seed(0),
+                        hidden=(16, 8)) for dev in ("cpu", card)]
+    for m in models:
+        m.gru1.kernel = m.gru2.kernel = "pallas"
+    counts = lambda: (tgru.gru_fwd_launches, tgru.gru_bwd_launches,  # noqa: E731
+                      teg.merge_scatter_launches)
+    before = counts()
+    with torch.inference_mode():
+        want, _, _ = models[0](data)
+        got, _, _ = models[1](data)
+    _close(got, want)
+    outs = [make_train_step(m, make_optimizer("sgd", 0.1).init(m))(data) for m in models]
+    assert counts() == (before[0] + 4, before[1] + 2, before[2] + 2)
+    _close(outs[1]["loss"], outs[0]["loss"])
+    # the target-attention MLP's biases get residues of sums that cancel
+    # (the softmax over steps does not see a shift of every score): they are
+    # held against the norm of the whole attention block's gradient
+    attn_norm = torch.cat([p.grad.flatten() for n, p in models[0].named_parameters()
+                           if n.startswith("attn.")]).norm()
+    for (name, p), q in zip(models[0].named_parameters(), models[1].parameters()):
+        scale = attn_norm if name.startswith("attn.") else p.grad.norm()
+        err = (q.grad.cpu() - p.grad).norm() / scale
+        assert err <= RTOL, (name, err)

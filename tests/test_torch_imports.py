@@ -154,9 +154,35 @@ def test_field_attention_non_cpu_inputs_never_fall_back():
     assert (tfa.field_attn_fwd_launches, tfa.field_attn_bwd_launches) == before
 
 
+def test_gru_and_merge_scatter_non_cpu_inputs_never_fall_back():
+    from ml_function_tpu_torch.ops.kernels import embedding_grad as teg
+    from ml_function_tpu_torch.ops.kernels import gru as tgru
+    xw = torch.zeros(4, 3, 12, device="meta")
+    wh = torch.zeros(4, 12, device="meta")
+    bl, h0 = torch.ones(4, 3, device="meta"), torch.zeros(4, 4, device="meta")
+    before = tgru.gru_fwd_launches, tgru.gru_bwd_launches, teg.merge_scatter_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tgru.gru_sequence(xw, wh, bl, bl, h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgru.gru_sequence(xw, torch.zeros(4, 12), bl, bl, h0)
+    with pytest.raises(ValueError, match="CUDA"):   # training as well
+        tgru.gru_sequence(xw, wh.requires_grad_(), bl, bl, h0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tgru.gru_sequence_backward(xw, wh, bl, bl, h0, xw[..., :4], xw[..., :4])
+    ids = torch.zeros(6, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        teg.dense_grad_from_updates(ids, torch.zeros(6, 4, device="meta"), 10)
+    with pytest.raises(ValueError, match="CUDA"):   # the backward of a lookup
+        teg.fused_gather(torch.zeros(10, 4, device="meta", requires_grad=True),
+                         ids).sum().backward()
+    assert (tgru.gru_fwd_launches, tgru.gru_bwd_launches,
+            teg.merge_scatter_launches) == before
+
+
 def test_kernel_builds_from_the_repo_sources_only(tmp_path, monkeypatch):
     from ml_function_tpu_torch.ops.kernels import _build
-    names = {"cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd"}
+    names = {"cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd", "gru_fwd",
+             "gru_bwd", "merge_scatter"}
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == names
     for name in names:
         so = _build.library_path(name)
