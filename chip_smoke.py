@@ -27,7 +27,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    (a) 5 Adam steps at B 4096 with the CIN on its kernels, then from the
    same weights with both directions forced onto the plain versions: the
    loss traces agree to 1e-3 and the step-1 gradients of every parameter
-   to 1e-3·max|g|, with two launches of each kernel a step; (b) training
+   to 1e-3·max|g| (or one bf16 step, where both are bf16 values: weight
+   gradients are rounded to bf16), with two launches of each kernel a
+   step; (b) training
    examples/s at B 4096 (median of 20 steps, host clock), device time per
    step (CUDA events) and peak memory; (c) ``fit`` on 262,144 rows (100 ids
    a field, otherwise full width), 3 epochs with an eval each epoch and the
@@ -66,7 +68,33 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     histories of 32, split 80/20, B 4096, Adam 1e-3, 3 epochs) on both
     routes: held-out AUC above 0.55 (or above the scan route's less 0.01,
     where that one is lower) and within 0.01 of the scan route's;
-11. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+11. the flash-attention kernels (forward, dQ, dK/dV) against their plain
+    versions at SIM's flash-ESU shape (B 8, H 2, Lq = Lk = 16,384, Dh 8,
+    the key mask of phase 13's batch: every key valid) and at ragged edges
+    (streams of random length, right-padded; causal with
+    Lq ≠ Lk, Dh 64, Lq 1, each with a batch row whose keys are all masked,
+    pinned to mean(V)), the backward kernels twice (the same bits); kernel,
+    plain and library (``scaled_dot_product_attention``, f32,
+    memory-efficient) times and bounds at the path's shape;
+12. SIM at the JAX package's production board shape (the bench's behavior
+    batch: 5,000 items, 100 categories, histories of 64, a 16,384-id
+    ``hist_long``, dim 8; soft search keeping the top 256, MLP (200, 80),
+    B 512), the DIEN core on the (AU)GRU kernels and the merge-scatter
+    gradient: exported and scored through ``load_scorer`` (2 gru_fwd
+    launches a batch, no K5; scores within 1e-4 of the plain versions),
+    5 Adam steps against the plain run (2 + 2 of K4 and 3 of K1 a step),
+    the rates;
+13. SIM at the flash-ESU board shape: hard search over the whole raw
+    stream (all 16,384 ids valid, as the bench draws it), B 8: the same
+    checks, with 1 flash_fwd launch a scored batch and 1 + 1 + 1 of K5 a
+    train step, and the plain run against itself with only the plain
+    attention's chunking changed (the witness of the gradient bar's bf16
+    step);
+14. learning: ``fit`` SIM (soft search, top 8) on the JAX test's planted
+    lifelong data (2,400 rows, 8 epochs of B 128, Adam 1e-2), its ESU over
+    the 8 kept keys on the field-attention kernels (the flag set for 6):
+    held-out AUC above 0.64;
+15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Numerics: TF32 is off for matmuls and cuDNN, so every f32 product outside
 the kernels is a full f32 product. Imports nothing of JAX.
@@ -91,7 +119,7 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 KERNELS = ("cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd", "gru_fwd",
-           "gru_bwd", "merge_scatter")
+           "gru_bwd", "merge_scatter", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # AutoInt's attention at Criteo width: 26 fields + the dense pseudo-field,
 # 2 heads of 16; then the gate's two edges (lq·lk = 4096, Dh 64; Lk 4096)
 FA_MAIN = (BATCH, 27, 27, 2, 16)
@@ -111,6 +139,11 @@ DIEN_LEARN = dict(n_rows=120_000, n_items=40, n_cates=10, seq_len=32, seed=0)
 DIEN_AUC_BAR = 0.55
 # (B, L, H, what): DIEN's recurrences, then the edges
 GRU_SHAPES = ((BATCH, 64, 16, "path"), (300, 7, 64, "ragged"), (1, 1, 8, "tiny"))
+# K5 off the path: ragged causal Lq ≠ Lk, Dh 64, Lq 1 (B, H, Lq, Lk, Dh, causal);
+# batch row 1 of each has every key masked
+FLASH_EDGES = ((3, 2, 1000, 777, 16, True), (2, 2, 600, 900, 64, False),
+               (4, 2, 1, 2000, 8, False))
+SIM_AUC_BAR = 0.64         # tests/test_models_longseq.py:225
 
 
 T_START = time.perf_counter()
@@ -376,9 +409,11 @@ def check_field_attn_kernels(fa_mod) -> list:
                       "torch.autograd.grad of its forward, less the forward")]
 
 
-def _fa_entry(name: str, replaces: str, shapes: list, calls: str) -> dict:
-    """One kernels-line entry: the numbers of one call at AutoInt's shape
-    (two calls, one a layer, per forward or backward); every shape's beside."""
+def _fa_entry(name: str, replaces: str, shapes: list, calls: str,
+              per: str = "one call at the main shape (2 a pass)") -> dict:
+    """One kernels-line entry: the numbers of one call at the main shape
+    (AutoInt's: two calls, one a layer, per forward or backward); every
+    shape's beside."""
     main = shapes[0]
     return {
         "name": name, "route": "cuda",
@@ -386,7 +421,7 @@ def _fa_entry(name: str, replaces: str, shapes: list, calls: str) -> dict:
         "replaces": replaces,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-        "kernel_ms": main["ms"], "per": "one call at the main shape (2 a pass)",
+        "kernel_ms": main["ms"], "per": per,
         "library_calls": calls, "per_shape": shapes,
     }
 
@@ -682,38 +717,61 @@ def plain_cin_layer(cin_mod):
     return PlainCIN.apply
 
 
+def _adam_steps(model, init: dict, batches) -> tuple:
+    """Adam steps from the weights ``init``, one a batch: (losses, step-1
+    gradients)."""
+    from ml_function_tpu_torch.train.loop import make_train_step
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    model.load_state_dict(init)
+    step = make_train_step(model, make_optimizer("adam", 1e-3).init(model))
+    losses, grads = [], None
+    for b in batches:
+        losses.append(step(b)["loss"].item())
+        if grads is None:   # AutoInt's unread linear table has no gradient
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters() if p.grad is not None}
+    return losses, grads
+
+
+def _bf16_step(x):
+    """One bf16 step at each element of the bf16-valued tensor ``x``:
+    2^(e - 8) for |x| in [2^(e-1), 2^e); 0 at 0."""
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, 0.0, torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def _one_bf16_step(g, r):
+    """Where ``g`` and ``r`` are both bf16 values (R3: a weight gradient
+    through ``bf16_matmul`` is rounded to bf16), the elements that are
+    neighbouring bf16 values; None where either tensor is not bf16."""
+    if not all(bool((t == t.bfloat16().float()).all()) for t in (g, r)):
+        return None
+    return (g - r).abs() <= torch.maximum(_bf16_step(g), _bf16_step(r))
+
+
 def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path,
                  path: str, per_step: dict, block_scaled: tuple = ()) -> None:
     """5 Adam steps on the kernels against the same steps from the same
     weights on the plain versions (``plain_route()`` forces every kernel of
     the model there, both directions): losses within 1e-3 relative, step-1
-    gradients within 1e-3·max|g|, and ``per_step`` launches a step. For the
-    parameters under a prefix in ``block_scaled`` max|g| is the block's: the
-    gradients of DIEN's target-attention MLP biases are residues of sums
-    that cancel (the softmax over steps does not see a shift of every
-    score, so its head bias's gradient is zero but for rounding)."""
-    from ml_function_tpu_torch.train.loop import make_train_step
-    from ml_function_tpu_torch.train.optimizers import make_optimizer
-
+    gradients within 1e-3·max|g| of their own parameter, and ``per_step``
+    launches a step. A weight gradient is rounded to bf16 (R3), so an f32
+    difference far below the bar can land an element on the neighbouring
+    bf16 value, 2^-8 of itself away: two bf16 neighbours count as agreeing,
+    and the run says how many elements needed that. For the parameters
+    under a prefix in ``block_scaled`` max|g| is the block's: the gradients
+    of DIEN's target-attention MLP biases are residues of sums that cancel
+    (the softmax over steps does not see a shift of every score, so its
+    head bias's gradient is zero but for rounding)."""
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
-
-    def five_steps():
-        model.load_state_dict(init)
-        step = make_train_step(model, make_optimizer("adam", 1e-3).init(model))
-        losses, grads = [], None
-        for b in batches:
-            losses.append(step(b)["loss"].item())
-            if grads is None:   # AutoInt's unread linear table has no gradient
-                grads = {n: p.grad.detach().clone()
-                         for n, p in model.named_parameters() if p.grad is not None}
-        return losses, grads
-
-    losses, grads = drive(path, five_steps)
+    losses, grads = drive(path, lambda: _adam_steps(model, init, batches))
     with plain_route():
-        ref_losses, ref_grads = five_steps()
+        ref_losses, ref_grads = _adam_steps(model, init, batches)
     model.load_state_dict(init)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
-    print(f"{name} training parity, 5 Adam steps at B={BATCH}: losses {losses}, "
+    print(f"{name} training parity, 5 Adam steps at B={len(batches[0]['label'])}: "
+          f"losses {losses}, "
           f"plain versions {ref_losses}, max rel diff {max(rel):.3e}; launches "
           f"{launches_by_path[path]}")
     if not all(np.isfinite(losses)) or max(rel) > 1e-3:
@@ -721,7 +779,7 @@ def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path
     if grads.keys() != ref_grads.keys():
         fail(f"{name}: the kernels' run and the plain run give gradients to "
              "different parameters")
-    worst = 0.0
+    worst, bad, stepped = 0.0, [], []
     block_max = {p: max(r.abs().max().item() for n, r in ref_grads.items()
                         if n.startswith(p)) for p in block_scaled}
     for n, g in grads.items():
@@ -730,20 +788,53 @@ def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path
                      r.abs().max().item())
         atol = RTOL * scale
         err = (g - r).abs()
-        if not bool((err <= atol + RTOL * r.abs()).all()):
-            fail(f"step-1 gradient of {n} differs from the plain run: "
-                 f"max |err| {err.max().item()} (atol {atol})")
+        ok = err <= atol + RTOL * r.abs()
+        near = _one_bf16_step(g, r)
+        if near is not None and not bool(ok.all()):
+            stepped.append(f"{n} {int((near & ~ok).sum())}")
+            ok |= near
+        if not bool(ok.all()):
+            bad.append(f"{n}: max |err| {err.max().item()} (atol {atol}, own max|g| "
+                       f"{r.abs().max().item()})")
         worst = max(worst, err.max().item() / max(scale, 1e-30))
+    if bad:
+        fail("step-1 gradients differ from the plain run: " + "; ".join(bad))
     print(f"step-1 gradients of {len(grads)} parameters agree with the plain "
-          f"run: max |err|/max|g| {worst:.3e}")
+          f"run: max |err|/max|g| {worst:.3e}; elements past the bar but one bf16 "
+          f"step apart: {', '.join(stepped) or 'none'}")
     if launches_by_path[path] != expect(**{k: 5 * v for k, v in per_step.items()}):
         fail(f"expected {per_step} launches per train step")
 
 
+def order_witness(model, batch, plain_route, fl_mod) -> None:
+    """The plain run against itself, only the plain flash attention's chunk
+    of query rows changed from ``PLAIN_CHUNK`` to a sixteenth of it, so
+    only the f32 summation order differs: each step-1 gradient's largest
+    gap to its own max|g|, and whether every differing element of a bf16
+    gradient is one bf16 step away. It shows what the parity bar's bf16
+    step stands for; it checks nothing."""
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs = []
+    for chunk in (fl_mod.PLAIN_CHUNK, fl_mod.PLAIN_CHUNK >> 4):
+        with plain_route(), swapped(fl_mod, "PLAIN_CHUNK", chunk):
+            runs.append(_adam_steps(model, init, [batch])[1])
+    model.load_state_dict(init)
+    parts = []
+    for n, g in runs[0].items():
+        gap = (g - runs[1][n]).abs().max().item() / max(g.abs().max().item(), 1e-30)
+        near = _one_bf16_step(g, runs[1][n])
+        kind = ("bf16 neighbours" if near is not None and bool(near.all())
+                else "not bf16 neighbours")
+        parts.append((gap, f"{n} {gap:.3e} ({kind})"))
+    print("order witness (the plain run with a sixteenth of the chunk of query "
+          "rows): largest step-1 gradient gaps to their own max|g|: "
+          + ", ".join(t for _, t in sorted(parts, reverse=True)[:4]))
+
+
 def step_rates(name: str, model, batches, what: str) -> None:
-    """Training examples/s at B 4096 (median of 20 steps, host clock, each
-    batch from the host), device time per step (CUDA events, batch on the
-    card) and peak memory."""
+    """Training examples/s at the batches' size (median of 20 steps, host
+    clock, each batch from the host), device time per step (CUDA events,
+    batch on the card) and peak memory."""
     from ml_function_tpu_torch.models.base import as_tensors
     from ml_function_tpu_torch.tools.timing import event_ms
     from ml_function_tpu_torch.train.loop import make_train_step
@@ -766,28 +857,29 @@ def step_rates(name: str, model, batches, what: str) -> None:
     step_ms = event_ms(lambda: step(on_card), reps=10, inner=5)
     wall = statistics.median(walls)
     model.load_state_dict(init)
-    print(f"{name} training at B={BATCH} ({what}): {wall * 1e3:.3f} ms a step, "
-          f"{BATCH / wall:.1f} examples/s (median of 20, host clock, batch from "
+    b = len(batches[0]["label"])
+    print(f"{name} training at B={b} ({what}): {wall * 1e3:.3f} ms a step, "
+          f"{b / wall:.1f} examples/s (median of 20, host clock, batch from "
           f"host); device time per step {step_ms:.4f} ms (CUDA events, batch on "
-          f"the card, {BATCH / step_ms * 1e3:.1f} examples/s); peak memory "
+          f"the card, {b / step_ms * 1e3:.1f} examples/s); peak memory "
           f"{peak:.1f} MiB")
 
 
 def fit_run(name: str, model, tr, te, drive, launches_by_path, path: str,
-            per_step: dict, per_eval: dict, **fit_kw):
+            per_step: dict, per_eval: dict, batch_size: int = BATCH, **fit_kw):
     """``fit`` on a learning cell with the launches it must make: per_step a
     train step and per_eval an eval batch. Returns its FitResult."""
     from ml_function_tpu_torch.train.loop import fit
 
     t = time.perf_counter()
-    ts, res = drive(path, lambda: fit(model, tr, batch_size=BATCH, eval_data=te,
+    ts, res = drive(path, lambda: fit(model, tr, batch_size=batch_size, eval_data=te,
                                       seed=0, **fit_kw))
     fit_s = time.perf_counter() - t
     evals = (len(res.history.records) if res.history else 0) + 1   # and the last
-    eval_batches = evals * -(-len(te["label"]) // BATCH)
+    eval_batches = evals * -(-len(te["label"]) // batch_size)
     got = launches_by_path[path]
     by_epoch = res.history.series("auc") if res.history else None
-    print(f"{name} fit: {res.steps} steps of B={BATCH} in {fit_s:.1f} s, "
+    print(f"{name} fit: {res.steps} steps of B={batch_size} in {fit_s:.1f} s, "
           f"{res.examples_per_sec:.1f} examples/s (fit's timer); held-out AUC by "
           f"epoch {by_epoch}, best at step {res.best_step}; train "
           f"{res.train_metrics}; eval {res.eval_metrics}; launches {got}")
@@ -837,27 +929,28 @@ def train_phase(model_name: str, plain_route, kernels: tuple, paths: tuple,
 
 
 def score_phase(name: str, scorer, data, drive, launches_by_path, plain_route,
-                fwd: str, route: str = "kernel") -> dict:
+                per_batch: dict, route: str = "kernel") -> dict:
     """Score ``data`` through ``predict_proba`` on the card: finite
-    probabilities, 2 launches of ``fwd`` a batch and none of any other
+    probabilities, ``per_batch`` launches a batch and none of any other
     kernel, and scores within 1e-4 of the same scorer on the plain route;
     then examples/s over full batches and one forward's device time.
     Returns the scores and the batch that forward was timed on, already on
     the card."""
     if next(scorer.model.parameters()).device.type != "cuda":
         fail("load_scorer did not place the model on the card by default")
-    n_rows = len(data["label"])
+    n_rows, b = len(data["label"]), scorer.batch_size
     scores = drive(name, lambda: scorer.predict_proba(data))
     launches = launches_by_path[name]
-    n_batches = -(-n_rows // BATCH)
-    print(f"{name}: {n_rows} rows in {n_batches} batches of {BATCH}, "
+    n_batches = -(-n_rows // b)
+    print(f"{name}: {n_rows} rows in {n_batches} batches of {b}, "
           f"launches {launches}")
     if scores.shape != (n_rows,) or not np.isfinite(scores).all():
         fail(f"scores not finite or of shape {scores.shape}")
     if not ((scores > 0) & (scores < 1)).all():
         fail("scores outside (0, 1)")
-    if launches != expect(**{fwd: 2 * n_batches}):
-        fail(f"{name} launched {launches}, expected {fwd} {2 * n_batches}")
+    want = expect(**{k: v * n_batches for k, v in per_batch.items()})
+    if launches != want:
+        fail(f"{name} launched {launches}, expected {want}")
 
     # the same model with its kernel forced through the plain version
     with plain_route():
@@ -871,14 +964,15 @@ def score_phase(name: str, scorer, data, drive, launches_by_path, plain_route,
 
 
 def score_rates(name: str, scorer, data, route: str) -> dict:
-    """Scoring rate at B = 4096 over 3 full batches (host batching, copies
-    and the forward, as a caller of predict_proba sees it) and one
-    forward's device time on a batch already on the card, which is
+    """Scoring rate at the scorer's batch size over 3 full batches (host
+    batching, copies and the forward, as a caller of predict_proba sees it)
+    and one forward's device time on a batch already on the card, which is
     returned."""
     from ml_function_tpu_torch.models.base import as_tensors
     from ml_function_tpu_torch.tools.timing import event_ms
 
-    full = _rows(data, 3 * BATCH)
+    b = scorer.batch_size
+    full = _rows(data, 3 * b)
     scorer.predict_proba(full)
     walls = []
     for _ in range(5):
@@ -887,12 +981,12 @@ def score_rates(name: str, scorer, data, route: str) -> dict:
         scorer.predict_proba(full)
         walls.append(time.perf_counter() - t)
     wall = statistics.median(walls)
-    batch = as_tensors(_rows(data, BATCH), torch.device("cuda"))
+    batch = as_tensors(_rows(data, b), torch.device("cuda"))
     with torch.inference_mode():
         fwd_ms = event_ms(lambda: scorer.model(batch))
-    print(f"{name} at B={BATCH} ({route} route): predict_proba {wall * 1e3:.3f} ms for "
-          f"{3 * BATCH} rows, {3 * BATCH / wall:.1f} examples/s; one forward on "
-          f"the card {fwd_ms:.4f} ms ({BATCH / fwd_ms * 1e3:.1f} examples/s); "
+    print(f"{name} at B={b} ({route} route): predict_proba {wall * 1e3:.3f} ms for "
+          f"{3 * b} rows, {3 * b / wall:.1f} examples/s; one forward on "
+          f"the card {fwd_ms:.4f} ms ({b / fwd_ms * 1e3:.1f} examples/s); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return batch
 
@@ -956,7 +1050,7 @@ def dien_phases(drive, launches_by_path) -> list:
     serve = _rows(data, 3 * BATCH + 1000)
     with dien_route(scorer.model, kernel=True):
         scores, _ = score_phase("dien_serving", scorer, serve, drive, launches_by_path,
-                                plain_dien, "gru_fwd")
+                                plain_dien, {"gru_fwd": 2})
     with dien_route(scorer.model, kernel=False):
         scan_scores = drive("dien_serving_scan", lambda: scorer.predict_proba(serve))
         diff = float(np.abs(scores - scan_scores).max())
@@ -999,6 +1093,302 @@ def dien_phases(drive, launches_by_path) -> list:
              f"not within 0.01 of the 'scan' route's {auc[False]}")
     return entries
 
+def needed_pairs(mask, lq: int, causal: bool) -> int:
+    """(batch row, query, key) triples the function needs: each query's
+    valid keys (up to its own position when causal); all Lk keys for a
+    query with none valid, whose output is their mean. A masked key adds
+    exactly 0 to any other row."""
+    lk = mask.shape[1]
+    if causal:
+        upto = torch.arange(lq, device=mask.device).clamp(max=lk - 1)
+        cnt = mask.long().cumsum(dim=1)[:, upto]
+    else:
+        cnt = mask.long().sum(dim=1, keepdim=True).expand(-1, lq)
+    return int(torch.where(cnt > 0, cnt, lk).sum().item())
+
+
+def flash_bound(b: int, h: int, lq: int, lk: int, dh: int, pairs: int, kind: str):
+    """Least time of one flash-attention call on the card: f32 work over the
+    f32 rate against each input read and each output written once, counting
+    the ``pairs`` (batch row, query, key) triples the function needs (every
+    one at the path's shape, whose keys are all valid). fwd: 4·pairs·H·Dh;
+    q, k, v, bias in, o and lse out. dq: 6·…; q, k, v, bias, lse, dO, δ in,
+    dQ out. dkv: 8·…; the same in, dK and dV out."""
+    work = pairs * h * dh
+    nq, nk, rows = b * h * lq * dh, b * h * lk * dh, b * h * lq
+    flops, floats = {"fwd": (4 * work, 2 * nq + 2 * nk + b * lk + rows),
+                     "dq": (6 * work, 3 * nq + 2 * nk + b * lk + 2 * rows),
+                     "dkv": (8 * work, 2 * nq + 4 * nk + b * lk + 2 * rows)}[kind]
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, 4 * floats / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def _sdpa_ms(q, k, v, bias, do, scale, o):
+    """The library yardstick: ``scaled_dot_product_attention`` in f32 with
+    the bias as an additive mask on its memory-efficient backend (the math
+    backend would form the 17 GB score matrix): its forward, and forward
+    plus backward through ``torch.autograd.grad`` less the forward, with its
+    max |diff| from the kernel's o. (None, None, None) where that backend
+    refuses the call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from ml_function_tpu_torch.tools.timing import event_ms
+
+    qt, kt, vt = (t.clone().requires_grad_() for t in (q, k, v))
+    mask4 = bias[:, None, None, :]
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask4, scale=scale)
+            with torch.no_grad():
+                diff = (sdpa() - o).abs().max().item()
+                fwd = event_ms(sdpa, reps=5, inner=2)
+            both = event_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), do),
+                            reps=5, inner=2)
+    except RuntimeError as e:
+        print(f"SDPA yardstick refused: {str(e).splitlines()[0]}")
+        return None, None, None
+    return fwd, both - fwd, diff
+
+
+def check_flash_kernels(fl_mod, path_mask) -> list:
+    """The three flash-attention kernels against their plain versions at
+    SIM's flash-ESU shape (B 8, H 2, Lq = Lk = 16,384, Dh 8, the key mask
+    ``path_mask`` of phase 13's batch) and at ``FLASH_EDGES``, with ragged
+    key masks and a batch row 1 whose keys are all masked (mean(V) over
+    the Lk keys); each backward kernel twice, which must give the same
+    bits. The backward kernels take the plain forward's lse and δ, so each
+    is held alone. Times, the plain versions' and SDPA's at the path's
+    shape."""
+    from ml_function_tpu_torch.tools.timing import event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    b0, l0 = path_mask.shape
+    out = {"fwd": [], "dq": [], "dkv": []}
+    for shape in ((b0, 2, l0, l0, 8, False),) + FLASH_EDGES:
+        b, h, lq, lk, dh, causal = shape
+        path = not out["fwd"]
+        q, do = (torch.randn(b, h, lq, dh, device="cuda", generator=gen) for _ in range(2))
+        k, v = (torch.randn(b, h, lk, dh, device="cuda", generator=gen) for _ in range(2))
+        if path:
+            mask = path_mask
+        else:
+            lens = torch.randint(lk // 2, lk + 1, (b,), device="cuda", generator=gen)
+            mask = torch.arange(lk, device="cuda")[None, :] < lens[:, None]
+            mask[1] = False
+        bias = torch.where(mask, 0.0, fl_mod.NEG_INF)
+        scale = 1.0 / dh ** 0.5
+        where = f"(B={b}, H={h}, Lq={lq}, Lk={lk}, Dh={dh}, causal={causal})"
+        fwd_args = (q, k, v, bias, scale, causal)
+        o, lse = fl_mod.flash_attention_forward(*fwd_args)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = fl_mod.flash_attention_reference(*fwd_args)
+        err, atol = _check_close(f"flash_fwd o at {where}", o, o_ref)
+        live = mask.any(dim=1)
+        err_lse, _ = _check_close(f"flash_fwd lse at {where}", lse[live], lse_ref[live])
+        if not path:
+            _check_close(f"flash_fwd's all-masked row at {where}", o[1],
+                         v[1].mean(dim=1, keepdim=True).expand(-1, lq, -1))
+        delta = (do * o_ref).sum(dim=-1)
+        bwd_args = (q, k, v, bias, lse_ref, do, delta, scale, causal)
+        dq = fl_mod.flash_attention_backward_dq(*bwd_args)
+        dkv = fl_mod.flash_attention_backward_dkv(*bwd_args)
+        again = (fl_mod.flash_attention_backward_dq(*bwd_args),
+                 *fl_mod.flash_attention_backward_dkv(*bwd_args))
+        torch.cuda.synchronize()
+        ref = fl_mod.flash_attention_backward_reference(*bwd_args)
+        err_dq = _check_close(f"flash_bwd_dq at {where}", dq, ref[0])
+        err_kv = [_check_close(f"flash_bwd_dkv {n} at {where}", g, r)
+                  for n, g, r in zip(("dk", "dv"), dkv, ref[1:])]
+        if not all(torch.equal(x, y) for x, y in zip((dq, *dkv), again)):
+            fail(f"flash backward kernels differ between two runs at {where}")
+        pairs = needed_pairs(mask, lq, causal)
+        common = {"shape": {"B": b, "H": h, "Lq": lq, "Lk": lk, "Dh": dh},
+                  "causal": causal, "path": path,
+                  "valid_keys": int(mask.sum().item()), "needed_pairs": pairs}
+        timed = dict.fromkeys(("ms", "plain_ms", "library_ms"))
+        t = {k: dict(timed) for k in out}
+        if path:
+            t["fwd"]["ms"] = event_ms(lambda: fl_mod.flash_attention_forward(*fwd_args),
+                                      reps=10, inner=3)
+            t["dq"]["ms"] = event_ms(lambda: fl_mod.flash_attention_backward_dq(*bwd_args),
+                                     reps=10, inner=3)
+            t["dkv"]["ms"] = event_ms(
+                lambda: fl_mod.flash_attention_backward_dkv(*bwd_args), reps=10, inner=3)
+            t["fwd"]["plain_ms"] = event_ms(
+                lambda: fl_mod.flash_attention_reference(*fwd_args), reps=3, inner=1, warmup=1)
+            # one plain function computes dq, dk and dv together: its time
+            # stands beside each backward kernel
+            t["dq"]["plain_ms"] = t["dkv"]["plain_ms"] = event_ms(
+                lambda: fl_mod.flash_attention_backward_reference(*bwd_args),
+                reps=3, inner=1, warmup=1)
+            lib_fwd, lib_bwd, lib_diff = _sdpa_ms(q, k, v, bias, do, scale, o)
+            t["fwd"]["library_ms"] = lib_fwd
+            t["dq"]["library_ms"] = t["dkv"]["library_ms"] = lib_bwd
+            common["library_max_abs_diff"] = lib_diff
+        for kind, errs in (("fwd", [(err, atol), (err_lse, None)]), ("dq", [err_dq]),
+                           ("dkv", err_kv)):
+            bound, by = flash_bound(b, h, lq, lk, dh, pairs, kind)
+            out[kind].append({**common, **t[kind],
+                              "max_abs_err": max(e for e, _ in errs),
+                              "max_abs_err_parts": [e for e, _ in errs],
+                              "bound_ms": bound, "bound_by": by})
+    for kind, shapes in out.items():
+        for s_ in shapes:
+            times = (f"; kernel {s_['ms']:.4f} ms, plain {s_['plain_ms']:.4f} ms, "
+                     f"library (SDPA f32, memory-efficient) {s_['library_ms']} ms"
+                     if s_["path"] else "")
+            print(f"flash_{kind} {s_['shape']} causal={s_['causal']}: max_abs_err "
+                  + "/".join(f"{e:.3e}" for e in s_["max_abs_err_parts"])
+                  + f", the same bits on a second run{times}; bound "
+                  f"{s_['bound_ms']:.4f} ms ({s_['bound_by']})")
+    replaces = "ml_function_tpu/ops/kernels/flash_attention.py"
+    per = "one call at SIM's flash-ESU shape (1 a forward, or a train step)"
+    return [_fa_entry("flash_fwd", f"{replaces}:53", out["fwd"],
+                      "scaled_dot_product_attention (f32, memory-efficient, "
+                      "attn_mask = bias), forward", per),
+            _fa_entry("flash_bwd_dq", f"{replaces}:99", out["dq"],
+                      "scaled_dot_product_attention (f32, memory-efficient): "
+                      "torch.autograd.grad of its forward less the forward, dq, "
+                      "dk and dv together; the plain time is also all three", per),
+            _fa_entry("flash_bwd_dkv", f"{replaces}:143", out["dkv"],
+                      "the same SDPA backward as flash_bwd_dq's, all three "
+                      "gradients; the plain time is also all three", per)]
+
+
+@contextlib.contextmanager
+def plain_flash(fl_mod):
+    """The three flash-attention wrappers swapped for their plain versions
+    on the card: a hook of this script, not an option of the package.
+    ``FlashAttention`` calls the wrappers by their module names, so both
+    directions take the plain route; each backward wrapper runs the whole
+    plain backward and keeps its part."""
+    ref = fl_mod.flash_attention_backward_reference
+    with swapped(fl_mod, "flash_attention_forward", fl_mod.flash_attention_reference), \
+            swapped(fl_mod, "flash_attention_backward_dq", lambda *a: ref(*a)[0]), \
+            swapped(fl_mod, "flash_attention_backward_dkv", lambda *a: ref(*a)[1:]):
+        yield
+
+
+def planted_longseq_data(n_rows=2400, n_items=60, L=96, n_plant=6, seed=0):
+    """A copy of ``_planted_longseq_data`` (tests/test_models_longseq.py):
+    half the rows carry the candidate item n_plant times in a noise stream
+    of L items, and the label follows that repeat-click signal; the short
+    history is noise, so only a model that searches the stream can tell the
+    classes apart."""
+    from ml_function_tpu_torch.features.schema import FeatureSet, SeqSpec, SparseSpec
+
+    rng = np.random.default_rng(seed)
+    iv = n_items + 1
+    cand = rng.integers(1, iv, n_rows).astype(np.int32)
+    hist_long = rng.integers(1, iv, (n_rows, L)).astype(np.int32)
+    planted = rng.random(n_rows) < 0.5
+    for i in np.where(planted)[0]:
+        pos = rng.choice(L, n_plant, replace=False)
+        hist_long[i, pos] = cand[i]
+    label = np.where(planted, rng.random(n_rows) < 0.85,
+                     rng.random(n_rows) < 0.15).astype(np.float32)
+    hist_short = rng.integers(1, iv, (n_rows, 8)).astype(np.int32)
+    fs = FeatureSet(
+        sparse=(SparseSpec("item", iv, vocab_name="item", dim=8),),
+        seq=(SeqSpec("hist_item", iv, 8, vocab_name="item", dim=8),
+             SeqSpec("hist_long", iv, L, vocab_name="item", dim=8)))
+    data = {"dense": np.zeros((n_rows, 0), np.float32), "sparse": cand[:, None],
+            "seq": {"hist_item": hist_short, "hist_long": hist_long}, "label": label}
+    return fs, data
+
+
+def sim_phases(drive, launches_by_path) -> list:
+    """Phases 11-14: the flash-attention kernels against their plain
+    versions, SIM serving and training at the production and the flash-ESU
+    shapes (the DIEN core on the (AU)GRU kernels with the merge-scatter
+    gradient), and SIM learning the planted lifelong signal. Returns the
+    three flash kernels' entries."""
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.ops import embedding, recurrent
+    from ml_function_tpu_torch.ops.kernels import _build
+    from ml_function_tpu_torch.ops.kernels import embedding_grad as eg_mod
+    from ml_function_tpu_torch.ops.kernels import flash_attention as fl_mod
+    from ml_function_tpu_torch.ops.kernels import gru as gru_mod
+    from ml_function_tpu_torch.serving import export_model, load_scorer
+    from ml_function_tpu_torch.tools.profile_scoring import SIM_SHAPES, sim_batch
+    from ml_function_tpu_torch.train.loop import iter_batches, train_test_split
+
+    # the JAX board's two SIM rows (bench.py:756-769) on the bench's behavior
+    # batch, MLP (200, 80): 'production' soft search keeping the top 256 at
+    # B 512, 'flash' hard search over the whole stream at B 8
+    t = time.perf_counter()
+    data = {shape: sim_batch(5 * b) for shape, (b, _) in SIM_SHAPES.items()}
+    print(f"SIM data: {sum(len(d['label']) for _, d in data.values())} rows in "
+          f"{time.perf_counter() - t:.1f} s")
+
+    # 11. the flash kernels, at the key mask of phase 13's first batch
+    _, flash_data = data["flash"]
+    path_mask = torch.as_tensor(flash_data["seq"]["hist_long"][:SIM_SHAPES["flash"][0]] != 0,
+                                device="cuda")
+    entries = check_flash_kernels(fl_mod, path_mask)
+
+    @contextlib.contextmanager
+    def plain_sim():
+        with swapped(recurrent, "gru_sequence", plain_gru(gru_mod)), \
+                swapped(embedding, "fused_gather", plain_fused_gather(eg_mod)), \
+                plain_flash(fl_mod):
+            yield
+
+    # 12.-13. serving and training at both shapes: per batch 2 gru_fwd (and 1
+    # flash_fwd through the flash ESU); per train step 2 + 2 of K4, 3 of K1
+    # (the stream's lookup, soft search's re-gather of the top k, and the two
+    # short histories' lookups: 1 + 2) and 1 + 1 + 1 of K5 through the flash ESU
+    for shape, (b, hp) in SIM_SHAPES.items():
+        fs, d = data[shape]
+        tag = f"sim_{shape}"
+        flash = hp["search"] == "hard"
+        k5 = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 1) if flash else {}
+        model = get_model("sim", fs, generator=torch.Generator().manual_seed(0),
+                          hidden=(200, 80), **hp)
+        with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+            export_model(tmp, "sim", fs, model, hyperparams=hp)
+            del model
+            scorer = load_scorer(tmp, batch_size=b)
+        with dien_route(scorer.model.dien, kernel=True):
+            score_phase(f"{tag}_serving", scorer, _rows(d, 3 * b + b // 2 + 1), drive,
+                        launches_by_path, plain_sim,
+                        {"gru_fwd": 2, **({"flash_fwd": 1} if flash else {})})
+        del scorer
+        model = get_model("sim", fs, generator=torch.Generator().manual_seed(0),
+                          hidden=(200, 80), **hp)
+        batches = list(iter_batches(d, b))
+        per_step = {"gru_fwd": 2, "gru_bwd": 2, "merge_scatter": 3, **k5}
+        with dien_route(model.dien, kernel=True):
+            parity_steps(tag, model, batches, plain_sim, drive, launches_by_path,
+                         f"{tag}_training_parity", per_step,
+                         block_scaled=("attn.", "dien.attn."))
+            if flash:
+                order_witness(model, batches[0], plain_sim, fl_mod)
+            step_rates(tag, model, batches, f"{hp['search']} search, kernel routes")
+        del model, batches
+
+    # 14. learning: the JAX test's protocol on its planted lifelong data; the
+    # ESU over the top 8 (head dim 4) takes the field-attention kernel under
+    # ML_FUNCTION_TPU_FIELD_ATTN=1, which this script sets for AutoInt
+    fs, d = planted_longseq_data()
+    tr, te = train_test_split(d, test_frac=0.2, seed=0)
+    model = get_model("sim", fs, generator=torch.Generator().manual_seed(0), hidden=(16, 8),
+                      search="soft", top_k=8, candidate=("item",), behavior=("hist_item",),
+                      long_behavior=("hist_long",))
+    with dien_route(model.dien, kernel=True):
+        res = fit_run("sim_fit", model, tr, te, drive, launches_by_path, "sim_fit",
+                      {"gru_fwd": 2, "gru_bwd": 2, "merge_scatter": 2,
+                       "field_attn_fwd": 1, "field_attn_bwd": 1},
+                      {"gru_fwd": 2, "field_attn_fwd": 1},
+                      batch_size=128, epochs=8, learning_rate=1e-2, eval_every=60)
+    auc = res.eval_metrics["auc"]
+    print(f"sim_fit: held-out AUC {auc:.4f} on the planted lifelong signal")
+    if not auc > SIM_AUC_BAR:
+        fail(f"SIM held-out AUC {auc} is not above {SIM_AUC_BAR}")
+    return entries
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1011,6 +1401,7 @@ def main() -> int:
     from ml_function_tpu_torch.ops.kernels import cin as cin_mod
     from ml_function_tpu_torch.ops.kernels import embedding_grad as eg_mod
     from ml_function_tpu_torch.ops.kernels import field_attention as fa_mod
+    from ml_function_tpu_torch.ops.kernels import flash_attention as fl_mod
     from ml_function_tpu_torch.ops.kernels import gru as gru_mod
     from ml_function_tpu_torch.serving import export_model, load_scorer
     from ml_function_tpu_torch.tools.timing import event_ms
@@ -1045,7 +1436,9 @@ def main() -> int:
                 for mod, name in ((cin_mod, "cin_fwd"), (cin_mod, "cin_bwd"),
                                   (fa_mod, "field_attn_fwd"),
                                   (fa_mod, "field_attn_bwd"), (gru_mod, "gru_fwd"),
-                                  (gru_mod, "gru_bwd"), (eg_mod, "merge_scatter"))}
+                                  (gru_mod, "gru_bwd"), (eg_mod, "merge_scatter"),
+                                  (fl_mod, "flash_fwd"), (fl_mod, "flash_bwd_dq"),
+                                  (fl_mod, "flash_bwd_dkv"))}
     launches_by_path = {}
 
     def drive(path, fn):
@@ -1078,7 +1471,8 @@ def main() -> int:
         export_model(tmp, "xdeepfm", fs, model, hyperparams=hp)
         del model
         scorer = load_scorer(tmp, batch_size=BATCH)
-    score_phase("serving", scorer, data, drive, launches_by_path, plain_cin, "cin_fwd")
+    score_phase("serving", scorer, data, drive, launches_by_path, plain_cin,
+                {"cin_fwd": 2})
 
     # 5. training xDeepFM
     del scorer
@@ -1093,7 +1487,7 @@ def main() -> int:
         del model
         scorer = load_scorer(tmp, batch_size=BATCH)
     _, batch = score_phase("autoint_serving", scorer, data, drive, launches_by_path,
-                           plain_fa, "field_attn_fwd")
+                           plain_fa, {"field_attn_fwd": 2})
     os.environ.pop("ML_FUNCTION_TPU_FIELD_ATTN")
     with torch.inference_mode():
         small_ms = event_ms(lambda: scorer.model(batch))
@@ -1110,8 +1504,13 @@ def main() -> int:
     del scorer, batch
     kernels += dien_phases(drive, launches_by_path)
 
-    # 11. result lines: each kernel's launches are those of the newest path
-    # that runs it (a fit); every path's own counts ride along
+    # 11.-14. SIM: the flash kernels, serving and training at both board
+    # shapes, learning
+    kernels += sim_phases(drive, launches_by_path)
+
+    # 15. result lines: each kernel's launches are those of the newest path
+    # that runs it (a fit, or SIM's flash-ESU training); every path's own
+    # counts ride along
     for k in kernels:
         runs = [p for p, c in launches_by_path.items() if c[k["name"]]]
         k["launches"] = launches_by_path[runs[-1]][k["name"]]

@@ -10,6 +10,7 @@ from .._device import DeviceLike, resolve_device
 from ..ops.base import init_parameters
 from .base import Model
 from .interaction import AutoInt, DeepFM, xDeepFM
+from .longseq import SIM
 from .sequence import DIEN, DIN
 
 MODEL_REGISTRY = {
@@ -17,6 +18,7 @@ MODEL_REGISTRY = {
     "deepfm": DeepFM,
     "dien": DIEN,
     "din": DIN,
+    "sim": SIM,
     "xdeepfm": xDeepFM,
 }
 
@@ -38,4 +40,4 @@ def get_model(name: str, feature_set, device: DeviceLike = None,
 
 
 __all__ = ["Model", "MODEL_REGISTRY", "get_model", "AutoInt", "DeepFM",
-           "DIEN", "DIN", "xDeepFM"]
+           "DIEN", "DIN", "SIM", "xDeepFM"]

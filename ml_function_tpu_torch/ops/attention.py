@@ -21,6 +21,7 @@ from torch import nn
 from .base import bf16_matmul, glorot_uniform
 from .core import MLP, LayerNorm
 from .kernels.field_attention import MAX_HEAD_DIM, MAX_SCORES, field_attention
+from .kernels.flash_attention import flash_attention
 
 NEG_INF = -1e9
 
@@ -35,9 +36,9 @@ class MultiHeadAttention(nn.Module):
     the residual and LayerNorm (``use_res``/``use_ln``).
 
     Its routes are the reference's, in the same order:
-    - flash attention when ``flash`` is 'always', or 'auto' with a key
-      length of at least ``flash_min_len`` and no ``extra_bias``: that is
-      the long-sequence slice's kernel and raises here;
+    - flash attention (``kernels/flash_attention.py``) when ``flash`` is
+      'always', or 'auto' with a key length of at least ``flash_min_len``
+      and no ``extra_bias``, in the (B, H, L, Dh) layout;
     - the field-attention kernel (``kernels/field_attention.py``), opt-in by
       ``ML_FUNCTION_TPU_FIELD_ATTN=1`` read at call time, for lq·lk ≤ 4096,
       head dim ≤ 64, no ``extra_bias`` and not causal;
@@ -81,11 +82,12 @@ class MultiHeadAttention(nn.Module):
         small = lq * lk <= MAX_SCORES and hd <= MAX_HEAD_DIM
         if self.flash == "always" or (self.flash == "auto" and lk >= self.flash_min_len
                                       and extra_bias is None):
-            raise NotImplementedError(
-                "flash attention (kernel K5, the reference's ops/kernels/"
-                "flash_attention.py) comes with slice 5, the long-sequence tier; "
-                f"this call has Lk = {lk} with flash={self.flash!r}")
-        if (small and os.environ.get("ML_FUNCTION_TPU_FIELD_ATTN") == "1"
+            out = flash_attention(q.transpose(1, 2).contiguous(),
+                                  k.transpose(1, 2).contiguous(),
+                                  v.transpose(1, 2).contiguous(), mask=mask,
+                                  causal=self.causal, scale=1.0 / math.sqrt(hd))
+            out = out.transpose(1, 2)                           # (B, lq, H, hd)
+        elif (small and os.environ.get("ML_FUNCTION_TPU_FIELD_ATTN") == "1"
                 and extra_bias is None and not self.causal):
             bias = (torch.zeros((b, lk), dtype=torch.float32, device=x.device)
                     if mask is None else torch.where(mask, 0.0, NEG_INF))

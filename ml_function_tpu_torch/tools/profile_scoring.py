@@ -1,8 +1,9 @@
-"""Where the time of one scoring batch, or train step, of xDeepFM, AutoInt
-or DIEN goes on the CUDA card.
+"""Where the time of one scoring batch, or train step, of xDeepFM, AutoInt,
+DIEN or SIM goes on the CUDA card.
 
     python -m ml_function_tpu_torch.tools.profile_scoring [--model xdeepfm]
-        [--batch 4096] [--train] [--out profile_scoring.json]
+        [--batch 4096] [--train] [--shape production|flash]
+        [--out profile_scoring.json]
 
 Builds a full-width model with seeded random weights on the card. On the
 Criteo schema (26 fields of 100k ids, dim 8): xDeepFM with CIN (128, 128)
@@ -12,7 +13,13 @@ On behavior sequences (5,000 items, 100 categories, histories of 64, dim
 8): DIEN with MLP (200, 80) on its kernel route, ``kernel = 'pallas'`` on
 ``gru1`` and ``gru2`` and the merge-scatter embedding gradient on (the
 tool sets the module attribute the flag ``ML_FUNCTION_TPU_MERGE_SCATTER``
-is read into at import).
+is read into at import). SIM on the JAX bench's behavior batch
+(``sim_batch``: the same items and histories, a 16,384-id ``hist_long``)
+with MLP (200, 80), its DIEN core on the same kernel route, at one of the
+JAX board's two shapes (``--shape``): 'production', soft search keeping
+the top 256 keys at B 512, or 'flash', hard search handing the whole
+raw stream (all 16,384 ids valid, as the bench draws it) to the
+flash-attention ESU at B 8; ``--batch`` is then that shape's unless given.
 It measures at one batch size:
 
 - one forward on a batch already on the card: device time by CUDA events,
@@ -21,7 +28,8 @@ It measures at one batch size:
   the device's busy share of the window;
 - the model's kernel alone at each shape its forward gives it (the CIN at
   each layer, field attention at (B, 27, 27, 2, 16), the (AU)GRU at
-  (B, 64, 16) with attention gates and with ones), three ways: events
+  (B, 64, 16) with attention gates and with ones, SIM's flash attention at
+  (B, 2, 16,384, 16,384, 8)), three ways: events
   around each call (the wrapper's host time shows when it exceeds the
   device time), 50 calls back to back between two events, and device time
   as the profiler records it.
@@ -31,7 +39,9 @@ With ``--train`` the same model takes Adam train steps instead (forward,
 events over steps issued back to back, a trace of 20 steps (device time by
 kernel, busy share), and the backward kernel alone at each shape, its
 launches by name (for DIEN also the merge-scatter gradient of each
-sequence lookup, N = 64·B ids).
+sequence lookup, N = 64·B ids; for SIM the short histories' only, and
+the flash-attention dQ and dK/dV kernels), and for SIM the share of the
+flash-attention kernels in the step's busy time.
 
 Prints the card's name and power limit first; needs a CUDA device.
 """
@@ -51,6 +61,42 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .timing import event_ms
+
+SIM_LONG = 16384
+# SIM at the JAX board's two shapes (bench.py:756-769): (batch,
+# hyperparameters)
+SIM_SHAPES = {
+    "production": (512, {"search": "soft", "top_k": 256, "long_behavior": ("hist_long",)}),
+    "flash": (8, {"search": "hard", "long_behavior": ("hist_long",)}),
+}
+
+
+def sim_batch(n_rows: int, seed: int = 1):
+    """The JAX bench's behavior batch (``bench.py:146-186``: item and cate
+    candidates of 5,000 items and 100 categories, histories of 64 and a
+    16,384-id ``hist_long`` of random ids, every one valid, dim 8, labels
+    Bernoulli 0.4) drawn with numpy. Returns (FeatureSet, data)."""
+    import numpy as np
+
+    from ..features.schema import FeatureSet, SeqSpec, SparseSpec
+
+    iv, cv, seq_len = 5001, 101, 64
+    fs = FeatureSet(
+        sparse=(SparseSpec("item", iv, vocab_name="item", dim=8),
+                SparseSpec("cate", cv, vocab_name="cate", dim=8)),
+        seq=(SeqSpec("hist_item", iv, seq_len, vocab_name="item", dim=8),
+             SeqSpec("hist_cate", cv, seq_len, vocab_name="cate", dim=8),
+             SeqSpec("hist_long", iv, SIM_LONG, vocab_name="item", dim=8)))
+    rng = np.random.default_rng(seed)
+    long = rng.integers(1, iv, (n_rows, SIM_LONG), dtype=np.int32)
+    data = {"dense": np.zeros((n_rows, 0), np.float32),
+            "sparse": np.stack([rng.integers(1, iv, n_rows), rng.integers(1, cv, n_rows)],
+                               axis=1).astype(np.int32),
+            "seq": {"hist_item": rng.integers(1, iv, (n_rows, seq_len), dtype=np.int32),
+                    "hist_cate": rng.integers(1, cv, (n_rows, seq_len), dtype=np.int32),
+                    "hist_long": long},
+            "label": (rng.random(n_rows) < 0.4).astype(np.float32)}
+    return fs, data
 
 
 def _kernel_intervals(prof):
@@ -123,7 +169,7 @@ def _score(model, batch, data, result):
     _print_kernels(kernels)
 
     result["kernel_alone"] = []
-    for label, call in _kernel_calls(result["model"], b, train=False, batch=batch,
+    for label, call in _kernel_calls(result, b, train=False, batch=batch,
                                      fs=model.feature_set):
         per_call = event_ms(call, inner=1)
         b2b = event_ms(call, reps=5, inner=50)
@@ -138,14 +184,23 @@ def _score(model, batch, data, result):
               + ", ".join(f"{k[:40]} {v:.4f}" for k, v in prof_kernels.items()))
 
 
-def _kernel_calls(model_name: str, b: int, train: bool, batch=None, fs=None):
+def _kernel_calls(result, b: int, train: bool, batch=None, fs=None):
     """(label, call) of the model's kernel alone at each shape its forward
     gives it: the CIN layer (or its backward) at H 26 and H 128, field
     attention (or its backward) at AutoInt's (B, 27, 27, 2, 16), or DIEN's
     (AU)GRU recurrence (or its backward, and the merge-scatter gradient of
-    each sequence lookup of ``batch``)."""
+    each sequence lookup of ``batch``); for SIM the DIEN core's on the short
+    histories and, at the flash shape, flash attention (or its dQ and dK/dV
+    kernels) at (B, 2, 16,384, 16,384, 8) with the batch's key mask."""
+    model_name = result["model"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     calls = []
+    if model_name == "sim":
+        short = {k: v for k, v in batch["seq"].items() if k != "hist_long"}
+        calls = _dien_kernel_calls(gen, b, train, {"seq": short}, fs)
+        if result.get("shape") == "flash":
+            calls += _flash_kernel_calls(gen, b, train, batch["seq"]["hist_long"] != 0)
+        return calls
     if model_name == "dien":
         return _dien_kernel_calls(gen, b, train, batch, fs)
     if model_name == "xdeepfm":
@@ -206,6 +261,24 @@ def _dien_kernel_calls(gen, b: int, train: bool, batch, fs):
     return calls
 
 
+def _flash_kernel_calls(gen, b: int, train: bool, mask):
+    from ..ops.kernels import flash_attention as fl
+
+    lk, dh = mask.shape[1], 8
+    q, k, v, do = (torch.randn(b, 2, lk, dh, device="cuda", generator=gen)
+                   for _ in range(4))
+    bias = torch.where(mask, 0.0, fl.NEG_INF)
+    scale = dh ** -0.5
+    where = f"(B={b}, H=2, L={lk}, Dh={dh})"
+    if not train:
+        return [(f"flash_fwd {where}",
+                 lambda: fl.flash_attention_forward(q, k, v, bias, scale))]
+    o, lse = fl.flash_attention_forward(q, k, v, bias, scale)
+    args = (q, k, v, bias, lse, do, (do * o).sum(dim=-1), scale)
+    return [(f"flash_bwd_dq {where}", lambda: fl.flash_attention_backward_dq(*args)),
+            (f"flash_bwd_dkv {where}", lambda: fl.flash_attention_backward_dkv(*args))]
+
+
 def _train(model, batch, result):
     from ..train.loop import make_train_step
     from ..train.optimizers import make_optimizer
@@ -222,9 +295,15 @@ def _train(model, batch, result):
           f"back to back); profiled window {window_ms:.4f} ms/step, device busy "
           f"{busy_ms:.4f} ms ({100 * busy_ms / window_ms:.1f}%)")
     _print_kernels(kernels, 25)
+    if result["model"] == "sim":
+        flash_ms = sum(ms for name, ms in kernels.items() if "flash_" in name)
+        result["train_profile"]["flash_ms"] = flash_ms
+        result["train_profile"]["flash_share_of_busy"] = flash_ms / busy_ms
+        print(f"flash-attention kernels: {flash_ms:.4f} ms a step, "
+              f"{100 * flash_ms / busy_ms:.1f}% of the busy time")
 
     result["kernel_alone"] = []
-    for label, call in _kernel_calls(result["model"], b, train=True, batch=batch,
+    for label, call in _kernel_calls(result, b, train=True, batch=batch,
                                      fs=model.feature_set):
         b2b = event_ms(call, reps=5, inner=50)
         prof_kernels, prof_busy, prof_window = _profile(call, 20)
@@ -238,11 +317,14 @@ def _train(model, batch, result):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("xdeepfm", "autoint", "dien"),
+    ap.add_argument("--model", choices=("xdeepfm", "autoint", "dien", "sim"),
                     default="xdeepfm")
-    ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch size (default 4096; SIM: its shape's)")
     ap.add_argument("--train", action="store_true",
                     help="profile Adam train steps instead of scoring")
+    ap.add_argument("--shape", choices=tuple(SIM_SHAPES), default="production",
+                    help="SIM's board shape")
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -260,14 +342,18 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     print(card)
+    b = args.batch or (SIM_SHAPES[args.shape][0] if args.model == "sim" else 4096)
     result = {"card": card, "torch": torch.__version__, "model": args.model,
-              "batch": args.batch}
-
-    b = args.batch
+              "batch": b}
     hp = {}
-    if args.model == "dien":
-        fs, data = make_behavior_data(n_rows=3 * b, n_items=5000, n_cates=100,
-                                      seq_len=64, embed_dim=8, seed=0)
+    if args.model in ("dien", "sim"):
+        if args.model == "sim":
+            hp = dict(SIM_SHAPES[args.shape][1], hidden=(200, 80))
+            result["shape"] = args.shape
+            fs, data = sim_batch(3 * b)
+        else:
+            fs, data = make_behavior_data(n_rows=3 * b, n_items=5000, n_cates=100,
+                                          seq_len=64, embed_dim=8, seed=0)
         # the merge-scatter flag is read at import: set what it was read into
         embedding._USE_MERGE_SCATTER = True
     else:
@@ -281,8 +367,9 @@ def main(argv=None) -> int:
         hp = {"n_layers": 2, "num_heads": 2, "head_dim": 16}
     model = get_model(args.model, fs, device="cuda",
                       generator=torch.Generator().manual_seed(0), **hp)
-    if args.model == "dien":
-        model.gru1.kernel = model.gru2.kernel = "pallas"
+    core = model.dien if args.model == "sim" else model
+    if args.model in ("dien", "sim"):
+        core.gru1.kernel = core.gru2.kernel = "pallas"
     batch = as_tensors({k: ({n: a[:b] for n, a in v.items()} if k == "seq" else v[:b])
                         for k, v in data.items()}, torch.device("cuda"))
 

@@ -147,7 +147,8 @@ def _close(got, want, rtol=1e-5):
 
 # (route, lq, lk, options): lq·lk ≤ 4096 takes the flag or small-L route,
 # above it the einsum route; the flag route gives way to small-L with an
-# extra_bias or a causal mask, as in the reference
+# extra_bias or a causal mask, as in the reference; flash='always', or
+# 'auto' at Lk ≥ 512, takes the flash route before all of them
 MHA_CASES = [
     ("flag", 7, 7, {}),
     ("flag", 7, 7, {"mask": True}),
@@ -163,6 +164,10 @@ MHA_CASES = [
     ("einsum", 70, 70, {}),
     ("einsum", 70, 70, {"mask": True, "extra_bias": True}),
     ("einsum", 70, 70, {"causal": True}),
+    # flash: forced at small L, and taken by 'auto' at a key length of 512
+    ("flash", 9, 9, {"flash": "always"}),
+    ("flash", 9, 9, {"flash": "always", "causal": True, "mask": True}),
+    ("flash", 3, 512, {"mask": True, "cross": True}),
 ]
 
 
@@ -172,6 +177,7 @@ MHA_CASES = [
 def test_multi_head_attention_matches_jax(route, lq, lk, opts, monkeypatch):
     monkeypatch.setenv("ML_FUNCTION_TPU_F32_MATMUL", "1")
     flag = route in ("flag", "flag_to_small")
+    flash = opts.get("flash", "auto")
     if flag:
         monkeypatch.setenv("ML_FUNCTION_TPU_FIELD_ATTN", "1")
     else:
@@ -189,23 +195,27 @@ def test_multi_head_attention_matches_jax(route, lq, lk, opts, monkeypatch):
     extra = (rng.normal(size=(b, lq, lk)).astype(np.float32)
              if opts.get("extra_bias") else None)
 
-    jm = JMHA(dim, 2, hd, causal=causal)
+    jm = JMHA(dim, 2, hd, causal=causal, flash=flash)
     params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(1)))
     want = jm(params, jnp.asarray(x), None if kv is None else jnp.asarray(kv),
               None if mask is None else jnp.asarray(mask),
               None if extra is None else jnp.asarray(extra))
 
-    tm = MultiHeadAttention(dim, 2, hd, causal=causal)
+    tm = MultiHeadAttention(dim, 2, hd, causal=causal, flash=flash)
     params_from_numpy(tm, params)
-    calls = []
+    calls, flash_calls = [], []
     real = tattention.field_attention
     monkeypatch.setattr(tattention, "field_attention",
                         lambda *a: calls.append(a[0].shape) or real(*a))
+    real_flash = tattention.flash_attention
+    monkeypatch.setattr(tattention, "flash_attention", lambda *a, **kw:
+                        flash_calls.append(a[0].shape) or real_flash(*a, **kw))
     with torch.no_grad():
         got = tm(torch.from_numpy(x), None if kv is None else torch.from_numpy(kv),
                  None if mask is None else torch.from_numpy(mask),
                  None if extra is None else torch.from_numpy(extra))
     assert bool(calls) == (route == "flag")
+    assert flash_calls == ([(b, 2, lq, hd or dim // 2)] if route == "flash" else [])
     assert got.shape == (b, lq, dim)
     _close(got.numpy(), want)
 
@@ -219,15 +229,6 @@ def test_multi_head_attention_parameter_layout_is_the_reference_layout():
     got = {n.replace(".", "/"): tuple(p.shape) for n, p in tm.named_parameters()}
     assert got == want
     assert got["q"] == (8, 32) and got["o"] == (32, 8)
-
-
-@pytest.mark.parametrize("lk,flash", [(512, "auto"), (9, "always")])
-def test_flash_route_raises(lk, flash):
-    tm = MultiHeadAttention(8, 2, flash=flash)
-    x = torch.zeros(2, 1, 8)
-    kv = torch.zeros(2, lk, 8)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tm(x, kv)
 
 
 def test_attention_mask_bias_matches_jax():

@@ -8,6 +8,12 @@ merge-scatter kernels are held to theirs at DIEN's shapes and the edges
 chip_smoke.py checks (a row masked at every step carries h0; no ids, all ids
 equal, ids at V − 1), and must give the same bits on a second run.
 
+The flash-attention kernels are held to their plain versions at SIM's
+flash-ESU shape (B 8, H 2, Lq = Lk = 16,384, Dh 8, the key mask of a
+hard-searched stream) and at ragged edges (causal with Lq ≠ Lk, Dh from 1
+to 64, Lq 1, a batch row whose keys are all masked, which gets mean(V)),
+and the two backward kernels must give the same bits on a second run.
+
 This file imports nothing of JAX, so it also runs on a machine with the card
 and without JAX, where tests/conftest.py (which imports JAX) and the
 repository's pytest options are left out:
@@ -34,6 +40,7 @@ from ml_function_tpu_torch.models import get_model
 from ml_function_tpu_torch.ops.kernels import cin as tcin
 from ml_function_tpu_torch.ops.kernels import embedding_grad as teg
 from ml_function_tpu_torch.ops.kernels import field_attention as tfa
+from ml_function_tpu_torch.ops.kernels import flash_attention as tfl
 from ml_function_tpu_torch.ops.kernels import gru as tgru
 from ml_function_tpu_torch.train.loop import make_train_step
 from ml_function_tpu_torch.train.optimizers import make_optimizer
@@ -384,5 +391,122 @@ def test_dien_on_the_card_matches_the_cpu(card, monkeypatch):
                            if n.startswith("attn.")]).norm()
     for (name, p), q in zip(models[0].named_parameters(), models[1].parameters()):
         scale = attn_norm if name.startswith("attn.") else p.grad.norm()
+        err = (q.grad.cpu() - p.grad).norm() / scale
+        assert err <= RTOL, (name, err)
+
+
+# (B, H, Lq, Lk, Dh, causal): SIM's flash-ESU shape, then the edges; row 1 of
+# every batch but the first has every key masked
+FLASH_SHAPES = [(8, 2, 16384, 16384, 8, False), (3, 2, 1000, 777, 16, True),
+                (2, 2, 600, 900, 64, False), (4, 2, 1, 2000, 8, False),
+                (2, 3, 130, 129, 1, True), (2, 1, 70, 300, 20, False),
+                (2, 1, 40, 50, 33, True)]
+
+
+def _flash_inputs(card, b, h, lq, lk, dh, path):
+    """q, k, v, dO and the key bias of streams of random length, right-padded
+    (a hard-searched batch); off the path, batch row 1 fully masked."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    q, do = (torch.randn(b, h, lq, dh, device=card, generator=gen) for _ in range(2))
+    k, v = (torch.randn(b, h, lk, dh, device=card, generator=gen) for _ in range(2))
+    lens = torch.randint(lk // 2, lk + 1, (b,), device=card, generator=gen)
+    mask = torch.arange(lk, device=card)[None, :] < lens[:, None]
+    if not path:
+        mask[1] = False
+    return q, k, v, mask, do
+
+
+@pytest.mark.parametrize("b,h,lq,lk,dh,causal", FLASH_SHAPES)
+def test_flash_kernels_match_plain_versions(card, b, h, lq, lk, dh, causal):
+    path = (b, lq) == (8, 16384)
+    q, k, v, mask, do = _flash_inputs(card, b, h, lq, lk, dh, path)
+    bias = torch.where(mask, 0.0, tfl.NEG_INF)
+    scale = 1.0 / dh ** 0.5
+    counts = lambda: (tfl.flash_fwd_launches, tfl.flash_bwd_dq_launches,  # noqa: E731
+                      tfl.flash_bwd_dkv_launches)
+    before = counts()
+    o = tfl.flash_attention(q, k, v, mask, causal=causal)
+    o_ref, lse = tfl.flash_attention_reference(q, k, v, bias, scale, causal)
+    delta = (do * o_ref).sum(dim=-1)
+    args = (q, k, v, bias, lse, do, delta, scale, causal)
+    dq = tfl.flash_attention_backward_dq(*args)
+    dk, dv = tfl.flash_attention_backward_dkv(*args)
+    again = (tfl.flash_attention_backward_dq(*args),
+             *tfl.flash_attention_backward_dkv(*args))
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 2, before[2] + 2)
+    _close(o, o_ref)
+    for g, w in zip((dq, dk, dv), tfl.flash_attention_backward_reference(*args)):
+        _close(g, w)
+    assert all(torch.equal(a, b_) for a, b_ in zip((dq, dk, dv), again))
+    if not path:     # row 1: every key masked, mean(V) over the Lk keys
+        _close(o[1], v[1].mean(dim=1, keepdim=True).expand(-1, lq, -1))
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(card):
+    q = torch.zeros(2, 2, 5, 8, device=card)
+    bias = torch.zeros(2, 5, device=card)
+    lse = torch.zeros(2, 2, 5, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfl.flash_attention(q.transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="float32"):
+        tfl.flash_attention(q.double(), q, q)
+    with pytest.raises(ValueError, match="shapes"):
+        tfl.flash_attention(q, q[:, :1].contiguous(), q)
+    big = torch.zeros(2, 2, 5, 65, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        tfl.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="shapes"):
+        tfl.flash_attention_backward_dq(q, q, q, bias, lse, q[..., :4].contiguous(), lse, 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        tfl.flash_attention_backward_dkv(q, q, q, bias, lse.double(), q, lse, 0.5)
+    # an input that requires grad is taken: the backward runs both kernels
+    qq = q.clone().requires_grad_()
+    before = tfl.flash_bwd_dq_launches, tfl.flash_bwd_dkv_launches
+    tfl.flash_attention(qq, q, q).sum().backward()
+    torch.cuda.synchronize()
+    assert (tfl.flash_bwd_dq_launches, tfl.flash_bwd_dkv_launches) == (
+        before[0] + 1, before[1] + 1) and qq.grad.shape == q.shape
+
+
+def test_sim_on_the_card_matches_the_cpu(card, monkeypatch):
+    """SIM with hard search over a 600-step stream (the flash route), the
+    (AU)GRU kernel route and the merge-scatter flag, forward and one SGD
+    step, against the same model on the CPU's plain versions."""
+    from ml_function_tpu_torch.features.schema import SeqSpec
+    from ml_function_tpu_torch.features.synthetic import make_behavior_data
+    from ml_function_tpu_torch.ops import embedding
+    monkeypatch.setattr(embedding, "_USE_MERGE_SCATTER", True)
+    fs, data = make_behavior_data(n_rows=64, n_items=30, n_cates=6, seq_len=8,
+                                  embed_dim=4, seed=1)
+    fs = fs.replace(seq=fs.seq + (SeqSpec("hist_long", 31, 600, vocab_name="item", dim=4),))
+    rng = np.random.default_rng(2)
+    lens = rng.integers(300, 601, 64)
+    data["seq"]["hist_long"] = (rng.integers(1, 31, (64, 600))
+                                * (np.arange(600)[None, :] < lens[:, None])).astype(np.int32)
+    models = [get_model("sim", fs, device=dev, generator=torch.Generator().manual_seed(0),
+                        search="hard", hidden=(16, 8), long_behavior=("hist_long",))
+              for dev in ("cpu", card)]
+    for m in models:
+        m.dien.gru1.kernel = m.dien.gru2.kernel = "pallas"
+    counts = lambda: (tfl.flash_fwd_launches, tfl.flash_bwd_dq_launches,  # noqa: E731
+                      tfl.flash_bwd_dkv_launches, tgru.gru_fwd_launches,
+                      teg.merge_scatter_launches)
+    before = counts()
+    with torch.inference_mode():
+        want, _, _ = models[0](data)
+        got, _, _ = models[1](data)
+    _close(got, want)
+    outs = [make_train_step(m, make_optimizer("sgd", 0.1).init(m))(data) for m in models]
+    assert counts() == (before[0] + 2, before[1] + 1, before[2] + 1, before[3] + 4,
+                        before[4] + 3)
+    _close(outs[1]["loss"], outs[0]["loss"])
+    attn_norm = {p: torch.cat([q.grad.flatten() for n, q in models[0].named_parameters()
+                               if n.startswith(p)]).norm() for p in ("attn.", "dien.attn.")}
+    for (name, p), q in zip(models[0].named_parameters(), models[1].parameters()):
+        if p.grad is None:       # DIEN's own tower, unused by SIM
+            assert q.grad is None and name.startswith("dien.mlp.")
+            continue
+        scale = next((v for k, v in attn_norm.items() if name.startswith(k)), p.grad.norm())
         err = (q.grad.cpu() - p.grad).norm() / scale
         assert err <= RTOL, (name, err)

@@ -179,10 +179,58 @@ def test_gru_and_merge_scatter_non_cpu_inputs_never_fall_back():
             teg.merge_scatter_launches) == before
 
 
+def test_flash_attention_non_cpu_inputs_never_fall_back():
+    from ml_function_tpu_torch.ops.kernels import flash_attention as tfl
+    q = torch.zeros(2, 2, 5, 8, device="meta")
+    bias = torch.zeros(2, 5, device="meta")
+    lse = torch.zeros(2, 2, 5, device="meta")
+    counts = lambda: (tfl.flash_fwd_launches, tfl.flash_bwd_dq_launches,  # noqa: E731
+                      tfl.flash_bwd_dkv_launches)
+    before = counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        tfl.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfl.flash_attention(q, q, q, torch.ones(2, 5, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):   # training as well
+        tfl.flash_attention(q.requires_grad_(), q, q)
+    for fn in (tfl.flash_attention_backward_dq, tfl.flash_attention_backward_dkv):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(q, q, q, bias, lse, q, lse, 0.5)
+    assert counts() == before
+
+
+def test_cpu_sim_launches_no_kernel(monkeypatch):
+    """SIM on the CPU with every kernel route on (hard search over a
+    512-step stream, so the flash route; the (AU)GRU kernel route; the
+    merge-scatter flag), a train step: the plain versions, no launch."""
+    import numpy as np
+    from ml_function_tpu_torch.features.schema import SeqSpec
+    from ml_function_tpu_torch.features.synthetic import make_behavior_data
+    from ml_function_tpu_torch.ops import embedding
+    from ml_function_tpu_torch.ops.kernels import embedding_grad as teg
+    from ml_function_tpu_torch.ops.kernels import flash_attention as tfl
+    from ml_function_tpu_torch.ops.kernels import gru as tgru
+    from ml_function_tpu_torch.train.loop import make_train_step
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+    monkeypatch.setattr(embedding, "_USE_MERGE_SCATTER", True)
+    fs, data = make_behavior_data(n_rows=8, n_items=30, n_cates=6, seq_len=8, embed_dim=4)
+    fs = fs.replace(seq=fs.seq + (SeqSpec("hist_long", 31, 512, vocab_name="item", dim=4),))
+    data["seq"]["hist_long"] = np.random.default_rng(0).integers(0, 31, (8, 512)).astype(np.int32)
+    model = get_model("sim", fs, device="cpu", search="hard", hidden=(8,),
+                      long_behavior=("hist_long",))
+    model.dien.gru1.kernel = model.dien.gru2.kernel = "pallas"
+    tfl.flash_fwd_launches = tfl.flash_bwd_dq_launches = tfl.flash_bwd_dkv_launches = 0
+    tgru.gru_fwd_launches = tgru.gru_bwd_launches = teg.merge_scatter_launches = 0
+    out = make_train_step(model, make_optimizer("adam", 1e-3).init(model))(data)
+    assert torch.isfinite(out["loss"]) and model.mha.q.grad is not None
+    assert (tfl.flash_fwd_launches, tfl.flash_bwd_dq_launches, tfl.flash_bwd_dkv_launches,
+            tgru.gru_fwd_launches, tgru.gru_bwd_launches, teg.merge_scatter_launches) == (0,) * 6
+
+
 def test_kernel_builds_from_the_repo_sources_only(tmp_path, monkeypatch):
     from ml_function_tpu_torch.ops.kernels import _build
     names = {"cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd", "gru_fwd",
-             "gru_bwd", "merge_scatter"}
+             "gru_bwd", "merge_scatter", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"}
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == names
     for name in names:
         so = _build.library_path(name)
