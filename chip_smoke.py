@@ -13,8 +13,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    ``nvcc`` per source, all started together; timed);
 3. kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them, with kernel, plain, library and bound times:
-   the CIN forward, the CIN backward (whose dW must also be the same bits on
-   a second run), and the field-attention forward and backward, also at the
+   the CIN forward, the CIN backward (whose outputs must also be the same
+   bits on three runs; each of its four launches timed by the profiler),
+   and the field-attention forward and backward, also at the
    two edges of their gate with a random key mask and one batch row whose
    keys are all masked (uniform weights over all keys);
 4. serving: full-width xDeepFM on the Criteo schema (26 fields of 100k ids,
@@ -49,10 +50,13 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    DIEN's shape (B 4096, L 64, H 16, the masks of real histories), at
    (B 300, L 7, H 64) with ragged masks, one row masked at every step (its
    seq must be h0) and a non-zero h0, and at (B 1, L 1, H 8); merge_scatter
-   at DIEN's two sequence lookups (N 262,144 ids of width 8 into 5,202 rows;
-   a quarter of the item ids are the pad id), with all ids equal, with none
-   and with ids at V − 1, twice each (the same bits). Kernel, plain and
-   library times (cuDNN's ``nn.GRU``; ``index_add_``) and bounds;
+   (int32 ids sorted stably, ct unsorted and read through the sort's
+   permutation) at DIEN's two sequence lookups (N 262,144 ids of width 8
+   into 5,202 rows; a quarter of the item ids are the pad id), at SIM's
+   three a train step (B 512), with all ids equal, with none and with ids
+   at V − 1, twice each and once through the whole backward (the same
+   bits). Kernel, sort, whole-backward, plain and library times (cuDNN's
+   ``nn.GRU``; ``index_add_``) and bounds;
 9. DIEN serving: full-width DIEN (the JAX package's headline shape: 5,000
    items, 100 categories, histories of 64, dim 8, GRU hidden 16, MLP
    (200, 80)) from ``get_model`` exported and scored through
@@ -105,6 +109,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -240,10 +245,25 @@ def check_cin_kernel(cin_mod) -> dict:
                   "torch.matmul (bf16) + torch.einsum F-reduce, per shape")
 
 
+def launch_ms(fn, n: int = 20) -> dict:
+    """Device ms a call of each kernel ``fn`` launches, by ``torch.profiler``,
+    keyed by the kernel's name without its namespace and arguments."""
+    from ml_function_tpu_torch.tools.timing import profile_device
+
+    by_name, _, _ = profile_device(fn, n)
+    out = {}
+    for name, ms in by_name.items():
+        short = re.search(r"(\w+_kernel)\b(<[^>]*>)?", name)
+        key = short.group(0) if short else name[:60]
+        out[key] = out.get(key, 0.0) + ms
+    return out
+
+
 def check_cin_bwd_kernel(cin_mod) -> dict:
     """cin_layer_t_backward against cin_layer_t_backward_reference at the
-    main path's two layer shapes, all three outputs; dW once more, which must
-    give the same bits (fixed split-K partials, no atomics)."""
+    main path's two layer shapes, all three outputs; twice more, which must
+    give the same bits (fixed split-K partials, no atomics). Times: the
+    whole call by events, each of its launches by the profiler."""
     from ml_function_tpu_torch.tools.timing import event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -253,13 +273,13 @@ def check_cin_bwd_kernel(cin_mod) -> dict:
         xk, x0, w1 = _layer_inputs(gen, d, b, h, f, o)
         dy = torch.randn(d, b, o, device="cuda", generator=gen)
         got = cin_mod.cin_layer_t_backward(xk, x0, w1, dy)
-        again = cin_mod.cin_layer_t_backward(xk, x0, w1, dy)
+        runs = [cin_mod.cin_layer_t_backward(xk, x0, w1, dy) for _ in range(2)]
         torch.cuda.synchronize()
         ref = cin_mod.cin_layer_t_backward_reference(xk, x0, w1, dy)
         errs = [_check_close(f"cin_bwd {name} at H={h}", g, r)
                 for name, g, r in zip(("dxk", "dx0", "dW"), got, ref)]
-        if not torch.equal(got[2], again[2]):
-            fail(f"cin_bwd dW differs between two runs at H={h}")
+        if not all(torch.equal(a, b) for again in runs for a, b in zip(got, again)):
+            fail(f"cin_bwd differs between three runs at H={h}")
         # three calls: bf16 GEMMs for dxk and dW on a du already in memory,
         # and an einsum for dx0; no one call computes this backward
         xk_b, w1_b, dy_b = xk.bfloat16(), w1.bfloat16(), dy.bfloat16()
@@ -282,18 +302,25 @@ def check_cin_bwd_kernel(cin_mod) -> dict:
                 lambda: cin_mod.cin_layer_t_backward_reference(xk, x0, w1, dy)),
             "library_ms": event_ms(library),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "launch_ms": launch_ms(lambda: cin_mod.cin_layer_t_backward(xk, x0, w1, dy)),
         })
     for s in shapes:
         print(f"cin_bwd {s['shape']}: max_abs_err dxk/dx0/dW "
               + "/".join(f"{e:.3e}" for e in s["max_abs_err_dxk_dx0_dw"])
               + " (atol " + "/".join(f"{a:.3e}" for a in s["atol_dxk_dx0_dw"])
-              + f"), dW bit-identical on a second run, kernel {s['ms']:.4f} ms, "
-              f"plain {s['plain_ms']:.4f} ms, library (3 calls) "
+              + f"), the same bits on three runs, kernel {s['ms']:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in s["launch_ms"].items())
+              + f"), plain {s['plain_ms']:.4f} ms, library (3 calls) "
               f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
               f"({s['bound_by']})")
-    return _entry("cin_bwd", "ml_function_tpu/ops/kernels/cin.py:62", shapes,
-                  "torch.matmul (bf16) for dxk and for dW + torch.einsum for "
-                  "dx0, per shape")
+    entry = _entry("cin_bwd", "ml_function_tpu/ops/kernels/cin.py:62", shapes,
+                   "torch.matmul (bf16) for dxk and for dW + torch.einsum for "
+                   "dx0, per shape")
+    # each launch's device time, summed over the two layers (whose dW
+    # kernels are two instances of one template)
+    names = dict.fromkeys(k for s in shapes for k in s["launch_ms"])
+    entry["launch_ms"] = {k: sum(s["launch_ms"].get(k, 0.0) for s in shapes) for k in names}
+    return entry
 
 
 def fa_bound(b: int, lq: int, lk: int, h: int, dh: int, backward: bool = False):
@@ -547,42 +574,47 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
 
 
 def ms_bound(n: int, d: int, v: int):
-    """Least time of one merge-scatter on the card: it must read the sorted
-    int64 ids and the f32 cotangents once and write the (V, D) gradient;
-    its adds (N·D) are far below the f32 rate."""
+    """Least time of one merge-scatter on the card: it must read the ids and
+    the f32 cotangents once and write the (V, D) gradient (the sort's
+    scratch is not counted); its adds (N·D) are far below the f32 rate."""
     t_bytes = (8 * n + 4 * n * d + 4 * v * d) / PEAK_BYTES
     t_ops = n * d / PEAK_F32_FLOPS
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def check_merge_scatter(eg_mod, lookups: dict, num_rows: int) -> dict:
-    """merge_scatter against dense_grad_reference at DIEN's two sequence
-    lookups (``lookups``: name → (N,) global ids on the card, as a train
-    step flattens them), with all N ids equal (one hot row), with N 0 and
-    with ids at V − 1; each twice, which must give the same bits. Times at
-    the lookups: the kernel alone on sorted input, the whole backward (sort,
-    permutation, kernel), the plain version and the library's
-    ``zeros.index_add_`` on the unsorted ids."""
+def check_merge_scatter(eg_mod, lookups: dict, num_rows: int, sim_lookups: dict,
+                        sim_rows: int) -> dict:
+    """merge_scatter against merge_scatter_reference (its plain version: the
+    same int32 sort and permutation, ``index_add_`` of ``ct[order]``) at
+    DIEN's two sequence lookups (``lookups``: name → (N,) global ids on the
+    card, as a train step flattens them), at SIM's three a train step
+    (``sim_lookups``), with all N ids equal (one hot row), with N 0 and with
+    ids at V − 1; the kernel twice and the whole backward once, which must
+    give the same bits. Times at the lookups: the kernel alone on sorted ids
+    and its permutation, the sort alone, the whole backward (sort, kernel),
+    the plain version and the library's ``zeros.index_add_`` on the
+    unsorted ids, the last two also by the profiler (device time alone)."""
     from ml_function_tpu_torch.tools.timing import event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     n_path = next(iter(lookups.values())).numel()
-    cases = {**{k: (v, True) for k, v in lookups.items()},
-             "all_equal": (torch.full((n_path,), 17, device="cuda"), False),
-             "empty": (torch.zeros(0, dtype=torch.int64, device="cuda"), False),
+    cases = {**{k: (v, "dien", num_rows) for k, v in lookups.items()},
+             **{f"sim_{k}": (v, "sim", sim_rows) for k, v in sim_lookups.items()},
+             "all_equal": (torch.full((n_path,), 17, device="cuda"), None, num_rows),
+             "empty": (torch.zeros(0, dtype=torch.int64, device="cuda"), None, num_rows),
              "last_row": (torch.randint(num_rows - 3, num_rows, (4096,), device="cuda",
-                                        generator=gen), False)}
+                                        generator=gen), None, num_rows)}
     shapes = []
-    for what, (ids, path) in cases.items():
+    for what, (ids, path, v) in cases.items():
         d = 8
         ct = (torch.ones(ids.numel(), d, device="cuda") if what == "all_equal"
               else torch.randn(ids.numel(), d, device="cuda", generator=gen))
-        s_ids, s_ct = eg_mod._sorted(ids, ct)
-        got = eg_mod.merge_scatter(s_ids, s_ct, num_rows)
-        again = eg_mod.merge_scatter(s_ids, s_ct, num_rows)
-        whole = eg_mod.dense_grad_from_updates(ids, ct, num_rows)
+        s_ids, order = eg_mod._sort(ids)
+        got = eg_mod.merge_scatter(s_ids, order, ct, v)
+        again = eg_mod.merge_scatter(s_ids, order, ct, v)
+        whole = eg_mod.dense_grad_from_updates(ids, ct, v)
         torch.cuda.synchronize()
-        ref = eg_mod.dense_grad_reference(ids, ct, num_rows)
+        ref = eg_mod.merge_scatter_reference(s_ids, order, ct, v)
         if what == "empty":
             if got.abs().max().item() != 0.0:
                 fail("merge_scatter of no ids is not zero")
@@ -591,34 +623,57 @@ def check_merge_scatter(eg_mod, lookups: dict, num_rows: int) -> dict:
             err, atol = _check_close(f"merge_scatter ({what})", got, ref)
         if not (torch.equal(got, again) and torch.equal(got, whole)):
             fail(f"merge_scatter ({what}) differs between runs")
-        if what == "all_equal" and got[17, 0].item() != float(n_path):
-            fail(f"merge_scatter's hot row sums to {got[17, 0].item()}, not {n_path}")
-        bound_ms, bound_by = ms_bound(ids.numel(), d, num_rows)
-        entry = {"case": what, "path": path, "N": ids.numel(), "D": d, "V": num_rows,
-                 "max_abs_err": err, "atol": atol, "bound_ms": bound_ms,
+        if what == "all_equal" and (got[17, 0].item() != float(n_path)
+                                    or got[:17].any() or got[18:].any()):
+            fail(f"merge_scatter's hot row sums to {got[17, 0].item()}, not {n_path}, "
+                 "or another row is not zero")
+        bound_ms, bound_by = ms_bound(ids.numel(), d, v)
+        entry = {"case": what, "path": path == "dien", "lookup_of": path, "N": ids.numel(),
+                 "D": d, "V": v, "max_abs_err": err, "atol": atol, "bound_ms": bound_ms,
                  "bound_by": bound_by, "ms": None, "plain_ms": None, "library_ms": None}
         if path:
             entry.update(
-                ms=event_ms(lambda: eg_mod.merge_scatter(s_ids, s_ct, num_rows)),
-                whole_backward_ms=event_ms(
-                    lambda: eg_mod.dense_grad_from_updates(ids, ct, num_rows)),
-                plain_ms=event_ms(lambda: eg_mod.dense_grad_reference(ids, ct, num_rows)),
-                library_ms=event_ms(lambda: torch.zeros(num_rows, d, device="cuda")
+                ms=event_ms(lambda: eg_mod.merge_scatter(s_ids, order, ct, v)),
+                sort_ms=event_ms(lambda: eg_mod._sort(ids)),
+                whole_backward_ms=event_ms(lambda: eg_mod.dense_grad_from_updates(ids, ct, v)),
+                plain_ms=event_ms(lambda: eg_mod.merge_scatter_reference(s_ids, order, ct, v)),
+                library_ms=event_ms(lambda: torch.zeros(v, d, device="cuda")
                                     .index_add_(0, ids, ct)),
+                # the same two by the profiler: the card's own time, without
+                # the host's, which the events above see at these sizes
+                whole_backward_device_ms=sum(launch_ms(
+                    lambda: eg_mod.dense_grad_from_updates(ids, ct, v)).values()),
+                library_device_ms=sum(launch_ms(
+                    lambda: torch.zeros(v, d, device="cuda").index_add_(0, ids, ct)).values()),
                 pad_share=float((ids == ids.min()).float().mean()))
         shapes.append(entry)
     for s in shapes:
-        times = (f"; kernel {s['ms']:.4f} ms, whole backward (sort + permute + kernel) "
-                 f"{s['whole_backward_ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library "
-                 f"(index_add_) {s['library_ms']:.4f} ms, share of the hottest id "
-                 f"{s['pad_share']:.3f}" if s["path"] else "")
+        times = (f"; kernel {s['ms']:.4f} ms, sort {s['sort_ms']:.4f} ms, whole backward "
+                 f"(sort + kernel) {s['whole_backward_ms']:.4f} ms (device "
+                 f"{s['whole_backward_device_ms']:.4f}), plain {s['plain_ms']:.4f} ms, library "
+                 f"(index_add_) {s['library_ms']:.4f} ms (device {s['library_device_ms']:.4f}), "
+                 f"share of the hottest id {s['pad_share']:.3f}" if s["lookup_of"] else "")
         print(f"merge_scatter {s['case']} (N={s['N']}, D={s['D']}, V={s['V']}): "
               f"max_abs_err {s['max_abs_err']:.3e} (atol {s['atol']:.3e}), the same "
               f"bits on a second run{times}; bound {s['bound_ms']:.4f} ms "
               f"({s['bound_by']})")
-    return _entry("merge_scatter", "ml_function_tpu/ops/kernels/embedding_grad.py:59",
-                  shapes, "torch.zeros(V, D).index_add_(0, ids, ct) on the unsorted "
-                  "ids, once a sequence lookup")
+    entry = _entry("merge_scatter", "ml_function_tpu/ops/kernels/embedding_grad.py:59",
+                   shapes, "torch.zeros(V, D).index_add_(0, ids, ct) on the unsorted "
+                   "ids, once a sequence lookup")
+    # the sort and the whole backward beside the kernel, summed over DIEN's
+    # two lookups; all five times summed over SIM's three
+    device = ("whole_backward_device_ms", "library_device_ms")
+    for k in ("sort_ms", "whole_backward_ms", *device):
+        entry[k] = sum(s[k] for s in shapes if s["lookup_of"] == "dien")
+    for k in ("ms", "sort_ms", "whole_backward_ms", "library_ms", "bound_ms", *device):
+        entry[f"sim_step_{k}"] = sum(s[k] for s in shapes if s["lookup_of"] == "sim")
+    for what, p in (("a DIEN step (2 lookups)", ""), ("a SIM step (3 lookups)", "sim_step_")):
+        print(f"merge_scatter {what}: kernel {entry[p + 'ms']:.4f} ms, sort "
+              f"{entry[p + 'sort_ms']:.4f} ms, whole backward "
+              f"{entry[p + 'whole_backward_ms']:.4f} ms (device "
+              f"{entry[p + 'whole_backward_device_ms']:.4f}), index_add_ "
+              f"{entry[p + 'library_ms']:.4f} ms (device {entry[p + 'library_device_ms']:.4f})")
+    return entry
 
 
 def plain_gru(gru_mod):
@@ -1019,6 +1074,7 @@ def dien_phases(drive, launches_by_path) -> list:
     from ml_function_tpu_torch.ops.kernels import embedding_grad as eg_mod
     from ml_function_tpu_torch.ops.kernels import gru as gru_mod
     from ml_function_tpu_torch.serving import export_model, load_scorer
+    from ml_function_tpu_torch.tools.profile_scoring import SIM_SHAPES, sim_batch
     from ml_function_tpu_torch.train.loop import iter_batches, train_test_split
 
     t = time.perf_counter()
@@ -1032,8 +1088,17 @@ def dien_phases(drive, launches_by_path) -> list:
     lookups = {name: torch.as_tensor(ids.reshape(-1).astype(np.int64)
                                      + fs.seq_offset(name), device="cuda")
                for name, ids in head.items()}
+    # SIM's three lookups a train step at its production shape (B 512): the
+    # two short histories and the re-gather of the top 256 of the stream (its
+    # first 256 ids stand in for them)
+    sim_fs, sim_data = sim_batch(SIM_SHAPES["production"][0])
+    sim_seq = dict(sim_data["seq"], hist_long=sim_data["seq"]["hist_long"][:, :256])
+    sim_lookups = {name: torch.as_tensor(ids.reshape(-1).astype(np.int64)
+                                         + sim_fs.seq_offset(name), device="cuda")
+                   for name, ids in sim_seq.items()}
     entries = [*check_gru_kernels(gru_mod, hist_mask),
-               check_merge_scatter(eg_mod, lookups, fs.total_vocab)]
+               check_merge_scatter(eg_mod, lookups, fs.total_vocab, sim_lookups,
+                                   sim_fs.total_vocab)]
 
     @contextlib.contextmanager
     def plain_dien():

@@ -143,7 +143,7 @@ def _lib_fwd() -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("cin_bwd")
-    lib.cin_bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.cin_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.cin_bwd.restype = ctypes.c_int
     lib.cin_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.cin_bwd_smem_bytes.restype = ctypes.c_size_t
@@ -197,16 +197,20 @@ def cin_layer_t_backward(xk_t: torch.Tensor, x0_t: torch.Tensor,
         return dxk.zero_(), dx0.zero_(), dw.zero_()
     lib = _lib_bwd()
     _refuse_smem("CIN backward kernel", lib.cin_bwd_smem_bytes(h, f), h, f)
-    wt = torch.empty((f * o, lib.cin_bwd_scratch_cols(h)), dtype=torch.bfloat16,
-                     device=dev)
-    splits = lib.cin_bwd_splits(d * b, h, f, o)
-    part = torch.empty((splits if splits > 1 else 0, h, f * o),
-                       dtype=torch.float32, device=dev)
+    # bf16 scratch: w1 transposed to (F·O, Hp) and xk as (D·B, Hp), Hp = pad16(H)
+    hp = lib.cin_bwd_scratch_cols(h)
+    wt = torch.empty((f * o, hp), dtype=torch.bfloat16, device=dev)
+    xb = torch.empty((d * b, hp), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
+        splits = lib.cin_bwd_splits(d * b, h, f, o)
+        if splits < 0:
+            raise RuntimeError(f"cin_bwd could not plan its dW splits: CUDA error {-splits}")
+        part = torch.empty((splits if splits > 1 else 0, h, f * o),
+                           dtype=torch.float32, device=dev)
         err = lib.cin_bwd(xk_t.data_ptr(), x0_t.data_ptr(), w1.data_ptr(),
                           dy_t.data_ptr(), dxk.data_ptr(), dx0.data_ptr(),
-                          dw.data_ptr(), wt.data_ptr(), part.data_ptr(),
-                          d, b, h, f, o,
+                          dw.data_ptr(), wt.data_ptr(), xb.data_ptr(),
+                          part.data_ptr(), d, b, h, f, o,
                           torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"cin_bwd launch failed with CUDA error {err}")

@@ -3,31 +3,43 @@
 //
 // Replaces ml_function_tpu/ops/kernels/embedding_grad.py::_merge_scatter_kernel
 // together with the segmented combine before it (_combine_sorted_duplicates):
-// from ids sorted ascending (N,) int64 and their cotangents ct (N, D) f32 in
-// the same order, it writes the dense gradient out (V, D) f32,
+// from the ids sorted ascending s_ids (N,) int32, the stable sort's
+// permutation order (N,) int64 and the cotangents ct (N, D) f32 in their
+// original order, it writes the dense gradient out (V, D) f32,
 //
-//   out[v, :] = sum of ct[i, :] over the run of i with ids[i] == v
+//   out[v, :] = sum of ct[order[i], :] over the run of i with s_ids[i] == v
 //
 // every row exactly once, zeros where no id falls, with no atomics. The sort
-// and the permutation of ct stay library calls (torch.sort), as the reference
-// sorts with XLA outside its Pallas kernel.
+// stays a library call (torch.sort on int32 keys), as the reference sorts with
+// XLA outside its Pallas kernel. The cotangents are read through the
+// permutation: no permuted copy of ct is made.
 //
 // What bounds it on the H100: at DIEN's sequence lookups (N 262,144 ids of
 // width 8 into V 5,202 rows) it must read the ids and ct, about 10.5 MB, and
-// write out (0.17 MB): about 3 us at 3.35 TB/s. Bytes bound it.
+// write out (0.17 MB): about 3 us at 3.35 TB/s. Bytes bound it. The earlier
+// design (sort, then ct[order] as a library gather, then a kernel that read
+// the copy one column at a time) spent 0.159 ms a lookup on the copy alone
+// and 0.29-0.31 ms on the whole backward against index_add_'s 0.12-0.13
+// (NVIDIA H100 80GB HBM3, 700 W, CUDA events). This design, on the same card:
+// the two kernels 0.018 ms of device time a lookup (0.04-0.07 by events,
+// which see the wrapper's host time), the whole backward 0.12-0.21 ms a
+// lookup, of which the int32 torch.sort takes 0.07-0.11 by events (0.05 on
+// the device). The sort, not this kernel, now bounds the backward: a stable
+// counting sort over the ids' 13 bits is the lever left.
 //
-// Design: the TPU kernel built each 512-row chunk of the output with a
-// one-hot matrix product on the MXU over 1024-aligned DMA windows, with
-// sentinel padding; none of that is needed here. The hot rows are the hard
-// part: the pad id is about a quarter of a history (a run of ~65k), and a run
-// summed by one thread is right but serial. So the sorted entries are cut into
-// fixed chunks of CHUNK. A first kernel, one block per chunk, sums the chunk's
-// first run segment (head) and last run segment (tail) per column with a
-// fixed-order block reduction. A second kernel, one thread per (row, column),
-// finds the row's run by binary search and sums it directly when it lies in
-// one chunk, else as tail(first chunk) + head(each later chunk) in chunk
-// order. The order of every sum is fixed by the data, and no atomics are
-// used: the same inputs give the same bits.
+// Design: the sorted entries are cut into fixed chunks of CHUNK, one block a
+// chunk and one entry a thread. Each thread loads its row ct[order[i]] once,
+// four columns to a 16-byte load. A segmented inclusive scan over the block
+// (warp shuffles, then the warps' carries in warp order) gives at the last
+// entry of every run segment the segment's sum. A run that starts and ends in
+// the chunk is written to out at once; the chunk's first and last segments
+// are also kept as head and tail. A second kernel, one warp a row of out,
+// finds the row's run by binary search: no run gives zeros; a run that
+// crosses chunks is tail(first chunk) + the heads of the later chunks, which
+// the lanes sum in fixed contiguous pieces and then a fixed butterfly. The pad
+// id (about a quarter of a history, a run of ~65k) is thus summed by 256
+// blocks and then 32 lanes, not by one thread. The order of every sum is fixed
+// by the data and no atomics are used: the same inputs give the same bits.
 //
 // Launches go on the caller's stream. Nothing here synchronises or allocates.
 
@@ -38,17 +50,41 @@ namespace {
 
 constexpr int CHUNK = 256;  // sorted entries a chunk; also the threads of kernel 1
 constexpr int WARPS = CHUNK / 32;
+constexpr int ROWS_THREADS = 256;  // kernel 2: eight rows of out a block
 
-__device__ __forceinline__ float warp_sum(float x) {
+struct F4 {
+  float x[4];
+};
+
+// Columns c0..c0+3 of row r of a (., d) matrix; columns past d read as 0.
+template <bool VEC>
+__device__ __forceinline__ F4 load4(const float* __restrict__ m, int64_t r, int d, int c0) {
+  F4 v;
+  if (VEC) {
+    const float4 t = *reinterpret_cast<const float4*>(m + r * d + c0);
+    v.x[0] = t.x, v.x[1] = t.y, v.x[2] = t.z, v.x[3] = t.w;
+  } else {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    for (int j = 0; j < 4; ++j) v.x[j] = c0 + j < d ? m[r * d + c0 + j] : 0.f;
+  }
+  return v;
 }
 
-// Smallest i in [0, n) with ids[i] >= v, or n.
-__device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict__ ids, int64_t n,
-                                               int64_t v) {
-  int64_t lo = 0, hi = n;
+template <bool VEC>
+__device__ __forceinline__ void store4(float* __restrict__ m, int64_t r, int d, int c0,
+                                       const F4& v) {
+  if (VEC) {
+    *reinterpret_cast<float4*>(m + r * d + c0) = make_float4(v.x[0], v.x[1], v.x[2], v.x[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c0 + j < d) m[r * d + c0 + j] = v.x[j];
+  }
+}
+
+// Smallest i in [lo, hi) with ids[i] >= v, or hi.
+__device__ __forceinline__ int64_t lower_bound(const int32_t* __restrict__ ids, int64_t lo,
+                                               int64_t hi, int64_t v) {
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
     if (ids[mid] < v) lo = mid + 1; else hi = mid;
@@ -56,100 +92,156 @@ __device__ __forceinline__ int64_t lower_bound(const int64_t* __restrict__ ids, 
   return lo;
 }
 
-// head[k, c]: sum of column c over chunk k's first run segment; tail[k, c]:
-// over its last run segment (the whole chunk when it holds one id).
+// One block a chunk of sorted entries: out rows of the runs that lie wholly in
+// the chunk; head[k] and tail[k], the sums of its first and last run segments.
+template <bool VEC>
 __global__ void __launch_bounds__(CHUNK)
-    chunk_ends_kernel(const int64_t* __restrict__ ids, const float* __restrict__ ct,
-                      float* __restrict__ head, float* __restrict__ tail, int64_t n, int d) {
-  __shared__ int64_t sid[CHUNK];
-  __shared__ unsigned wb[2][WARPS];
-  __shared__ float part[2][WARPS];
+    chunk_kernel(const int32_t* __restrict__ s_ids, const int64_t* __restrict__ order,
+                 const float* __restrict__ ct, float* __restrict__ head, float* __restrict__ tail,
+                 float* __restrict__ out, int64_t n, int64_t v_rows, int d) {
+  __shared__ int32_t sid[CHUNK + 2];  // the chunk's ids with one neighbour each side
+  __shared__ unsigned starts[WARPS];  // each warp's lanes that start a segment
+  __shared__ F4 wsum[WARPS];          // each warp's last lane after the warp's scan
   const int64_t k = blockIdx.x, lo = k * CHUNK;
   const int cnt = n - lo < CHUNK ? static_cast<int>(n - lo) : CHUNK;
   const int i = threadIdx.x, lane = i & 31, warp = i >> 5;
-  if (i < cnt) sid[i] = ids[lo + i];
-  __syncthreads();
-  // the run boundaries: the first i with ids[i] != ids[i - 1] ends the first
-  // run (else cnt), the last one starts the last run (else 0)
-  const bool edge = i > 0 && i < cnt && sid[i] != sid[i - 1];
-  const unsigned first = __reduce_min_sync(0xffffffffu, edge ? unsigned(i) : unsigned(cnt));
-  const unsigned last = __reduce_max_sync(0xffffffffu, edge ? unsigned(i) : 0u);
-  if (lane == 0) {
-    wb[0][warp] = first;
-    wb[1][warp] = last;
+  const bool has = i < cnt;
+  if (has) sid[i + 1] = s_ids[lo + i];
+  if (i == 0) {
+    sid[0] = lo > 0 ? s_ids[lo - 1] : -1;
+    sid[cnt + 1] = lo + cnt < n ? s_ids[lo + cnt] : -1;
   }
+  const int64_t src = has ? order[lo + i] : 0;
   __syncthreads();
-  unsigned head_end = wb[0][0], tail_start = wb[1][0];
-  for (int w = 1; w < WARPS; ++w) {
-    head_end = min(head_end, wb[0][w]);
-    tail_start = max(tail_start, wb[1][w]);
-  }
-  for (int c = 0; c < d; ++c) {
-    const float v = i < cnt ? ct[(lo + i) * d + c] : 0.f;
-    const float hs = warp_sum(unsigned(i) < head_end ? v : 0.f);
-    const float ts = warp_sum(unsigned(i) >= tail_start ? v : 0.f);
-    if (lane == 0) {
-      part[0][warp] = hs;
-      part[1][warp] = ts;
+  const int32_t id = has ? sid[i + 1] : -1;
+  // a segment starts at the chunk's first entry and wherever the id changes;
+  // threads past the chunk's end each start their own (empty) segment
+  const bool start = !has || i == 0 || id != sid[i];
+  const unsigned ballot = __ballot_sync(0xffffffffu, start);
+  if (lane == 0) starts[warp] = ballot;
+  const unsigned upto = ballot & (0xffffffffu >> (31 - lane));
+  // the lane where my segment starts; -1: in an earlier warp
+  const int seg = upto ? 31 - __clz(upto) : -1;
+  const bool last = has && (i == cnt - 1 || id != sid[i + 2]);
+  const bool first_seg = has && id == sid[1];                // the chunk's first segment
+  const bool cont_in = first_seg && id == sid[0];            // its run began in an earlier chunk
+  const bool cont_out = i == cnt - 1 && id == sid[cnt + 1];  // its run goes on past the chunk
+  __syncthreads();
+  // the warps before mine whose last segment runs into my first one
+  int from = warp;
+  if (seg < 0)
+    while (from > 0) {
+      --from;
+      if (starts[from]) break;
     }
-    __syncthreads();
-    if (i == 0) {
-      float sh = 0.f, st = 0.f;
-      for (int w = 0; w < WARPS; ++w) {
-        sh += part[0][w];
-        st += part[1][w];
+
+  for (int c0 = 0; c0 < d; c0 += 4) {
+    F4 v = has ? load4<VEC>(ct, src, d, c0) : F4{{0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float t = __shfl_up_sync(0xffffffffu, v.x[j], off);
+        if (lane - off >= seg && lane >= off) v.x[j] = t + v.x[j];
       }
-      head[k * d + c] = sh;
-      tail[k * d + c] = st;
+    }
+    if (lane == 31) wsum[warp] = v;
+    __syncthreads();
+    if (seg < 0 && from < warp) {
+      // the earlier warps' shares of my segment, in warp order, then mine
+      F4 carry = wsum[from];
+      for (int w = from + 1; w < warp; ++w)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) carry.x[j] += wsum[w].x[j];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v.x[j] = carry.x[j] + v.x[j];
+    }
+    if (last) {
+      if (!cont_in && !cont_out && id >= 0 && id < v_rows) store4<VEC>(out, id, d, c0, v);
+      if (first_seg) store4<VEC>(head, k, d, c0, v);
+      if (i == cnt - 1) store4<VEC>(tail, k, d, c0, v);
     }
     __syncthreads();
   }
 }
 
-__global__ void merge_rows_kernel(const int64_t* __restrict__ ids, const float* __restrict__ ct,
-                                  const float* __restrict__ head, const float* __restrict__ tail,
-                                  float* __restrict__ out, int64_t n, int64_t v_rows, int d) {
-  const int64_t g = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;
-  if (g >= v_rows * d) return;
-  const int64_t v = g / d;
-  const int c = static_cast<int>(g - v * d);
-  const int64_t lo = lower_bound(ids, n, v), hi = lower_bound(ids, n, v + 1);
-  float s = 0.f;
-  if (hi > lo) {
-    const int64_t k0 = lo / CHUNK, k1 = (hi - 1) / CHUNK;
-    if (k0 == k1) {
-      for (int64_t i = lo; i < hi; ++i) s += ct[i * d + c];
-    } else {
-      s = tail[k0 * d + c];
-      for (int64_t k = k0 + 1; k <= k1; ++k) s += head[k * d + c];
+// One warp a row of out: zeros where no id falls, the runs that cross chunks
+// as tail(first chunk) + the heads of the later chunks, which the warp's lanes
+// sum in fixed contiguous pieces and a fixed butterfly; rows of runs inside
+// one chunk were written by chunk_kernel.
+template <bool VEC>
+__global__ void __launch_bounds__(ROWS_THREADS)
+    rows_kernel(const int32_t* __restrict__ s_ids, const float* __restrict__ head,
+                const float* __restrict__ tail, float* __restrict__ out, int64_t n,
+                int64_t v_rows, int d) {
+  const int64_t v = (blockIdx.x * int64_t(ROWS_THREADS) + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (v >= v_rows) return;
+  const int64_t lo = lower_bound(s_ids, 0, n, v);
+  if (lo == n || s_ids[lo] != v) {
+    for (int c0 = 4 * lane; c0 < d; c0 += 128)
+      store4<VEC>(out, v, d, c0, F4{{0.f, 0.f, 0.f, 0.f}});
+    return;
+  }
+  const int64_t hi = lower_bound(s_ids, lo, n, v + 1);
+  const int64_t k0 = lo / CHUNK, k1 = (hi - 1) / CHUNK;
+  if (k0 == k1) return;
+  const int64_t per = (k1 - k0 + 31) / 32, kb = k0 + 1 + lane * per;
+  const int64_t ke = kb + per < k1 + 1 ? kb + per : k1 + 1;
+  for (int c0 = 0; c0 < d; c0 += 4) {
+    F4 s{{0.f, 0.f, 0.f, 0.f}};
+    for (int64_t k = kb; k < ke; ++k) {
+      const F4 h = load4<VEC>(head, k, d, c0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s.x[j] += h.x[j];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s.x[j] += __shfl_xor_sync(0xffffffffu, s.x[j], off);
+    if (lane == 0) {
+      F4 t = load4<VEC>(tail, k0, d, c0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) t.x[j] += s.x[j];
+      store4<VEC>(out, v, d, c0, t);
     }
   }
-  out[g] = s;
+}
+
+template <bool VEC>
+int launch(const int32_t* s_ids, const int64_t* order, const float* ct, float* head,
+           float* tail, float* out, long long n, long long v, int d, cudaStream_t s) {
+  const long long chunks = (n + CHUNK - 1) / CHUNK;
+  if (chunks > 0) {
+    chunk_kernel<VEC><<<static_cast<unsigned>(chunks), CHUNK, 0, s>>>(s_ids, order, ct, head,
+                                                                       tail, out, n, v, d);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (v > 0) {
+    const long long blocks = (v * 32 + ROWS_THREADS - 1) / ROWS_THREADS;
+    rows_kernel<VEC><<<static_cast<unsigned>(blocks), ROWS_THREADS, 0, s>>>(s_ids, head, tail,
+                                                                            out, n, v, d);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// ids (N,) int64 sorted ascending, ct (N, D) f32 in the same order -> out
-// (V, D) f32; head and tail are (ceil(N / 256), D) f32 workspaces; all
-// contiguous on the current device. Returns the CUDA error code of the
-// launches (0 on success).
-int merge_scatter(const int64_t* ids, const float* ct, float* head, float* tail, float* out,
-                  long long n, long long v, int d, void* stream) {
+// s_ids (N,) int32 sorted ascending, order (N,) int64 with s_ids[i] ==
+// ids[order[i]], ct (N, D) f32 in the ids' order -> out (V, D) f32; head and
+// tail are (ceil(N / 256), D) f32 workspaces; all contiguous on the current
+// device. vec != 0 asks for 16-byte loads: D a multiple of 4 and ct, head,
+// tail and out 16-byte aligned. Returns the CUDA error code of the launches
+// (0 on success).
+int merge_scatter(const int32_t* s_ids, const int64_t* order, const float* ct, float* head,
+                  float* tail, float* out, long long n, long long v, int d, int vec,
+                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long chunks = (n + CHUNK - 1) / CHUNK;
-  if (chunks > 0) {
-    chunk_ends_kernel<<<static_cast<unsigned>(chunks), CHUNK, 0, s>>>(ids, ct, head, tail, n, d);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long total = v * d;
-  if (total > 0) {
-    merge_rows_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
-        ids, ct, head, tail, out, n, v, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return vec ? launch<true>(s_ids, order, ct, head, tail, out, n, v, d, s)
+             : launch<false>(s_ids, order, ct, head, tail, out, n, v, d, s);
 }
 
 }  // extern "C"

@@ -10,11 +10,12 @@ whose backward builds the (V, D) dense gradient
 
 with duplicates combined in sorted-id order (deterministic), as
 ``dense_grad_from_updates`` does in the reference. On CUDA the ids are
-sorted with ``torch.sort`` (stable) and the cotangents permuted, as the
-reference sorts with XLA outside its Pallas kernel; then one hand-written
-kernel (``csrc/merge_scatter.cu``) writes every output row once, zeros where
-no id falls, with no atomics. The reference's one-hot MXU tiles, DMA windows
-and sentinel padding exist for the TPU and are not carried over.
+sorted as int32 keys with ``torch.sort`` (stable), as the reference sorts
+with XLA outside its Pallas kernel; then one hand-written kernel
+(``csrc/merge_scatter.cu``) reads each cotangent row through the sort's
+permutation, with no permuted copy, and writes every output row once, zeros
+where no id falls, with no atomics. The reference's one-hot MXU tiles, DMA
+windows and sentinel padding exist for the TPU and are not carried over.
 
 For tensors on the CPU the backward runs the plain version; for CUDA tensors
 it launches the kernel. It never falls back from one to the other.
@@ -31,24 +32,34 @@ from . import _build
 from ._checks import check_cuda_inputs, on_cpu
 
 CHUNK = 256   # sorted entries a block of the kernel's first pass takes
+MAX_ROWS = 2 ** 31 - 1   # the ids are sorted as int32, as the reference's are
 
 # Launches of the CUDA kernel since its count was last set to 0.
 merge_scatter_launches = 0
 
 
-def _sorted(ids: torch.Tensor, ct: torch.Tensor):
-    s_ids, order = torch.sort(ids.reshape(-1).long(), stable=True)
-    return s_ids, ct.reshape(s_ids.shape[0], ct.shape[-1])[order]
+def _sort(ids: torch.Tensor):
+    """Stable sort of the flattened ids as int32 keys: (s_ids int32, order
+    int64) with ``s_ids[i] == ids[order[i]]``."""
+    return torch.sort(ids.reshape(-1).to(torch.int32), stable=True)
+
+
+def merge_scatter_reference(s_ids: torch.Tensor, order: torch.Tensor,
+                            ct: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's contract: ids sorted ascending
+    (N,), the sort's permutation (N,) and the cotangents (N, D) in the ids'
+    order → (num_rows, D), ``zeros.index_add(0, s_ids, ct[order])`` (on the
+    CPU ``index_add`` sums in that order)."""
+    ct = ct.reshape(s_ids.shape[0], ct.shape[-1])
+    out = ct.new_zeros((num_rows, ct.shape[1]))
+    return out.index_add_(0, s_ids.long(), ct[order])
 
 
 def dense_grad_reference(ids: torch.Tensor, ct: torch.Tensor,
                          num_rows: int) -> torch.Tensor:
     """Plain PyTorch version: (N,) ids, (N, D) cotangents → (num_rows, D),
-    ``zeros.index_add(0, ids, ct)`` over the ids in sorted order (on the
-    CPU ``index_add`` sums in that order)."""
-    s_ids, s_ct = _sorted(ids, ct)
-    out = s_ct.new_zeros((num_rows, s_ct.shape[1]))
-    return out.index_add_(0, s_ids, s_ct)
+    summed over the ids in sorted order."""
+    return merge_scatter_reference(*_sort(ids), ct, num_rows)
 
 
 def dense_grad_from_updates(ids: torch.Tensor, ct: torch.Tensor,
@@ -59,41 +70,52 @@ def dense_grad_from_updates(ids: torch.Tensor, ct: torch.Tensor,
         raise ValueError(f"dense_grad_from_updates: ids are on {ids.device}; "
                          "the kernel takes CUDA tensors (the plain version is "
                          "dense_grad_reference)")
-    s_ids, s_ct = _sorted(ids, ct)
-    return merge_scatter(s_ids, s_ct, num_rows)
+    s_ids, order = _sort(ids)
+    return merge_scatter(s_ids, order, ct.reshape(s_ids.shape[0], ct.shape[-1]), num_rows)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("merge_scatter")
-    lib.merge_scatter.argtypes = ([ctypes.c_void_p] * 5
+    lib.merge_scatter.argtypes = ([ctypes.c_void_p] * 6
                                   + [ctypes.c_longlong] * 2
-                                  + [ctypes.c_int, ctypes.c_void_p])
+                                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.merge_scatter.restype = ctypes.c_int
     return lib
 
 
-def merge_scatter(s_ids: torch.Tensor, s_ct: torch.Tensor,
+def _check_index(what: str, name: str, t: torch.Tensor, dtype, n: int, dev) -> None:
+    if (t.device != dev or t.dtype != dtype or t.dim() != 1
+            or not t.is_contiguous() or t.shape[0] != n):
+        raise ValueError(f"{what}: {name} must be a contiguous 1-d {dtype} tensor "
+                         f"of ct's length {n} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def merge_scatter(s_ids: torch.Tensor, order: torch.Tensor, ct: torch.Tensor,
                   num_rows: int) -> torch.Tensor:
-    """The kernel on CUDA tensors: ids (N,) int64 sorted ascending and ct
-    (N, D) f32 in their order → the (num_rows, D) dense gradient."""
+    """The kernel on CUDA tensors: ids (N,) int32 sorted ascending, the
+    stable sort's permutation order (N,) int64 and ct (N, D) f32 in the ids'
+    own order (read as ``ct[order[i]]``) → the (num_rows, D) dense
+    gradient."""
     global merge_scatter_launches
-    check_cuda_inputs("merge_scatter", {"ct": 2}, ct=s_ct)
-    if (s_ids.device != s_ct.device or s_ids.dtype != torch.int64
-            or s_ids.dim() != 1 or not s_ids.is_contiguous()
-            or s_ids.shape[0] != s_ct.shape[0]):
-        raise ValueError(f"merge_scatter: ids must be a contiguous 1-d int64 "
-                         f"tensor of ct's length on {s_ct.device}, got "
-                         f"{s_ids.dtype} {tuple(s_ids.shape)} on {s_ids.device}")
-    n, d = s_ct.shape
-    out = s_ct.new_empty((num_rows, d))
+    what = "merge_scatter"
+    check_cuda_inputs(what, {"ct": 2}, ct=ct)
+    n, d = ct.shape
+    _check_index(what, "s_ids", s_ids, torch.int32, n, ct.device)
+    _check_index(what, "order", order, torch.int64, n, ct.device)
+    if not 0 <= num_rows <= MAX_ROWS:
+        raise ValueError(f"{what}: {num_rows} rows do not fit the int32 ids the "
+                         "kernel sorts")
+    out = ct.new_empty((num_rows, d))
     chunks = -(-n // CHUNK)
-    head, tail = s_ct.new_empty((chunks, d)), s_ct.new_empty((chunks, d))
-    with torch.cuda.device(s_ct.device):
+    head, tail = ct.new_empty((chunks, d)), ct.new_empty((chunks, d))
+    vec = int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (ct, head, tail, out)))
+    with torch.cuda.device(ct.device):
         err = _lib().merge_scatter(
-            s_ids.data_ptr(), s_ct.data_ptr(), head.data_ptr(), tail.data_ptr(),
-            out.data_ptr(), n, num_rows, d,
-            torch.cuda.current_stream(s_ct.device).cuda_stream)
+            s_ids.data_ptr(), order.data_ptr(), ct.data_ptr(), head.data_ptr(),
+            tail.data_ptr(), out.data_ptr(), n, num_rows, d, vec,
+            torch.cuda.current_stream(ct.device).cuda_stream)
     if err:
         raise RuntimeError(f"merge_scatter launch failed with CUDA error {err}")
     merge_scatter_launches += 1

@@ -54,13 +54,11 @@ import os
 import statistics
 import subprocess
 import time
-from collections import defaultdict
 from pathlib import Path
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
-from .timing import event_ms
+from .timing import event_ms, profile_device as _profile
 
 SIM_LONG = 16384
 # SIM at the JAX board's two shapes (bench.py:756-769): (batch,
@@ -97,44 +95,6 @@ def sim_batch(n_rows: int, seed: int = 1):
                     "hist_long": long},
             "label": (rng.random(n_rows) < 0.4).astype(np.float32)}
     return fs, data
-
-
-def _kernel_intervals(prof):
-    """(name, start_us, end_us) of every kernel the trace saw on the card.
-    Ranges that annotate the device timeline (``Optimizer.step#Adam.step``)
-    span gaps and are not kernels: they are left out."""
-    out = []
-    for evt in prof.events():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            out.append((evt.name, evt.time_range.start, evt.time_range.end))
-    return out
-
-
-def _profile(fn, n: int):
-    """Device ms by kernel name per call, busy share and window per call."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    intervals = _kernel_intervals(prof)
-    by_name = defaultdict(float)
-    for name, s, e in intervals:
-        by_name[name] += (e - s) / 1e3 / n
-    busy, hi = 0.0, None
-    for _, s, e in sorted(intervals, key=lambda t: t[1]):
-        if hi is None or s > hi:
-            busy += e - s
-            hi = e
-        elif e > hi:
-            busy += e - hi
-            hi = e
-    return (dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
-            busy / 1e3 / n, wall * 1e3 / n)
 
 
 def _print_kernels(kernels, top: int = 15):

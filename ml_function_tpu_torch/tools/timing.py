@@ -1,11 +1,15 @@
-"""Device timing on the CUDA card by CUDA events."""
+"""Device timing on the CUDA card: CUDA events, and device time by kernel
+name from ``torch.profiler``."""
 
 from __future__ import annotations
 
 import statistics
+import time
+from collections import defaultdict
 from typing import Callable
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 
 def event_ms(fn: Callable[[], object], reps: int = 25, inner: int = 10,
@@ -29,3 +33,42 @@ def event_ms(fn: Callable[[], object], reps: int = 25, inner: int = 10,
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def _kernel_intervals(prof):
+    """(name, start_us, end_us) of every kernel the trace saw on the card.
+    Ranges that annotate the device timeline (``Optimizer.step#Adam.step``)
+    span gaps and are not kernels: they are left out."""
+    out = []
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            out.append((evt.name, evt.time_range.start, evt.time_range.end))
+    return out
+
+
+def profile_device(fn: Callable[[], object], n: int):
+    """``n`` calls of ``fn`` under ``torch.profiler``: (device ms by kernel
+    name a call, busiest first; device busy ms a call; window ms a call)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    intervals = _kernel_intervals(prof)
+    by_name = defaultdict(float)
+    for name, s, e in intervals:
+        by_name[name] += (e - s) / 1e3 / n
+    busy, hi = 0.0, None
+    for _, s, e in sorted(intervals, key=lambda t: t[1]):
+        if hi is None or s > hi:
+            busy += e - s
+            hi = e
+        elif e > hi:
+            busy += e - hi
+            hi = e
+    return (dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+            busy / 1e3 / n, wall * 1e3 / n)

@@ -6,7 +6,10 @@ two edges, with a random key mask and one batch row whose keys are all
 masked, where the weights are uniform over all Lk keys. The (AU)GRU and
 merge-scatter kernels are held to theirs at DIEN's shapes and the edges
 chip_smoke.py checks (a row masked at every step carries h0; no ids, all ids
-equal, ids at V − 1), and must give the same bits on a second run.
+equal, ids at V − 1, runs that cross the kernel's chunks, a width D that is
+not a multiple of 4), and must give the same bits on a second run. The CIN
+backward is held to its plain version also at xDeepFM's two layers at
+B 4096, and three runs must give the same bits.
 
 The flash-attention kernels are held to their plain versions at SIM's
 flash-ESU shape (B 8, H 2, Lq = Lk = 16,384, Dh 8, the key mask of a
@@ -136,6 +139,8 @@ def _bwd_inputs(card, d, b, h, f, o):
     (2, 300, 200, 3, 128),  # H past one 128-wide slice of dxk
     (2, 256, 1, 1, 8),      # one field, one row of w1
     (8, 256, 26, 26, 128),  # the first CIN layer of xDeepFM at B 256
+    (8, 4096, 26, 26, 128),   # xDeepFM's two CIN layers at the path's B 4096
+    (8, 4096, 128, 26, 128),
 ])
 def test_cin_bwd_kernel_matches_plain_version(card, d, b, h, f, o):
     xk, x0, w1, dy = _bwd_inputs(card, d, b, h, f, o)
@@ -147,9 +152,11 @@ def test_cin_bwd_kernel_matches_plain_version(card, d, b, h, f, o):
         _close(g, w)
 
 
-def test_cin_bwd_dw_is_the_same_on_every_run(card):
-    """dW is a split-K sum with fixed partials and no atomics."""
-    xk, x0, w1, dy = _bwd_inputs(card, 8, 4096, 128, 26, 128)
+@pytest.mark.parametrize("h", [26, 128])
+def test_cin_bwd_dw_is_the_same_on_every_run(card, h):
+    """dW is a split-K sum with fixed partials and no atomics; dxk and dx0
+    are fixed-order sums too: three runs give the same bits."""
+    xk, x0, w1, dy = _bwd_inputs(card, 8, 4096, h, 26, 128)
     first = tcin.cin_layer_t_backward(xk, x0, w1, dy)
     for _ in range(2):
         again = tcin.cin_layer_t_backward(xk, x0, w1, dy)
@@ -323,43 +330,68 @@ def _hist_ids(card, n, v, seed):
     return torch.where(torch.rand(n, device=card, generator=gen) < 0.25, 0, ids)
 
 
-@pytest.mark.parametrize("case", ["history", "all_equal", "empty", "last_row"])
-def test_merge_scatter_matches_plain_version(card, case):
-    v, d = 5202, 8
+def _crossing_ids(card):
+    """Runs of 1 to 700 ids, shuffled: sorted, they cross one, two and three
+    of the kernel's 256-entry chunks at odd offsets."""
+    lens = torch.tensor([1, 255, 256, 257, 513, 700, 3, 40], device=card)
+    ids = torch.repeat_interleave(torch.arange(100, 900, 100, device=card), lens)
+    gen = torch.Generator(device=card).manual_seed(5)
+    return ids[torch.randperm(ids.numel(), device=card, generator=gen)]
+
+
+# (case, D): DIEN's lookups are D 8 (16-byte loads); D 5 takes the scalar loads
+@pytest.mark.parametrize("case,d", [("history", 8), ("all_equal", 8), ("empty", 8),
+                                    ("last_row", 8), ("crossing", 8), ("crossing", 5)])
+def test_merge_scatter_matches_plain_version(card, case, d):
+    """The kernel's contract: int32 ids sorted stably, the sort's
+    permutation, ct unsorted and read through it; against the plain version
+    of that contract, and the same bits on every run."""
+    v = 5202
     ids = {"history": lambda: _hist_ids(card, 262_144, v, 6),
            "all_equal": lambda: torch.full((262_144,), 17, device=card),
            "empty": lambda: torch.zeros(0, dtype=torch.int64, device=card),
-           "last_row": lambda: torch.randint(v - 3, v, (4096,), device=card)}[case]()
+           "last_row": lambda: torch.randint(v - 3, v, (4096,), device=card),
+           "crossing": lambda: _crossing_ids(card)}[case]()
     gen = torch.Generator(device=card).manual_seed(7)
     ct = torch.randn(ids.numel(), d, device=card, generator=gen)
+    s_ids, order = teg._sort(ids)
     before = teg.merge_scatter_launches
-    got = teg.dense_grad_from_updates(ids, ct, v)
-    again = teg.dense_grad_from_updates(ids, ct, v)
+    got = teg.merge_scatter(s_ids, order, ct, v)
+    again = teg.merge_scatter(s_ids, order, ct, v)
+    whole = teg.dense_grad_from_updates(ids, ct, v)
     torch.cuda.synchronize()
-    assert teg.merge_scatter_launches == before + 2
-    assert torch.equal(got, again)               # no atomics: the same bits
-    want = teg.dense_grad_reference(ids, ct, v)
+    assert teg.merge_scatter_launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, whole)   # no atomics
+    want = teg.merge_scatter_reference(s_ids, order, ct, v)
     if case == "empty":
         assert got.shape == (v, d) and not got.any()
     else:
         _close(got, want)
+    if case == "all_equal":
+        assert not got[:17].any() and not got[18:].any()   # written once, zeros elsewhere
 
 
 def test_merge_scatter_refuses_what_it_does_not_take(card):
     ids = torch.arange(8, device=card)
     ct = torch.zeros(8, 4, device=card)
+    s_ids, order = teg._sort(ids)
     with pytest.raises(ValueError, match="contiguous"):
-        teg.merge_scatter(ids, ct.t().contiguous().t(), 10)
+        teg.merge_scatter(s_ids, order, ct.t().contiguous().t(), 10)
     with pytest.raises(ValueError, match="float32"):
-        teg.merge_scatter(ids, ct.double(), 10)
+        teg.merge_scatter(s_ids, order, ct.double(), 10)
+    with pytest.raises(ValueError, match="int32"):
+        teg.merge_scatter(s_ids.long(), order, ct, 10)
     with pytest.raises(ValueError, match="int64"):
-        teg.merge_scatter(ids.int(), ct, 10)
+        teg.merge_scatter(s_ids, order.int(), ct, 10)
+    with pytest.raises(ValueError, match="int32 ids"):
+        teg.merge_scatter(s_ids, order, ct, 2 ** 31)
     table = torch.zeros(10, 4, device=card, requires_grad=True)
     before = teg.merge_scatter_launches
     teg.fused_gather(table, ids).sum().backward()
     torch.cuda.synchronize()
     assert teg.merge_scatter_launches == before + 1
     assert torch.equal(table.grad[:8], torch.ones(8, 4, device=card))
+    assert not table.grad[8:].any()
 
 
 def test_dien_on_the_card_matches_the_cpu(card, monkeypatch):

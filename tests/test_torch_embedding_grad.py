@@ -5,7 +5,11 @@
 to the JAX ``dense_grad_from_updates`` (its Pallas merge-scatter in
 interpret mode) at the shapes and the hot row of
 tests/test_embedding_grad.py, within 1e-5: both sum each id's cotangents in
-f32, in another order. ``FusedEmbedding.seq``, ``l2_from_seq``,
+f32, in another order. So is ``merge_scatter_reference``, the plain version
+of the kernel's own contract (int32 ids sorted stably, the sort's
+permutation, the cotangents unsorted and read through it), also on a pad
+id that takes a quarter of the ids, whose run crosses several of the
+kernel's 256-entry chunks. ``FusedEmbedding.seq``, ``l2_from_seq``,
 ``l2_loss`` and the pools take the JAX table through the bridge and are held
 to the JAX functions within 1e-6 relative (a gather and sums of squares).
 """
@@ -29,24 +33,45 @@ torch.set_num_threads(1)
 # (V, N, D) of tests/test_embedding_grad.py, then its hot row
 CASES = [(1000, 4096, 8, False), (530, 256, 4, False), (100, 2000, 16, False),
          (5000, 64, 8, False), (64, 3000, 8, True)]
+# a history's pad id: a quarter of 3,000 ids, a run across several chunks
+PAD = (700, 3000, 8, "pad")
+IDS = [f"V{v}-N{n}-D{d}" + ("-hot" if h is True else "") for v, n, d, h in CASES]
 
 
 def _case(v, n, d, hot):
     rng = np.random.default_rng(v + n)
-    if hot:
+    if hot is True:
         return np.full(n, 7, np.int32), np.ones((n, d), np.float32)
-    return (rng.integers(0, v, n).astype(np.int32),
-            rng.normal(size=(n, d)).astype(np.float32))
+    ids = rng.integers(0, v, n).astype(np.int32)
+    if hot == "pad":
+        ids[rng.random(n) < 0.25] = 0
+    return ids, rng.normal(size=(n, d)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
 def jax_side():
     return {c: np.asarray(dense_grad_from_updates(
-        *(jnp.asarray(a) for a in _case(*c)), c[0])) for c in CASES}
+        *(jnp.asarray(a) for a in _case(*c)), c[0])) for c in CASES + [PAD]}
 
 
-@pytest.mark.parametrize("case", CASES, ids=[f"V{v}-N{n}-D{d}" + ("-hot" if h else "")
-                                             for v, n, d, h in CASES])
+@pytest.mark.parametrize("case", CASES + [PAD], ids=IDS + ["V700-N3000-D8-pad"])
+def test_merge_scatter_reference_matches_jax(jax_side, case):
+    """The kernel's contract: the cotangents stay unsorted and are read
+    through the stable sort's permutation of the int32 ids."""
+    v = case[0]
+    ids, ct = (torch.from_numpy(a) for a in _case(*case))
+    s_ids, order = teg._sort(ids.long())
+    assert s_ids.dtype == torch.int32 and order.dtype == torch.int64
+    np.testing.assert_array_equal(s_ids.numpy(), np.sort(ids.numpy(), kind="stable"))
+    np.testing.assert_array_equal(order.numpy(), np.argsort(ids.numpy(), kind="stable"))
+    if case is PAD:
+        assert int((s_ids == 0).sum()) > 2 * teg.CHUNK    # crosses chunk boundaries
+    got = teg.merge_scatter_reference(s_ids, order, ct, v)
+    assert got.shape == (v, ct.shape[1]) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), jax_side[case], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
 def test_dense_grad_matches_jax(jax_side, case):
     v = case[0]
     ids, ct = (torch.from_numpy(a) for a in _case(*case))
