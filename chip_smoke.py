@@ -76,10 +76,13 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     versions at SIM's flash-ESU shape (B 8, H 2, Lq = Lk = 16,384, Dh 8,
     the key mask of phase 13's batch: every key valid) and at ragged edges
     (streams of random length, right-padded; causal with
-    Lq ≠ Lk, Dh 64, Lq 1, each with a batch row whose keys are all masked,
-    pinned to mean(V)), the backward kernels twice (the same bits); kernel,
-    plain and library (``scaled_dot_product_attention``, f32,
-    memory-efficient) times and bounds at the path's shape;
+    Lq ≠ Lk, Dh 64, Lq 1, the tensor-core tiles' edges (Lq, Lk not
+    multiples of 16 or 8, Lk < 8), each with a batch row whose keys are
+    all masked, pinned to mean(V)), every kernel twice (the same bits);
+    kernel, plain and library (``scaled_dot_product_attention``, f32,
+    memory-efficient) times at the path's shape, and two bounds: the
+    split-TF32 tensor cores, the SFU's exponentials and the bytes, and the
+    f32 rate of the CUDA cores (``bound_f32_ms``);
 12. SIM at the JAX package's production board shape (the bench's behavior
     batch: 5,000 items, 100 categories, histories of 64, a 16,384-id
     ``hist_long``, dim 8; soft search keeping the top 256, MLP (200, 80),
@@ -123,6 +126,13 @@ BATCH = 4096
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
+SPLIT_TF32_PASSES = 3      # hi·hi + hi·lo + lo·hi: an f32-accurate product
+# exponentials a second: 132 SMs × 16 a clock an SM on the SFU (CUDA C
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) × the H100 SXM's 1.98 GHz boost clock (NVIDIA's data sheet)
+H100_SMS, SFU_EXP_PER_CLOCK, H100_CLOCK_HZ = 132, 16, 1.98e9
+SFU_EXP_RATE = H100_SMS * SFU_EXP_PER_CLOCK * H100_CLOCK_HZ
 KERNELS = ("cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd", "gru_fwd",
            "gru_bwd", "merge_scatter", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # AutoInt's attention at Criteo width: 26 fields + the dense pseudo-field,
@@ -144,10 +154,12 @@ DIEN_LEARN = dict(n_rows=120_000, n_items=40, n_cates=10, seq_len=32, seed=0)
 DIEN_AUC_BAR = 0.55
 # (B, L, H, what): DIEN's recurrences, then the edges
 GRU_SHAPES = ((BATCH, 64, 16, "path"), (300, 7, 64, "ragged"), (1, 1, 8, "tiny"))
-# K5 off the path: ragged causal Lq ≠ Lk, Dh 64, Lq 1 (B, H, Lq, Lk, Dh, causal);
-# batch row 1 of each has every key masked
+# K5 off the path: ragged causal Lq ≠ Lk, Dh 64, Lq 1, then the tensor-core
+# tiles' edges: Lq and Lk not multiples of 16 or 8, Lk < 8, one 16-row causal
+# tile (B, H, Lq, Lk, Dh, causal); batch row 1 of each has every key masked
 FLASH_EDGES = ((3, 2, 1000, 777, 16, True), (2, 2, 600, 900, 64, False),
-               (4, 2, 1, 2000, 8, False))
+               (4, 2, 1, 2000, 8, False), (2, 1, 17, 5, 8, True),
+               (1, 2, 33, 7, 16, False), (2, 2, 16, 16, 8, True))
 SIM_AUC_BAR = 0.64         # tests/test_models_longseq.py:225
 
 
@@ -448,6 +460,7 @@ def _fa_entry(name: str, replaces: str, shapes: list, calls: str,
         "replaces": replaces,
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         **{k: main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        **{k: main[k] for k in ("bound_term", "bound_f32_ms", "bound_f32_by") if k in main},
         "kernel_ms": main["ms"], "per": per,
         "library_calls": calls, "per_shape": shapes,
     }
@@ -1173,19 +1186,30 @@ def needed_pairs(mask, lq: int, causal: bool) -> int:
 
 
 def flash_bound(b: int, h: int, lq: int, lk: int, dh: int, pairs: int, kind: str):
-    """Least time of one flash-attention call on the card: f32 work over the
-    f32 rate against each input read and each output written once, counting
-    the ``pairs`` (batch row, query, key) triples the function needs (every
-    one at the path's shape, whose keys are all valid). fwd: 4·pairs·H·Dh;
-    q, k, v, bias in, o and lse out. dq: 6·…; q, k, v, bias, lse, dO, δ in,
-    dQ out. dkv: 8·…; the same in, dK and dV out."""
+    """Least time of one flash-attention call on the card, counting the
+    ``pairs`` (batch row, query, key) triples the function needs (every one
+    at the path's shape, whose keys are all valid) and each input read and
+    each output written once. fwd: 4·pairs·H·Dh flops; q, k, v, bias in, o
+    and lse out. dq: 6·…; q, k, v, bias, lse, dO, δ in, dQ out. dkv: 8·…;
+    the same in, dK and dV out. One exponential a pair in each.
+
+    Returns (bound_ms, bound_by, bound_term, bound_f32_ms, bound_f32_by):
+    the bound of f32-accurate work as the kernels do it, the largest of
+    three split-TF32 tensor-core passes of the products, the exponentials on
+    the SFU and the bytes (``bound_term`` names which); and the old bound,
+    the flops at the CUDA cores' f32 rate against the bytes."""
     work = pairs * h * dh
     nq, nk, rows = b * h * lq * dh, b * h * lk * dh, b * h * lq
     flops, floats = {"fwd": (4 * work, 2 * nq + 2 * nk + b * lk + rows),
                      "dq": (6 * work, 3 * nq + 2 * nk + b * lk + 2 * rows),
                      "dkv": (8 * work, 2 * nq + 4 * nk + b * lk + 2 * rows)}[kind]
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, 4 * floats / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    t_bytes = 4 * floats / PEAK_BYTES
+    terms = {"tensor cores": SPLIT_TF32_PASSES * flops / PEAK_TF32_FLOPS,
+             "SFU": pairs * h / SFU_EXP_RATE, "bytes": t_bytes}
+    term = max(terms, key=terms.get)
+    t_f32 = flops / PEAK_F32_FLOPS
+    return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term,
+            max(t_f32, t_bytes) * 1e3, "operations" if t_f32 > t_bytes else "bytes")
 
 
 def _sdpa_ms(q, k, v, bias, do, scale, o):
@@ -1222,8 +1246,8 @@ def check_flash_kernels(fl_mod, path_mask) -> list:
     SIM's flash-ESU shape (B 8, H 2, Lq = Lk = 16,384, Dh 8, the key mask
     ``path_mask`` of phase 13's batch) and at ``FLASH_EDGES``, with ragged
     key masks and a batch row 1 whose keys are all masked (mean(V) over
-    the Lk keys); each backward kernel twice, which must give the same
-    bits. The backward kernels take the plain forward's lse and δ, so each
+    the Lk keys, where the batch has a row 1); each kernel twice, which
+    must give the same bits. The backward kernels take the plain forward's lse and δ, so each
     is held alone. Times, the plain versions' and SDPA's at the path's
     shape."""
     from ml_function_tpu_torch.tools.timing import event_ms
@@ -1241,18 +1265,22 @@ def check_flash_kernels(fl_mod, path_mask) -> list:
         else:
             lens = torch.randint(lk // 2, lk + 1, (b,), device="cuda", generator=gen)
             mask = torch.arange(lk, device="cuda")[None, :] < lens[:, None]
-            mask[1] = False
+            if b > 1:
+                mask[1] = False
         bias = torch.where(mask, 0.0, fl_mod.NEG_INF)
         scale = 1.0 / dh ** 0.5
         where = f"(B={b}, H={h}, Lq={lq}, Lk={lk}, Dh={dh}, causal={causal})"
         fwd_args = (q, k, v, bias, scale, causal)
         o, lse = fl_mod.flash_attention_forward(*fwd_args)
+        o2, lse2 = fl_mod.flash_attention_forward(*fwd_args)
         torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            fail(f"flash_fwd differs between two runs at {where}")
         o_ref, lse_ref = fl_mod.flash_attention_reference(*fwd_args)
         err, atol = _check_close(f"flash_fwd o at {where}", o, o_ref)
         live = mask.any(dim=1)
         err_lse, _ = _check_close(f"flash_fwd lse at {where}", lse[live], lse_ref[live])
-        if not path:
+        if not path and b > 1:
             _check_close(f"flash_fwd's all-masked row at {where}", o[1],
                          v[1].mean(dim=1, keepdim=True).expand(-1, lq, -1))
         delta = (do * o_ref).sum(dim=-1)
@@ -1294,11 +1322,12 @@ def check_flash_kernels(fl_mod, path_mask) -> list:
             common["library_max_abs_diff"] = lib_diff
         for kind, errs in (("fwd", [(err, atol), (err_lse, None)]), ("dq", [err_dq]),
                            ("dkv", err_kv)):
-            bound, by = flash_bound(b, h, lq, lk, dh, pairs, kind)
+            bound, by, term, bound_f32, by_f32 = flash_bound(b, h, lq, lk, dh, pairs, kind)
             out[kind].append({**common, **t[kind],
                               "max_abs_err": max(e for e, _ in errs),
                               "max_abs_err_parts": [e for e, _ in errs],
-                              "bound_ms": bound, "bound_by": by})
+                              "bound_ms": bound, "bound_by": by, "bound_term": term,
+                              "bound_f32_ms": bound_f32, "bound_f32_by": by_f32})
     for kind, shapes in out.items():
         for s_ in shapes:
             times = (f"; kernel {s_['ms']:.4f} ms, plain {s_['plain_ms']:.4f} ms, "
@@ -1307,7 +1336,8 @@ def check_flash_kernels(fl_mod, path_mask) -> list:
             print(f"flash_{kind} {s_['shape']} causal={s_['causal']}: max_abs_err "
                   + "/".join(f"{e:.3e}" for e in s_["max_abs_err_parts"])
                   + f", the same bits on a second run{times}; bound "
-                  f"{s_['bound_ms']:.4f} ms ({s_['bound_by']})")
+                  f"{s_['bound_ms']:.4f} ms ({s_['bound_term']}), at the f32 rate "
+                  f"{s_['bound_f32_ms']:.4f} ms")
     replaces = "ml_function_tpu/ops/kernels/flash_attention.py"
     per = "one call at SIM's flash-ESU shape (1 a forward, or a train step)"
     return [_fa_entry("flash_fwd", f"{replaces}:53", out["fwd"],

@@ -51,7 +51,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     built yet, one ``nvcc`` per source, all started together. Returns
     name → compiler output (``-Xptxas -v`` lists registers and spills)."""
     names = sorted(p.stem for p in CSRC.glob("*.cu")) if names is None else list(names)
-    BUILD.mkdir(exist_ok=True)
+    BUILD.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
         so = library_path(name)

@@ -24,6 +24,12 @@
 // reads the same key at once. Each thread writes its own dq row once: no
 // atomics, and the same inputs give the same bits.
 //
+// This kernel still runs its products on the CUDA cores. flash.cuh holds the
+// split-TF32 tensor-core pieces that flash_fwd.cu and flash_bwd_dkv.cu are
+// built from (fragments, the key permutation, staging of split tiles); dQ is
+// the forward's grid with dS.K in place of P.V, so it can take them up as
+// they are.
+//
 // Launches go on the caller's stream. Nothing here synchronises or allocates.
 
 #include "flash.cuh"
@@ -68,7 +74,7 @@ __global__ void __launch_bounds__(flash::THREADS)
     for (int j = 0; j < n; ++j) {
       const float* kr = ks + j * DP;
       const float s = flash::logit(flash::dot<DP>(qr, kr), scale, bs[j], row, t0 + j, causal);
-      const float p = __expf(s - lrow);
+      const float p = flash::fast_exp(s - lrow);
       const float ds = p * (flash::dot<DP>(dor, vs + j * DP) - drow);
 #pragma unroll
       for (int c = 0; c < DP; ++c) acc[c] = fmaf(ds, kr[c], acc[c]);

@@ -159,9 +159,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return FlashAttention.apply(q, k, v, bias, scale, bool(causal))
 
 
-def _shape(what: str, **t: torch.Tensor):
-    """(B, H, Lq, Lk, Dh); raises ``ValueError`` on what the kernels do not
-    take."""
+def _shape(what: str, kind: str, **t: torch.Tensor):
+    """(B, H, Lq, Lk, Dh); raises ``ValueError`` on what the ``kind``
+    kernel ("fwd", "dq" or "dkv") does not take."""
     check_cuda_inputs(what, NDIMS, **t)
     b, h, lq, dh = t["q"].shape
     lk = t["k"].shape[2]
@@ -178,7 +178,10 @@ def _shape(what: str, **t: torch.Tensor):
     if min(b, h, lq, lk) < 1:
         raise ValueError(f"{what}: shape (B={b}, H={h}, Lq={lq}, Lk={lk}) has no "
                          "(query, key) pair")
-    if -(-lq // 128) > 65535 or b * h * max(lq, lk) * dh >= 2 ** 31:
+    # grid rows: 128 queries a block (forward, dQ); 128 keys a block in
+    # dK/dV, 64 at a padded Dh of 64
+    rows, per_block = (lk, 64 if dh > 32 else 128) if kind == "dkv" else (lq, 128)
+    if -(-rows // per_block) > 65535 or b * h * max(lq, lk) * dh >= 2 ** 31:
         raise ValueError(f"{what}: shape (B={b}, H={h}, Lq={lq}, Lk={lk}, "
                          f"Dh={dh}) is beyond the kernels' grid and indexing")
     return b, h, lq, lk, dh
@@ -210,7 +213,7 @@ def flash_attention_forward(q, k, v, bias, scale: float, causal: bool = False):
     of ``flash_attention_reference``. Raises on anything the kernel does not
     take; never runs the plain version."""
     global flash_fwd_launches
-    shape = _shape("flash_attention", q=q, k=k, v=v, bias=bias)
+    shape = _shape("flash_attention", "fwd", q=q, k=k, v=v, bias=bias)
     b, h, lq, _, _ = shape
     o, lse = torch.empty_like(q), q.new_empty((b, h, lq))
     _call("flash_fwd", (q, k, v, bias, o, lse), scale, causal, shape, q.device)
@@ -224,8 +227,8 @@ def flash_attention_backward_dq(q, k, v, bias, lse, do, delta, scale: float,
     ``flash_attention_backward_reference``. Raises on anything the kernel
     does not take; never runs the plain version."""
     global flash_bwd_dq_launches
-    shape = _shape("flash_attention backward (dq)", q=q, k=k, v=v, bias=bias,
-                   lse=lse, do=do, delta=delta)
+    shape = _shape("flash_attention backward (dq)", "dq", q=q, k=k, v=v,
+                   bias=bias, lse=lse, do=do, delta=delta)
     dq = torch.empty_like(q)
     _call("flash_bwd_dq", (q, k, v, bias, lse, do, delta, dq), scale, causal,
           shape, q.device)
@@ -240,8 +243,8 @@ def flash_attention_backward_dkv(q, k, v, bias, lse, do, delta, scale: float,
     (no atomics). Raises on anything the kernel does not take; never runs
     the plain version."""
     global flash_bwd_dkv_launches
-    shape = _shape("flash_attention backward (dk, dv)", q=q, k=k, v=v, bias=bias,
-                   lse=lse, do=do, delta=delta)
+    shape = _shape("flash_attention backward (dk, dv)", "dkv", q=q, k=k, v=v,
+                   bias=bias, lse=lse, do=do, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call("flash_bwd_dkv", (q, k, v, bias, lse, do, delta, dk, dv), scale, causal,
           shape, q.device)

@@ -14,8 +14,11 @@ B 4096, and three runs must give the same bits.
 The flash-attention kernels are held to their plain versions at SIM's
 flash-ESU shape (B 8, H 2, Lq = Lk = 16,384, Dh 8, the key mask of a
 hard-searched stream) and at ragged edges (causal with Lq ≠ Lk, Dh from 1
-to 64, Lq 1, a batch row whose keys are all masked, which gets mean(V)),
-and the two backward kernels must give the same bits on a second run.
+to 64, Lq 1, a batch row whose keys are all masked, which gets mean(V), and
+the tensor-core tiles' edges: Lq, Lk not multiples of 8 or 16, Lk < 8), and
+all three must give the same bits on a second run. The split-TF32 forward
+and dK/dV kernels are also held to the plain versions in f64 at
+(2, 2, 2048, 2048) for Dh 8 and 64, within 1e-5 of max|f64|.
 
 This file imports nothing of JAX, so it also runs on a machine with the card
 and without JAX, where tests/conftest.py (which imports JAX) and the
@@ -428,11 +431,16 @@ def test_dien_on_the_card_matches_the_cpu(card, monkeypatch):
 
 
 # (B, H, Lq, Lk, Dh, causal): SIM's flash-ESU shape, then the edges; row 1 of
-# every batch but the first has every key masked
+# every batch but the first has every key masked. The last three are the
+# tensor-core kernels' tile edges: Lq and Lk that are not multiples of 16
+# or 8, Lk < 8 (at least 3 valid keys: with one, every weight is 1, dQ and
+# dK are exactly zero and both sides hold only rounding noise), and one
+# 16-row tile on the causal diagonal.
 FLASH_SHAPES = [(8, 2, 16384, 16384, 8, False), (3, 2, 1000, 777, 16, True),
                 (2, 2, 600, 900, 64, False), (4, 2, 1, 2000, 8, False),
                 (2, 3, 130, 129, 1, True), (2, 1, 70, 300, 20, False),
-                (2, 1, 40, 50, 33, True)]
+                (2, 1, 40, 50, 33, True), (2, 1, 17, 5, 8, True),
+                (1, 2, 33, 7, 16, False), (2, 2, 16, 16, 8, True)]
 
 
 def _flash_inputs(card, b, h, lq, lk, dh, path):
@@ -443,7 +451,7 @@ def _flash_inputs(card, b, h, lq, lk, dh, path):
     k, v = (torch.randn(b, h, lk, dh, device=card, generator=gen) for _ in range(2))
     lens = torch.randint(lk // 2, lk + 1, (b,), device=card, generator=gen)
     mask = torch.arange(lk, device=card)[None, :] < lens[:, None]
-    if not path:
+    if not path and b > 1:
         mask[1] = False
     return q, k, v, mask, do
 
@@ -458,6 +466,8 @@ def test_flash_kernels_match_plain_versions(card, b, h, lq, lk, dh, causal):
                       tfl.flash_bwd_dkv_launches)
     before = counts()
     o = tfl.flash_attention(q, k, v, mask, causal=causal)
+    o2, lse2 = tfl.flash_attention_forward(q, k, v, bias, scale, causal)
+    o3, lse3 = tfl.flash_attention_forward(q, k, v, bias, scale, causal)
     o_ref, lse = tfl.flash_attention_reference(q, k, v, bias, scale, causal)
     delta = (do * o_ref).sum(dim=-1)
     args = (q, k, v, bias, lse, do, delta, scale, causal)
@@ -466,13 +476,76 @@ def test_flash_kernels_match_plain_versions(card, b, h, lq, lk, dh, causal):
     again = (tfl.flash_attention_backward_dq(*args),
              *tfl.flash_attention_backward_dkv(*args))
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 1, before[1] + 2, before[2] + 2)
+    assert counts() == (before[0] + 3, before[1] + 2, before[2] + 2)
     _close(o, o_ref)
+    live = mask.any(dim=1)
+    _close(lse2[live], lse[live])
+    assert torch.equal(o, o2) and torch.equal(o2, o3) and torch.equal(lse2, lse3)
     for g, w in zip((dq, dk, dv), tfl.flash_attention_backward_reference(*args)):
         _close(g, w)
     assert all(torch.equal(a, b_) for a, b_ in zip((dq, dk, dv), again))
-    if not path:     # row 1: every key masked, mean(V) over the Lk keys
+    if not path and b > 1:     # row 1: every key masked, mean(V) over the Lk keys
         _close(o[1], v[1].mean(dim=1, keepdim=True).expand(-1, lq, -1))
+
+
+@pytest.mark.parametrize("dh", [8, 64])
+def test_tensor_core_flash_kernels_are_f32_accurate(card, dh):
+    """The split-TF32 forward and dK/dV kernels against their plain
+    versions in f64, every key valid, lse and δ from the f64 forward: o, dk
+    and dv within 1e-5 of max|f64| and lse within 1e-5 absolute, the bar of
+    an f32 computation (one-pass TF32 errs by some 3e-4)."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    b, h, l = 2, 2, 2048
+    q, k, v, do = (torch.randn(b, h, l, dh, device=card, generator=gen) for _ in range(4))
+    bias = torch.zeros(b, l, device=card)
+    scale = dh ** -0.5
+    f64 = [t.double() for t in (q, k, v, bias)]
+    o64, lse64 = tfl.flash_attention_reference(*f64, scale)
+    delta64 = (do.double() * o64).sum(dim=-1)
+    _, dk64, dv64 = tfl.flash_attention_backward_reference(*f64, lse64, do.double(),
+                                                           delta64, scale)
+    o, lse = tfl.flash_attention_forward(q, k, v, bias, scale)
+    dk, dv = tfl.flash_attention_backward_dkv(q, k, v, bias, lse64.float(), do,
+                                              delta64.float(), scale)
+    torch.cuda.synchronize()
+    for got, want in ((o, o64), (dk, dk64), (dv, dv64)):
+        assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
+    assert (lse.double() - lse64).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("dh", [8, 64])
+def test_tensor_core_flash_kernels_do_not_shrink(card, dh):
+    """The tensor cores truncate where f32 rounds to nearest; an error with
+    the sign of the value would shrink o, dk and dv by one share, which a
+    long sum downstream keeps. Their shrink against the plain versions in
+    f64 (the mean of err · sign(f64) over mean |f64|) stays within 2^-22,
+    four f32 steps at 2^-24, where the plain f32 versions' is printed
+    beside it."""
+    gen = torch.Generator(device=card).manual_seed(12)
+    b, h, l = 2, 2, 2048
+    q, k, v, do = (torch.randn(b, h, l, dh, device=card, generator=gen) for _ in range(4))
+    bias = torch.zeros(b, l, device=card)
+    scale = dh ** -0.5
+    f64 = [t.double() for t in (q, k, v, bias)]
+    o64, lse64 = tfl.flash_attention_reference(*f64, scale)
+    delta64 = (do.double() * o64).sum(dim=-1)
+    bwd = (lse64.float(), do, delta64.float(), scale)
+    _, dk64, dv64 = tfl.flash_attention_backward_reference(*f64, lse64, do.double(),
+                                                           delta64, scale)
+    kernels = (tfl.flash_attention_forward(q, k, v, bias, scale)[0],
+               *tfl.flash_attention_backward_dkv(q, k, v, bias, *bwd))
+    plain = (tfl.flash_attention_reference(q, k, v, bias, scale)[0],
+             *tfl.flash_attention_backward_reference(q, k, v, bias, *bwd)[1:])
+    torch.cuda.synchronize()
+
+    def shrink(got, want):
+        return (((got.double() - want) * want.sign()).mean() / want.abs().mean()).item()
+
+    exact = (o64, dk64, dv64)
+    got = [shrink(g, w) for g, w in zip(kernels, exact)]
+    print(f"Dh {dh}: shrink of o, dk, dv {got}; plain f32 "
+          f"{[shrink(g, w) for g, w in zip(plain, exact)]}")
+    assert max(abs(x) for x in got) <= 2.0 ** -22
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(card):

@@ -148,3 +148,78 @@ def test_no_mask_and_default_scale_match_jax():
     got = tfl.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
     want = jax_flash_attention(*(jnp.asarray(a) for a in (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits), to nearest even, on its int32
+    view."""
+    bits = x.contiguous().view(torch.int32)
+    bits = (bits + 0xFFF + ((bits >> 13) & 1)) & ~0x1FFF
+    return bits.view(torch.float32)
+
+
+def _split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernels' product: a = hi + lo, b = hi + lo with hi = tf32(x) and
+    lo = tf32(x − hi), and lo·hi + hi·lo + hi·hi summed in f32. A product of
+    two TF32 values is exact in f32, so f32 matmuls of the parts emulate the
+    tensor cores up to the order of the f32 sums."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+@pytest.mark.parametrize("dh", [8, 64])
+def test_split_tf32_products_are_f32_accurate(dh):
+    """The precision argument of the tensor-core flash kernels, on the CPU:
+    q·kᵀ·scale and P·V by split TF32, on standard-normal inputs, within
+    2e-6 of max|f64| (the kernels' card bar against f64 is 1e-5 for o, dk
+    and dv; this leaves room for the exponential and the online softmax).
+    One-pass TF32 is printed beside it, not asserted. (The kernels round hi
+    on its bits and leave lo to the tensor cores' truncation;
+    tests/test_torch_flash_mma.py models exactly that.)"""
+    rng = np.random.default_rng(dh)
+    q = torch.from_numpy(rng.standard_normal((64, dh)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((512, dh)).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal((512, dh)).astype(np.float32))
+    scale = dh ** -0.5
+    s64 = (q.double() @ k.double().T) * scale
+    p64 = torch.softmax(s64, dim=-1)
+    o64 = p64 @ v.double()
+    p = p64.float()
+
+    def rel(got, want):
+        return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+    split = {"logits": rel(_split_tf32_matmul(q, k.T) * scale, s64),
+             "p_v": rel(_split_tf32_matmul(p, v), p.double() @ v.double())}
+    one_pass = {"logits": rel((_tf32(q) @ _tf32(k).T) * scale, s64),
+                "p_v": rel(_tf32(p) @ _tf32(v), p.double() @ v.double())}
+    print(f"Dh {dh}: split TF32 {split}, one-pass TF32 {one_pass}, "
+          f"o {rel(_split_tf32_matmul(p, v), o64)}")
+    assert max(split.values()) < 2e-6
+
+
+# (kind, Lq, Lk, Dh, taken): each kernel's grid has 65,535 rows of blocks at
+# most, 128 query rows a block in the forward and dQ, 128 key rows in dK/dV
+# (64 at a padded Dh of 64)
+GRID_CASES = [("fwd", 8_000_000, 8, 8, True), ("dq", 8_000_000, 8, 8, True),
+              ("fwd", 8_400_000, 8, 8, False), ("dkv", 8, 8_000_000, 32, True),
+              ("dkv", 8, 8_000_000, 64, False), ("dkv", 8, 4_000_000, 64, True)]
+
+
+@pytest.mark.parametrize("kind, lq, lk, dh, taken", GRID_CASES)
+def test_grid_limit_is_each_kernels_own(kind, lq, lk, dh, taken, monkeypatch):
+    """The wrappers refuse a shape by the grid of the kernel they launch,
+    not by the narrowest block of the three (meta tensors: no memory)."""
+    monkeypatch.setattr(tfl, "check_cuda_inputs", lambda *a, **k: None)
+    meta = dict(device="meta", dtype=torch.float32)
+    t = {"q": torch.empty(1, 1, lq, dh, **meta), "k": torch.empty(1, 1, lk, dh, **meta),
+         "v": torch.empty(1, 1, lk, dh, **meta), "bias": torch.empty(1, lk, **meta)}
+    if kind != "fwd":
+        t.update(lse=torch.empty(1, 1, lq, **meta), do=torch.empty(1, 1, lq, dh, **meta),
+                 delta=torch.empty(1, 1, lq, **meta))
+    if taken:
+        assert tfl._shape("test", kind, **t) == (1, 1, lq, lk, dh)
+    else:
+        with pytest.raises(ValueError, match="grid"):
+            tfl._shape("test", kind, **t)
