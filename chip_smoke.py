@@ -15,9 +15,11 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    the main paths give them, with kernel, plain, library and bound times:
    the CIN forward, the CIN backward (whose outputs must also be the same
    bits on three runs; each of its four launches timed by the profiler),
-   and the field-attention forward and backward, also at the
-   two edges of their gate with a random key mask and one batch row whose
-   keys are all masked (uniform weights over all keys);
+   and the field-attention forward and backward (the backward twice, the
+   same bits, and each shape's instance named), also at the two edges of
+   their gate, at AutoInt's L with Dh 13 and a ragged B, and at SIM's top-8
+   ESU, with a random key mask and one batch row whose keys are all masked
+   (uniform weights over all keys);
 4. serving: full-width xDeepFM on the Criteo schema (26 fields of 100k ids,
    dim 8, CIN (128, 128), MLP (256, 128)) with seeded random weights,
    exported and scored through ``load_scorer`` → ``Scorer.predict_proba`` on
@@ -138,7 +140,10 @@ KERNELS = ("cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd", "gru_fwd",
 # AutoInt's attention at Criteo width: 26 fields + the dense pseudo-field,
 # 2 heads of 16; then the gate's two edges (lq·lk = 4096, Dh 64; Lk 4096)
 FA_MAIN = (BATCH, 27, 27, 2, 16)
-FA_EDGES = ((512, 64, 64, 2, 64), (300, 1, 4096, 2, 8))
+# the gate's two edges (the backward's block instance), then the warp
+# instance's 4-byte copies at AutoInt's L with a ragged B, and SIM's top-8 ESU
+FA_EDGES = ((512, 64, 64, 2, 64), (300, 1, 4096, 2, 8), (1001, 27, 27, 2, 13),
+            (129, 8, 8, 2, 4))
 RTOL = 1e-3                # same rounding sites; only the f32 summation order differs
 # Ids per field of the learning phase. At 1,000 the 262,144 rows overfit
 # from the first epoch on, DeepFM (which runs no kernel) as much as xDeepFM:
@@ -395,6 +400,10 @@ def check_field_attn_kernels(fa_mod) -> list:
                 for name, g, r in zip(("dq", "dk", "dv"), grads,
                                       fa_mod.field_attention_backward_reference(
                                           q, k, v, bias, do, scale))]
+        again = fa_mod.field_attention_backward(q, k, v, bias, do, scale)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            fail(f"field_attn_bwd differs between two runs at {where}")
 
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         mask4 = bias[:, None, None, :]
@@ -417,7 +426,8 @@ def check_field_attn_kernels(fa_mod) -> list:
             "bound_ms": fb, "bound_by": fby})
         bb, bby = fa_bound(b, lq, lk, h, dh, backward=True)
         bwd_shapes.append({
-            **common, "max_abs_err": max(e for e, _ in errs),
+            **common, "instance": fa_mod.backward_instance(q, k, v, bias),
+            "max_abs_err": max(e for e, _ in errs),
             "max_abs_err_dq_dk_dv": [e for e, _ in errs],
             "atol_dq_dk_dv": [a for _, a in errs],
             "ms": event_ms(lambda: fa_mod.field_attention_backward(
@@ -433,7 +443,8 @@ def check_field_attn_kernels(fa_mod) -> list:
               f"(max |diff| {s['library_max_abs_diff']:.3e}), bound "
               f"{s['bound_ms']:.4f} ms ({s['bound_by']})")
     for s in bwd_shapes:
-        print(f"field_attn_bwd {s['shape']} masked={s['masked']}: max_abs_err dq/dk/dv "
+        print(f"field_attn_bwd {s['shape']} masked={s['masked']} ({s['instance']}): "
+              "the same bits on a second run, max_abs_err dq/dk/dv "
               + "/".join(f"{e:.3e}" for e in s["max_abs_err_dq_dk_dv"])
               + " (atol " + "/".join(f"{a:.3e}" for a in s["atol_dq_dk_dv"])
               + f"), kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library "

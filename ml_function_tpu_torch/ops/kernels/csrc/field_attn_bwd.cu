@@ -1,5 +1,6 @@
 // Field-attention backward for Hopper (sm_90a), with a plain C interface for
-// ctypes.
+// ctypes: two instances of one contract, chosen by the wrapper from the
+// shape (kernels/field_attention.py).
 //
 // Replaces ml_function_tpu/ops/kernels/field_attention.py::_bwd_kernel
 // (launched there by _call with three outputs, from the custom vjp). For each
@@ -9,29 +10,293 @@
 //   dV = a^T dO,  dA = dO V^T,  dS = a * (dA - rowsum(a * dA)),
 //   dQ = scale * dS K,  dK = scale * dS^T Q
 //
-// all f32 on the CUDA cores, as the reference. The bias gets no gradient.
+// all f32 FMAs on the CUDA cores, as the reference. a is formed as the plain
+// version forms it: the logit times scale, then plus the bias (two
+// roundings), expf(s - max) and a division by the sum. The bias gets no
+// gradient.
 //
 // What bounds it on the H100: at AutoInt's shape (B 4096, L 27, H 2, Dh 16)
 // it does about 10 * B * H * Lq * Lk * Dh = 955 MFLOP (14 us at 67 TFLOP/s)
-// for 99 MB in and out (30 us at 3.35 TB/s): memory bounds it. As written it
-// takes about 0.36 ms there on an H100 80GB HBM3 at 700 W (chip_smoke.py),
-// 12x that bound, for the reason the forward's note gives: five serial phases
-// a block, each issue-bound on loads and index arithmetic around its FMAs.
+// for 99 MB in and out (30 us at 3.35 TB/s): memory bounds it. There the
+// warp instance takes 0.103-0.108 ms on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py), against 0.358-0.365 ms for the block instance (the
+// kernel it replaced on that shape) and 0.48-0.55 ms for SDPA's f32
+// backward, in the same call: 3.5x its bound. What holds it there, by
+// inference: a block copies in, computes and copies out with nothing
+// overlapped inside it, and shared memory (55 KB a block) keeps 16 warps an
+// SM; about 3,700 instructions a (b, h) pair, 30 M in all, would take some
+// 30 us at full issue.
 //
-// Design: one block of 128 threads per (b, h), reading q, k, v, dO in their
-// (B, L, H, Dh) layout and writing dQ, dK, dV in it, with no transposes. The
-// weights a and the cotangent dA (then dS, in place) are two (Lq, Lk)
-// matrices held whole in shared memory, 32 KB at most under the gate; row
-// tiles of q and k, then of dO and v, are staged for the two Gram products,
-// and the three products with a or dS read their right-hand rows through L1.
-// Neither a nor dS reaches device memory. Each block writes its own rows of
-// dQ, dK and dV: no atomics, and the same inputs give the same bits.
+// field_attn_bwd_warp, for Lq, Lk <= 32, Dh <= 16 and H <= 8 (AutoInt's
+// layers, SIM's top-8 ESU): one warp a (b, h). A block takes max(1, 4 / H)
+// whole batch rows, all their heads, so that q, k, v and dO of the block are
+// contiguous: it copies them into shared memory with coalesced loads (16
+// bytes a lane where Dh is a multiple of 4), each (b, l) row padded so that
+// lanes reading neighbouring rows hit distinct banks, and Dh padded with
+// zeros to DP (8 or 16). In a first pass lane i owns query i: it forms its
+// logits with k_j broadcast from shared memory into its own column of a
+// (Lk, Lq) matrix a^T, so the row's max, sum and rowsum(a * dA) are sums in
+// one lane, in key order, with no shuffles; then dA_i, dS_i (in a second
+// matrix) and dQ_i = scale * sum_j dS_ij k_j. In a second pass lane j owns
+// key j and forms dV_j and dK_j from row j of a^T and dS^T, with q_i and
+// dO_i broadcast. dQ, dK and dV are written into the slots of
+// q, k and v and copied out by the block with coalesced stores. Nothing
+// depends on another warp between the copies: the serial phases of the
+// block kernel are gone.
+//
+// field_attn_bwd, for every other shape inside the gate (Lq * Lk <= 4096,
+// Dh <= 64): one block of 128 threads per (b, h). The weights a and the
+// cotangent dA (then dS, in place) are two (Lq, Lk) matrices held whole in
+// shared memory, 32 KB at most under the gate; row tiles of q and k, then of
+// dO and v, are staged for the two Gram products, and the three products
+// with a or dS read their right-hand rows through L1. It runs five serial
+// phases a block, each issue-bound on loads and index arithmetic around its
+// FMAs.
+//
+// Neither a nor dS reaches device memory in either instance; each block
+// writes its own rows of dQ, dK and dV: no atomics, and the same inputs give
+// the same bits.
 //
 // Launches go on the caller's stream. Nothing here synchronises or allocates.
+
+#include <type_traits>
 
 #include "field_attn.cuh"
 
 namespace {
+
+// ---- field_attn_bwd_warp: one warp a (b, h) ----
+
+constexpr int WARP_L = 32;       // queries or keys a warp takes, one a lane
+constexpr int WARP_PAIRS = 4;    // (b, h) pairs a block takes where H < 4
+constexpr int WARP_MAX_H = 8;    // so a block has at most 8 warps
+
+// Floats of one (b, l) row of a staged slab: H heads of DP floats and 4
+// more, so that the 16-byte loads of 8 lanes reading 8 neighbouring rows hit
+// 32 distinct banks (DP is a multiple of 8, so the stride / 4 is odd).
+__host__ __device__ inline int slab_stride(int h, int dp) { return h * dp + 4; }
+
+// Batch rows of one block.
+__host__ __device__ inline int warp_rows(int h) { return h < WARP_PAIRS ? WARP_PAIRS / h : 1; }
+
+// Row stride of a warp's (Lk, Lq) matrices a^T and dS^T: odd, so that lanes
+// reading one column each (lane j, row j) hit distinct banks.
+__host__ __device__ inline int mat_ld(int lq) { return lq | 1; }
+
+// Floats of shared memory: the slabs of q and dO (Lq rows), k and v (Lk
+// rows), the bias (rounded up to 4 floats) and each warp's a^T and dS^T.
+size_t warp_smem_floats(int lq, int lk, int h, int dp) {
+  const size_t nb = warp_rows(h), s = slab_stride(h, dp);
+  return nb * (2 * lq + 2 * lk) * s + (nb * lk + 3) / 4 * 4 + nb * h * 2 * lk * mat_ld(lq);
+}
+
+// The column of a slab that thread threadIdx.x copies, at every step of
+// rows: 16 bytes (VEC) or 4 of one head's row. blockDim.x, 32 * H times
+// the batch rows, is a multiple of a row's units (H * DP / 4 or H * DP), so
+// the column stays the same and the loops divide nothing.
+template <int DP, bool VEC>
+struct SlabCol {
+  static constexpr int W = VEC ? 4 : 1;   // floats a unit
+  int per, step, rl0, off, src;           // units a row, rows a step, first row, offsets
+  bool live;                              // the column lies inside dh
+  __device__ __forceinline__ SlabCol(int h, int dh) {
+    per = h * DP / W;
+    step = blockDim.x / per;
+    rl0 = threadIdx.x / per;
+    const int rem = threadIdx.x % per, hh = rem / (DP / W), c = W * (rem % (DP / W));
+    off = W * rem;
+    src = hh * dh + c;
+    live = c < dh;
+  }
+};
+
+// The slabs of nb batch rows of two (B, L, H, dh) tensors, from sa and sb
+// (their first rows) into da and db, each head's row padded with zeros to
+// DP; unrolled, so that several loads of each thread are in flight.
+template <int DP, bool VEC>
+__device__ __forceinline__ void slabs_in(float* da, float* db, const float* __restrict__ sa,
+                                         const float* __restrict__ sb, int nb, int l, int h,
+                                         int dh) {
+  using T = typename std::conditional<VEC, float4, float>::type;
+  const SlabCol<DP, VEC> col(h, dh);
+  const int s = slab_stride(h, DP);
+#pragma unroll 4
+  for (int rl = col.rl0; rl < nb * l; rl += col.step) {
+    T x{}, y{};
+    if (col.live) {
+      const size_t g = size_t(rl) * h * dh + col.src;
+      x = __ldg(reinterpret_cast<const T*>(sa + g));
+      y = __ldg(reinterpret_cast<const T*>(sb + g));
+    }
+    *reinterpret_cast<T*>(da + rl * s + col.off) = x;
+    *reinterpret_cast<T*>(db + rl * s + col.off) = y;
+  }
+}
+
+// The reverse of slabs_in for one tensor: the first dh floats of each
+// head's row to dst.
+template <int DP, bool VEC>
+__device__ __forceinline__ void slab_out(float* __restrict__ dst, const float* src, int nb, int l,
+                                         int h, int dh) {
+  using T = typename std::conditional<VEC, float4, float>::type;
+  const SlabCol<DP, VEC> col(h, dh);
+  if (!col.live) return;
+  const int s = slab_stride(h, DP);
+#pragma unroll 4
+  for (int rl = col.rl0; rl < nb * l; rl += col.step)
+    *reinterpret_cast<T*>(dst + size_t(rl) * h * dh + col.src) =
+        *reinterpret_cast<const T*>(src + rl * s + col.off);
+}
+
+// x[0..DP) = the DP floats at p (16-byte aligned), as float4s.
+template <int DP>
+__device__ __forceinline__ void load_row(float (&x)[DP], const float* p) {
+#pragma unroll
+  for (int c = 0; c < DP; c += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p + c);
+    x[c] = f.x;
+    x[c + 1] = f.y;
+    x[c + 2] = f.z;
+    x[c + 3] = f.w;
+  }
+}
+
+// The DP floats x * scale to p (16-byte aligned), as float4s.
+template <int DP>
+__device__ __forceinline__ void store_row(float* p, const float (&x)[DP], float scale) {
+#pragma unroll
+  for (int c = 0; c < DP; c += 4)
+    *reinterpret_cast<float4*>(p + c) =
+        make_float4(x[c] * scale, x[c + 1] * scale, x[c + 2] * scale, x[c + 3] * scale);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(32 * WARP_MAX_H, 2)
+    field_attn_bwd_warp_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ bias,
+                               const float* __restrict__ dout, float* __restrict__ dq,
+                               float* __restrict__ dk, float* __restrict__ dv, float scale,
+                               int nbatch, int lq, int lk, int h, int dh, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int rows = warp_rows(h), s = slab_stride(h, DP), ld = mat_ld(lq);
+  const int b0 = blockIdx.x * rows, nb = min(rows, nbatch - b0);
+  float* qs = smem;                    // (rows, lq) rows of H heads: q, then dQ
+  float* dos = qs + rows * lq * s;     // dO
+  float* ks = dos + rows * lq * s;     // (rows, lk): k, then dK
+  float* vs = ks + rows * lk * s;      // v, then dV
+  float* bs = vs + rows * lk * s;      // (rows, lk) bias
+  float* mats = bs + (rows * lk + 3) / 4 * 4;   // a^T and dS^T of each warp, (lk, ld)
+  const size_t qoff = size_t(b0) * lq * h * dh, koff = size_t(b0) * lk * h * dh;
+  if (vec) {
+    slabs_in<DP, true>(qs, dos, q + qoff, dout + qoff, nb, lq, h, dh);
+    slabs_in<DP, true>(ks, vs, k + koff, v + koff, nb, lk, h, dh);
+  } else {
+    slabs_in<DP, false>(qs, dos, q + qoff, dout + qoff, nb, lq, h, dh);
+    slabs_in<DP, false>(ks, vs, k + koff, v + koff, nb, lk, h, dh);
+  }
+  for (int e = threadIdx.x; e < nb * lk; e += blockDim.x) bs[e] = bias[size_t(b0) * lk + e];
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bl = warp / h, hh = warp % h;
+  if (bl < nb) {
+    float* qh = qs + bl * lq * s + hh * DP;    // query i at qh + i * s
+    const float* doh = dos + bl * lq * s + hh * DP;
+    float* kh = ks + bl * lk * s + hh * DP;    // key j at kh + j * s
+    float* vh = vs + bl * lk * s + hh * DP;
+    const float* bh = bs + bl * lk;
+    float* at = mats + warp * 2 * lk * ld;     // a^T: (key j, query i) at j * ld + i
+    float* dst = at + lk * ld;                 // dA^T, then dS^T
+    const bool query = lane < lq, key = lane < lk;
+
+    // pass 1, lane i on query i: its softmax row in a^T's column i, so the
+    // row's max, sum and rowsum(a * dA) are sums in one lane, in key order,
+    // with no shuffles; then dA_i, dS_i and dQ_i
+    float dqa[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) dqa[c] = 0.f;
+    if (query) {
+      float x[DP], y[DP];
+      float* ai = at + lane;     // a_ij at ai[j * ld]
+      float* di = dst + lane;    // dA_ij, then dS_ij
+      load_row<DP>(x, qh + lane * s);
+      float m = -CUDART_INF_F;
+#pragma unroll 4
+      for (int j = 0; j < lk; ++j) {
+        load_row<DP>(y, kh + j * s);
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) d = fmaf(x[c], y[c], d);
+        const float lg = __fadd_rn(__fmul_rn(d, scale), bh[j]);
+        ai[j * ld] = lg;
+        m = fmaxf(m, lg);
+      }
+      float sum = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < lk; ++j) {
+        const float e = expf(ai[j * ld] - m);
+        ai[j * ld] = e;
+        sum += e;
+      }
+      float rs = 0.f;
+      load_row<DP>(x, doh + lane * s);
+#pragma unroll 4
+      for (int j = 0; j < lk; ++j) {
+        const float a = ai[j * ld] / sum;
+        load_row<DP>(y, vh + j * s);
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) d = fmaf(x[c], y[c], d);
+        ai[j * ld] = a;
+        di[j * ld] = d;
+        rs += a * d;
+      }
+#pragma unroll 4
+      for (int j = 0; j < lk; ++j) {
+        const float ds = ai[j * ld] * (di[j * ld] - rs);
+        di[j * ld] = ds;
+        load_row<DP>(y, kh + j * s);
+#pragma unroll
+        for (int c = 0; c < DP; ++c) dqa[c] = fmaf(ds, y[c], dqa[c]);
+      }
+    }
+    __syncwarp();
+
+    // pass 2, lane j on key j: dV_j = sum_i a_ij dO_i, dK_j = scale sum_i dS_ij q_i
+    float dka[DP], dva[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) dka[c] = dva[c] = 0.f;
+    for (int i = 0; i < lq; ++i) {
+      const float wa = key ? at[lane * ld + i] : 0.f, wd = key ? dst[lane * ld + i] : 0.f;
+      float qi[DP], di[DP];
+      load_row<DP>(qi, qh + i * s);
+      load_row<DP>(di, doh + i * s);
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        dva[c] = fmaf(wa, di[c], dva[c]);
+        dka[c] = fmaf(wd, qi[c], dka[c]);
+      }
+    }
+    __syncwarp();   // every lane has read the q rows that dQ replaces
+    if (query) store_row<DP>(qh + lane * s, dqa, scale);
+    if (key) {
+      store_row<DP>(kh + lane * s, dka, scale);
+      store_row<DP>(vh + lane * s, dva, 1.f);
+    }
+  }
+  __syncthreads();
+  if (vec) {
+    slab_out<DP, true>(dq + qoff, qs, nb, lq, h, dh);
+    slab_out<DP, true>(dk + koff, ks, nb, lk, h, dh);
+    slab_out<DP, true>(dv + koff, vs, nb, lk, h, dh);
+  } else {
+    slab_out<DP, false>(dq + qoff, qs, nb, lq, h, dh);
+    slab_out<DP, false>(dk + koff, ks, nb, lk, h, dh);
+    slab_out<DP, false>(dv + koff, vs, nb, lk, h, dh);
+  }
+}
+
+// ---- field_attn_bwd: one block a (b, h) ----
 
 // dS = a * (dA - rowsum(a * dA)) in place of dA, one warp a row.
 __device__ void ds_rows(const float* a, float* da, int nr, int nc) {
@@ -93,6 +358,46 @@ int field_attn_bwd(const float* q, const float* k, const float* v, const float* 
   if (err != cudaSuccess) return static_cast<int>(err);
   field_attn_bwd_kernel<<<dim3(b, h), fa::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, bias, dout, dq, dk, dv, scale, lq, lk, h, dh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract for Lq, Lk <= 32, Dh <= 16 and H <= 8 (the wrapper's
+// choice); anything else returns cudaErrorInvalidValue and launches nothing.
+int field_attn_bwd_warp(const float* q, const float* k, const float* v, const float* bias,
+                        const float* dout, float* dq, float* dk, float* dv, float scale, int b,
+                        int lq, int lk, int h, int dh, void* stream) {
+  if (lq > WARP_L || lk > WARP_L || dh > 16 || h > WARP_MAX_H)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte loads and stores where every row starts 16-byte aligned
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                          reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+                          reinterpret_cast<uintptr_t>(dv);
+  const bool vec = dh % 4 == 0 && bases % 16 == 0;
+  const int rows = warp_rows(h);
+  const dim3 grid((b + rows - 1) / rows), block(32 * rows * h);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // shared memory up to the largest shape the instance takes, set once
+  const int most = static_cast<int>(warp_smem_floats(WARP_L, WARP_L, WARP_MAX_H, 16) * 4);
+#define LAUNCH(DP)                                                                            \
+  {                                                                                           \
+    static bool ready = false;                                                                \
+    if (!ready) {                                                                             \
+      const cudaError_t e = cudaFuncSetAttribute(                                             \
+          field_attn_bwd_warp_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, most); \
+      if (e != cudaSuccess) return static_cast<int>(e);                                       \
+      ready = true;                                                                           \
+    }                                                                                         \
+    const size_t smem = warp_smem_floats(lq, lk, h, DP) * sizeof(float);                      \
+    field_attn_bwd_warp_kernel<DP><<<grid, block, smem, st>>>(q, k, v, bias, dout, dq, dk,    \
+                                                              dv, scale, b, lq, lk, h, dh,    \
+                                                              vec);                           \
+  }
+  if (dh <= 8)
+    LAUNCH(8)
+  else
+    LAUNCH(16)
+#undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,9 +8,9 @@
 // heads of a batch row; lse and delta are (B, H, Lq). Dh is padded with zeros
 // to DP, a compile-time width (8, 16, 32 or 64).
 //
-// Split-TF32 products on the tensor cores (flash_fwd.cu, flash_bwd_dkv.cu).
-// The products run as mma.sync m16n8k8 in TF32, whose 10-bit mantissa alone
-// would put an error of about 5e-4 into every logit. So each operand x is
+// Split-TF32 products on the tensor cores (all three kernels). The products
+// run as mma.sync m16n8k8 in TF32, whose 10-bit mantissa alone would put an
+// error of about 5e-4 into every logit. So each operand x is
 // split into hi = tf32(x) and lo = x - hi (which the tensor cores read as
 // tf32(lo), truncated), and a product is formed as lo*hi + hi*lo + hi*hi
 // in f32 (lo*lo, below 2^-22 of the product, is dropped): about 21 bits,
@@ -51,10 +51,6 @@
 //   at 4 * c; the B operand that is contracted over the rows (P·V).
 // The pads (16 and 8 floats) keep each quarter-warp's 16-byte loads on 32
 // distinct banks.
-//
-// flash_bwd_dq.cu still runs on the CUDA cores, one thread a row, with the
-// helpers THREADS to dot below; the split-TF32 helpers are there for it to
-// take up next.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -112,38 +108,7 @@ __device__ __forceinline__ float logit(float qk, float scale, float bias, int ro
 // The width the kernels are instantiated at for a head dim dh <= 64.
 inline int padded_dim(int dh) { return dh <= 8 ? 8 : dh <= 16 ? 16 : dh <= 32 ? 32 : 64; }
 
-// ---- one thread a row, on the CUDA cores (flash_bwd_dq.cu) ----
-
-constexpr int THREADS = 128;         // rows of one block
-constexpr int TILE_FLOATS = 2048;    // floats of one staged tile (8 KB)
-
-// dst[r * DP + c] = src[r * dh + c] for r < n, c < dh; zero for dh <= c < DP.
-template <int DP>
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src, int n, int dh) {
-  for (int e = threadIdx.x; e < n * DP; e += THREADS) {
-    const int r = e / DP, c = e - r * DP;
-    dst[e] = c < dh ? src[size_t(r) * dh + c] : 0.f;
-  }
-}
-
-// x[c] = src[c] for c < dh, zero up to DP (a thread's own row).
-template <int DP>
-__device__ __forceinline__ void load_row(float (&x)[DP], const float* __restrict__ src, int dh,
-                                         bool live) {
-#pragma unroll
-  for (int c = 0; c < DP; ++c) x[c] = (live && c < dh) ? src[c] : 0.f;
-}
-
-// sum_c a[c] * b[c], in order of c (the padded zeros add nothing).
-template <int DP>
-__device__ __forceinline__ float dot(const float (&a)[DP], const float* b) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < DP; ++c) s = fmaf(a[c], b[c], s);
-  return s;
-}
-
-// ---- split TF32 on the tensor cores (flash_fwd.cu, flash_bwd_dkv.cu) ----
+// ---- split TF32 on the tensor cores ----
 
 template <int DP>
 __host__ __device__ constexpr int row_stride() { return 2 * DP + (DP >= 16 ? 16 : 0); }
@@ -232,6 +197,22 @@ __device__ __forceinline__ FragA a_rows(const float* tile, int r0, int kk, int g
   const float4 y =
       *reinterpret_cast<const float4*>(tile + (r0 + g + 8) * row_stride<DP>() + kk * 16 + 4 * t);
   return {{x.x, y.x, x.y, y.y}, {x.z, y.z, x.w, y.w}};
+}
+
+// The same A fragment of an (n, dh) matrix in device memory, split as it is
+// loaded (a warp's own rows, kept in registers); rows at and past n, and
+// columns at and past dh, are zero.
+__device__ __forceinline__ FragA a_global(const float* __restrict__ src, int r0, int kk, int n,
+                                          int dh, int g, int t) {
+  float x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = r0 + g + 8 * (e & 1), c = kk * 8 + 2 * t + (e >> 1);
+    x[e] = (row < n && c < dh) ? src[size_t(row) * dh + c] : 0.f;
+  }
+  // x[0], x[1]: rows g, g + 8 at column 2t; x[2], x[3]: at column 2t + 1
+  const float4 c0 = split2(x[0], x[1]), c1 = split2(x[2], x[3]);
+  return {{c0.x, c0.y, c1.x, c1.y}, {c0.z, c0.w, c1.z, c1.w}};
 }
 
 // The A fragment of a C fragment c (16 x 8), contracted next over its 8

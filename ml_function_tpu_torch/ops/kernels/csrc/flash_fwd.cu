@@ -188,17 +188,7 @@ __global__ void __launch_bounds__(NT, Fwd<DP>::MIN_BLOCKS)
   Rows<DP> w;
   // the warp's 16 q rows as A fragments, split once
 #pragma unroll
-  for (int kk = 0; kk < DP / 8; ++kk) {
-    float x[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = row0 + g + 8 * (e & 1), c = kk * 8 + 2 * t + (e >> 1);
-      x[e] = (row < lq && c < dh) ? qb[size_t(row) * dh + c] : 0.f;
-    }
-    // x[0], x[1]: rows g, g + 8 at column 2t; x[2], x[3]: at column 2t + 1
-    const float4 c0 = flash::split2(x[0], x[1]), c1 = flash::split2(x[2], x[3]);
-    w.qa[kk] = {{c0.x, c0.y, c1.x, c1.y}, {c0.z, c0.w, c1.z, c1.w}};
-  }
+  for (int kk = 0; kk < DP / 8; ++kk) w.qa[kk] = flash::a_global(qb, row0, kk, lq, dh, g, t);
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n) w.acc[n][0] = w.acc[n][1] = w.acc[n][2] = w.acc[n][3] = 0.f;
   w.m[0] = w.m[1] = flash::NEG_INF;

@@ -4,7 +4,10 @@ plain versions.
 Counterpart of ``ml_function_tpu/ops/kernels/field_attention.py``. The
 kernels (``csrc/field_attn_fwd.cu``, ``csrc/field_attn_bwd.cu``) replace the
 Pallas ``_fwd_kernel`` and ``_bwd_kernel``; the source notes say what bounds
-them on the H100 and how the design answers that. Attention over a few
+them on the H100 and how the design answers that. The backward has two
+instances of one contract: a warp a (batch row, head) for up to 32 queries
+and keys (AutoInt's fields, SIM's top-k), and a block a (batch row, head)
+for the rest of the gate (``backward_instance``). Attention over a few
 positions (AutoInt's feature fields) at a large batch:
 
     o = softmax(q·kᵀ·scale + bias) · v
@@ -35,6 +38,11 @@ MAX_SCORES = 4096
 MAX_HEAD_DIM = 64
 # The kernels' inputs: (B, L, H, Dh) activations, the (B, Lk) bias.
 NDIMS = {"q": 4, "k": 4, "v": 4, "bias": 2, "do": 4}
+
+# The backward's warp instance takes Lq, Lk ≤ 32 (a lane a key, then a
+# query), Dh ≤ 16 (k, v, dK, dV of its key in a lane's registers) and H ≤ 8
+# (a block's warps); every other shape inside the gate takes the block one.
+WARP_MAX_L, WARP_MAX_HEAD_DIM, WARP_MAX_HEADS = 32, 16, 8
 
 # Launches of each CUDA kernel since its count was last set to 0.
 field_attn_fwd_launches = 0
@@ -116,14 +124,27 @@ def _shape(what: str, q, k, v, bias):
     return b, lq, lk, h, dh
 
 
+def backward_instance(q, k, v, bias) -> str:
+    """The C function of ``csrc/field_attn_bwd.cu`` that takes these inputs'
+    shape: ``field_attn_bwd_warp`` within the warp instance's limits, else
+    ``field_attn_bwd``. Raises where ``_shape`` does."""
+    _, lq, lk, h, dh = _shape("field_attention backward", q, k, v, bias)
+    if (max(lq, lk) <= WARP_MAX_L and dh <= WARP_MAX_HEAD_DIM
+            and h <= WARP_MAX_HEADS):
+        return "field_attn_bwd_warp"
+    return "field_attn_bwd"
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     n_ptr = 5 if name == "field_attn_fwd" else 8
-    fn = getattr(lib, name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_float]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fns = ("field_attn_bwd", "field_attn_bwd_warp") if name == "field_attn_bwd" else (name,)
+    for fname in fns:
+        fn = getattr(lib, fname)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_float]
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -146,13 +167,15 @@ def _launch_fwd(q, k, v, bias, scale: float) -> torch.Tensor:
 
 
 def field_attention_backward(q, k, v, bias, do, scale: float):
-    """The backward kernel (``csrc/field_attn_bwd.cu``) on CUDA tensors: the
-    contract of ``field_attention_backward_reference``. Raises on anything
-    the kernel does not take; never runs the plain version."""
+    """The backward kernel (``csrc/field_attn_bwd.cu``, the instance
+    ``backward_instance`` picks) on CUDA tensors: the contract of
+    ``field_attention_backward_reference``. Raises on anything the kernel
+    does not take; never runs the plain version."""
     global field_attn_bwd_launches
     name = "field_attention backward"
     check_cuda_inputs(name, NDIMS, q=q, k=k, v=v, bias=bias, do=do)
     b, lq, lk, h, dh = _shape(name, q, k, v, bias)
+    fname = backward_instance(q, k, v, bias)
     if do.shape != q.shape:
         raise ValueError(f"{name}: do {tuple(do.shape)} is not the shape of "
                          f"q {tuple(q.shape)}")
@@ -160,11 +183,11 @@ def field_attention_backward(q, k, v, bias, do, scale: float):
     if b * h == 0:   # no (b, h) pair: the gradients are empty
         return dq, dk, dv
     with torch.cuda.device(q.device):
-        err = _lib("field_attn_bwd").field_attn_bwd(
+        err = getattr(_lib("field_attn_bwd"), fname)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scale,
             b, lq, lk, h, dh, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"field_attn_bwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"{fname} launch failed with CUDA error {err}")
     field_attn_bwd_launches += 1
     return dq, dk, dv

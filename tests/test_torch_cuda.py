@@ -3,7 +3,11 @@
 The field-attention kernels are held to their plain versions at the shapes
 chip_smoke.py checks: AutoInt's (B 4096, L 27, H 2, Dh 16) and the gate's
 two edges, with a random key mask and one batch row whose keys are all
-masked, where the weights are uniform over all Lk keys. The (AU)GRU and
+masked, where the weights are uniform over all Lk keys. The backward is
+also held to its plain version, and to its own bits on a rerun, at the
+edges of its two instances (L from 1 to 64 either side of the warp
+instance's 32, H 1 to 4, Dh 4 to 64, B not a multiple of a block's batch
+rows), and a CPU test checks which instance each shape takes. The (AU)GRU and
 merge-scatter kernels are held to theirs at DIEN's shapes and the edges
 chip_smoke.py checks (a row masked at every step carries h0; no ids, all ids
 equal, ids at V − 1, runs that cross the kernel's chunks, a width D that is
@@ -16,9 +20,10 @@ flash-ESU shape (B 8, H 2, Lq = Lk = 16,384, Dh 8, the key mask of a
 hard-searched stream) and at ragged edges (causal with Lq ≠ Lk, Dh from 1
 to 64, Lq 1, a batch row whose keys are all masked, which gets mean(V), and
 the tensor-core tiles' edges: Lq, Lk not multiples of 8 or 16, Lk < 8), and
-all three must give the same bits on a second run. The split-TF32 forward
-and dK/dV kernels are also held to the plain versions in f64 at
-(2, 2, 2048, 2048) for Dh 8 and 64, within 1e-5 of max|f64|.
+all three must give the same bits on a second run. The three split-TF32
+kernels are also held to the plain versions in f64 at (2, 2, 2048, 2048)
+for Dh 8 and 64, within 1e-5 of max|f64|, with a shrink toward zero of at
+most 2^-22 of the mean |value|.
 
 This file imports nothing of JAX, so it also runs on a machine with the card
 and without JAX, where tests/conftest.py (which imports JAX) and the
@@ -217,6 +222,49 @@ def test_field_attention_kernels_match_plain_versions(card, b, lq, lk, h, dh, ma
         _close(g, w)
     if masked:   # row 1: every key masked, uniform weights over all Lk
         _close(got[1], v[1].mean(dim=0, keepdim=True).expand(lq, -1, -1))
+
+
+# (B, Lq, Lk, H, Dh, instance): the backward's two instances either side of
+# the warp instance's limits (L 32, Dh 16, H 8), B not a multiple of the
+# warp instance's batch rows a block (4 / H), Dh not a multiple of 4 (its
+# 4-byte copies), SIM's top-8 ESU (Dh 4) and AutoInt's L 27
+FA_BWD_CASES = [(4097, 27, 27, 2, 16, "warp"), (129, 8, 8, 2, 4, "warp"),
+                (7, 1, 1, 1, 8, "warp"), (9, 8, 8, 4, 8, "warp"),
+                (5, 32, 32, 1, 16, "warp"), (10, 27, 27, 2, 13, "warp"),
+                (6, 8, 32, 4, 8, "warp"), (11, 32, 8, 3, 16, "warp"),
+                (6, 33, 33, 2, 16, "block"), (5, 27, 27, 2, 17, "block"),
+                (3, 64, 64, 4, 64, "block"), (4, 1, 64, 1, 8, "block"),
+                (3, 8, 8, 9, 8, "block")]
+
+
+def _instance_name(kind):
+    return {"warp": "field_attn_bwd_warp", "block": "field_attn_bwd"}[kind]
+
+
+@pytest.mark.parametrize("b,lq,lk,h,dh,kind", FA_BWD_CASES)
+def test_field_attention_backward_instance(b, lq, lk, h, dh, kind):
+    """The wrapper's choice of backward instance, on meta tensors (no card,
+    no memory)."""
+    meta = dict(device="meta", dtype=torch.float32)
+    q, k = torch.empty(b, lq, h, dh, **meta), torch.empty(b, lk, h, dh, **meta)
+    got = tfa.backward_instance(q, k, k, torch.empty(b, lk, **meta))
+    assert got == _instance_name(kind)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,dh,kind", FA_BWD_CASES)
+def test_field_attention_backward_matches_plain_version(card, b, lq, lk, h, dh, kind):
+    """Masked keys (key 0 kept) and batch row 1 with every key masked; a
+    rerun gives the same bits."""
+    q, k, v, bias, do, scale = _fa_inputs(card, b, lq, lk, h, dh, True)
+    assert tfa.backward_instance(q, k, v, bias) == _instance_name(kind)
+    before = tfa.field_attn_bwd_launches
+    grads = tfa.field_attention_backward(q, k, v, bias, do, scale)
+    again = tfa.field_attention_backward(q, k, v, bias, do, scale)
+    torch.cuda.synchronize()
+    assert tfa.field_attn_bwd_launches == before + 2
+    for g, w in zip(grads, tfa.field_attention_backward_reference(q, k, v, bias, do, scale)):
+        _close(g, w)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
 
 
 def test_field_attention_kernel_refuses_what_it_does_not_take(card):
@@ -490,10 +538,10 @@ def test_flash_kernels_match_plain_versions(card, b, h, lq, lk, dh, causal):
 
 @pytest.mark.parametrize("dh", [8, 64])
 def test_tensor_core_flash_kernels_are_f32_accurate(card, dh):
-    """The split-TF32 forward and dK/dV kernels against their plain
-    versions in f64, every key valid, lse and δ from the f64 forward: o, dk
-    and dv within 1e-5 of max|f64| and lse within 1e-5 absolute, the bar of
-    an f32 computation (one-pass TF32 errs by some 3e-4)."""
+    """The split-TF32 forward, dQ and dK/dV kernels against their plain
+    versions in f64, every key valid, lse and δ from the f64 forward: o,
+    dq, dk and dv within 1e-5 of max|f64| and lse within 1e-5 absolute, the
+    bar of an f32 computation (one-pass TF32 errs by some 3e-4)."""
     gen = torch.Generator(device=card).manual_seed(11)
     b, h, l = 2, 2, 2048
     q, k, v, do = (torch.randn(b, h, l, dh, device=card, generator=gen) for _ in range(4))
@@ -502,13 +550,14 @@ def test_tensor_core_flash_kernels_are_f32_accurate(card, dh):
     f64 = [t.double() for t in (q, k, v, bias)]
     o64, lse64 = tfl.flash_attention_reference(*f64, scale)
     delta64 = (do.double() * o64).sum(dim=-1)
-    _, dk64, dv64 = tfl.flash_attention_backward_reference(*f64, lse64, do.double(),
-                                                           delta64, scale)
+    dq64, dk64, dv64 = tfl.flash_attention_backward_reference(*f64, lse64, do.double(),
+                                                              delta64, scale)
     o, lse = tfl.flash_attention_forward(q, k, v, bias, scale)
-    dk, dv = tfl.flash_attention_backward_dkv(q, k, v, bias, lse64.float(), do,
-                                              delta64.float(), scale)
+    bwd = (q, k, v, bias, lse64.float(), do, delta64.float(), scale)
+    dq = tfl.flash_attention_backward_dq(*bwd)
+    dk, dv = tfl.flash_attention_backward_dkv(*bwd)
     torch.cuda.synchronize()
-    for got, want in ((o, o64), (dk, dk64), (dv, dv64)):
+    for got, want in ((o, o64), (dq, dq64), (dk, dk64), (dv, dv64)):
         assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
     assert (lse.double() - lse64).abs().max() <= 1e-5
 
@@ -516,7 +565,7 @@ def test_tensor_core_flash_kernels_are_f32_accurate(card, dh):
 @pytest.mark.parametrize("dh", [8, 64])
 def test_tensor_core_flash_kernels_do_not_shrink(card, dh):
     """The tensor cores truncate where f32 rounds to nearest; an error with
-    the sign of the value would shrink o, dk and dv by one share, which a
+    the sign of the value would shrink o, dq, dk and dv by one share, which a
     long sum downstream keeps. Their shrink against the plain versions in
     f64 (the mean of err · sign(f64) over mean |f64|) stays within 2^-22,
     four f32 steps at 2^-24, where the plain f32 versions' is printed
@@ -530,20 +579,20 @@ def test_tensor_core_flash_kernels_do_not_shrink(card, dh):
     o64, lse64 = tfl.flash_attention_reference(*f64, scale)
     delta64 = (do.double() * o64).sum(dim=-1)
     bwd = (lse64.float(), do, delta64.float(), scale)
-    _, dk64, dv64 = tfl.flash_attention_backward_reference(*f64, lse64, do.double(),
-                                                           delta64, scale)
+    exact = (o64, *tfl.flash_attention_backward_reference(*f64, lse64, do.double(),
+                                                          delta64, scale))
     kernels = (tfl.flash_attention_forward(q, k, v, bias, scale)[0],
+               tfl.flash_attention_backward_dq(q, k, v, bias, *bwd),
                *tfl.flash_attention_backward_dkv(q, k, v, bias, *bwd))
     plain = (tfl.flash_attention_reference(q, k, v, bias, scale)[0],
-             *tfl.flash_attention_backward_reference(q, k, v, bias, *bwd)[1:])
+             *tfl.flash_attention_backward_reference(q, k, v, bias, *bwd))
     torch.cuda.synchronize()
 
     def shrink(got, want):
         return (((got.double() - want) * want.sign()).mean() / want.abs().mean()).item()
 
-    exact = (o64, dk64, dv64)
     got = [shrink(g, w) for g, w in zip(kernels, exact)]
-    print(f"Dh {dh}: shrink of o, dk, dv {got}; plain f32 "
+    print(f"Dh {dh}: shrink of o, dq, dk, dv {got}; plain f32 "
           f"{[shrink(g, w) for g, w in zip(plain, exact)]}")
     assert max(abs(x) for x in got) <= 2.0 ** -22
 

@@ -1,6 +1,6 @@
 """A numpy model of the warp fragments of the split-TF32 flash kernels
 (``ml_function_tpu_torch/ops/kernels/csrc/flash.cuh``, ``flash_fwd.cu``,
-``flash_bwd_dkv.cu``), which run only on the card.
+``flash_bwd_dq.cu``, ``flash_bwd_dkv.cu``), which run only on the card.
 
 The model follows the sources index for index: the staged tiles' two
 layouts ("rows" and "pairs") and their pads, the lane maps of mma.sync
@@ -108,6 +108,17 @@ def a_rows(tile, dp, r0, kk):
             np.stack([x[:, 2], y[:, 2], x[:, 3], y[:, 3]], 1))
 
 
+def a_global(x, kk):
+    """``flash::a_global``: the A fragment of rows 0..15 and k-step kk of x
+    (16, dh), split as it is loaded; columns past dh are zero."""
+    dh = x.shape[1]
+    v = [np.where(c < dh, x[G + 8 * (e & 1), np.minimum(c, dh - 1)], 0)
+         for e in range(4) for c in [kk * 8 + 2 * T + (e >> 1)]]
+    c0, c1 = split2(v[0], v[1]), split2(v[2], v[3])
+    return (np.stack([c0[:, 0], c0[:, 1], c1[:, 0], c1[:, 1]], 1),
+            np.stack([c0[:, 2], c0[:, 3], c1[:, 2], c1[:, 3]], 1))
+
+
 def a_from_c(c):
     """hi rounded to TF32, lo = c - hi, in the order c0, c2, c1, c3."""
     c = np.float32(c)
@@ -137,13 +148,7 @@ def fwd_warp(q, k, v, bias, scale, causal, dp, kt):
     """``flash_fwd_kernel`` for one warp at rows 0..15: q (16, dh), k and v
     (lk, dh), bias (lk,) → o (16, dh), lse (16,)."""
     dh, lk = q.shape[1], k.shape[0]
-    qa = []
-    for kk in range(dp // 8):
-        x = [np.where(c < dh, q[G + 8 * (e & 1), np.minimum(c, dh - 1)], 0)
-             for e in range(4) for c in [kk * 8 + 2 * T + (e >> 1)]]
-        c0, c1 = split2(x[0], x[1]), split2(x[2], x[3])
-        qa.append((np.stack([c0[:, 0], c0[:, 1], c1[:, 0], c1[:, 1]], 1),
-                   np.stack([c0[:, 2], c0[:, 3], c1[:, 2], c1[:, 3]], 1)))
+    qa = [a_global(q, kk) for kk in range(dp // 8)]
     acc = np.zeros((dp // 8, 32, 4))
     m, l = np.full((32, 2), NEG_INF), np.zeros((32, 2))
     for t0 in range(0, lk, kt):
@@ -179,6 +184,64 @@ def fwd_warp(q, k, v, bias, scale, causal, dp, kt):
             o[G + 8 * (e >> 1), nd * 8 + 2 * T + (e & 1)] = acc[nd][:, e] / l[G, e >> 1]
     lse = np.concatenate([m[::4, 0] + np.log(l[:, 0]), m[::4, 1] + np.log(l[:, 1])])
     return o[:, :dh], lse
+
+
+def mma3_add(acc, a, b):
+    """``flash::mma3_add``: the product formed from zero, then added."""
+    return acc + mma3(np.zeros((32, 4)), a, b)
+
+
+# flash_bwd_dq.cu's tiling (``Dq<DP>``): keys a staged tile and a sub-tile
+DQ_KT = {8: 64, 16: 64, 32: 32, 64: 16}
+DQ_SUB = {8: 32, 16: 32, 32: 16, 64: 8}
+
+
+def dq_warp(q, k, v, bias, lse, do, delta, scale, causal, dp):
+    """``flash_bwd_dq_kernel`` for one warp at rows 0..15: q, do (16, dh),
+    k, v (lk, dh), bias (lk,), lse, delta (16,) → dq (16, dh). At Dh 64
+    (``SHARED_Q``) q and dO are read from split "rows" tiles, else held as
+    A fragments split as they were loaded."""
+    dh, lk = q.shape[1], k.shape[0]
+    kt, sub = DQ_KT[dp], DQ_SUB[dp]
+    if dp == 64:
+        qs, dos = store_rows(q, dp), store_rows(do, dp)
+        qa = [a_rows(qs, dp, 0, kk) for kk in range(dp // 8)]
+        da = [a_rows(dos, dp, 0, kk) for kk in range(dp // 8)]
+    else:
+        qa = [a_global(q, kk) for kk in range(dp // 8)]
+        da = [a_global(do, kk) for kk in range(dp // 8)]
+    rows = G[:, None] + 8 * np.arange(2)[None, :]     # a lane's rows g, g + 8
+    ls, dl = lse[rows], delta[rows]
+    acc = np.zeros((dp // 8, 32, 4))
+    for t0 in range(0, lk, kt):
+        n = min(kt, lk - t0)
+        kp_, vp_ = np.zeros((kt, dh), np.float32), np.zeros((kt, dh), np.float32)
+        kp_[:n], vp_[:n] = k[t0:t0 + n], v[t0:t0 + n]
+        ks, kpairs, vs = store_rows(kp_, dp), store_pairs(kp_, dp), store_rows(vp_, dp)
+        bs = np.zeros(kt, np.float32)
+        bs[:n] = bias[t0:t0 + n]
+        for k0 in range(0, kt, sub):
+            if t0 + k0 >= lk:
+                break
+            for j in range(sub // 8):
+                s, dpt = np.zeros((32, 4)), np.zeros((32, 4))
+                for kk in range(dp // 8):
+                    s = mma3(s, qa[kk], b_rows(ks, dp, k0 + 8 * j, kk))
+                    dpt = mma3(dpt, da[kk], b_rows(vs, dp, k0 + 8 * j, kk))
+                for e in range(4):
+                    col, r = k0 + 8 * j + 2 * T + (e & 1), e >> 1
+                    x = _logits(s[:, e], scale, bs[col], G + 8 * r, t0 + col, causal,
+                                t0 + col < lk)
+                    p = np.exp2(x * LOG2E - ls[:, r] * LOG2E)
+                    dpt[:, e] = p * (dpt[:, e] - dl[:, r])
+                sa = a_from_c(dpt)
+                for nd in range(dp // 8):
+                    acc[nd] = mma3_add(acc[nd], sa, b_pairs(kpairs, dp, k0 // 8 + j, nd))
+    dq = np.zeros((16, dp))
+    for nd in range(dp // 8):
+        for e in range(4):
+            dq[G + 8 * (e >> 1), nd * 8 + 2 * T + (e & 1)] = acc[nd][:, e] * scale
+    return dq[:, :dh]
 
 
 def dkv_warp(q, k, v, bias, lse, do, delta, scale, causal, dp, qt):
@@ -280,6 +343,25 @@ def test_dkv_fragments_match_f64(dh, dp, lq, qt, causal):
     ds = p * (do.astype(np.float64) @ v.T.astype(np.float64) - delta[:, None])
     assert _rel(dv, p.T @ do.astype(np.float64)) < 1e-5
     assert _rel(dk, scale * ds.T @ q.astype(np.float64)) < 1e-5
+
+
+@pytest.mark.parametrize("dh,dp,lk,_tile,causal", CASES)
+def test_dq_fragments_match_f64(dh, dp, lk, _tile, causal):
+    """dQ's warp at its own tiling (``DQ_KT``, ``DQ_SUB``): the same widths,
+    ragged last tiles and causal diagonals as the other two kernels'."""
+    rng = np.random.default_rng(dh + lk + 2)
+    q, do = (rng.standard_normal((16, dh)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((lk, dh)).astype(np.float32) for _ in range(2))
+    bias = _key_bias(rng, lk)
+    scale = dh ** -0.5
+    s = _exact(q, k, v, bias, scale, causal)
+    m = np.maximum(s.max(1, keepdims=True), NEG_INF)
+    lse = (m + np.log(np.exp(s - m).sum(1, keepdims=True)))[:, 0]
+    p = np.exp(s - lse[:, None])
+    delta = (do.astype(np.float64) * (p @ v.astype(np.float64))).sum(1)
+    ds = p * (do.astype(np.float64) @ v.T.astype(np.float64) - delta[:, None])
+    dq = dq_warp(q, k, v, bias, lse, do, delta, scale, causal, dp)
+    assert _rel(dq, scale * ds @ k.astype(np.float64)) < 1e-5
 
 
 @pytest.mark.parametrize("dp", [8, 16, 32, 64])
