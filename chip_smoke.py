@@ -13,8 +13,10 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    ``nvcc`` per source, all started together; timed);
 3. kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them, with kernel, plain, library and bound times:
-   the CIN forward, the CIN backward (whose outputs must also be the same
-   bits on three runs; each of its four launches timed by the profiler),
+   the CIN forward (each layer's launches timed by the profiler, and its
+   shrink toward zero against f64 of the same bf16 operands), the CIN
+   backward (whose outputs must also be the same bits on three runs; each
+   of its four launches timed by the profiler),
    and the field-attention forward and backward (the backward twice, the
    same bits, and each shape's instance named), also at the two edges of
    their gate, at AutoInt's L with Dh 13 and a ragged B, and at SIM's top-8
@@ -50,8 +52,10 @@ Phases, each of which stops the run with a non-zero exit if it fails:
 8. the (AU)GRU kernels and the merge-scatter kernel against their plain
    versions: gru_fwd and gru_bwd with attention gates and with ones at
    DIEN's shape (B 4096, L 64, H 16, the masks of real histories), at
-   (B 300, L 7, H 64) with ragged masks, one row masked at every step (its
-   seq must be h0) and a non-zero h0, and at (B 1, L 1, H 8); merge_scatter
+   SIM's two (B 512 and B 8, timed beside DIEN's; each backward shape names
+   its instance), at (B 300, L 7, H 64) with ragged masks, one row masked
+   at every step (its seq must be h0) and a non-zero h0, and at (B 1, L 1,
+   H 8); merge_scatter
    (int32 ids sorted stably, ct unsorted and read through the sort's
    permutation) at DIEN's two sequence lookups (N 262,144 ids of width 8
    into 5,202 rows; a quarter of the item ids are the pad id), at SIM's
@@ -157,8 +161,10 @@ DIEN_DATA = dict(n_items=5000, n_cates=100, seq_len=64, embed_dim=8, seed=0)
 # the JAX package's DIEN learning protocol (CONVERGENCE.md, DIEN parity)
 DIEN_LEARN = dict(n_rows=120_000, n_items=40, n_cates=10, seq_len=32, seed=0)
 DIEN_AUC_BAR = 0.55
-# (B, L, H, what): DIEN's recurrences, then the edges
-GRU_SHAPES = ((BATCH, 64, 16, "path"), (300, 7, 64, "ragged"), (1, 1, 8, "tiny"))
+# (B, L, H, what): DIEN's recurrences, SIM's at its two board shapes (B 512
+# and B 8, timed beside DIEN's), then the edges
+GRU_SHAPES = ((BATCH, 64, 16, "path"), (512, 64, 16, "sim"), (8, 64, 16, "sim"),
+              (300, 7, 64, "ragged"), (1, 1, 8, "tiny"))
 # K5 off the path: ragged causal Lq ≠ Lk, Dh 64, Lq 1, then the tensor-core
 # tiles' edges: Lq and Lk not multiples of 16 or 8, Lk < 8, one 16-row causal
 # tile (B, H, Lq, Lk, Dh, causal); batch row 1 of each has every key masked
@@ -243,9 +249,15 @@ def check_cin_kernel(cin_mod) -> dict:
                                  cin_mod.cin_layer_t_reference(xk, x0, w1))
         xk_b, w1_b, x0_b = xk.bfloat16(), w1.bfloat16(), x0.bfloat16()
         bound_ms, bound_by = cin_bound(d, b, h, f, o)
+        # the shrink toward zero against f64 of the same bf16 operands
+        y64 = (torch.matmul(xk_b.double(), w1_b.double()).view(d, b, f, o)
+               * x0.double().unsqueeze(-1)).sum(dim=2)
+        shrink = (((got.double() - y64) * y64.sign()).mean() / y64.abs().mean()).item()
+        del y64
         shapes.append({
             "shape": {"D": d, "B": b, "H": h, "F": f, "O": o}, "path": True,
-            "max_abs_err": err, "atol": atol,
+            "max_abs_err": err, "atol": atol, "shrink": shrink,
+            "launch_ms": launch_ms(lambda: cin_mod.cin_layer_t(xk, x0, w1)),
             "ms": event_ms(lambda: cin_mod.cin_layer_t(xk, x0, w1)),
             "plain_ms": event_ms(lambda: cin_mod.cin_layer_t_reference(xk, x0, w1)),
             # two calls: a bf16 GEMM and the F-reduce; no one call computes a CIN layer
@@ -254,10 +266,11 @@ def check_cin_kernel(cin_mod) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
     for s in shapes:
-        print(f"cin_fwd {s['shape']}: max_abs_err {s['max_abs_err']:.3e} "
-              f"(atol {s['atol']:.3e}), kernel {s['ms']:.4f} ms, plain "
-              f"{s['plain_ms']:.4f} ms, library (2 calls) {s['library_ms']:.4f} ms, "
-              f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})")
+        print(f"cin_fwd layer {s['shape']}: max_abs_err {s['max_abs_err']:.3e} "
+              f"(atol {s['atol']:.3e}), shrink {s['shrink']:.3e}, kernel {s['ms']:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in s["launch_ms"].items())
+              + f" on the device), plain {s['plain_ms']:.4f} ms, library (2 calls) "
+              f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms ({s['bound_by']})")
     return _entry("cin_fwd", "ml_function_tpu/ops/kernels/cin.py:49", shapes,
                   "torch.matmul (bf16) + torch.einsum F-reduce, per shape")
 
@@ -560,7 +573,7 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
                       "path": what == "path"}
             fb, fby = gru_bound(b, l, h)
             bb, bby = gru_bound(b, l, h, backward=True)
-            timed = what == "path"
+            timed = what in ("path", "sim")
             fwd_shapes.append({
                 **common, "max_abs_err": err, "atol": atol,
                 "ms": event_ms(lambda: gru_mod.gru_sequence(*args)) if timed else None,
@@ -571,6 +584,7 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
                 **common, "max_abs_err": max(e for e, _ in errs),
                 "max_abs_err_dxw_dwh_da_dh0": [e for e, _ in errs],
                 "atol_dxw_dwh_da_dh0": [t for _, t in errs],
+                "instance": gru_mod.backward_instance(h),
                 "ms": (event_ms(lambda: gru_mod.gru_sequence_backward(*args, seq, dseq))
                        if timed else None),
                 "plain_ms": (event_ms(lambda: gru_mod.gru_sequence_backward_reference(
@@ -582,7 +596,8 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
               f"plain {s['plain_ms']} ms, library (cuDNN GRU f32) {s['library_ms']} ms, "
               f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})")
     for s in bwd_shapes:
-        print(f"gru_bwd {s['shape']} {s['case']} {s['gate']}: max_abs_err dxw/dwh/da/dh0 "
+        print(f"gru_bwd {s['shape']} {s['case']} {s['gate']} ({s['instance']}): "
+              "max_abs_err dxw/dwh/da/dh0 "
               + "/".join(f"{e:.3e}" for e in s["max_abs_err_dxw_dwh_da_dh0"])
               + " (atol " + "/".join(f"{t:.3e}" for t in s["atol_dxw_dwh_da_dh0"])
               + f"), dwh bit-identical on a second run; kernel {s['ms']} ms, plain "

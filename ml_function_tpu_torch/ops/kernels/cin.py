@@ -137,6 +137,8 @@ def _lib_fwd() -> ctypes.CDLL:
     lib.cin_fwd_smem_bytes.restype = ctypes.c_size_t
     lib.cin_fwd_scratch_cols.argtypes = [ctypes.c_int]
     lib.cin_fwd_scratch_cols.restype = ctypes.c_int
+    lib.cin_fwd_scratch_rows.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.cin_fwd_scratch_rows.restype = ctypes.c_int
     return lib
 
 
@@ -154,6 +156,15 @@ def _lib_bwd() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _fwd_sizes(h: int, f: int, o: int):
+    """(shared memory a block, rows and columns of the bf16 weight scratch)
+    of the forward kernel at (H, F, O), as its library states them."""
+    lib = _lib_fwd()
+    return (lib.cin_fwd_smem_bytes(h, f), lib.cin_fwd_scratch_rows(f, o),
+            lib.cin_fwd_scratch_cols(h))
+
+
 def _launch_fwd(xk_t: torch.Tensor, x0_t: torch.Tensor,
                 w1: torch.Tensor) -> torch.Tensor:
     global cin_fwd_launches
@@ -163,14 +174,14 @@ def _launch_fwd(xk_t: torch.Tensor, x0_t: torch.Tensor,
     y = torch.empty((d, b, o), dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y
-    lib = _lib_fwd()
-    _refuse_smem("CIN kernel", lib.cin_fwd_smem_bytes(h, f), h, f)
-    wt = torch.empty((f * o, lib.cin_fwd_scratch_cols(h)), dtype=torch.bfloat16,
-                     device=dev)
+    smem, rows, cols = _fwd_sizes(h, f, o)
+    _refuse_smem("CIN kernel", smem, h, f)
+    # bf16 scratch: each field's 128-wide O tiles of w1 in the kernel's layout
+    wt = torch.empty((rows, cols), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
-        err = lib.cin_fwd(xk_t.data_ptr(), x0_t.data_ptr(), w1.data_ptr(),
-                          y.data_ptr(), wt.data_ptr(), d, b, h, f, o,
-                          torch.cuda.current_stream(dev).cuda_stream)
+        err = _lib_fwd().cin_fwd(xk_t.data_ptr(), x0_t.data_ptr(), w1.data_ptr(),
+                                 y.data_ptr(), wt.data_ptr(), d, b, h, f, o,
+                                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"cin_fwd launch failed with CUDA error {err}")
     cin_fwd_launches += 1

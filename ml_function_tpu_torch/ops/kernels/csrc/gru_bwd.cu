@@ -1,5 +1,6 @@
 // (AU)GRU recurrence backward for Hopper (sm_90a), with a plain C interface
-// for ctypes.
+// for ctypes: two instances of one contract, chosen by the wrapper from H
+// (kernels/gru.py: backward_instance).
 //
 // Replaces ml_function_tpu/ops/kernels/gru.py::_bwd_kernel (launched there by
 // _gru_bwd_impl from the custom vjp). A reverse loop over L replays each step
@@ -14,30 +15,57 @@
 //   dh_prev += bf16(wh) . bf16(dhh);  dwh += bf16(h_prev)^T . bf16(dhh)
 //
 // with every other operation in f32 (expf, tanhf), in the plain version's
-// order of operations (gru.cuh). dh after step 0 is dh0.
+// order of operations (gru.cuh). dh after step 0 is dh0. Two sums feed a bf16
+// rounding of a later step, the recurrent product h_prev . wh over k and
+// wh . dhh over c: both instances take them in the plain version's order, one
+// FMA at a time (products of two bf16 values are exact in f32). da and dwh
+// feed nothing later; each instance sums them in an order of its own, fixed,
+// with no atomics, so the same inputs give the same bits.
 //
 // What bounds it on the H100: at DIEN's shape (B 4096, L 64, H 16) it reads
 // xw, seq, dseq, mask, att and h0 and writes dxw, da and dh0, about 138 MB
 // (41 us at 3.35 TB/s), for about 1.5 GFLOP (22 us at the f32 rate): bytes.
-// As for the forward, the 64 dependent steps, each a chain of shared-memory
-// products and three barriers, make it latency-bound instead.
+// Its 64 dependent steps make it latency-bound unless each step is short and
+// many rows are in flight.
 //
-// Design: the forward's layout (a block takes 256 / H batch rows, one thread
-// per (row, hidden unit), batch-major tensors read and written in place).
-// Each step the block publishes its rows' bf16 h_prev and bf16 dhh in shared
-// memory; a thread forms its unit's dh_prev from its row of wh (a column of
-// the padded shared copy), and the block's threads each own fixed entries of
-// the block's (H, 3H) dwh partial, also in shared memory, summing over the
-// block's rows in a fixed order. The partials go to device memory and a
-// second small kernel sums them over blocks in block order: dwh is
-// deterministic, as the reference sums its per-tile partials, and no atomics
-// are used.
+// gru_bwd_warp, for H <= 16 (DIEN's and SIM's recurrences): the hidden units
+// are padded to 16 and a warp takes two batch rows, a thread per (row,
+// unit), so nothing in the step loop waits on another warp. Each step the
+// warp publishes its rows' bf16 h_prev and bf16 dhh in warp-private shared
+// memory behind a __syncwarp, and every lane reads its row's values as
+// 16-byte broadcasts; the block's bf16 wh sits in shared memory as each
+// unit's column (for the recurrent product) and row (for wh . dhh), read as
+// 16-byte loads. A thread keeps its slice of dwh, rows k of columns j, H + j
+// and 2H + j, summed over all L steps, in 48 registers; 122 registers in all
+// keep 16 warps an SM, DIEN's whole batch in one wave. da is a fixed shuffle
+// butterfly over the row's 16 lanes, off the chain of dh; the next step's
+// seven inputs are loaded while this step computes, and the L2 is asked for
+// those of four steps ahead. After the loop the two rows of a warp add their
+// dwh slices (one shuffle), the block's four warps are summed in warp order,
+// and a second launch sums the blocks' partials in block order, in eight
+// fixed slices, each slice's sums then added in slice order. Rows past B and
+// units past H compute on zeros, publish zeros and store nothing. At DIEN's
+// shape the warp instance takes 0.108-0.109 ms on the device (0.116-0.119 ms
+// a call by events) on an NVIDIA H100 80GB HBM3 at 700 W, against 0.292-0.294
+// for the block instance on that shape (PERF.md): 2.8x the bound. A
+// step is still some 490 instructions a thread, about 1.7 us with four warps
+// a scheduler, latency and issue together, against 0.64 us for its bytes.
+//
+// gru_bwd, for 17 <= H <= 64: a block takes 256 / H batch rows, one thread
+// per (row, hidden unit). Each step the block publishes its rows' bf16 h_prev
+// and bf16 dhh in shared memory behind a block-wide barrier; a thread forms
+// its unit's dh_prev from its row of wh (a column of the padded shared copy),
+// and the block's threads each own fixed entries of the block's (H, 3H) dwh
+// partial, also in shared memory, summing over the block's rows in a fixed
+// order. The partials are summed over blocks as above.
 //
 // Launches go on the caller's stream. Nothing here synchronises or allocates.
 
 #include "gru.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------- gru_bwd
 
 __global__ void __launch_bounds__(1024)
     gru_bwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
@@ -140,14 +168,259 @@ __global__ void __launch_bounds__(1024)
   for (int e = threadIdx.x; e < nw; e += blockDim.x) pb[e] = dws[e];
 }
 
-// dwh[e] = sum over blocks, in block order, of part[blk, e].
-__global__ void gru_dwh_sum_kernel(const float* __restrict__ part, float* __restrict__ dwh,
-                                   int blocks, int nw) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= nw) return;
+// ----------------------------------------------------------- gru_bwd_warp
+
+constexpr int WHP = 16;           // hidden units a row, padded
+constexpr int WARPS = 4;          // warps a block
+constexpr int WROWS = 2 * WARPS;  // batch rows a block: two a warp
+constexpr int WLD = 52;           // row stride (floats) of the shared weight copies
+constexpr int L2_AHEAD = 4;       // steps ahead whose inputs the warp moves to L2
+
+// One step's inputs of one (row, unit): h_prev, the three projections, the
+// mask, the attention gate and the cotangent of seq.
+struct StepIn {
+  float hp, xu, xr, xn, m, a, ds;
+};
+
+// Loads with no branch: a (row, unit) outside B x H reads element 0 of each
+// input and takes zeros.
+__device__ __forceinline__ StepIn load_step(const float* __restrict__ xw,
+                                            const float* __restrict__ mask,
+                                            const float* __restrict__ att,
+                                            const float* __restrict__ h0,
+                                            const float* __restrict__ seq,
+                                            const float* __restrict__ dseq, bool ok, int b,
+                                            int t, int l, int h, int j) {
+  // indices fit in int: the wrapper refuses B * L * 3H >= 2^31
+  const int bl = ok ? b * l + t : 0, jj = ok ? j : 0;
+  const float* hsrc = t == 0 ? h0 + (ok ? b * h : 0) : seq + (ok ? (bl - 1) * h : 0);
+  const float* xt = xw + bl * 3 * h + jj;
+  StepIn s = {hsrc[jj], xt[0], xt[ok ? h : 0], xt[ok ? 2 * h : 0], mask[bl], att[bl],
+              dseq[bl * h + jj]};
+  if (!ok) s = StepIn{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  return s;
+}
+
+__global__ void __launch_bounds__(WARPS * 32, 4)
+    gru_bwd_warp_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
+                        const float* __restrict__ mask, const float* __restrict__ att,
+                        const float* __restrict__ h0, const float* __restrict__ seq,
+                        const float* __restrict__ dseq, float* __restrict__ dxw,
+                        float* __restrict__ da, float* __restrict__ dh0,
+                        float* __restrict__ part, int b_total, int l, int h) {
+  // bf16 h_prev of the warp's two rows, twice (by the step's parity: the dwh
+  // sums of step t read it after the barrier that step t - 1's writes
+  // follow), and bf16 dhh of its two rows: the rows are 16 and 48 floats
+  // apart, 16 banks, so the two halves' 16-byte broadcasts and their stores
+  // land on distinct banks. The block's bf16 wh: column j of each gate block
+  // (wsm[0]) and row j (wsm[1]), a unit's 48 values WLD floats apart, so a
+  // warp's 16-byte loads of 16 units take two wavefronts. Then the warps' dwh
+  // slices.
+  __shared__ __align__(16) float hbuf[WARPS][2][2 * WHP];
+  __shared__ __align__(16) float dbuf[WARPS][2 * 3 * WHP];
+  __shared__ __align__(16) float wsm[2][WHP * WLD];
+  __shared__ float red[WARPS][WHP * 3 * WHP];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int half = lane >> 4, j = lane & (WHP - 1);
+  const int h3 = 3 * h;
+  const int b = blockIdx.x * WROWS + warp * 2 + half;
+  const bool ok = b < b_total && j < h;
+
+  for (int e = threadIdx.x; e < WHP * 3 * WHP; e += blockDim.x) {
+    const int u = e / (3 * WHP), c = e - u * 3 * WHP, g = c / WHP, k = c - g * WHP;
+    const bool in = u < h && k < h;
+    wsm[0][u * WLD + c] = in ? gru::bf16r(wh[k * h3 + g * h + u]) : 0.f;
+    wsm[1][u * WLD + c] = in ? gru::bf16r(wh[u * h3 + g * h + k]) : 0.f;
+  }
+  __syncthreads();
+  const float4* wcol = reinterpret_cast<const float4*>(wsm[0] + j * WLD);
+  const float4* wrow = reinterpret_cast<const float4*>(wsm[1] + j * WLD);
+  float* drow_w = dbuf[warp] + half * 3 * WHP;
+
+  // This lane's L2 prefetch: one of six lines of one of the warp's rows a
+  // step (xw's 3H floats from their start and 128 bytes on, h_prev, dseq,
+  // mask, att), step t's line at pf_base + (t - pf_first) * pf_step; h_prev
+  // of step 0 (h0) is not prefetched.
+  const float* pf_base = xw;
+  int pf_step = 0, pf_first = 0;
+  bool pf_ok = false;
+  if (lane < 12) {
+    const int r = lane / 6, what = lane - 6 * r, bb = blockIdx.x * WROWS + warp * 2 + r;
+    if (bb < b_total) {
+      const size_t bl = size_t(bb) * l;
+      pf_ok = true;
+      pf_first = what == 2;
+      pf_base = what == 0   ? xw + bl * h3
+                : what == 1 ? xw + bl * h3 + min(32, h3 - 1)
+                : what == 2 ? seq + bl * h
+                : what == 3 ? dseq + bl * h
+                : what == 4 ? mask + bl
+                            : att + bl;
+      pf_step = what <= 1 ? h3 : (what <= 3 ? h : 1);
+    }
+  }
+
+  float dw[3][WHP];  // dwh[k, g*H + j] over this thread's row and all steps
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+#pragma unroll
+    for (int k = 0; k < WHP; ++k) dw[g][k] = 0.f;
+  }
+  StepIn cur = load_step(xw, mask, att, h0, seq, dseq, ok, b, l - 1, l, h, j);
+  float dh = 0.f;
+
+  for (int t = l - 1; t >= 0; --t) {
+    if (pf_ok && t >= L2_AHEAD + pf_first) {
+      const float* p = pf_base + size_t(t - L2_AHEAD - pf_first) * pf_step;
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+    }
+    // step t - 1's inputs, in flight during this step
+    const StepIn nxt = load_step(xw, mask, att, h0, seq, dseq, ok && t > 0, b, t - 1, l, h, j);
+
+    float* hb = hbuf[warp][t & 1] + half * WHP;
+    hb[j] = gru::bf16r(cur.hp);
+    __syncwarp();
+
+    const float4* h4 = reinterpret_cast<const float4*>(hb);
+    float hu = 0.f, hr = 0.f, hn = 0.f;  // summed over k in order, as gru.cuh
+#pragma unroll
+    for (int k4 = 0; k4 < WHP / 4; ++k4) {
+      const float4 v = h4[k4], cu = wcol[k4], cr = wcol[WHP / 4 + k4],
+                   cn = wcol[2 * (WHP / 4) + k4];
+      hu = fmaf(v.x, cu.x, hu);
+      hr = fmaf(v.x, cr.x, hr);
+      hn = fmaf(v.x, cn.x, hn);
+      hu = fmaf(v.y, cu.y, hu);
+      hr = fmaf(v.y, cr.y, hr);
+      hn = fmaf(v.y, cn.y, hn);
+      hu = fmaf(v.z, cu.z, hu);
+      hr = fmaf(v.z, cr.z, hr);
+      hn = fmaf(v.z, cn.z, hn);
+      hu = fmaf(v.w, cu.w, hu);
+      hr = fmaf(v.w, cr.w, hr);
+      hn = fmaf(v.w, cn.w, hn);
+    }
+    using gru::add;
+    using gru::mul;
+    using gru::sub;
+    const float u0 = gru::sigmoid(add(cur.xu, hu));
+    const float rg = gru::sigmoid(add(cur.xr, hr));
+    const float n = tanhf(add(cur.xn, mul(rg, hn)));
+    const float u = mul(cur.a, u0);
+
+    const float dh_t = add(dh, cur.ds);
+    const float dh_new = mul(dh_t, cur.m);
+    float dh_prev = mul(dh_t, sub(1.f, cur.m));
+    const float du = mul(dh_new, sub(n, cur.hp));
+    const float dn = mul(dh_new, u);
+    dh_prev = add(dh_prev, mul(dh_new, sub(1.f, u)));
+    const float du0 = mul(du, cur.a);
+    const float dn_pre = mul(dn, sub(1.f, mul(n, n)));
+    const float dr = mul(dn_pre, hn);
+    const float dhn = mul(dn_pre, rg);
+    const float du_pre = mul(mul(du0, u0), sub(1.f, u0));
+    const float dr_pre = mul(mul(dr, rg), sub(1.f, rg));
+    if (ok) {
+      float* dxt = dxw + (b * l + t) * h3 + j;
+      dxt[0] = du_pre;
+      dxt[h] = dr_pre;
+      dxt[2 * h] = dn_pre;
+    }
+    const float own[3] = {gru::bf16r(du_pre), gru::bf16r(dr_pre), gru::bf16r(dhn)};
+#pragma unroll
+    for (int g = 0; g < 3; ++g) drow_w[g * WHP + j] = own[g];
+    __syncwarp();
+
+    // (wh . dhh)[j]: row j of wh against the row's dhh, over c in order
+    const float4* d4 = reinterpret_cast<const float4*>(drow_w);
+    float acc = 0.f;
+#pragma unroll
+    for (int c4 = 0; c4 < 3 * WHP / 4; ++c4) {
+      const float4 v = d4[c4], w = wrow[c4];
+      acc = fmaf(v.x, w.x, acc);
+      acc = fmaf(v.y, w.y, acc);
+      acc = fmaf(v.z, w.z, acc);
+      acc = fmaf(v.w, w.w, acc);
+    }
+    dh = add(dh_prev, acc);
+    // da[t], off the chain of dh: a butterfly over the row's 16 lanes (a + b
+    // and b + a are the same bits, so every lane ends with the same sum)
+    float s_da = mul(du, u0);
+#pragma unroll
+    for (int m = WHP / 2; m > 0; m >>= 1) s_da += __shfl_xor_sync(0xffffffffu, s_da, m);
+    if (ok && j == 0) da[b * l + t] = s_da;
+    // this thread's dwh slice: rows k of columns j, H + j, 2H + j
+#pragma unroll
+    for (int k4 = 0; k4 < WHP / 4; ++k4) {
+      const float4 v = h4[k4];
+      const float x4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) dw[g][4 * k4 + i] = fmaf(x4[i], own[g], dw[g][4 * k4 + i]);
+      }
+    }
+    cur = nxt;
+  }
+
+  if (ok) dh0[b * h + j] = dh;
+  // the two halves of the warp hold the same entries for different rows
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+#pragma unroll
+    for (int k = 0; k < WHP; ++k) {
+      dw[g][k] += __shfl_xor_sync(0xffffffffu, dw[g][k], 16);
+      if (half == 0) red[warp][k * 3 * WHP + g * WHP + j] = dw[g][k];
+    }
+  }
+  __syncthreads();
+  // the block's partial: its warps' slices added in warp order
+  float* pb = part + size_t(blockIdx.x) * h * h3;
+  for (int e = threadIdx.x; e < WHP * 3 * WHP; e += blockDim.x) {
+    const int k = e / (3 * WHP), c = e - k * 3 * WHP, g = c / WHP, jj = c - g * WHP;
+    if (k < h && jj < h) {
+      float s = red[0][e];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) s += red[w][e];
+      pb[k * h3 + g * h + jj] = s;
+    }
+  }
+}
+
+// --------------------------------------------------------- the dwh sum
+
+constexpr int SUM_SLICES = 8;     // slices of the blocks, each summed in block order
+constexpr int SUM_ENTRIES = 32;   // dwh entries a block of the sum kernel
+
+// dwh[e] = sum over slices s in order of (sum over the blocks of slice s in
+// block order of part[blk, e]); slice s holds blocks [s * per, (s + 1) * per).
+__global__ void __launch_bounds__(SUM_SLICES * SUM_ENTRIES)
+    gru_dwh_sum_kernel(const float* __restrict__ part, float* __restrict__ dwh, int blocks,
+                       int nw) {
+  __shared__ float sums[SUM_SLICES][SUM_ENTRIES];
+  const int el = threadIdx.x % SUM_ENTRIES, sl = threadIdx.x / SUM_ENTRIES;
+  const int e = blockIdx.x * SUM_ENTRIES + el;
+  const int per = (blocks + SUM_SLICES - 1) / SUM_SLICES;
+  const int lo = sl * per, hi = min(blocks, lo + per);
   float s = 0.f;
-  for (int blk = 0; blk < blocks; ++blk) s += part[size_t(blk) * nw + e];
-  dwh[e] = s;
+  if (e < nw) {
+#pragma unroll 8
+    for (int blk = lo; blk < hi; ++blk) s += part[size_t(blk) * nw + e];
+  }
+  sums[sl][el] = s;
+  __syncthreads();
+  if (sl == 0 && e < nw) {
+    float total = sums[0][el];
+    for (int q = 1; q < SUM_SLICES; ++q) total += sums[q][el];
+    dwh[e] = total;
+  }
+}
+
+int sum_partials(const float* part, float* dwh, int blocks, int nw, cudaStream_t s) {
+  gru_dwh_sum_kernel<<<(nw + SUM_ENTRIES - 1) / SUM_ENTRIES, SUM_SLICES * SUM_ENTRIES, 0, s>>>(
+      part, dwh, blocks, nw);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -174,8 +447,23 @@ int gru_bwd(const float* xw, const float* wh, const float* mask, const float* at
                                                  dh0, part, b, l, h, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gru_dwh_sum_kernel<<<(nw + 255) / 256, 256, 0, s>>>(part, dwh, blocks, nw);
-  return static_cast<int>(cudaGetLastError());
+  return sum_partials(part, dwh, blocks, nw, s);
+}
+
+// The same contract for 1 <= H <= 16 with rows = 8 (the wrapper's choice);
+// anything else returns cudaErrorInvalidValue and launches nothing.
+int gru_bwd_warp(const float* xw, const float* wh, const float* mask, const float* att,
+                 const float* h0, const float* seq, const float* dseq, float* dxw, float* dwh,
+                 float* da, float* dh0, float* part, int b, int l, int h, int rows,
+                 void* stream) {
+  if (h < 1 || h > WHP || rows != WROWS) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = (b + WROWS - 1) / WROWS;
+  gru_bwd_warp_kernel<<<blocks, WARPS * 32, 0, s>>>(xw, wh, mask, att, h0, seq, dseq, dxw, da,
+                                                     dh0, part, b, l, h);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return sum_partials(part, dwh, blocks, h * 3 * h, s);
 }
 
 }  // extern "C"

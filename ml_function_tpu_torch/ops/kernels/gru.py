@@ -19,6 +19,11 @@ as the reference's custom vjp does; it rounds h_prev, wh and the recurrent
 cotangent dhh to bf16 at each of its two products. The mask gets no
 gradient (the reference returns zeros for it).
 
+The backward kernel has two instances of one C contract, chosen by H alone
+(``backward_instance``): ``gru_bwd_warp`` for H ≤ 16 (DIEN's and SIM's
+recurrences: a warp two batch rows, nothing in the step loop waiting on
+another warp) and ``gru_bwd`` for 17 ≤ H ≤ 64 (a block 256 / H rows).
+
 ``gru_sequence`` is a ``torch.autograd.Function``: for tensors on the CPU
 both directions run the plain versions, for CUDA tensors they launch the
 kernels; it never falls back from one to the other.
@@ -38,6 +43,10 @@ from ._checks import check_cuda_inputs, on_cpu
 # shared memory: 2 · 64 · 192 floats at H 64 (kd = 2·D for D ≤ 32).
 MAX_HIDDEN = 64
 THREADS = 256   # a block is ROWS(H) batch rows of H threads each
+# The backward's warp instance (``gru_bwd_warp``): H ≤ 16, a thread per
+# (batch row, hidden unit), two rows a warp, 8 rows a block.
+WARP_MAX_HIDDEN = 16
+WARP_ROWS = 8
 NDIMS = {"xw": 3, "wh": 2, "mask": 2, "att": 2, "h0": 2, "seq": 3, "dseq": 3}
 
 # Launches of each CUDA kernel since its count was last set to 0.
@@ -46,8 +55,24 @@ gru_bwd_launches = 0
 
 
 def rows_per_block(h: int) -> int:
-    """Batch rows a block of the kernels takes: H threads a row."""
+    """Batch rows a block of the forward kernel and of the backward's block
+    instance takes: H threads a row."""
     return max(1, THREADS // h)
+
+
+def backward_instance(h: int) -> str:
+    """The C function of ``csrc/gru_bwd.cu`` that takes hidden size H:
+    ``gru_bwd_warp`` for H ≤ 16 (DIEN's and SIM's recurrences),
+    ``gru_bwd`` for 17 ≤ H ≤ 64. Raises ``ValueError`` past those."""
+    if not 1 <= h <= MAX_HIDDEN:
+        raise ValueError(f"gru_sequence backward: hidden size H = {h} is beyond "
+                         f"the kernels' 1..{MAX_HIDDEN}")
+    return "gru_bwd_warp" if h <= WARP_MAX_HIDDEN else "gru_bwd"
+
+
+def backward_rows(h: int) -> int:
+    """Batch rows a block of the backward instance for H takes."""
+    return WARP_ROWS if backward_instance(h) == "gru_bwd_warp" else rows_per_block(h)
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -202,9 +227,10 @@ def _check(what: str, **t: torch.Tensor):
 def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     n_ptr = 6 if name == "gru_fwd" else 12
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fname in (("gru_bwd", "gru_bwd_warp") if name == "gru_bwd" else (name,)):
+        fn = getattr(lib, fname)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -226,28 +252,28 @@ def _launch_fwd(xw, wh, mask, att, h0) -> torch.Tensor:
 
 
 def gru_sequence_backward(xw, wh, mask, att, h0, seq, dseq):
-    """The backward kernel (``csrc/gru_bwd.cu``) on CUDA tensors: the
-    contract of ``gru_sequence_backward_reference``, with dwh summed from
-    fixed per-block partials in a fixed order (the same inputs give the same
+    """The backward kernel (``csrc/gru_bwd.cu``, the instance
+    ``backward_instance`` names) on CUDA tensors: the contract of
+    ``gru_sequence_backward_reference``, with dwh summed from fixed
+    per-block partials in a fixed order (the same inputs give the same
     bits). Raises on anything the kernel does not take; never runs the plain
     version."""
     global gru_bwd_launches
     b, l, h = _check("gru_sequence backward", xw=xw, wh=wh, mask=mask, att=att,
                      h0=h0, seq=seq, dseq=dseq)
     dxw, da, dh0 = torch.empty_like(xw), torch.empty_like(att), torch.empty_like(h0)
-    dwh = torch.zeros_like(wh)
+    dwh = torch.empty_like(wh)   # the kernel writes every entry
     if b * l == 0:   # no step: the gradients of wh and h0 are zero
-        return dxw, dwh, da, dh0.zero_()
-    blocks = -(-b // rows_per_block(h))
-    part = xw.new_empty((blocks, h, 3 * h))
+        return dxw, dwh.zero_(), da, dh0.zero_()
+    name, rows = backward_instance(h), backward_rows(h)
+    part = xw.new_empty((-(-b // rows), h, 3 * h))
     with torch.cuda.device(xw.device):
-        err = _lib("gru_bwd").gru_bwd(
+        err = getattr(_lib("gru_bwd"), name)(
             xw.data_ptr(), wh.data_ptr(), mask.data_ptr(), att.data_ptr(),
             h0.data_ptr(), seq.data_ptr(), dseq.data_ptr(), dxw.data_ptr(),
             dwh.data_ptr(), da.data_ptr(), dh0.data_ptr(), part.data_ptr(),
-            b, l, h, rows_per_block(h),
-            torch.cuda.current_stream(xw.device).cuda_stream)
+            b, l, h, rows, torch.cuda.current_stream(xw.device).cuda_stream)
     if err:
-        raise RuntimeError(f"gru_bwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     gru_bwd_launches += 1
     return dxw, dwh, da, dh0

@@ -53,6 +53,7 @@ from ml_function_tpu_torch.ops.kernels import embedding_grad as teg
 from ml_function_tpu_torch.ops.kernels import field_attention as tfa
 from ml_function_tpu_torch.ops.kernels import flash_attention as tfl
 from ml_function_tpu_torch.ops.kernels import gru as tgru
+from ml_function_tpu_torch.tools import cin_numerics
 from ml_function_tpu_torch.train.loop import make_train_step
 from ml_function_tpu_torch.train.optimizers import make_optimizer
 
@@ -81,6 +82,8 @@ def _close(got, want):
     (3, 77, 37, 3, 130),    # odd H, O past one 128-wide tile
     (2, 256, 1, 1, 8),      # one field, one row of w1
     (8, 256, 26, 26, 128),  # the first CIN layer of xDeepFM at B 256
+    (8, 4096, 26, 26, 128),  # xDeepFM's two layers at B 4096
+    (8, 4096, 128, 26, 128),
 ])
 def test_cin_kernel_matches_plain_version(card, d, b, h, f, o):
     gen = torch.Generator(device=card).manual_seed(0)
@@ -92,6 +95,26 @@ def test_cin_kernel_matches_plain_version(card, d, b, h, f, o):
     torch.cuda.synchronize()
     assert tcin.cin_fwd_launches == before + 1
     _close(got, tcin.cin_layer_t_reference(xk, x0, w1))
+
+
+# The CIN forward against f64 of the same bf16 operands at xDeepFM's two
+# layers at B 4096 (tools/cin_numerics.py): the largest error (of max|y64|)
+# and the shrink toward zero (mean of err · sign(y64) over mean |y64|) that
+# the earlier mma.sync kernel read on the card, by H; the wgmma kernel is
+# held to 1.25 times each (PERF.md).
+CIN_MMA_SYNC_NUMERICS = {26: (2.1226e-07, -2.1063e-08), 128: (2.8831e-07, -9.4467e-08)}
+
+
+@pytest.mark.parametrize("h", sorted(CIN_MMA_SYNC_NUMERICS))
+def test_cin_kernel_does_not_shrink(card, h):
+    """The tensor cores sum each field's product in f32 and truncate; a
+    kernel that chained more of the sum through them, or folded x0 into a
+    bf16 operand, would err more and pull y toward zero by more."""
+    got = cin_numerics.measure(tcin, (8, 4096, h, 26, 128))
+    print(f"H {h}: {got}")
+    max_err, shrink = CIN_MMA_SYNC_NUMERICS[h]
+    assert got["max_err"] <= 1.25 * max_err
+    assert abs(got["shrink"]) <= 1.25 * abs(shrink)
 
 
 def test_cin_kernel_refuses_what_it_does_not_take(card):
@@ -352,6 +375,30 @@ def test_gru_kernels_match_plain_versions(card, b, l, h, case, gate):
     assert torch.equal(grads[1], again[1])       # dwh: fixed partials, no atomics
     if case == "ragged":                         # row 1 is masked at every step
         assert torch.equal(seq[1], h0[1].expand(l, -1))
+
+
+# (B, L, H): each side of the backward's two instances (H 16 | 17), H 1,
+# SIM flash-ESU's B 8, ragged B and L; row 1 is masked at every step
+GRU_BWD_SHAPES = [(37, 9, 1), (8, 64, 8), (8, 64, 16), (101, 13, 16), (101, 13, 32),
+                  (101, 13, 33), (45, 11, 64)]
+
+
+@pytest.mark.parametrize("b,l,h", GRU_BWD_SHAPES)
+def test_gru_bwd_instances_match_plain_version(card, b, l, h):
+    xw, wh, mask, att, h0, dseq = _gru_inputs(card, b, l, h, "ragged")
+    args = (xw, wh, mask, att, h0)
+    seq = tgru.gru_sequence_reference(*args)
+    before = tgru.gru_bwd_launches
+    grads = tgru.gru_sequence_backward(*args, seq, dseq)
+    again = tgru.gru_sequence_backward(*args, seq, dseq)
+    torch.cuda.synchronize()
+    assert tgru.gru_bwd_launches == before + 2
+    for g, w in zip(grads, tgru.gru_sequence_backward_reference(*args, seq, dseq)):
+        _close(g, w)
+    assert torch.equal(grads[1], again[1])       # dwh: fixed partials, no atomics
+    # row 1 takes no step: its gradients pass dseq's sum straight to h0
+    assert torch.equal(grads[0][1], torch.zeros_like(grads[0][1]))
+    assert torch.equal(grads[2][1], torch.zeros_like(grads[2][1]))
 
 
 def test_gru_kernel_refuses_what_it_does_not_take(card):
