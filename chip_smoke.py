@@ -18,10 +18,12 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    backward (whose outputs must also be the same bits on three runs; each
    of its four launches timed by the profiler),
    and the field-attention forward and backward (the backward twice, the
-   same bits, and each shape's instance named), also at the two edges of
-   their gate, at AutoInt's L with Dh 13 and a ragged B, and at SIM's top-8
-   ESU, with a random key mask and one batch row whose keys are all masked
-   (uniform weights over all keys);
+   same bits, and each shape's instance named; where the forward takes its
+   warp instance, its block instance is held beside it, and both are timed
+   at AutoInt's shape by events and on the device), also at the two edges
+   of their gate, at AutoInt's L with Dh 13 and a ragged B, and at SIM's
+   top-8 ESU, with a random key mask and one batch row whose keys are all
+   masked (uniform weights over all keys);
 4. serving: full-width xDeepFM on the Criteo schema (26 fields of 100k ids,
    dim 8, CIN (128, 128), MLP (256, 128)) with seeded random weights,
    exported and scored through ``load_scorer`` → ``Scorer.predict_proba`` on
@@ -52,10 +54,12 @@ Phases, each of which stops the run with a non-zero exit if it fails:
 8. the (AU)GRU kernels and the merge-scatter kernel against their plain
    versions: gru_fwd and gru_bwd with attention gates and with ones at
    DIEN's shape (B 4096, L 64, H 16, the masks of real histories), at
-   SIM's two (B 512 and B 8, timed beside DIEN's; each backward shape names
-   its instance), at (B 300, L 7, H 64) with ragged masks, one row masked
-   at every step (its seq must be h0) and a non-zero h0, and at (B 1, L 1,
-   H 8); merge_scatter
+   SIM's two (B 512 and B 8, timed beside DIEN's by events and on the
+   device; each shape names its instances), at (B 300, L 7, H 64) and
+   (B 301, L 9, H 13) with ragged masks, one row masked at every step (its
+   seq must be h0) and a non-zero h0, and at (B 1, L 1, H 8); wherever H ≤ 16
+   the forward's warp instance and its block instance must give the same
+   bits (the block instance timed beside it at DIEN's shape); merge_scatter
    (int32 ids sorted stably, ct unsorted and read through the sort's
    permutation) at DIEN's two sequence lookups (N 262,144 ids of width 8
    into 5,202 rows; a quarter of the item ids are the pad id), at SIM's
@@ -162,9 +166,11 @@ DIEN_DATA = dict(n_items=5000, n_cates=100, seq_len=64, embed_dim=8, seed=0)
 DIEN_LEARN = dict(n_rows=120_000, n_items=40, n_cates=10, seq_len=32, seed=0)
 DIEN_AUC_BAR = 0.55
 # (B, L, H, what): DIEN's recurrences, SIM's at its two board shapes (B 512
-# and B 8, timed beside DIEN's), then the edges
+# and B 8, timed beside DIEN's), then the edges: H 64 (the block instances)
+# and H 13 (three padded units of the warp instances), each with a B that is
+# not a multiple of a block's rows
 GRU_SHAPES = ((BATCH, 64, 16, "path"), (512, 64, 16, "sim"), (8, 64, 16, "sim"),
-              (300, 7, 64, "ragged"), (1, 1, 8, "tiny"))
+              (300, 7, 64, "ragged"), (301, 9, 13, "ragged"), (1, 1, 8, "tiny"))
 # K5 off the path: ragged causal Lq ≠ Lk, Dh 64, Lq 1, then the tensor-core
 # tiles' edges: Lq and Lk not multiples of 16 or 8, Lk < 8, one 16-row causal
 # tile (B, H, Lq, Lk, Dh, causal); batch row 1 of each has every key masked
@@ -418,6 +424,26 @@ def check_field_attn_kernels(fa_mod) -> list:
         if not all(torch.equal(x, y) for x, y in zip(grads, again)):
             fail(f"field_attn_bwd differs between two runs at {where}")
 
+        # the forward's block instance (which takes every shape of the
+        # gate) where the wrapper picks the warp one
+        instance = fa_mod.forward_instance(q, k, v, bias)
+        block = None
+        if instance != "field_attn_fwd":
+            block_o = fa_mod.field_attention_forward(q, k, v, bias, scale,
+                                                    instance="field_attn_fwd")
+            torch.cuda.synchronize()
+            block = {"max_abs_err": _check_close(
+                f"field_attn_fwd (block instance) at {where}", block_o,
+                fa_mod.field_attention_reference(q, k, v, bias, scale))[0]}
+            if masked:
+                _check_close(f"field_attn_fwd's all-masked row (block instance) at {where}",
+                             block_o[1], v[1].mean(dim=0, keepdim=True).expand(lq, -1, -1))
+            if shape == FA_MAIN:
+                block["ms"] = event_ms(lambda: fa_mod.field_attention_forward(
+                    q, k, v, bias, scale, instance="field_attn_fwd"))
+                block["device_ms"] = launch_ms(lambda: fa_mod.field_attention_forward(
+                    q, k, v, bias, scale, instance="field_attn_fwd"))
+
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         mask4 = bias[:, None, None, :]
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -431,8 +457,11 @@ def check_field_attn_kernels(fa_mod) -> list:
                   "masked": masked}
         fb, fby = fa_bound(b, lq, lk, h, dh)
         fwd_shapes.append({
-            **common, "max_abs_err": err, "atol": atol,
+            **common, "instance": instance, "max_abs_err": err, "atol": atol,
             "ms": event_ms(lambda: fa_mod.field_attention(q, k, v, bias, scale)),
+            "device_ms": (launch_ms(lambda: fa_mod.field_attention(q, k, v, bias, scale))
+                          if shape == FA_MAIN else None),
+            "block_instance": block,
             "plain_ms": event_ms(
                 lambda: fa_mod.field_attention_reference(q, k, v, bias, scale)),
             "library_ms": sdpa_fwd_ms, "library_max_abs_diff": sdpa_err,
@@ -450,11 +479,12 @@ def check_field_attn_kernels(fa_mod) -> list:
             "library_ms": sdpa_both_ms - sdpa_fwd_ms,
             "bound_ms": bb, "bound_by": bby})
     for s in fwd_shapes:
-        print(f"field_attn_fwd {s['shape']} masked={s['masked']}: max_abs_err "
-              f"{s['max_abs_err']:.3e} (atol {s['atol']:.3e}), kernel {s['ms']:.4f} ms, "
-              f"plain {s['plain_ms']:.4f} ms, library (SDPA f32) {s['library_ms']:.4f} ms "
+        print(f"field_attn_fwd {s['shape']} masked={s['masked']} ({s['instance']}): "
+              f"max_abs_err {s['max_abs_err']:.3e} (atol {s['atol']:.3e}), kernel "
+              f"{s['ms']:.4f} ms (on the device {s['device_ms']}), plain "
+              f"{s['plain_ms']:.4f} ms, library (SDPA f32) {s['library_ms']:.4f} ms "
               f"(max |diff| {s['library_max_abs_diff']:.3e}), bound "
-              f"{s['bound_ms']:.4f} ms ({s['bound_by']})")
+              f"{s['bound_ms']:.4f} ms ({s['bound_by']}); block instance {s['block_instance']}")
     for s in bwd_shapes:
         print(f"field_attn_bwd {s['shape']} masked={s['masked']} ({s['instance']}): "
               "the same bits on a second run, max_abs_err dq/dk/dv "
@@ -561,6 +591,20 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
             torch.cuda.synchronize()
             ref_seq = gru_mod.gru_sequence_reference(*args)
             err, atol = _check_close(f"gru_fwd at {where}", seq, ref_seq)
+            instance = gru_mod.forward_instance(h)
+            block = None
+            if instance != "gru_fwd":   # the block instance takes every H
+                block_seq = gru_mod.gru_sequence_forward(*args, instance="gru_fwd")
+                torch.cuda.synchronize()
+                if not torch.equal(block_seq, seq):
+                    fail(f"gru_fwd at {where}: {instance} and the block instance differ "
+                         f"by up to {(block_seq - seq).abs().max().item()}")
+                block = {"same_bits": True}
+                if what == "path":
+                    block["ms"] = event_ms(lambda: gru_mod.gru_sequence_forward(
+                        *args, instance="gru_fwd"))
+                    block["device_ms"] = launch_ms(lambda: gru_mod.gru_sequence_forward(
+                        *args, instance="gru_fwd"))
             if what == "ragged" and not torch.equal(seq[1], h0[1].expand(l, -1)):
                 fail(f"gru_fwd at {where}: the row masked at every step does not "
                      "carry h0")
@@ -575,8 +619,10 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
             bb, bby = gru_bound(b, l, h, backward=True)
             timed = what in ("path", "sim")
             fwd_shapes.append({
-                **common, "max_abs_err": err, "atol": atol,
+                **common, "instance": instance, "max_abs_err": err, "atol": atol,
                 "ms": event_ms(lambda: gru_mod.gru_sequence(*args)) if timed else None,
+                "device_ms": launch_ms(lambda: gru_mod.gru_sequence(*args)) if timed else None,
+                "block_instance": block,
                 "plain_ms": (event_ms(lambda: gru_mod.gru_sequence_reference(*args),
                                       reps=5, inner=2) if timed else None),
                 "library_ms": lib_fwd_ms, "bound_ms": fb, "bound_by": fby})
@@ -587,20 +633,24 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
                 "instance": gru_mod.backward_instance(h),
                 "ms": (event_ms(lambda: gru_mod.gru_sequence_backward(*args, seq, dseq))
                        if timed else None),
+                "device_ms": (launch_ms(lambda: gru_mod.gru_sequence_backward(
+                    *args, seq, dseq)) if timed else None),
                 "plain_ms": (event_ms(lambda: gru_mod.gru_sequence_backward_reference(
                     *args, seq, dseq), reps=5, inner=2) if timed else None),
                 "library_ms": lib_bwd_ms, "bound_ms": bb, "bound_by": bby})
     for s in fwd_shapes:
-        print(f"gru_fwd {s['shape']} {s['case']} {s['gate']}: max_abs_err "
-              f"{s['max_abs_err']:.3e} (atol {s['atol']:.3e}); kernel {s['ms']} ms, "
-              f"plain {s['plain_ms']} ms, library (cuDNN GRU f32) {s['library_ms']} ms, "
-              f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})")
+        print(f"gru_fwd {s['shape']} {s['case']} {s['gate']} ({s['instance']}): "
+              f"max_abs_err {s['max_abs_err']:.3e} (atol {s['atol']:.3e}); kernel "
+              f"{s['ms']} ms (on the device {s['device_ms']}), plain {s['plain_ms']} ms, "
+              f"library (cuDNN GRU f32) {s['library_ms']} ms, bound {s['bound_ms']:.4f} ms "
+              f"({s['bound_by']}); block instance {s['block_instance']}")
     for s in bwd_shapes:
         print(f"gru_bwd {s['shape']} {s['case']} {s['gate']} ({s['instance']}): "
               "max_abs_err dxw/dwh/da/dh0 "
               + "/".join(f"{e:.3e}" for e in s["max_abs_err_dxw_dwh_da_dh0"])
               + " (atol " + "/".join(f"{t:.3e}" for t in s["atol_dxw_dwh_da_dh0"])
-              + f"), dwh bit-identical on a second run; kernel {s['ms']} ms, plain "
+              + f"), dwh bit-identical on a second run; kernel {s['ms']} ms (on the "
+              f"device {s['device_ms']}), plain "
               f"{s['plain_ms']} ms, library (cuDNN GRU backward) {s['library_ms']} ms, "
               f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})")
     replaces = "ml_function_tpu/ops/kernels/gru.py"

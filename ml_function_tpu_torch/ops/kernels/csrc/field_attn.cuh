@@ -1,5 +1,8 @@
-// Block-level pieces shared by the field-attention kernels (field_attn_fwd.cu,
-// field_attn_bwd.cu). One block of THREADS threads works on one (batch row b,
+// Pieces shared by the field-attention kernels (field_attn_fwd.cu,
+// field_attn_bwd.cu): first those of the block instances, then those of the
+// warp instances.
+//
+// Block instances: one block of THREADS threads works on one (batch row b,
 // head h): the rows of q, k, v, dO for that pair are the Dh contiguous floats
 // at ((b * L + i) * H + h) * Dh, one row every H * Dh floats (the (B, L, H, Dh)
 // layout of the projections, read in place with no transpose).
@@ -13,6 +16,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace fa {
 
@@ -118,6 +123,122 @@ __device__ void apply(const float* m, int ld, int nr, int nc, const float* __res
     }
     out[size_t(r) * stride + d] = acc * scale;
   }
+}
+
+// ---- warp instances: one warp a (b, h) ----
+//
+// A block takes warp_rows(h) whole batch rows with all their heads, so that
+// its rows of q, k, v (and dO) are contiguous: it copies them into shared
+// memory with coalesced loads (slabs_in), each (b, l) row padded to
+// slab_stride(h, DP) floats and each head's row to DP (8 or 16) floats with
+// zeros; a warp then works on one (b, h) with a lane a query (or a key), rows
+// read as 16-byte broadcasts (load_row), and writes its results into the
+// slots of its inputs for the block to copy out (slab_out).
+
+constexpr int WARP_L = 32;       // queries or keys a warp takes, one a lane
+constexpr int WARP_PAIRS = 4;    // (b, h) pairs a block takes where H < 4
+constexpr int WARP_MAX_H = 8;    // so a block has at most 8 warps
+constexpr int WARP_MAX_DH = 16;  // a row of q, k or v in a lane's registers
+
+// The shapes the warp instances take (the wrappers choose by the same
+// limits: field_attention.py).
+__host__ __device__ inline bool warp_fits(int lq, int lk, int h, int dh) {
+  return lq <= WARP_L && lk <= WARP_L && dh <= WARP_MAX_DH && h <= WARP_MAX_H;
+}
+
+// Floats of one (b, l) row of a staged slab: H heads of DP floats and 4
+// more, so that the 16-byte loads of 8 lanes reading 8 neighbouring rows hit
+// 32 distinct banks (DP is a multiple of 8, so the stride / 4 is odd).
+__host__ __device__ inline int slab_stride(int h, int dp) { return h * dp + 4; }
+
+// Batch rows of one block.
+__host__ __device__ inline int warp_rows(int h) { return h < WARP_PAIRS ? WARP_PAIRS / h : 1; }
+
+// Row stride of a warp's (Lk, Lq) matrices (the forward's logits, the
+// backward's a^T and dS^T): odd, so that lanes reading one column each
+// (lane j, row j) hit distinct banks.
+__host__ __device__ inline int mat_ld(int lq) { return lq | 1; }
+
+// The column of a slab that thread threadIdx.x copies, at every step of
+// rows: 16 bytes (VEC) or 4 of one head's row. blockDim.x, 32 * H times
+// the batch rows, is a multiple of a row's units (H * DP / 4 or H * DP), so
+// the column stays the same and the loops divide nothing.
+template <int DP, bool VEC>
+struct SlabCol {
+  static constexpr int W = VEC ? 4 : 1;   // floats a unit
+  int per, step, rl0, off, src;           // units a row, rows a step, first row, offsets
+  bool live;                              // the column lies inside dh
+  __device__ __forceinline__ SlabCol(int h, int dh) {
+    per = h * DP / W;
+    step = blockDim.x / per;
+    rl0 = threadIdx.x / per;
+    const int rem = threadIdx.x % per, hh = rem / (DP / W), c = W * (rem % (DP / W));
+    off = W * rem;
+    src = hh * dh + c;
+    live = c < dh;
+  }
+};
+
+// The slabs of nb batch rows of N (1 or 2) (B, L, H, dh) tensors, from sa
+// and sb (their first rows) into da and db, each head's row padded with
+// zeros to DP; unrolled, so that several loads of each thread are in flight.
+// With N = 1, sb and db are not touched.
+template <int DP, bool VEC, int N = 2>
+__device__ __forceinline__ void slabs_in(float* da, float* db, const float* __restrict__ sa,
+                                         const float* __restrict__ sb, int nb, int l, int h,
+                                         int dh) {
+  static_assert(N == 1 || N == 2, "one or two tensors");
+  using T = typename std::conditional<VEC, float4, float>::type;
+  const SlabCol<DP, VEC> col(h, dh);
+  const int s = slab_stride(h, DP);
+#pragma unroll 4
+  for (int rl = col.rl0; rl < nb * l; rl += col.step) {
+    T x{}, y{};
+    if (col.live) {
+      const size_t g = size_t(rl) * h * dh + col.src;
+      x = __ldg(reinterpret_cast<const T*>(sa + g));
+      if (N == 2) y = __ldg(reinterpret_cast<const T*>(sb + g));
+    }
+    *reinterpret_cast<T*>(da + rl * s + col.off) = x;
+    if (N == 2) *reinterpret_cast<T*>(db + rl * s + col.off) = y;
+  }
+}
+
+// The reverse of slabs_in for one tensor: the first dh floats of each
+// head's row to dst.
+template <int DP, bool VEC>
+__device__ __forceinline__ void slab_out(float* __restrict__ dst, const float* src, int nb, int l,
+                                         int h, int dh) {
+  using T = typename std::conditional<VEC, float4, float>::type;
+  const SlabCol<DP, VEC> col(h, dh);
+  if (!col.live) return;
+  const int s = slab_stride(h, DP);
+#pragma unroll 4
+  for (int rl = col.rl0; rl < nb * l; rl += col.step)
+    *reinterpret_cast<T*>(dst + size_t(rl) * h * dh + col.src) =
+        *reinterpret_cast<const T*>(src + rl * s + col.off);
+}
+
+// x[0..DP) = the DP floats at p (16-byte aligned), as float4s.
+template <int DP>
+__device__ __forceinline__ void load_row(float (&x)[DP], const float* p) {
+#pragma unroll
+  for (int c = 0; c < DP; c += 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p + c);
+    x[c] = f.x;
+    x[c + 1] = f.y;
+    x[c + 2] = f.z;
+    x[c + 3] = f.w;
+  }
+}
+
+// The DP floats x * scale to p (16-byte aligned), as float4s.
+template <int DP>
+__device__ __forceinline__ void store_row(float* p, const float (&x)[DP], float scale) {
+#pragma unroll
+  for (int c = 0; c < DP; c += 4)
+    *reinterpret_cast<float4*>(p + c) =
+        make_float4(x[c] * scale, x[c + 1] * scale, x[c + 2] * scale, x[c + 3] * scale);
 }
 
 }  // namespace fa

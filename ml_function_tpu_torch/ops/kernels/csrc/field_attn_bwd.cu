@@ -59,115 +59,27 @@
 //
 // Launches go on the caller's stream. Nothing here synchronises or allocates.
 
-#include <type_traits>
-
 #include "field_attn.cuh"
 
 namespace {
 
 // ---- field_attn_bwd_warp: one warp a (b, h) ----
 
-constexpr int WARP_L = 32;       // queries or keys a warp takes, one a lane
-constexpr int WARP_PAIRS = 4;    // (b, h) pairs a block takes where H < 4
-constexpr int WARP_MAX_H = 8;    // so a block has at most 8 warps
-
-// Floats of one (b, l) row of a staged slab: H heads of DP floats and 4
-// more, so that the 16-byte loads of 8 lanes reading 8 neighbouring rows hit
-// 32 distinct banks (DP is a multiple of 8, so the stride / 4 is odd).
-__host__ __device__ inline int slab_stride(int h, int dp) { return h * dp + 4; }
-
-// Batch rows of one block.
-__host__ __device__ inline int warp_rows(int h) { return h < WARP_PAIRS ? WARP_PAIRS / h : 1; }
-
-// Row stride of a warp's (Lk, Lq) matrices a^T and dS^T: odd, so that lanes
-// reading one column each (lane j, row j) hit distinct banks.
-__host__ __device__ inline int mat_ld(int lq) { return lq | 1; }
+using fa::load_row;
+using fa::mat_ld;
+using fa::slab_out;
+using fa::slab_stride;
+using fa::slabs_in;
+using fa::store_row;
+using fa::warp_rows;
+using fa::WARP_L;
+using fa::WARP_MAX_H;
 
 // Floats of shared memory: the slabs of q and dO (Lq rows), k and v (Lk
 // rows), the bias (rounded up to 4 floats) and each warp's a^T and dS^T.
 size_t warp_smem_floats(int lq, int lk, int h, int dp) {
   const size_t nb = warp_rows(h), s = slab_stride(h, dp);
   return nb * (2 * lq + 2 * lk) * s + (nb * lk + 3) / 4 * 4 + nb * h * 2 * lk * mat_ld(lq);
-}
-
-// The column of a slab that thread threadIdx.x copies, at every step of
-// rows: 16 bytes (VEC) or 4 of one head's row. blockDim.x, 32 * H times
-// the batch rows, is a multiple of a row's units (H * DP / 4 or H * DP), so
-// the column stays the same and the loops divide nothing.
-template <int DP, bool VEC>
-struct SlabCol {
-  static constexpr int W = VEC ? 4 : 1;   // floats a unit
-  int per, step, rl0, off, src;           // units a row, rows a step, first row, offsets
-  bool live;                              // the column lies inside dh
-  __device__ __forceinline__ SlabCol(int h, int dh) {
-    per = h * DP / W;
-    step = blockDim.x / per;
-    rl0 = threadIdx.x / per;
-    const int rem = threadIdx.x % per, hh = rem / (DP / W), c = W * (rem % (DP / W));
-    off = W * rem;
-    src = hh * dh + c;
-    live = c < dh;
-  }
-};
-
-// The slabs of nb batch rows of two (B, L, H, dh) tensors, from sa and sb
-// (their first rows) into da and db, each head's row padded with zeros to
-// DP; unrolled, so that several loads of each thread are in flight.
-template <int DP, bool VEC>
-__device__ __forceinline__ void slabs_in(float* da, float* db, const float* __restrict__ sa,
-                                         const float* __restrict__ sb, int nb, int l, int h,
-                                         int dh) {
-  using T = typename std::conditional<VEC, float4, float>::type;
-  const SlabCol<DP, VEC> col(h, dh);
-  const int s = slab_stride(h, DP);
-#pragma unroll 4
-  for (int rl = col.rl0; rl < nb * l; rl += col.step) {
-    T x{}, y{};
-    if (col.live) {
-      const size_t g = size_t(rl) * h * dh + col.src;
-      x = __ldg(reinterpret_cast<const T*>(sa + g));
-      y = __ldg(reinterpret_cast<const T*>(sb + g));
-    }
-    *reinterpret_cast<T*>(da + rl * s + col.off) = x;
-    *reinterpret_cast<T*>(db + rl * s + col.off) = y;
-  }
-}
-
-// The reverse of slabs_in for one tensor: the first dh floats of each
-// head's row to dst.
-template <int DP, bool VEC>
-__device__ __forceinline__ void slab_out(float* __restrict__ dst, const float* src, int nb, int l,
-                                         int h, int dh) {
-  using T = typename std::conditional<VEC, float4, float>::type;
-  const SlabCol<DP, VEC> col(h, dh);
-  if (!col.live) return;
-  const int s = slab_stride(h, DP);
-#pragma unroll 4
-  for (int rl = col.rl0; rl < nb * l; rl += col.step)
-    *reinterpret_cast<T*>(dst + size_t(rl) * h * dh + col.src) =
-        *reinterpret_cast<const T*>(src + rl * s + col.off);
-}
-
-// x[0..DP) = the DP floats at p (16-byte aligned), as float4s.
-template <int DP>
-__device__ __forceinline__ void load_row(float (&x)[DP], const float* p) {
-#pragma unroll
-  for (int c = 0; c < DP; c += 4) {
-    const float4 f = *reinterpret_cast<const float4*>(p + c);
-    x[c] = f.x;
-    x[c + 1] = f.y;
-    x[c + 2] = f.z;
-    x[c + 3] = f.w;
-  }
-}
-
-// The DP floats x * scale to p (16-byte aligned), as float4s.
-template <int DP>
-__device__ __forceinline__ void store_row(float* p, const float (&x)[DP], float scale) {
-#pragma unroll
-  for (int c = 0; c < DP; c += 4)
-    *reinterpret_cast<float4*>(p + c) =
-        make_float4(x[c] * scale, x[c + 1] * scale, x[c + 2] * scale, x[c + 3] * scale);
 }
 
 template <int DP>
@@ -366,7 +278,7 @@ int field_attn_bwd(const float* q, const float* k, const float* v, const float* 
 int field_attn_bwd_warp(const float* q, const float* k, const float* v, const float* bias,
                         const float* dout, float* dq, float* dk, float* dv, float scale, int b,
                         int lq, int lk, int h, int dh, void* stream) {
-  if (lq > WARP_L || lk > WARP_L || dh > 16 || h > WARP_MAX_H)
+  if (!fa::warp_fits(lq, lk, h, dh))
     return static_cast<int>(cudaErrorInvalidValue);
   // 16-byte loads and stores where every row starts 16-byte aligned
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |

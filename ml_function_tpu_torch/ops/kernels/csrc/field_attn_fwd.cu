@@ -1,5 +1,6 @@
 // Field-attention forward for Hopper (sm_90a), with a plain C interface for
-// ctypes.
+// ctypes: two instances of one contract, chosen by the wrapper from the
+// shape (kernels/field_attention.py: forward_instance).
 //
 // Replaces ml_function_tpu/ops/kernels/field_attention.py::_fwd_kernel
 // (launched there by _call). For each batch row b and head h:
@@ -9,30 +10,154 @@
 // with q (B, Lq, H, Dh), k and v (B, Lk, H, Dh), bias (B, Lk), o (B, Lq, H, Dh),
 // all f32, for Lq * Lk <= 4096 and Dh <= 64. Products and sums are f32 on the
 // CUDA cores: the reference is f32 throughout, and TF32 or bf16 tensor cores
-// would change the numbers.
+// would change the numbers. Both instances form a logit as the plain version
+// does, the product times scale, then plus the bias (two roundings: an FMA
+// would round the -1e9 of a masked key differently, and a row whose keys are
+// all masked would stop being uniform), then expf(s - max) and a division by
+// the row's sum.
 //
 // What bounds it on the H100: at AutoInt's shape (B 4096, L 27, H 2, Dh 16)
 // it does 4 * B * H * Lq * Lk * Dh = 382 MFLOP (6 us at the 67 TFLOP/s of f32)
-// for 57 MB in and out (17 us at 3.35 TB/s): memory bounds it. As written it
-// takes about 0.14 ms there on an H100 80GB HBM3 at 700 W (chip_smoke.py),
-// 8x that bound, at 4% of the f32 rate and 12% of the memory rate: by inference
-// the time goes to each block's serial chain of index arithmetic, shared and L1
-// loads around every FMA, and barriers, not to bytes.
+// for 57 MB in and out (17 us at 3.35 TB/s): memory bounds it.
 //
-// Design: the TPU kernel transposed q, k, v to (H, L, Dh, B) so the batch
-// filled its 128 lanes. Here one block of 128 threads takes one (b, h) and
-// reads the projections' (B, L, H, Dh) layout in place, with no transpose
-// copies: it stages row tiles of q and k in shared memory, forms the whole
+// field_attn_fwd_warp, for Lq, Lk <= 32, Dh <= 16 and H <= 8 (AutoInt's
+// layers, SIM's top-8 ESU): one warp a (b, h), in the layout of the
+// backward's warp instance (field_attn.cuh). A block copies its batch rows'
+// q, k, v and bias into shared memory with coalesced loads; lane i owns
+// query i: it forms its logits against k_j broadcast from shared memory into
+// its column of a per-warp (Lk, ld) matrix, so the row's max and sum are
+// formed in one lane, with no shuffles: the sum in the order of
+// torch.softmax's warp butterfly (a tree over 32 slots, pairs 16 apart, then
+// 8, 4, 2, 1), so that the weights, and at AutoInt's shape o, have the plain
+// version's bits, as the block instance's do (a sum in key order moved
+// AutoInt's scores 6e-4 from the plain route's through the bf16 roundings
+// after the attention); then o_i = sum_j (e_ij / sum) v_j in key order with
+// v_j broadcast, written into q_i's slot and copied out by the block with
+// coalesced stores. Two block barriers, one after the copy-in and one
+// before the copy-out; nothing in between waits on another warp. The logit
+// row stays in shared memory: 32 logits in registers spilled in the
+// backward at the 128 registers of 16 warps an SM. At AutoInt's shape it
+// takes 0.0467 ms on the device (0.0508-0.0509 a call by events) on an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), against 0.1342-0.1351 for
+// the block instance on that shape: 2.7x the bound. About 2,500
+// instructions a (b, h), some 20 us of issue at six 4-warp blocks an SM;
+// by inference the rest is each block's copy-in, compute and copy-out in
+// turn and the shared-memory pipe serving 8 row broadcasts a key.
+//
+// field_attn_fwd, for every other shape inside the gate: one block of 128
+// threads per (b, h), reading the projections' (B, L, H, Dh) layout in
+// place: it stages row tiles of q and k in shared memory, forms the whole
 // (Lq, Lk) score matrix there (16 KB at most under the gate), takes each
 // row's softmax with one warp, and multiplies by v read row by row through
-// L1. Nothing but o reaches device memory. Ragged B, Lq != Lk and any
-// Dh <= 64 need no padding.
+// L1. At AutoInt's shape it took 0.137-0.146 ms on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py), 8x the bound: each block's three phases run in turn
+// behind barriers, with a division per staged element.
+//
+// The TPU kernel transposed q, k, v to (H, L, Dh, B) so the batch filled its
+// 128 lanes; neither instance transposes, and ragged B, Lq != Lk and any
+// Dh <= 64 need no padding in device memory. Nothing but o reaches device
+// memory.
 //
 // Launches go on the caller's stream. Nothing here synchronises or allocates.
 
 #include "field_attn.cuh"
 
 namespace {
+
+// ---- field_attn_fwd_warp: one warp a (b, h) ----
+
+// Floats of shared memory: the slabs of q (Lq rows), k and v (Lk rows), the
+// bias (rounded up to 4 floats) and each warp's (Lk, ld) logits.
+size_t warp_smem_floats(int lq, int lk, int h, int dp) {
+  const size_t nb = fa::warp_rows(h), s = fa::slab_stride(h, dp);
+  return nb * (lq + 2 * lk) * s + (nb * lk + 3) / 4 * 4 + nb * h * lk * fa::mat_ld(lq);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(32 * fa::WARP_MAX_H, 3)
+    field_attn_fwd_warp_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ bias,
+                               float* __restrict__ o, float scale, int nbatch, int lq, int lk,
+                               int h, int dh, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int rows = fa::warp_rows(h), s = fa::slab_stride(h, DP), ld = fa::mat_ld(lq);
+  const int b0 = blockIdx.x * rows, nb = min(rows, nbatch - b0);
+  float* qs = smem;                    // (rows, lq) rows of H heads: q, then o
+  float* ks = qs + rows * lq * s;      // (rows, lk): k
+  float* vs = ks + rows * lk * s;      // v
+  float* bs = vs + rows * lk * s;      // (rows, lk) bias
+  float* mats = bs + (rows * lk + 3) / 4 * 4;   // each warp's logits, (lk, ld)
+  const size_t qoff = size_t(b0) * lq * h * dh, koff = size_t(b0) * lk * h * dh;
+  if (vec) {
+    fa::slabs_in<DP, true, 1>(qs, nullptr, q + qoff, nullptr, nb, lq, h, dh);
+    fa::slabs_in<DP, true>(ks, vs, k + koff, v + koff, nb, lk, h, dh);
+  } else {
+    fa::slabs_in<DP, false, 1>(qs, nullptr, q + qoff, nullptr, nb, lq, h, dh);
+    fa::slabs_in<DP, false>(ks, vs, k + koff, v + koff, nb, lk, h, dh);
+  }
+  for (int e = threadIdx.x; e < nb * lk; e += blockDim.x) bs[e] = bias[size_t(b0) * lk + e];
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bl = warp / h, hh = warp % h;
+  if (bl < nb && lane < lq) {
+    float* qi = qs + (bl * lq + lane) * s + hh * DP;   // query i = lane, then o_i
+    const float* kh = ks + bl * lk * s + hh * DP;       // key j at kh + j * s
+    const float* vh = vs + bl * lk * s + hh * DP;
+    const float* bh = bs + bl * lk;
+    float* ai = mats + warp * lk * ld + lane;   // logit, then exponential, of key j at ai[j * ld]
+    float x[DP], y[DP];
+    fa::load_row<DP>(x, qi);
+    float m = -CUDART_INF_F;
+#pragma unroll 1
+    for (int j = 0; j < lk; ++j) {
+      fa::load_row<DP>(y, kh + j * s);
+      float d = 0.f;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) d = fmaf(x[c], y[c], d);
+      const float lg = __fadd_rn(__fmul_rn(d, scale), bh[j]);
+      ai[j * ld] = lg;
+      m = fmaxf(m, lg);
+    }
+    // the exponentials, and their sum in torch.softmax's order (a butterfly
+    // over 32 lanes, a key a lane: pairs 16 apart, then 8, 4, 2, 1), formed
+    // as a tree in this lane: the weights then have the plain version's bits
+    auto ex = [&](int jj) {   // e of key jj (0 past lk), kept in its logit's place
+      float e = 0.f;
+      if (jj < lk) {
+        e = expf(ai[jj * ld] - m);
+        ai[jj * ld] = e;
+      }
+      return e;
+    };
+    float t[8];   // the butterfly's first two levels at once, then the rest
+#pragma unroll
+    for (int l = 0; l < 8; ++l) t[l] = (ex(l) + ex(l + 16)) + (ex(l + 8) + ex(l + 24));
+#pragma unroll
+    for (int l = 0; l < 4; ++l) t[l] += t[l + 4];
+    t[0] += t[2];
+    t[1] += t[3];
+    const float sum = t[0] + t[1];
+    float acc[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) acc[c] = 0.f;
+#pragma unroll 2
+    for (int j = 0; j < lk; ++j) {
+      const float a = ai[j * ld] / sum;
+      fa::load_row<DP>(y, vh + j * s);
+#pragma unroll
+      for (int c = 0; c < DP; ++c) acc[c] = fmaf(a, y[c], acc[c]);
+    }
+    fa::store_row<DP>(qi, acc, 1.f);   // only this lane reads q_i
+  }
+  __syncthreads();
+  if (vec)
+    fa::slab_out<DP, true>(o + qoff, qs, nb, lq, h, dh);
+  else
+    fa::slab_out<DP, false>(o + qoff, qs, nb, lq, h, dh);
+}
+
+// ---- field_attn_fwd: one block a (b, h) ----
 
 __global__ void __launch_bounds__(fa::THREADS)
     field_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -71,6 +196,43 @@ int field_attn_fwd(const float* q, const float* k, const float* v, const float* 
   if (err != cudaSuccess) return static_cast<int>(err);
   field_attn_fwd_kernel<<<dim3(b, h), fa::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       q, k, v, bias, o, scale, lq, lk, h, dh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract for Lq, Lk <= 32, Dh <= 16 and H <= 8 (the wrapper's
+// choice); anything else returns cudaErrorInvalidValue and launches nothing.
+int field_attn_fwd_warp(const float* q, const float* k, const float* v, const float* bias,
+                        float* o, float scale, int b, int lq, int lk, int h, int dh,
+                        void* stream) {
+  if (!fa::warp_fits(lq, lk, h, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte loads and stores where every row starts 16-byte aligned
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const bool vec = dh % 4 == 0 && bases % 16 == 0;
+  const int rows = fa::warp_rows(h);
+  const dim3 grid((b + rows - 1) / rows), block(32 * rows * h);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // shared memory up to the largest shape the instance takes, set once
+  const int most =
+      static_cast<int>(warp_smem_floats(fa::WARP_L, fa::WARP_L, fa::WARP_MAX_H, 16) * 4);
+#define LAUNCH(DP)                                                                            \
+  {                                                                                           \
+    static bool ready = false;                                                                \
+    if (!ready) {                                                                             \
+      const cudaError_t e = cudaFuncSetAttribute(                                             \
+          field_attn_fwd_warp_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, most); \
+      if (e != cudaSuccess) return static_cast<int>(e);                                       \
+      ready = true;                                                                           \
+    }                                                                                         \
+    const size_t smem = warp_smem_floats(lq, lk, h, DP) * sizeof(float);                      \
+    field_attn_fwd_warp_kernel<DP>                                                            \
+        <<<grid, block, smem, st>>>(q, k, v, bias, o, scale, b, lq, lk, h, dh, vec);         \
+  }
+  if (dh <= 8)
+    LAUNCH(8)
+  else
+    LAUNCH(16)
+#undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

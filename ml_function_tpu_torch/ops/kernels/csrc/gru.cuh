@@ -1,19 +1,32 @@
 // Pieces shared by the (AU)GRU kernels (gru_fwd.cu, gru_bwd.cu).
 //
-// Layout: a block takes `rows` batch rows of H threads each; thread
-// (r, j) = (threadIdx.x / H, threadIdx.x % H) owns hidden unit j of batch row
-// blockIdx.x * rows + r and keeps that unit's h (or its cotangent) in a
-// register for the whole loop over L. Each step the row's h, rounded to
-// bf16, is published in shared memory so that the row's H threads can form
-// their three columns of h.wh. xw (B, L, 3H), seq and dseq (B, L, H), mask
+// Block instances (gru_fwd, gru_bwd): a block takes `rows` batch rows of H
+// threads each; thread (r, j) = (threadIdx.x / H, threadIdx.x % H) owns
+// hidden unit j of batch row blockIdx.x * rows + r and keeps that unit's h
+// (or its cotangent) in a register for the whole loop over L. Each step the
+// row's h, rounded to bf16, is published in shared memory so that the row's
+// H threads can form their three columns of h.wh. xw (B, L, 3H), seq and dseq (B, L, H), mask
 // and att (B, L) are read and written in place in their batch-major layout:
 // the H threads of a row touch H contiguous floats of each gate block.
+//
+// Warp instances (gru_fwd_warp, gru_bwd_warp), for H <= WHP: the hidden units
+// are padded to WHP and a warp takes two batch rows, a thread per (row, unit),
+// so nothing in the step loop waits on another warp; a block is WARPS warps.
+// Each step a warp publishes its rows' bf16 h in warp-private shared memory,
+// double-buffered by the step's parity behind one __syncwarp, and every lane
+// reads its row's values as 16-byte broadcasts. Padded units and rows past B
+// load from a valid address, compute on zeros and store nothing.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace gru {
+
+constexpr int WHP = 16;           // hidden units a row of a warp instance, padded
+constexpr int WARPS = 4;          // warps a block of a warp instance
+constexpr int WROWS = 2 * WARPS;  // batch rows a block: two a warp
+constexpr int L2_AHEAD = 4;       // steps ahead whose inputs a warp moves to L2
 
 // Round to the nearest bf16 (ties to even) and back: the reference's bf16
 // cast of each operand of a recurrent product.
@@ -33,6 +46,19 @@ __device__ __forceinline__ float sigmoid(float x) {
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// One forward step of one (row, unit): h' from h, the step's projections xu,
+// xr, xn, its mask m and attention gate a, and the recurrent products hu, hr,
+// hn. Both forward instances take it, so they give the same bits.
+__device__ __forceinline__ float step(float hv, float xu, float xr, float xn, float m, float a,
+                                      float hu, float hr, float hn) {
+  const float u0 = sigmoid(add(xu, hu));
+  const float rg = sigmoid(add(xr, hr));
+  const float n = tanhf(add(xn, mul(rg, hn)));
+  const float u = mul(a, u0);
+  const float h_new = add(mul(sub(1.f, u), hv), mul(u, n));
+  return add(mul(m, h_new), mul(sub(1.f, m), hv));
+}
 
 // wh (H, 3H) -> shared, rounded to bf16, rows padded to 3H + 1 floats: the
 // forward reads one row across the row's threads (consecutive columns), the

@@ -170,11 +170,11 @@ __global__ void __launch_bounds__(1024)
 
 // ----------------------------------------------------------- gru_bwd_warp
 
-constexpr int WHP = 16;           // hidden units a row, padded
-constexpr int WARPS = 4;          // warps a block
-constexpr int WROWS = 2 * WARPS;  // batch rows a block: two a warp
+using gru::L2_AHEAD;
+using gru::WARPS;
+using gru::WHP;
+using gru::WROWS;
 constexpr int WLD = 52;           // row stride (floats) of the shared weight copies
-constexpr int L2_AHEAD = 4;       // steps ahead whose inputs the warp moves to L2
 
 // One step's inputs of one (row, unit): h_prev, the three projections, the
 // mask, the attention gate and the cotangent of seq.

@@ -1,5 +1,6 @@
 // (AU)GRU recurrence forward for Hopper (sm_90a), with a plain C interface for
-// ctypes.
+// ctypes: two instances of one contract, chosen by the wrapper from H
+// (kernels/gru.py: forward_instance).
 //
 // Replaces ml_function_tpu/ops/kernels/gru.py::_fwd_kernel (launched there by
 // _pallas_fwd). One launch runs all L steps for every batch row:
@@ -9,30 +10,52 @@
 //   u = a * u0;  h' = m * ((1 - u) * h + u * n) + (1 - m) * h
 //
 // f32 everywhere else, with expf and tanhf (no fast-math intrinsics), in the
-// plain version's order of operations (gru.cuh).
+// plain version's order of operations (gru.cuh: step). Both instances sum
+// h . wh over k in order, one FMA at a time (products of two bf16 values are
+// exact in f32), so they give the plain version's bits and each other's.
 //
 // What bounds it on the H100: at DIEN's shape (B 4096, L 64, H 16) it must
 // read xw (50.3 MB), mask, att and h0 and write seq (16.8 MB), about 69.5 MB
 // (21 us at 3.35 TB/s), for about 0.5 GFLOP (8 us at the f32 rate), so bytes
 // bound it. The recurrence makes it latency-bound instead: each of the 64
-// steps depends on the last, and a step is a chain of H shared-memory FMAs,
-// expf/tanhf and two barriers.
+// steps depends on the last.
 //
-// Design: the TPU kernel put channels on sublanes and the batch on lanes
-// ((L, 3H, B) after two transposes) so that small H did not pad to 128 lanes.
-// Here a block takes 256 / H batch rows with one thread per (row, hidden
-// unit), and reads xw, mask and att in their batch-major layout with no
-// transpose; h stays in a register, the bf16-rounded wh (3 KB at H 16) in
-// shared memory, and the row's bf16 h is published in shared memory each
-// step. The next step's xw, mask and att are loaded before this step's
-// arithmetic, so their latency overlaps it. Ragged B needs no padding: rows
-// past B take part in the barriers and touch no memory.
+// gru_fwd_warp, for H <= 16 (DIEN's and SIM's recurrences), in the layout of
+// gru_bwd_warp (gru.cuh): a warp two batch rows, a thread per (row, unit), a
+// block 8 rows, so DIEN's batch is 512 blocks, 16 warps an SM, one wave.
+// Each thread loads its unit's three bf16 columns of wh, 48 floats, into
+// registers once, before the loop. Each step the warp publishes its rows'
+// bf16 h behind one __syncwarp and every lane reads its row's 16 values as
+// four 16-byte broadcasts: there is no block barrier in the loop. The next
+// step's xw, mask and att are loaded while this step computes, from
+// loop-invariant bases, and the L2 is asked for those of L2_AHEAD steps
+// ahead. At DIEN's shape it takes 0.0363-0.0373 ms a call on the device on
+// an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py), against 0.0686-0.0693
+// for the block instance: 1.8x the bound, about 191 instructions a
+// warp-step at four warps a scheduler. At SIM's B 512 and B 8 (one warp a
+// scheduler) it takes 0.0203-0.0209 ms: 64 times a step's dependent chain
+// (three 16-deep FMA chains, expf and a division, tanhf, the publish).
+//
+// gru_fwd, for 17 <= H <= 64: a block takes 256 / H batch rows with one
+// thread per (row, hidden unit); h stays in a register, the bf16-rounded wh
+// (3 KB at H 16) in shared memory, and the row's bf16 h is published in
+// shared memory each step behind two block barriers. At DIEN's shape it took
+// 0.082-0.087 ms a call on an H100 80GB HBM3 at 700 W (chip_smoke.py), 4x
+// the bound: every step waits for the slowest of a block's 8 warps, and the
+// recurrent product reads wh from shared memory every step.
+//
+// The TPU kernel put channels on sublanes and the batch on lanes
+// ((L, 3H, B) after two transposes) so that small H did not pad to 128 lanes;
+// here both instances read xw, mask and att in their batch-major layout with
+// no transpose, and ragged B needs no padding in device memory.
 //
 // Launches go on the caller's stream. Nothing here synchronises or allocates.
 
 #include "gru.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------- gru_fwd
 
 __global__ void __launch_bounds__(1024)
     gru_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
@@ -78,12 +101,7 @@ __global__ void __launch_bounds__(1024)
     }
     float hu, hr, hn;
     gru::recurrent_product(hb, whs, h, j, hu, hr, hn);
-    const float u0 = gru::sigmoid(gru::add(xu, hu));
-    const float rg = gru::sigmoid(gru::add(xr, hr));
-    const float n = tanhf(gru::add(xn, gru::mul(rg, hn)));
-    const float u = gru::mul(a, u0);
-    const float h_new = gru::add(gru::mul(gru::sub(1.f, u), hv), gru::mul(u, n));
-    hv = gru::add(gru::mul(m, h_new), gru::mul(gru::sub(1.f, m), hv));
+    hv = gru::step(hv, xu, xr, xn, m, a, hu, hr, hn);
     if (live) out[size_t(t) * h + j] = hv;
     __syncthreads();  // every thread has read this step's hb
     hb[j] = gru::bf16r(hv);
@@ -93,6 +111,121 @@ __global__ void __launch_bounds__(1024)
     xn = nn;
     m = nm;
     a = na;
+  }
+}
+
+// ----------------------------------------------------------- gru_fwd_warp
+
+using gru::L2_AHEAD;
+using gru::WARPS;
+using gru::WHP;
+using gru::WROWS;
+
+// One step's inputs of one (row, unit): the three projections, the mask and
+// the attention gate.
+struct StepIn {
+  float xu, xr, xn, m, a;
+};
+
+__global__ void __launch_bounds__(WARPS * 32, 4)
+    gru_fwd_warp_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
+                        const float* __restrict__ mask, const float* __restrict__ att,
+                        const float* __restrict__ h0, float* __restrict__ seq, int b_total, int l,
+                        int h) {
+  // bf16 h of the warp's two rows, twice (by the step's parity: a lane that
+  // runs ahead writes the other buffer, and cannot come back to this one
+  // before every lane has passed the next step's __syncwarp): the rows are
+  // 16 floats apart, so the two halves' broadcasts land on distinct banks.
+  __shared__ __align__(16) float hbuf[WARPS][2][2 * WHP];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int half = lane >> 4, j = lane & (WHP - 1);
+  const int h3 = 3 * h;
+  const int b = blockIdx.x * WROWS + warp * 2 + half;
+  const bool ok = b < b_total && j < h;
+
+  // this thread's bf16 wh: rows k of columns j, H + j and 2H + j, zero past H
+  float wu[WHP], wr[WHP], wn[WHP];
+#pragma unroll
+  for (int k = 0; k < WHP; ++k) {
+    const bool in = j < h && k < h;
+    const float* w = wh + (in ? k * h3 + j : 0);
+    wu[k] = in ? gru::bf16r(w[0]) : 0.f;
+    wr[k] = in ? gru::bf16r(w[h]) : 0.f;
+    wn[k] = in ? gru::bf16r(w[2 * h]) : 0.f;
+  }
+
+  // Loop-invariant bases and per-step strides (indices fit in int: the
+  // wrapper refuses B * L * 3H >= 2^31). A (row, unit) outside B x H reads
+  // element 0 of each input at every step (strides 0) and takes zeros, so no
+  // lane branches around a load.
+  const float* xp = xw + (ok ? b * l * h3 + j : 0);
+  const float* mp = mask + (ok ? b * l : 0);
+  const float* ap = att + (ok ? b * l : 0);
+  const int xs = ok ? h3 : 0, xg = ok ? h : 0, ms = ok ? 1 : 0;
+  float* op = seq + (ok ? b * l * h + j : 0);
+
+  // This lane's L2 prefetch: one of four lines of one of the warp's rows a
+  // step (xw's 3H floats from their start and 128 bytes on, mask, att), step
+  // t's line at pf_base + t * pf_step, asked for at step t - L2_AHEAD.
+  const float* pf = xw;
+  int pf_step = 0, pf_steps = 0;
+  if (lane < 8) {
+    const int r = lane / 4, what = lane - 4 * r, bb = blockIdx.x * WROWS + warp * 2 + r;
+    if (bb < b_total) {
+      const size_t bl = size_t(bb) * l;
+      const float* pf_base = what == 0   ? xw + bl * h3
+                             : what == 1 ? xw + bl * h3 + min(32, h3 - 1)
+                             : what == 2 ? mask + bl
+                                         : att + bl;
+      pf_step = what <= 1 ? h3 : 1;
+      for (int t = 1; t < L2_AHEAD && t < l; ++t)
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(pf_base + size_t(t) * pf_step));
+      pf = pf_base + size_t(L2_AHEAD) * pf_step;
+      pf_steps = l - L2_AHEAD;
+    }
+  }
+
+  float hv = ok ? h0[b * h + j] : 0.f;
+  StepIn cur = {xp[0], xp[xg], xp[2 * xg], mp[0], ap[0]};
+  if (!ok) cur = StepIn{0.f, 0.f, 0.f, 0.f, 0.f};
+  float* hb = hbuf[warp][0] + half * WHP;         // this step's buffer,
+  float* hb_next = hbuf[warp][1] + half * WHP;    // and the next step's
+
+  for (int t = 0; t < l; ++t) {
+    if (t < pf_steps) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(pf));
+    pf += pf_step;
+    // step t + 1's inputs (the last step's own again, unused), in flight
+    // during this step
+    const int tn = t + 1 < l ? t + 1 : t, xo = tn * xs, mo = tn * ms;
+    StepIn nxt = {xp[xo], xp[xo + xg], xp[xo + 2 * xg], mp[mo], ap[mo]};
+    if (!ok) nxt = StepIn{0.f, 0.f, 0.f, 0.f, 0.f};
+
+    hb[j] = ok ? gru::bf16r(hv) : 0.f;   // padded units and rows publish zeros
+    __syncwarp();
+
+    // hh_u, hh_r, hh_n over k in order, as gru.cuh's recurrent_product
+    const float4* h4 = reinterpret_cast<const float4*>(hb);
+    float hu = 0.f, hr = 0.f, hn = 0.f;
+#pragma unroll
+    for (int k4 = 0; k4 < WHP / 4; ++k4) {
+      const float4 v = h4[k4];
+      const float x4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = 4 * k4 + i;
+        hu = fmaf(x4[i], wu[k], hu);
+        hr = fmaf(x4[i], wr[k], hr);
+        hn = fmaf(x4[i], wn[k], hn);
+      }
+    }
+    hv = gru::step(hv, cur.xu, cur.xr, cur.xn, cur.m, cur.a, hu, hr, hn);
+    if (ok) *op = hv;
+    op += xg;
+    cur = nxt;
+    float* const used = hb;
+    hb = hb_next;
+    hb_next = used;
   }
 }
 
@@ -113,6 +246,17 @@ int gru_fwd(const float* xw, const float* wh, const float* mask, const float* at
   const int blocks = (b + rows - 1) / rows;
   gru_fwd_kernel<<<blocks, rows * h, smem, static_cast<cudaStream_t>(stream)>>>(
       xw, wh, mask, att, h0, seq, b, l, h, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract for 1 <= H <= 16 with rows = 8 (the wrapper's choice);
+// anything else returns cudaErrorInvalidValue and launches nothing.
+int gru_fwd_warp(const float* xw, const float* wh, const float* mask, const float* att,
+                 const float* h0, float* seq, int b, int l, int h, int rows, void* stream) {
+  if (h < 1 || h > WHP || rows != WROWS) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (b + WROWS - 1) / WROWS;
+  gru_fwd_warp_kernel<<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      xw, wh, mask, att, h0, seq, b, l, h);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,11 +4,11 @@ plain versions.
 Counterpart of ``ml_function_tpu/ops/kernels/field_attention.py``. The
 kernels (``csrc/field_attn_fwd.cu``, ``csrc/field_attn_bwd.cu``) replace the
 Pallas ``_fwd_kernel`` and ``_bwd_kernel``; the source notes say what bounds
-them on the H100 and how the design answers that. The backward has two
+them on the H100 and how the design answers that. Each direction has two
 instances of one contract: a warp a (batch row, head) for up to 32 queries
 and keys (AutoInt's fields, SIM's top-k), and a block a (batch row, head)
-for the rest of the gate (``backward_instance``). Attention over a few
-positions (AutoInt's feature fields) at a large batch:
+for the rest of the gate (``forward_instance``, ``backward_instance``).
+Attention over a few positions (AutoInt's feature fields) at a large batch:
 
     o = softmax(q·kᵀ·scale + bias) · v
 
@@ -39,9 +39,9 @@ MAX_HEAD_DIM = 64
 # The kernels' inputs: (B, L, H, Dh) activations, the (B, Lk) bias.
 NDIMS = {"q": 4, "k": 4, "v": 4, "bias": 2, "do": 4}
 
-# The backward's warp instance takes Lq, Lk ≤ 32 (a lane a key, then a
-# query), Dh ≤ 16 (k, v, dK, dV of its key in a lane's registers) and H ≤ 8
-# (a block's warps); every other shape inside the gate takes the block one.
+# The warp instances take Lq, Lk ≤ 32 (a lane a query, or a key), Dh ≤ 16
+# (a row of q, k or v in a lane's registers) and H ≤ 8 (a block's warps);
+# every other shape inside the gate takes the block ones.
 WARP_MAX_L, WARP_MAX_HEAD_DIM, WARP_MAX_HEADS = 32, 16, 8
 
 # Launches of each CUDA kernel since its count was last set to 0.
@@ -86,7 +86,7 @@ class FieldAttention(torch.autograd.Function):
         ctx.scale = scale
         if on_cpu(q, k, v, bias):
             return field_attention_reference(q, k, v, bias, scale)
-        return _launch_fwd(q, k, v, bias, scale)
+        return field_attention_forward(q, k, v, bias, scale)
 
     @staticmethod
     def backward(ctx, do):
@@ -124,23 +124,35 @@ def _shape(what: str, q, k, v, bias):
     return b, lq, lk, h, dh
 
 
+def _warp_fits(lq: int, lk: int, h: int, dh: int) -> bool:
+    """Whether the warp instances take the shape (``fa::warp_fits`` in
+    ``csrc/field_attn.cuh`` refuses the same shapes)."""
+    return (max(lq, lk) <= WARP_MAX_L and dh <= WARP_MAX_HEAD_DIM
+            and h <= WARP_MAX_HEADS)
+
+
+def forward_instance(q, k, v, bias) -> str:
+    """The C function of ``csrc/field_attn_fwd.cu`` that takes these inputs'
+    shape: ``field_attn_fwd_warp`` within the warp instance's limits, else
+    ``field_attn_fwd``. Raises where ``_shape`` does."""
+    _, lq, lk, h, dh = _shape("field_attention", q, k, v, bias)
+    return "field_attn_fwd_warp" if _warp_fits(lq, lk, h, dh) else "field_attn_fwd"
+
+
 def backward_instance(q, k, v, bias) -> str:
     """The C function of ``csrc/field_attn_bwd.cu`` that takes these inputs'
     shape: ``field_attn_bwd_warp`` within the warp instance's limits, else
     ``field_attn_bwd``. Raises where ``_shape`` does."""
     _, lq, lk, h, dh = _shape("field_attention backward", q, k, v, bias)
-    if (max(lq, lk) <= WARP_MAX_L and dh <= WARP_MAX_HEAD_DIM
-            and h <= WARP_MAX_HEADS):
-        return "field_attn_bwd_warp"
-    return "field_attn_bwd"
+    return "field_attn_bwd_warp" if _warp_fits(lq, lk, h, dh) else "field_attn_bwd"
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with both its C functions bound."""
     lib = _build.load(name)
     n_ptr = 5 if name == "field_attn_fwd" else 8
-    fns = ("field_attn_bwd", "field_attn_bwd_warp") if name == "field_attn_bwd" else (name,)
-    for fname in fns:
+    for fname in (name, f"{name}_warp"):
         fn = getattr(lib, fname)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_float]
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -148,20 +160,30 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _launch_fwd(q, k, v, bias, scale: float) -> torch.Tensor:
+def field_attention_forward(q, k, v, bias, scale: float,
+                            instance: str | None = None) -> torch.Tensor:
+    """The forward kernel (``csrc/field_attn_fwd.cu``) on CUDA tensors: the
+    contract of ``field_attention_reference``, through ``instance``
+    (default: the one ``forward_instance`` picks; the block instance takes
+    every shape of the gate, the warp instance raises outside its limits).
+    Raises on anything the kernel does not take; never runs the plain
+    version."""
     global field_attn_fwd_launches
     check_cuda_inputs("field_attention", NDIMS, q=q, k=k, v=v, bias=bias)
     b, lq, lk, h, dh = _shape("field_attention", q, k, v, bias)
+    fname = instance or forward_instance(q, k, v, bias)
+    if fname not in ("field_attn_fwd", "field_attn_fwd_warp"):
+        raise ValueError(f"field_attention: no forward instance {fname!r}")
     o = torch.empty_like(q)
     if b * h == 0:   # no (b, h) pair: o is empty
         return o
     with torch.cuda.device(q.device):
-        err = _lib("field_attn_fwd").field_attn_fwd(
+        err = getattr(_lib("field_attn_fwd"), fname)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             o.data_ptr(), scale, b, lq, lk, h, dh,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"field_attn_fwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"{fname} launch failed with CUDA error {err}")
     field_attn_fwd_launches += 1
     return o
 

@@ -19,10 +19,11 @@ as the reference's custom vjp does; it rounds h_prev, wh and the recurrent
 cotangent dhh to bf16 at each of its two products. The mask gets no
 gradient (the reference returns zeros for it).
 
-The backward kernel has two instances of one C contract, chosen by H alone
-(``backward_instance``): ``gru_bwd_warp`` for H ≤ 16 (DIEN's and SIM's
-recurrences: a warp two batch rows, nothing in the step loop waiting on
-another warp) and ``gru_bwd`` for 17 ≤ H ≤ 64 (a block 256 / H rows).
+Each kernel has two instances of one C contract, chosen by H alone
+(``forward_instance``, ``backward_instance``): ``gru_fwd_warp`` and
+``gru_bwd_warp`` for H ≤ 16 (DIEN's and SIM's recurrences: a warp two batch
+rows, nothing in the step loop waiting on another warp), ``gru_fwd`` and
+``gru_bwd`` for 17 ≤ H ≤ 64 (a block 256 / H rows).
 
 ``gru_sequence`` is a ``torch.autograd.Function``: for tensors on the CPU
 both directions run the plain versions, for CUDA tensors they launch the
@@ -42,9 +43,9 @@ from ._checks import check_cuda_inputs, on_cpu
 # The kernels hold wh, and in the backward its (H, 3H) gradient partials, in
 # shared memory: 2 · 64 · 192 floats at H 64 (kd = 2·D for D ≤ 32).
 MAX_HIDDEN = 64
-THREADS = 256   # a block is ROWS(H) batch rows of H threads each
-# The backward's warp instance (``gru_bwd_warp``): H ≤ 16, a thread per
-# (batch row, hidden unit), two rows a warp, 8 rows a block.
+THREADS = 256   # a block instance's block is rows_per_block(H) rows of H threads
+# The warp instances (``gru_fwd_warp``, ``gru_bwd_warp``): H ≤ 16, a thread
+# per (batch row, hidden unit), two rows a warp, 8 rows a block.
 WARP_MAX_HIDDEN = 16
 WARP_ROWS = 8
 NDIMS = {"xw": 3, "wh": 2, "mask": 2, "att": 2, "h0": 2, "seq": 3, "dseq": 3}
@@ -55,24 +56,39 @@ gru_bwd_launches = 0
 
 
 def rows_per_block(h: int) -> int:
-    """Batch rows a block of the forward kernel and of the backward's block
-    instance takes: H threads a row."""
+    """Batch rows a block of a block instance takes: H threads a row."""
     return max(1, THREADS // h)
+
+
+def _instance(kernel: str, what: str, h: int) -> str:
+    if not 1 <= h <= MAX_HIDDEN:
+        raise ValueError(f"{what}: hidden size H = {h} is beyond the kernels' "
+                         f"1..{MAX_HIDDEN}")
+    return f"{kernel}_warp" if h <= WARP_MAX_HIDDEN else kernel
+
+
+def forward_instance(h: int) -> str:
+    """The C function of ``csrc/gru_fwd.cu`` that takes hidden size H:
+    ``gru_fwd_warp`` for H ≤ 16 (DIEN's and SIM's recurrences),
+    ``gru_fwd`` for 17 ≤ H ≤ 64. Raises ``ValueError`` past those."""
+    return _instance("gru_fwd", "gru_sequence", h)
 
 
 def backward_instance(h: int) -> str:
     """The C function of ``csrc/gru_bwd.cu`` that takes hidden size H:
     ``gru_bwd_warp`` for H ≤ 16 (DIEN's and SIM's recurrences),
     ``gru_bwd`` for 17 ≤ H ≤ 64. Raises ``ValueError`` past those."""
-    if not 1 <= h <= MAX_HIDDEN:
-        raise ValueError(f"gru_sequence backward: hidden size H = {h} is beyond "
-                         f"the kernels' 1..{MAX_HIDDEN}")
-    return "gru_bwd_warp" if h <= WARP_MAX_HIDDEN else "gru_bwd"
+    return _instance("gru_bwd", "gru_sequence backward", h)
+
+
+def instance_rows(name: str, h: int) -> int:
+    """Batch rows a block of the named instance takes at hidden size H."""
+    return WARP_ROWS if name.endswith("_warp") else rows_per_block(h)
 
 
 def backward_rows(h: int) -> int:
     """Batch rows a block of the backward instance for H takes."""
-    return WARP_ROWS if backward_instance(h) == "gru_bwd_warp" else rows_per_block(h)
+    return instance_rows(backward_instance(h), h)
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -178,7 +194,7 @@ class GRUSequence(torch.autograd.Function):
         if on_cpu(xw, wh, mask, att, h0):
             seq = gru_sequence_reference(xw, wh, mask, att, h0)
         else:
-            seq = _launch_fwd(xw, wh, mask, att, h0)
+            seq = gru_sequence_forward(xw, wh, mask, att, h0)
         ctx.save_for_backward(xw, wh, mask, att, h0, seq)
         return seq
 
@@ -225,28 +241,38 @@ def _check(what: str, **t: torch.Tensor):
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` with both its C functions bound."""
     lib = _build.load(name)
     n_ptr = 6 if name == "gru_fwd" else 12
-    for fname in (("gru_bwd", "gru_bwd_warp") if name == "gru_bwd" else (name,)):
+    for fname in (name, f"{name}_warp"):
         fn = getattr(lib, fname)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _launch_fwd(xw, wh, mask, att, h0) -> torch.Tensor:
+def gru_sequence_forward(xw, wh, mask, att, h0, instance: str | None = None
+                         ) -> torch.Tensor:
+    """The forward kernel (``csrc/gru_fwd.cu``) on CUDA tensors: the
+    contract of ``gru_sequence_reference``, through ``instance`` (default:
+    the one ``forward_instance`` names; the block instance takes every H of
+    the kernels, the warp instance raises past 16). Raises on anything the
+    kernel does not take; never runs the plain version."""
     global gru_fwd_launches
     b, l, h = _check("gru_sequence", xw=xw, wh=wh, mask=mask, att=att, h0=h0)
+    name = instance or forward_instance(h)
+    if name not in ("gru_fwd", "gru_fwd_warp"):
+        raise ValueError(f"gru_sequence: no forward instance {name!r}")
     seq = xw.new_empty((b, l, h))
     if b * l == 0:   # nothing to run: seq is empty
         return seq
     with torch.cuda.device(xw.device):
-        err = _lib("gru_fwd").gru_fwd(
+        err = getattr(_lib("gru_fwd"), name)(
             xw.data_ptr(), wh.data_ptr(), mask.data_ptr(), att.data_ptr(),
-            h0.data_ptr(), seq.data_ptr(), b, l, h, rows_per_block(h),
+            h0.data_ptr(), seq.data_ptr(), b, l, h, instance_rows(name, h),
             torch.cuda.current_stream(xw.device).cuda_stream)
     if err:
-        raise RuntimeError(f"gru_fwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     gru_fwd_launches += 1
     return seq
 

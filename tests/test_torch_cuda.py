@@ -3,11 +3,15 @@
 The field-attention kernels are held to their plain versions at the shapes
 chip_smoke.py checks: AutoInt's (B 4096, L 27, H 2, Dh 16) and the gate's
 two edges, with a random key mask and one batch row whose keys are all
-masked, where the weights are uniform over all Lk keys. The backward is
+masked, where the weights are uniform over all Lk keys. Each direction is
 also held to its plain version, and to its own bits on a rerun, at the
 edges of its two instances (L from 1 to 64 either side of the warp
-instance's 32, H 1 to 4, Dh 4 to 64, B not a multiple of a block's batch
-rows), and a CPU test checks which instance each shape takes. The (AU)GRU and
+instances' 32, H 1 to 9, Dh 4 to 64, B not a multiple of a block's batch
+rows), the forward's block instance also at the warp instance's shapes,
+and a CPU test checks which instance each shape takes. The (AU)GRU forward's
+two instances are held to the plain version at the backward's shapes, at
+DIEN's and at H 13 with a ragged B, and must give the same bits as each
+other wherever both take H (H ≤ 16). The (AU)GRU and
 merge-scatter kernels are held to theirs at DIEN's shapes and the edges
 chip_smoke.py checks (a row masked at every step carries h0; no ids, all ids
 equal, ids at V − 1, runs that cross the kernel's chunks, a width D that is
@@ -260,8 +264,8 @@ FA_BWD_CASES = [(4097, 27, 27, 2, 16, "warp"), (129, 8, 8, 2, 4, "warp"),
                 (3, 8, 8, 9, 8, "block")]
 
 
-def _instance_name(kind):
-    return {"warp": "field_attn_bwd_warp", "block": "field_attn_bwd"}[kind]
+def _instance_name(kind, direction="bwd"):
+    return {"warp": f"field_attn_{direction}_warp", "block": f"field_attn_{direction}"}[kind]
 
 
 @pytest.mark.parametrize("b,lq,lk,h,dh,kind", FA_BWD_CASES)
@@ -288,6 +292,45 @@ def test_field_attention_backward_matches_plain_version(card, b, lq, lk, h, dh, 
     for g, w in zip(grads, tfa.field_attention_backward_reference(q, k, v, bias, do, scale)):
         _close(g, w)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+@pytest.mark.parametrize("b,lq,lk,h,dh,kind", FA_BWD_CASES)
+def test_field_attention_forward_instances_match_plain_version(card, b, lq, lk, h, dh, kind):
+    """The instance the wrapper picks and the block instance (which takes
+    every shape of the gate) against the plain version, with masked keys
+    (key 0 kept) and batch row 1 with every key masked (mean(V)); a rerun
+    gives the same bits."""
+    q, k, v, bias, _, scale = _fa_inputs(card, b, lq, lk, h, dh, True)
+    assert tfa.forward_instance(q, k, v, bias) == _instance_name(kind, "fwd")
+    want = tfa.field_attention_reference(q, k, v, bias, scale)
+    for name in {tfa.forward_instance(q, k, v, bias), "field_attn_fwd"}:
+        before = tfa.field_attn_fwd_launches
+        got = tfa.field_attention_forward(q, k, v, bias, scale, instance=name)
+        again = tfa.field_attention_forward(q, k, v, bias, scale, instance=name)
+        torch.cuda.synchronize()
+        assert tfa.field_attn_fwd_launches == before + 2
+        _close(got, want)
+        _close(got[1], v[1].mean(dim=0, keepdim=True).expand(lq, -1, -1))
+        assert torch.equal(got, again), name
+
+
+def test_forward_instances_refuse_what_they_do_not_take(card):
+    """A warp instance asked for a shape past its limits launches nothing
+    and raises; so does a name that is no instance."""
+    q = torch.zeros(2, 33, 2, 8, device=card)
+    bias = torch.zeros(2, 33, device=card)
+    xw, wh, mask, att, h0, _ = _gru_inputs(card, 8, 5, 17, "tiny")
+    fwd, gfwd = tfa.field_attn_fwd_launches, tgru.gru_fwd_launches
+    with pytest.raises(RuntimeError, match="field_attn_fwd_warp"):
+        tfa.field_attention_forward(q, q, q, bias, 0.25, instance="field_attn_fwd_warp")
+    with pytest.raises(ValueError, match="no forward instance"):
+        tfa.field_attention_forward(q, q, q, bias, 0.25, instance="field_attn_bwd")
+    with pytest.raises(RuntimeError, match="gru_fwd_warp"):
+        tgru.gru_sequence_forward(xw, wh, mask, att, h0, instance="gru_fwd_warp")
+    with pytest.raises(ValueError, match="no forward instance"):
+        tgru.gru_sequence_forward(xw, wh, mask, att, h0, instance="gru_bwd")
+    torch.cuda.synchronize()
+    assert (tfa.field_attn_fwd_launches, tgru.gru_fwd_launches) == (fwd, gfwd)
 
 
 def test_field_attention_kernel_refuses_what_it_does_not_take(card):
@@ -399,6 +442,32 @@ def test_gru_bwd_instances_match_plain_version(card, b, l, h):
     # row 1 takes no step: its gradients pass dseq's sum straight to h0
     assert torch.equal(grads[0][1], torch.zeros_like(grads[0][1]))
     assert torch.equal(grads[2][1], torch.zeros_like(grads[2][1]))
+
+
+# (B, L, H): the backward's shapes, DIEN's recurrences and H 13 (three
+# padded units of the warp instance) with a B that is not a multiple of 8
+GRU_FWD_SHAPES = GRU_BWD_SHAPES + [(4096, 64, 16), (301, 9, 13)]
+
+
+@pytest.mark.parametrize("b,l,h", GRU_FWD_SHAPES)
+def test_gru_fwd_instances_match_plain_version(card, b, l, h):
+    """The instance the wrapper picks and the block instance (which takes
+    every H) against the plain version; where both take H (H ≤ 16) their
+    seq has the same bits. Row 1, masked at every step, carries h0."""
+    xw, wh, mask, att, h0, _ = _gru_inputs(card, b, l, h, "ragged")
+    args = (xw, wh, mask, att, h0)
+    name = tgru.forward_instance(h)
+    assert name == ("gru_fwd_warp" if h <= 16 else "gru_fwd")
+    before = tgru.gru_fwd_launches
+    seq = tgru.gru_sequence_forward(*args)
+    block = tgru.gru_sequence_forward(*args, instance="gru_fwd")
+    torch.cuda.synchronize()
+    assert tgru.gru_fwd_launches == before + 2
+    want = tgru.gru_sequence_reference(*args)
+    _close(seq, want)
+    _close(block, want)
+    assert torch.equal(seq[1], h0[1].expand(l, -1))
+    assert torch.equal(seq, block)
 
 
 def test_gru_kernel_refuses_what_it_does_not_take(card):
