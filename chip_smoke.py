@@ -111,7 +111,38 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     lifelong data (2,400 rows, 8 epochs of B 128, Adam 1e-2), its ESU over
     the 8 kept keys on the field-attention kernels (the flag set for 6):
     held-out AUC above 0.64;
-15. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+15. F6, the wide instances: cin_fwd and cin_bwd at (D 8, B 4096, F 26,
+    O 128) with H 384 and H 512 (both wide) and at the edge (D 8, B 1000,
+    F 39, H 1024), against their plain versions (the backward three times,
+    the same bits), and at H 176, the widest H at which each direction's
+    block instance is the faster one, the two instances against each other
+    (the largest difference printed); gru_fwd and gru_bwd on the wide instances at
+    (B 4096, L 64, H 128 and 256), (B 300, L 7, H 65) and (B 37, L 5,
+    H 1100) with ragged masks, one row masked at every step (its seq must be
+    h0) and a non-zero h0, with attention gates and with ones: the forward
+    the plain version's bits, the backward within its bars and the same bits
+    on two runs. Each shape names its instance; kernel, plain, library and
+    bound times;
+16. xDeepFM with CIN (512, 128) at Criteo width: scored through
+    ``load_scorer`` (2 cin_fwd a batch, the second on ``cin_fwd_wide``;
+    scores within 1e-4 of the plain route) and 5 Adam steps against the
+    plain route (2 + 2 a step, each direction's second layer on its wide
+    instance), and the training rates;
+17. DIEN at dim 64 (GRU hidden kd = 128), ``kernel = 'pallas'`` on gru1
+    and gru2: scored through ``load_scorer`` (2 gru_fwd a batch, on
+    ``gru_fwd_wide``; within 1e-4 of the plain versions) and 5 Adam steps
+    against the plain route (2 + 2 a step), and the rates;
+18. DLRM and FiBiNET at the JAX board's width (26 fields of 100k ids, 13
+    dense, dim 8, default hyperparameters), built on the card by
+    ``get_model``: scored through ``load_scorer`` at B 4096 (finite
+    probabilities within 1e-4 of the same weights scored on the CPU; no
+    kernel launched), 5 Adam steps on the card against the same 5 on the
+    CPU (phase 5's bars with f32 matmuls on both; with bf16 matmul inputs
+    the losses to 1e-3 and the gradients' gaps printed), and training
+    examples/s, device time a step and peak memory at B 16,384;
+19. one ``{"kernels": [...]}`` line (each kernel with its instances and the
+    shapes each took), then ``{"ok": true, "device": ...}`` last. The run's
+    wall time is printed before them.
 
 Numerics: TF32 is off for matmuls and cuDNN, so every f32 product outside
 the kernels is a full f32 product. Imports nothing of JAX.
@@ -153,6 +184,13 @@ FA_MAIN = (BATCH, 27, 27, 2, 16)
 FA_EDGES = ((512, 64, 64, 2, 64), (300, 1, 4096, 2, 8), (1001, 27, 27, 2, 13),
             (129, 8, 8, 2, 4))
 RTOL = 1e-3                # same rounding sites; only the f32 summation order differs
+# The step-1 gradient bar, as a share of a parameter's max|g|, of a model
+# trained with bf16 matmul inputs on the card against the CPU: each
+# ``bf16_matmul`` rounds its input cotangent to bf16, and the two devices'
+# f32 sums can put it one bf16 step (2^-8 of itself) apart; that step flows
+# on, summed, into every parameter below the tower (FiBiNET's embedding
+# table: 1.26e-3 of max|g| in every run, against 1.4e-6 with f32 matmuls).
+BF16_PATH_RTOL = 2.0 ** -8
 # Ids per field of the learning phase. At 1,000 the 262,144 rows overfit
 # from the first epoch on, DeepFM (which runs no kernel) as much as xDeepFM:
 # each of the 26,000 embedding rows is seen about 210 times an epoch
@@ -913,24 +951,35 @@ def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path
     with plain_route():
         ref_losses, ref_grads = _adam_steps(model, init, batches)
     model.load_state_dict(init)
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
-    print(f"{name} training parity, 5 Adam steps at B={len(batches[0]['label'])}: "
-          f"losses {losses}, "
-          f"plain versions {ref_losses}, max rel diff {max(rel):.3e}; launches "
-          f"{launches_by_path[path]}")
+    compare_runs(name, losses, grads, ref_losses, ref_grads, "the plain run",
+                 block_scaled, f"launches {launches_by_path[path]}",
+                 len(batches[0]["label"]))
+    if launches_by_path[path] != expect(**{k: 5 * v for k, v in per_step.items()}):
+        fail(f"expected {per_step} launches per train step")
+
+
+def compare_runs(name: str, losses, grads, ref_losses, ref_grads, ref_name: str,
+                 block_scaled: tuple = (), note: str = "", b: int = BATCH,
+                 grad_rtol: float = RTOL) -> None:
+    """Two runs of 5 Adam steps from the same weights: losses within 1e-3
+    relative, step-1 gradients within ``grad_rtol``·max|g| (+ 1e-3·|g|) of
+    their own parameter (two bf16 neighbours agreeing, as ``parity_steps``
+    says)."""
+    rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref_losses)]
+    print(f"{name} training parity, 5 Adam steps at B={b}: losses {losses}, "
+          f"{ref_name} {ref_losses}, max rel diff {max(rel):.3e}; {note}")
     if not all(np.isfinite(losses)) or max(rel) > 1e-3:
-        fail(f"{name} training losses differ from the plain run by more than 1e-3")
+        fail(f"{name} training losses differ from {ref_name} by more than 1e-3")
     if grads.keys() != ref_grads.keys():
-        fail(f"{name}: the kernels' run and the plain run give gradients to "
-             "different parameters")
+        fail(f"{name}: the two runs give gradients to different parameters")
     worst, bad, stepped = 0.0, [], []
     block_max = {p: max(r.abs().max().item() for n, r in ref_grads.items()
                         if n.startswith(p)) for p in block_scaled}
     for n, g in grads.items():
-        r = ref_grads[n]
+        r = ref_grads[n].to(g.device)
         scale = next((v for p, v in block_max.items() if n.startswith(p)),
                      r.abs().max().item())
-        atol = RTOL * scale
+        atol = grad_rtol * scale
         err = (g - r).abs()
         ok = err <= atol + RTOL * r.abs()
         near = _one_bf16_step(g, r)
@@ -942,12 +991,10 @@ def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path
                        f"{r.abs().max().item()})")
         worst = max(worst, err.max().item() / max(scale, 1e-30))
     if bad:
-        fail("step-1 gradients differ from the plain run: " + "; ".join(bad))
-    print(f"step-1 gradients of {len(grads)} parameters agree with the plain "
-          f"run: max |err|/max|g| {worst:.3e}; elements past the bar but one bf16 "
-          f"step apart: {', '.join(stepped) or 'none'}")
-    if launches_by_path[path] != expect(**{k: 5 * v for k, v in per_step.items()}):
-        fail(f"expected {per_step} launches per train step")
+        fail(f"step-1 gradients differ from {ref_name}: " + "; ".join(bad))
+    print(f"step-1 gradients of {len(grads)} parameters against {ref_name}: "
+          f"max |err|/max|g| {worst:.3e} (bar {grad_rtol:.3e}); elements past the "
+          f"bar but one bf16 step apart: {', '.join(stepped) or 'none'}")
 
 
 def order_witness(model, batch, plain_route, fl_mod) -> None:
@@ -1561,6 +1608,374 @@ def sim_phases(drive, launches_by_path) -> list:
     return entries
 
 
+# F6's shapes: the CIN layer past the block instances at Criteo width
+# (D 8, B 4096, F 26, O 128; H 384 and 512), the edge (B 1000, F 39, H 1024),
+# and H 176, the widest the block backward takes (its 128-row tiles), which
+# both instances of each kernel take. The main path's H 26 and 128 are on
+# the block instances' side.
+CIN_WIDE = ((8, BATCH, 384, 26, 128), (8, BATCH, 512, 26, 128), (8, 1000, 1024, 39, 128))
+CIN_BOTH = (8, BATCH, 176, 26, 128)
+# (B, L, H): DIEN's recurrences at kd 128 and 256, and two edges of the wide
+# instances (H 65, the first; H 1100, five blocks and wh from the L2)
+GRU_WIDE = ((BATCH, 64, 128), (BATCH, 64, 256), (300, 7, 65), (37, 5, 1100))
+# DIEN at dim 64: kd = 2·64 = 128, both recurrences on the wide instances
+DIEN_WIDE_DATA = dict(DIEN_DATA, embed_dim=64)
+INTERACTION_TRAIN_BATCH = 16384   # the JAX board's smallest batch (bench.py:97)
+
+
+def check_wide_cin(cin_mod) -> tuple:
+    """F6, CIN: cin_layer_t and its backward against the plain versions at
+    ``CIN_WIDE`` (the backward three times, the same bits), each shape's
+    instances named and timed; at ``CIN_BOTH`` the two instances of each
+    direction against each other. Returns the per-shape records of the
+    forward and of the backward."""
+    from ml_function_tpu_torch.tools.timing import event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    fwd, bwd = [], []
+    for d, b, h, f, o in CIN_WIDE:
+        xk, x0, w1 = _layer_inputs(gen, d, b, h, f, o)
+        dy = torch.randn(d, b, o, device="cuda", generator=gen)
+        where = f"(D={d}, B={b}, H={h}, F={f}, O={o})"
+        fi, bi = cin_mod.forward_instance(h, f), cin_mod.backward_instance(h, f)
+        if (fi, bi) != ("cin_fwd_wide", "cin_bwd_wide"):
+            fail(f"CIN at {where} takes {fi} and {bi}, not the wide instances")
+        cin_mod.instance_launches.clear()
+        y = cin_mod.cin_layer_t(xk, x0, w1)
+        got = cin_mod.cin_layer_t_backward(xk, x0, w1, dy)
+        runs = [cin_mod.cin_layer_t_backward(xk, x0, w1, dy) for _ in range(2)]
+        torch.cuda.synchronize()
+        if cin_mod.instance_launches != {fi: 1, bi: 3}:
+            fail(f"CIN at {where} launched {cin_mod.instance_launches}, not {fi} and {bi}")
+        err, atol = _check_close(f"{fi} at {where}", y, cin_mod.cin_layer_t_reference(xk, x0, w1))
+        ref = cin_mod.cin_layer_t_backward_reference(xk, x0, w1, dy)
+        errs = [_check_close(f"{bi} {n} at {where}", g, r)
+                for n, g, r in zip(("dxk", "dx0", "dW"), got, ref)]
+        del ref
+        if not all(torch.equal(a, c) for again in runs for a, c in zip(got, again)):
+            fail(f"{bi} differs between three runs at {where}")
+        xk_b, w1_b, x0_b, dy_b = xk.bfloat16(), w1.bfloat16(), x0.bfloat16(), dy.bfloat16()
+        du_b = (x0.unsqueeze(-1) * dy.unsqueeze(2)).reshape(d * b, f * o).bfloat16()
+
+        def library_bwd():
+            torch.matmul(du_b, w1_b.t())
+            torch.matmul(xk_b.view(d * b, h).t(), du_b)
+            torch.einsum("dbh,hfo,dbo->dbf", xk_b, w1_b.view(h, f, o), dy_b)
+
+        shape = {"D": d, "B": b, "H": h, "F": f, "O": o}
+        fb, fby = cin_bound(d, b, h, f, o)
+        bb, bby = cin_bound(d, b, h, f, o, backward=True)
+        fwd.append({
+            "shape": shape, "path": False, "instance": fi, "max_abs_err": err, "atol": atol,
+            "ms": event_ms(lambda: cin_mod.cin_layer_t(xk, x0, w1), reps=10, inner=3),
+            "plain_ms": event_ms(lambda: cin_mod.cin_layer_t_reference(xk, x0, w1),
+                                 reps=3, inner=1, warmup=1),
+            "library_ms": event_ms(lambda: torch.einsum(
+                "dbfo,dbf->dbo", torch.matmul(xk_b, w1_b).view(d, b, f, o), x0_b),
+                reps=5, inner=2),
+            "bound_ms": fb, "bound_by": fby})
+        bwd.append({
+            "shape": shape, "path": False, "instance": bi,
+            "max_abs_err": max(e for e, _ in errs),
+            "max_abs_err_dxk_dx0_dw": [e for e, _ in errs],
+            "atol_dxk_dx0_dw": [a for _, a in errs],
+            "ms": event_ms(lambda: cin_mod.cin_layer_t_backward(xk, x0, w1, dy),
+                           reps=5, inner=2),
+            "plain_ms": event_ms(
+                lambda: cin_mod.cin_layer_t_backward_reference(xk, x0, w1, dy),
+                reps=3, inner=1, warmup=1),
+            "library_ms": event_ms(library_bwd, reps=5, inner=2),
+            "bound_ms": bb, "bound_by": bby})
+        del got, runs, du_b
+    for s in fwd:
+        print(f"cin_fwd F6 {s['shape']} ({s['instance']}): max_abs_err "
+              f"{s['max_abs_err']:.3e} (atol {s['atol']:.3e}), kernel {s['ms']:.4f} ms, plain "
+              f"{s['plain_ms']:.4f} ms, library (2 calls) {s['library_ms']:.4f} ms, bound "
+              f"{s['bound_ms']:.4f} ms ({s['bound_by']})")
+    for s in bwd:
+        print(f"cin_bwd F6 {s['shape']} ({s['instance']}): max_abs_err dxk/dx0/dW "
+              + "/".join(f"{e:.3e}" for e in s["max_abs_err_dxk_dx0_dw"])
+              + " (atol " + "/".join(f"{a:.3e}" for a in s["atol_dxk_dx0_dw"])
+              + f"), the same bits on three runs, kernel {s['ms']:.4f} ms, plain "
+              f"{s['plain_ms']:.4f} ms, library (3 calls) {s['library_ms']:.4f} ms, bound "
+              f"{s['bound_ms']:.4f} ms ({s['bound_by']})")
+
+    # both instances at one shape, where the wrappers take the block ones
+    d, b, h, f, o = CIN_BOTH
+    if (cin_mod.forward_instance(h, f), cin_mod.backward_instance(h, f)) != ("cin_fwd", "cin_bwd"):
+        fail(f"CIN at H {h}, F {f} does not take the block instances")
+    xk, x0, w1 = _layer_inputs(gen, d, b, h, f, o)
+    dy = torch.randn(d, b, o, device="cuda", generator=gen)
+    both = {}
+    for fi, bi in (("cin_fwd", "cin_bwd"), ("cin_fwd_wide", "cin_bwd_wide")):
+        both[fi] = cin_mod._launch_fwd(xk, x0, w1, instance=fi)
+        both[bi] = cin_mod.cin_layer_t_backward(xk, x0, w1, dy, instance=bi)
+        both[fi + "_ms"] = event_ms(lambda: cin_mod._launch_fwd(xk, x0, w1, instance=fi),
+                                    reps=10, inner=3)
+        both[bi + "_ms"] = event_ms(
+            lambda: cin_mod.cin_layer_t_backward(xk, x0, w1, dy, instance=bi), reps=5, inner=2)
+    torch.cuda.synchronize()
+    _check_close(f"cin_fwd_wide at H {h}", both["cin_fwd_wide"],
+                 cin_mod.cin_layer_t_reference(xk, x0, w1))
+    fdiff = (both["cin_fwd"] - both["cin_fwd_wide"]).abs().max().item()
+    bdiff = max((a - c).abs().max().item()
+                for a, c in zip(both["cin_bwd"], both["cin_bwd_wide"]))
+    print(f"CIN at {CIN_BOTH} (D, B, H, F, O), both instances: cin_fwd vs cin_fwd_wide "
+          f"max |diff| {fdiff:.3e} ({both['cin_fwd_ms']:.4f} and {both['cin_fwd_wide_ms']:.4f} "
+          f"ms), cin_bwd vs cin_bwd_wide max |diff| {bdiff:.3e} ({both['cin_bwd_ms']:.4f} "
+          f"and {both['cin_bwd_wide_ms']:.4f} ms)")
+    rec = {"shape": dict(zip("DBHFO", CIN_BOTH)), "max_abs_diff_fwd": fdiff,
+           "max_abs_diff_bwd": bdiff,
+           **{k: v for k, v in both.items() if k.endswith("_ms")}}
+    return fwd, bwd, rec
+
+
+def check_wide_gru(gru_mod) -> tuple:
+    """F6, (AU)GRU: gru_sequence and its backward against the plain versions
+    at ``GRU_WIDE``, with attention gates and with ones, ragged masks, row 1
+    masked at every step (its seq must be h0) and a non-zero h0. The
+    forward must give the plain version's bits, the backward the same bits
+    on two runs. Times (kernel, plain, cuDNN's ``nn.GRU``, bound) with
+    attention gates. Returns the forward's and the backward's records."""
+    from ml_function_tpu_torch.tools.timing import event_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    fwd, bwd = [], []
+    for b, l, h in GRU_WIDE:
+        xw, wh, mask, att, h0, dseq = _gru_inputs(gen, b, l, h, "ragged", None)
+        for gate, a in (("att", att), ("ones", torch.ones_like(att))):
+            args = (xw, wh, mask, a, h0)
+            where = f"(B={b}, L={l}, H={h}, {gate})"
+            gru_mod.instance_launches.clear()
+            seq = gru_mod.gru_sequence(*args)
+            grads = gru_mod.gru_sequence_backward(*args, seq, dseq)
+            again = gru_mod.gru_sequence_backward(*args, seq, dseq)
+            torch.cuda.synchronize()
+            fi, bi = gru_mod.forward_instance(h), gru_mod.backward_instance(h)
+            if gru_mod.instance_launches != {fi: 1, bi: 2} or fi != "gru_fwd_wide":
+                fail(f"(AU)GRU at {where} launched {gru_mod.instance_launches}")
+            ref_seq = gru_mod.gru_sequence_reference(*args)
+            if not torch.equal(seq, ref_seq):
+                fail(f"gru_fwd_wide at {where} is not the plain version's bits: max |err| "
+                     f"{(seq - ref_seq).abs().max().item()}")
+            if not torch.equal(seq[1], h0[1].expand(l, -1)):
+                fail(f"gru_fwd_wide at {where}: the row masked at every step does not carry h0")
+            ref = gru_mod.gru_sequence_backward_reference(*args, seq, dseq)
+            errs = [_check_close(f"gru_bwd_wide {n} at {where}", g, r)
+                    for n, g, r in zip(("dxw", "dwh", "da", "dh0"), grads, ref)]
+            if not all(torch.equal(g, r) for g, r in zip(grads, again)):
+                fail(f"gru_bwd_wide differs between two runs at {where}")
+            common = {"shape": {"B": b, "L": l, "H": h}, "case": "F6", "gate": gate,
+                      "path": False}
+            fb, fby = gru_bound(b, l, h)
+            bb, bby = gru_bound(b, l, h, backward=True)
+            timed = gate == "att"
+            lib_f = lib_b = None
+            if timed:
+                rnn = torch.nn.GRU(3 * h, h, batch_first=True).cuda()
+                x_in = xw.clone().requires_grad_()
+                with torch.no_grad():
+                    lib_f = event_ms(lambda: rnn(x_in), reps=5, inner=2)
+                lib_b = event_ms(lambda: torch.autograd.grad(
+                    rnn(x_in)[0], (x_in, *rnn.parameters()), dseq), reps=5, inner=2) - lib_f
+                del rnn, x_in
+            fwd.append({
+                **common, "instance": fi, "max_abs_err": 0.0, "same_bits_as_plain": True,
+                "ms": event_ms(lambda: gru_mod.gru_sequence(*args), reps=5, inner=2)
+                if timed else None,
+                "plain_ms": event_ms(lambda: gru_mod.gru_sequence_reference(*args),
+                                     reps=2, inner=1, warmup=1) if timed else None,
+                "library_ms": lib_f, "bound_ms": fb, "bound_by": fby})
+            bwd.append({
+                **common, "instance": bi, "max_abs_err": max(e for e, _ in errs),
+                "dwh_partials": gru_mod._lib("gru_bwd").gru_bwd_wide_partials(b, h),
+                "max_abs_err_dxw_dwh_da_dh0": [e for e, _ in errs],
+                "atol_dxw_dwh_da_dh0": [t for _, t in errs],
+                "ms": event_ms(lambda: gru_mod.gru_sequence_backward(*args, seq, dseq),
+                               reps=5, inner=2) if timed else None,
+                "plain_ms": event_ms(lambda: gru_mod.gru_sequence_backward_reference(
+                    *args, seq, dseq), reps=2, inner=1, warmup=1) if timed else None,
+                "library_ms": lib_b, "bound_ms": bb, "bound_by": bby})
+    for s in fwd:
+        print(f"gru_fwd F6 {s['shape']} {s['gate']} ({s['instance']}): the plain version's "
+              f"bits, row 1 carries h0; kernel {s['ms']} ms, plain {s['plain_ms']} ms, "
+              f"library (cuDNN GRU f32) {s['library_ms']} ms, bound {s['bound_ms']:.4f} ms "
+              f"({s['bound_by']})")
+    for s in bwd:
+        print(f"gru_bwd F6 {s['shape']} {s['gate']} ({s['instance']}): max_abs_err "
+              "dxw/dwh/da/dh0 " + "/".join(f"{e:.3e}" for e in s["max_abs_err_dxw_dwh_da_dh0"])
+              + " (atol " + "/".join(f"{t:.3e}" for t in s["atol_dxw_dwh_da_dh0"])
+              + f"), the same bits on two runs, {s['dwh_partials']} dwh partials; kernel "
+              f"{s['ms']} ms, plain {s['plain_ms']} ms, "
+              f"library (cuDNN GRU backward) {s['library_ms']} ms, bound "
+              f"{s['bound_ms']:.4f} ms ({s['bound_by']})")
+    return fwd, bwd
+
+
+def wide_cin_phase(drive, launches_by_path, instances_by_path, plain_cin) -> None:
+    """xDeepFM at Criteo width with CIN (512, 128): scoring through
+    ``load_scorer`` (2 cin_fwd a batch, the second on the wide instance) and
+    5 Adam steps against the plain route (2 + 2 a step, the second layer's
+    on the wide instances)."""
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.features.synthetic import make_criteo_like
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.ops.kernels import _build
+    from ml_function_tpu_torch.serving import export_model, load_scorer
+    from ml_function_tpu_torch.train.loop import iter_batches
+
+    fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+    _, data = make_criteo_like(n_rows=5 * BATCH, vocab_size=100_000, seed=3)
+    hp = {"cin_hidden": [512, 128], "hidden": [256, 128]}
+    model = get_model("xdeepfm", fs, generator=torch.Generator().manual_seed(0),
+                      **{k: tuple(v) for k, v in hp.items()})
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        export_model(tmp, "xdeepfm", fs, model, hyperparams=hp)
+        scorer = load_scorer(tmp, batch_size=BATCH)
+    serve = _rows(data, 3 * BATCH + 1000)
+    score_phase("xdeepfm_wide_cin_serving", scorer, serve, drive, launches_by_path,
+                plain_cin, {"cin_fwd": 2})
+    n_batches = -(-len(serve["label"]) // BATCH)
+    if instances_by_path["xdeepfm_wide_cin_serving"] != {"cin_fwd": n_batches,
+                                                         "cin_fwd_wide": n_batches}:
+        fail(f"xDeepFM (512, 128) scoring took the instances "
+             f"{instances_by_path['xdeepfm_wide_cin_serving']}")
+    del scorer
+    batches = list(iter_batches(data, BATCH))
+    parity_steps("xdeepfm_wide_cin", model, batches, plain_cin, drive, launches_by_path,
+                 "xdeepfm_wide_cin_training_parity", {"cin_fwd": 2, "cin_bwd": 2})
+    want = {"cin_fwd": 5, "cin_fwd_wide": 5, "cin_bwd": 5, "cin_bwd_wide": 5}
+    if instances_by_path["xdeepfm_wide_cin_training_parity"] != want:
+        fail(f"xDeepFM (512, 128) training took the instances "
+             f"{instances_by_path['xdeepfm_wide_cin_training_parity']}, not {want}")
+    print(f"xdeepfm_wide_cin instances: serving "
+          f"{instances_by_path['xdeepfm_wide_cin_serving']}, 5 train steps {want}")
+    step_rates("xdeepfm_wide_cin", model, batches, "CIN (512, 128), Criteo width")
+
+
+@contextlib.contextmanager
+def gru_kernels(model):
+    """DIEN's two recurrences on the kernel route, the merge-scatter flag as it is."""
+    saved = (model.gru1.kernel, model.gru2.kernel)
+    model.gru1.kernel = model.gru2.kernel = "pallas"
+    try:
+        yield
+    finally:
+        model.gru1.kernel, model.gru2.kernel = saved
+
+
+def dien_wide_phase(drive, launches_by_path, instances_by_path) -> None:
+    """DIEN at dim 64 (kd 128): scoring through ``load_scorer`` with
+    ``kernel = 'pallas'`` on gru1 and gru2 (2 gru_fwd a batch, on the wide
+    instance; scores within 1e-4 of the plain versions) and 5 Adam steps
+    against the plain route (2 + 2 a step)."""
+    from ml_function_tpu_torch.features.synthetic import make_behavior_data
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.ops import recurrent
+    from ml_function_tpu_torch.ops.kernels import _build
+    from ml_function_tpu_torch.ops.kernels import gru as gru_mod
+    from ml_function_tpu_torch.serving import export_model, load_scorer
+    from ml_function_tpu_torch.train.loop import iter_batches
+
+    fs, data = make_behavior_data(n_rows=5 * BATCH, **DIEN_WIDE_DATA)
+
+    def plain_dien():
+        return swapped(recurrent, "gru_sequence", plain_gru(gru_mod))
+
+    model = get_model("dien", fs, generator=torch.Generator().manual_seed(0))
+    print(f"DIEN at dim {fs.embed_dim}: GRU hidden {model.gru1.wh.shape[0]}")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        export_model(tmp, "dien", fs, model, hyperparams={})
+        scorer = load_scorer(tmp, batch_size=BATCH)
+    serve = _rows(data, 3 * BATCH + 1000)
+    with gru_kernels(scorer.model):
+        score_phase("dien_kd128_serving", scorer, serve, drive, launches_by_path,
+                    plain_dien, {"gru_fwd": 2})
+    n_batches = -(-len(serve["label"]) // BATCH)
+    if instances_by_path["dien_kd128_serving"] != {"gru_fwd_wide": 2 * n_batches}:
+        fail(f"DIEN kd 128 scoring took the instances "
+             f"{instances_by_path['dien_kd128_serving']}")
+    del scorer
+    batches = list(iter_batches(data, BATCH))
+    with gru_kernels(model):
+        parity_steps("dien_kd128", model, batches, plain_dien, drive, launches_by_path,
+                     "dien_kd128_training_parity", {"gru_fwd": 2, "gru_bwd": 2},
+                     block_scaled=("attn.",))
+        want = {"gru_fwd_wide": 10, "gru_bwd_wide": 10}
+        if instances_by_path["dien_kd128_training_parity"] != want:
+            fail(f"DIEN kd 128 training took the instances "
+                 f"{instances_by_path['dien_kd128_training_parity']}, not {want}")
+        step_rates("dien_kd128", model, batches, "kernel route, kd 128")
+
+
+def interaction_phases(drive, launches_by_path) -> None:
+    """DLRM and FiBiNET at the JAX board's width (bench.py:54-55: 26 fields of
+    100k ids, 13 dense, dim 8; default hyperparameters), built on the card
+    by ``get_model``: exported and scored through ``load_scorer`` at B 4096
+    (finite probabilities, within 1e-4 of the same weights scored on the
+    CPU, no kernel launched), 5 Adam steps on the card against the same 5
+    on the CPU (with f32 matmuls and with the bf16 path), and the training
+    rates at B 16384."""
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.features.synthetic import make_criteo_like
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.ops.kernels import _build
+    from ml_function_tpu_torch.serving import export_model, load_scorer
+    from ml_function_tpu_torch.train.loop import iter_batches
+
+    fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+    _, data = make_criteo_like(n_rows=2 * INTERACTION_TRAIN_BATCH, vocab_size=100_000,
+                               seed=4)
+    serve = _rows(data, 3 * BATCH + 1000)
+    batches = list(iter_batches(data, BATCH))[:5]
+    big = list(iter_batches(data, INTERACTION_TRAIN_BATCH))
+    for name in ("dlrm", "fibinet"):
+        model = get_model(name, fs, generator=torch.Generator().manual_seed(0))
+        if next(model.parameters()).device.type != "cuda":
+            fail(f"get_model did not place {name} on the card by default")
+        with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+            export_model(tmp, name, fs, model, hyperparams={})
+            scorer = load_scorer(tmp, batch_size=BATCH)
+            cpu_scorer = load_scorer(tmp, batch_size=BATCH, device="cpu")
+        scores = drive(f"{name}_serving", lambda: scorer.predict_proba(serve))
+        if launches_by_path[f"{name}_serving"] != expect():
+            fail(f"{name} scoring launched {launches_by_path[f'{name}_serving']}")
+        if scores.shape != (len(serve["label"]),) or not np.isfinite(scores).all() \
+                or not ((scores > 0) & (scores < 1)).all():
+            fail(f"{name} scores are not finite probabilities")
+        diff = float(np.abs(scores - cpu_scorer.predict_proba(serve)).max())
+        print(f"{name}_serving: {len(scores)} rows on {next(scorer.model.parameters()).device}"
+              f", vs the same weights on the CPU: max |score diff| {diff:.3e}")
+        if diff > 1e-4:
+            fail(f"{name} scores on the card differ from the CPU's by {diff}")
+        score_rates(f"{name}_serving", scorer, serve, "no kernel")
+        del scorer
+
+        # with f32 matmuls phase 5's bars hold every parameter; on the bf16
+        # path the two devices' f32 sums can round a bf16 input cotangent of
+        # the towers one bf16 step apart (ROADMAP.md R3), and the gradients
+        # below it are held at that step (BF16_PATH_RTOL)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        cpu_model = cpu_scorer.model
+        cpu_init = {k: v.cpu() for k, v in init.items()}
+        for f32 in ("1", "0"):
+            os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
+            path = f"{name}_training" + ("_f32" if f32 == "1" else "")
+            losses, grads = drive(path, lambda: _adam_steps(model, init, batches))
+            ref_losses, ref_grads = _adam_steps(cpu_model, cpu_init, batches)
+            mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
+            compare_runs(f"{name} ({mode})", losses, grads, ref_losses, ref_grads,
+                         "the CPU run", note=f"launches {launches_by_path[path]}",
+                         grad_rtol=RTOL if f32 == "1" else BF16_PATH_RTOL)
+            if launches_by_path[path] != expect():
+                fail(f"{name} training launched a kernel")
+        os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+        del cpu_scorer, cpu_model
+        model.load_state_dict(init)
+        step_rates(name, model, big, "the JAX board's width and smallest batch")
+        del model
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1610,15 +2025,19 @@ def main() -> int:
                                   (gru_mod, "gru_bwd"), (eg_mod, "merge_scatter"),
                                   (fl_mod, "flash_fwd"), (fl_mod, "flash_bwd_dq"),
                                   (fl_mod, "flash_bwd_dkv"))}
-    launches_by_path = {}
+    launches_by_path, instances_by_path = {}, {}
 
     def drive(path, fn):
         """Run one main path with every count at 0; returns its launches."""
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
+        cin_mod.instance_launches.clear()
+        gru_mod.instance_launches.clear()
         out = fn()
         launches_by_path[path] = {name: getattr(mod, attr)
                                   for name, (mod, attr) in counters.items()}
+        instances_by_path[path] = {**cin_mod.instance_launches,
+                                   **gru_mod.instance_launches}
         return out
 
     # the plain versions, forced in both directions (hooks of this script,
@@ -1679,14 +2098,41 @@ def main() -> int:
     # shapes, learning
     kernels += sim_phases(drive, launches_by_path)
 
-    # 15. result lines: each kernel's launches are those of the newest path
-    # that runs it (a fit, or SIM's flash-ESU training); every path's own
-    # counts ride along
+    # 15. F6: the wide CIN and (AU)GRU instances against their plain versions
+    t = time.perf_counter()
+    by_name = {k["name"]: k for k in kernels}
+    cin_f, cin_b, both = check_wide_cin(cin_mod)
+    gru_f, gru_b = check_wide_gru(gru_mod)
+    for name, extra in (("cin_fwd", cin_f), ("cin_bwd", cin_b), ("gru_fwd", gru_f),
+                        ("gru_bwd", gru_b)):
+        by_name[name]["per_shape"] += extra
+        by_name[name]["max_abs_err"] = max(s["max_abs_err"] for s in by_name[name]["per_shape"])
+    by_name["cin_fwd"]["both_instances_at_h256"] = both
+    print(f"F6 kernels: {time.perf_counter() - t:.1f} s")
+
+    # 16. xDeepFM with CIN (512, 128): serving and training on the wide instances
+    wide_cin_phase(drive, launches_by_path, instances_by_path, plain_cin)
+    # 17. DIEN at kd 128: serving and training on the wide (AU)GRU instances
+    dien_wide_phase(drive, launches_by_path, instances_by_path)
+    # 18. DLRM and FiBiNET at the board's width, card against CPU
+    t = time.perf_counter()
+    interaction_phases(drive, launches_by_path)
+    print(f"DLRM and FiBiNET: {time.perf_counter() - t:.1f} s")
+
+    # 19. result lines: each kernel's launches are those of the newest path
+    # that runs it; every path's own counts ride along, and each instance
+    # (C function) with the shapes it took here
     for k in kernels:
         runs = [p for p, c in launches_by_path.items() if c[k["name"]]]
         k["launches"] = launches_by_path[runs[-1]][k["name"]]
         k["launches_path"] = runs[-1]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in launches_by_path.items()}
+        shapes = {}
+        for sh in k.get("per_shape", []):
+            shapes.setdefault(sh.get("instance", k["name"]), []).append(sh.get("shape"))
+        k["instances"] = shapes
+    print("instances by path: " + json.dumps(
+        {p: c for p, c in instances_by_path.items() if c}))
     print(f"wall time of the run: {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..ops.base import init_parameters
 from .base import Model
-from .interaction import AutoInt, DeepFM, xDeepFM
+from .interaction import DLRM, AutoInt, DeepFM, FiBiNET, xDeepFM
 from .longseq import SIM
 from .sequence import DIEN, DIN
 
@@ -18,6 +18,8 @@ MODEL_REGISTRY = {
     "deepfm": DeepFM,
     "dien": DIEN,
     "din": DIN,
+    "dlrm": DLRM,
+    "fibinet": FiBiNET,
     "sim": SIM,
     "xdeepfm": xDeepFM,
 }
@@ -40,4 +42,4 @@ def get_model(name: str, feature_set, device: DeviceLike = None,
 
 
 __all__ = ["Model", "MODEL_REGISTRY", "get_model", "AutoInt", "DeepFM",
-           "DIEN", "DIN", "SIM", "xDeepFM"]
+           "DIEN", "DIN", "DLRM", "FiBiNET", "SIM", "xDeepFM"]

@@ -13,7 +13,7 @@ numpy arrays move to the model's device, nested ones included.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,6 +26,7 @@ State = Dict[str, Any]
 Aux = Dict[str, torch.Tensor]
 FwdFn = Callable[["Model", Dict[str, Any], bool],
                  Tuple[torch.Tensor, Aux]]
+Init = Callable[[torch.Generator], torch.Tensor]
 
 
 def as_tensors(batch: Mapping[str, Any], device: torch.device) -> Dict[str, Any]:
@@ -39,7 +40,7 @@ def as_tensors(batch: Mapping[str, Any], device: torch.device) -> Dict[str, Any]
 class Model(nn.Module):
     def __init__(self, name: str, feature_set: FeatureSet,
                  parts: Mapping[str, Union[nn.Module, nn.Parameter]],
-                 fwd: FwdFn):
+                 fwd: FwdFn, inits: Optional[Mapping[str, Init]] = None):
         super().__init__()
         self.name = name
         self.feature_set = feature_set
@@ -49,11 +50,17 @@ class Model(nn.Module):
             else:
                 self.add_module(key, part)
         self._fwd = fwd
+        self._inits = dict(inits or {})
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """The model's own scalar parameters (``bias``) start at zero."""
-        for p in self.parameters(recurse=False):
-            p.zero_()
+        """The model's own parameters start at zero (``bias``), or from
+        their entry in ``inits`` (FiBiNET's ``bilinear_w``)."""
+        for key, p in self.named_parameters(recurse=False):
+            init = self._inits.get(key)
+            if init is None:
+                p.zero_()
+            else:
+                p.copy_(init(generator))
 
     def forward(self, batch: Mapping[str, Any], train: bool = False
                 ) -> Tuple[torch.Tensor, State, Aux]:
@@ -102,7 +109,7 @@ def behavior_inputs(fe: FusedEmbedding, batch: Mapping[str, Any],
 
 def stateless(name: str, fs: FeatureSet,
               parts: Mapping[str, Union[nn.Module, nn.Parameter]],
-              fwd: FwdFn) -> Model:
+              fwd: FwdFn, inits: Optional[Mapping[str, Init]] = None) -> Model:
     """A Model with no running state from its parts and a
     ``fwd(model, batch, train) -> (logits, aux)``."""
-    return Model(name, fs, parts, fwd)
+    return Model(name, fs, parts, fwd, inits)

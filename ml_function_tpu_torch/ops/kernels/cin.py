@@ -14,6 +14,16 @@ Products and sums are f32; the forward rounds only ``xk`` and ``w1`` to bf16,
 and the backward rounds ``xk``, ``w1`` and ``du = x0·dy`` as the TPU kernel
 does (``cin_layer_t_backward_reference``).
 
+Each kernel has two instances of one C contract, chosen by (H, F)
+(``forward_instance``, ``backward_instance``, which ask the libraries for
+each instance's shared memory): ``cin_fwd`` and ``cin_bwd`` hold a block's
+whole (128, pad16(H)) tiles in shared memory, with at least two weight
+stages in the forward, which at F 26 takes H up to 272 forward and 176
+backward; ``cin_fwd_wide`` and ``cin_bwd_wide`` stream H in k-chunks for
+the wider shapes (forward to pad64(H) = 1472 at F ≤ 39, backward any H at
+F ≤ 429). Each block instance stops where the wide one becomes the faster
+(``tools/cin_instances.py``).
+
 ``cin_layer_t`` is a ``torch.autograd.Function``: for tensors on the CPU both
 directions run the plain versions, for CUDA tensors they launch the kernels;
 it never falls back from one to the other.
@@ -35,9 +45,11 @@ NDIMS = {"xk_t": 3, "x0_t": 3, "w1": 2, "dy_t": 3}
 # Shared memory a block may use on the H100 (232,448 bytes).
 MAX_SMEM_BYTES = 232_448
 
-# Launches of each CUDA kernel since its count was last set to 0.
+# Launches of each CUDA kernel since its count was last set to 0, and of
+# each instance (C function) by name since the dict was last cleared.
 cin_fwd_launches = 0
 cin_bwd_launches = 0
+instance_launches: dict = {}
 
 
 def supports(b: int, f: int, o: int, d: int) -> bool:
@@ -121,34 +133,74 @@ def _shape(name: str, xk_t, x0_t, w1):
     return d, b, h, f, o
 
 
-def _refuse_smem(what: str, smem: int, h: int, f: int) -> None:
-    if smem > MAX_SMEM_BYTES:
+def _pad(h: int, m: int) -> int:
+    return -(-h // m) * m
+
+
+def _smem_fits(lib, name: str, h: int, f: int) -> bool:
+    return getattr(lib, f"{name}_smem_bytes")(h, f) <= MAX_SMEM_BYTES
+
+
+def _refuse_smem(name: str, lib, h: int, f: int) -> None:
+    if not _smem_fits(lib, name, h, f):
         raise NotImplementedError(
-            f"{what}: H={h}, F={f} need {smem} bytes of shared memory "
-            f"per block, more than the {MAX_SMEM_BYTES} a block may use")
+            f"{name}: H={h}, F={f} need {getattr(lib, f'{name}_smem_bytes')(h, f)} bytes "
+            f"of shared memory per block, more than the {MAX_SMEM_BYTES} a block may use")
+
+
+def _first_fit(lib, names: tuple, h: int, f: int) -> str:
+    """The first of ``names`` whose block fits in shared memory at (H, F),
+    as its library states it; raises ``NotImplementedError`` if none does."""
+    for name in names:
+        if _smem_fits(lib, name, h, f):
+            return name
+    _refuse_smem(names[-1], lib, h, f)
+
+
+def forward_instance(h: int, f: int) -> str:
+    """The C function of ``csrc/cin_fwd.cu`` that takes (H, F): ``cin_fwd``
+    where a block's whole (128, pad16(H)) xk tile and one weight stage fit
+    beside x0, else ``cin_fwd_wide``. Raises ``NotImplementedError`` past
+    the wide instance's reach. Asks the library, so it needs the card's
+    toolchain."""
+    return _first_fit(_lib_fwd(), ("cin_fwd", "cin_fwd_wide"), h, f)
+
+
+def backward_instance(h: int, f: int) -> str:
+    """The C function of ``csrc/cin_bwd.cu`` that takes (H, F): ``cin_bwd``
+    where its rows pass holds a block's whole (TB, pad16(H)) tiles, else
+    ``cin_bwd_wide``. Raises ``NotImplementedError`` past the wide rows
+    pass's reach. Asks the library, so it needs the card's toolchain."""
+    return _first_fit(_lib_bwd(), ("cin_bwd", "cin_bwd_wide"), h, f)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib_fwd() -> ctypes.CDLL:
     lib = _build.load("cin_fwd")
-    lib.cin_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.cin_fwd.restype = ctypes.c_int
-    lib.cin_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.cin_fwd_smem_bytes.restype = ctypes.c_size_t
+    for fname in ("cin_fwd", "cin_fwd_wide"):
+        getattr(lib, fname).argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                                        + [ctypes.c_void_p])
+        getattr(lib, fname).restype = ctypes.c_int
+        getattr(lib, f"{fname}_smem_bytes").argtypes = [ctypes.c_int, ctypes.c_int]
+        getattr(lib, f"{fname}_smem_bytes").restype = ctypes.c_size_t
     lib.cin_fwd_scratch_cols.argtypes = [ctypes.c_int]
     lib.cin_fwd_scratch_cols.restype = ctypes.c_int
     lib.cin_fwd_scratch_rows.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.cin_fwd_scratch_rows.restype = ctypes.c_int
+    lib.cin_fwd_wide_scratch_elems.argtypes = [ctypes.c_int] * 3
+    lib.cin_fwd_wide_scratch_elems.restype = ctypes.c_size_t
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("cin_bwd")
-    lib.cin_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.cin_bwd.restype = ctypes.c_int
-    lib.cin_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.cin_bwd_smem_bytes.restype = ctypes.c_size_t
+    for fname in ("cin_bwd", "cin_bwd_wide"):
+        getattr(lib, fname).argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                                        + [ctypes.c_void_p])
+        getattr(lib, fname).restype = ctypes.c_int
+        getattr(lib, f"{fname}_smem_bytes").argtypes = [ctypes.c_int, ctypes.c_int]
+        getattr(lib, f"{fname}_smem_bytes").restype = ctypes.c_size_t
     lib.cin_bwd_scratch_cols.argtypes = [ctypes.c_int]
     lib.cin_bwd_scratch_cols.restype = ctypes.c_int
     lib.cin_bwd_splits.argtypes = [ctypes.c_int] * 4
@@ -157,49 +209,65 @@ def _lib_bwd() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_sizes(h: int, f: int, o: int):
-    """(shared memory a block, rows and columns of the bf16 weight scratch)
-    of the forward kernel at (H, F, O), as its library states them."""
+def _fwd_scratch(name: str, h: int, f: int, o: int) -> int:
+    """bf16 elements of the named forward instance's weight scratch at
+    (H, F, O), as its library states them."""
     lib = _lib_fwd()
-    return (lib.cin_fwd_smem_bytes(h, f), lib.cin_fwd_scratch_rows(f, o),
-            lib.cin_fwd_scratch_cols(h))
+    if name == "cin_fwd_wide":
+        return lib.cin_fwd_wide_scratch_elems(h, f, o)
+    return lib.cin_fwd_scratch_rows(f, o) * lib.cin_fwd_scratch_cols(h)
+
+
+def _check_instance(name: str, known) -> None:
+    if name not in known:
+        raise ValueError(f"CIN: no instance {name!r}; have {known}")
 
 
 def _launch_fwd(xk_t: torch.Tensor, x0_t: torch.Tensor,
-                w1: torch.Tensor) -> torch.Tensor:
+                w1: torch.Tensor, instance: str | None = None) -> torch.Tensor:
+    """The forward kernel on CUDA tensors through ``instance`` (default: the
+    one ``forward_instance`` names; either instance takes a shape whose
+    plan fits)."""
     global cin_fwd_launches
     check_cuda_inputs("cin_layer_t", NDIMS, xk_t=xk_t, x0_t=x0_t, w1=w1)
     d, b, h, f, o = _shape("cin_layer_t", xk_t, x0_t, w1)
+    name = instance or forward_instance(h, f)
+    _check_instance(name, ("cin_fwd", "cin_fwd_wide"))
     dev = xk_t.device
     y = torch.empty((d, b, o), dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y
-    smem, rows, cols = _fwd_sizes(h, f, o)
-    _refuse_smem("CIN kernel", smem, h, f)
+    _refuse_smem(name, _lib_fwd(), h, f)
+    elems = _fwd_scratch(name, h, f, o)
     # bf16 scratch: each field's 128-wide O tiles of w1 in the kernel's layout
-    wt = torch.empty((rows, cols), dtype=torch.bfloat16, device=dev)
+    wt = torch.empty(elems, dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
-        err = _lib_fwd().cin_fwd(xk_t.data_ptr(), x0_t.data_ptr(), w1.data_ptr(),
-                                 y.data_ptr(), wt.data_ptr(), d, b, h, f, o,
-                                 torch.cuda.current_stream(dev).cuda_stream)
+        err = getattr(_lib_fwd(), name)(
+            xk_t.data_ptr(), x0_t.data_ptr(), w1.data_ptr(), y.data_ptr(),
+            wt.data_ptr(), d, b, h, f, o, torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"cin_fwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     cin_fwd_launches += 1
+    instance_launches[name] = instance_launches.get(name, 0) + 1
     return y
 
 
 def cin_layer_t_backward(xk_t: torch.Tensor, x0_t: torch.Tensor,
-                         w1: torch.Tensor, dy_t: torch.Tensor):
-    """The backward kernel (``csrc/cin_bwd.cu``) on CUDA tensors: the
+                         w1: torch.Tensor, dy_t: torch.Tensor,
+                         instance: str | None = None):
+    """The backward kernel (``csrc/cin_bwd.cu``) on CUDA tensors through
+    ``instance`` (default: the one ``backward_instance`` names): the
     contract of ``cin_layer_t_backward_reference``. Raises on anything the
     kernel does not take; never runs the plain version."""
     global cin_bwd_launches
-    name = "cin_layer_t backward"
-    check_cuda_inputs(name, NDIMS, xk_t=xk_t, x0_t=x0_t, w1=w1, dy_t=dy_t)
-    d, b, h, f, o = _shape(name, xk_t, x0_t, w1)
+    what = "cin_layer_t backward"
+    check_cuda_inputs(what, NDIMS, xk_t=xk_t, x0_t=x0_t, w1=w1, dy_t=dy_t)
+    d, b, h, f, o = _shape(what, xk_t, x0_t, w1)
     if tuple(dy_t.shape) != (d, b, o):
-        raise ValueError(f"{name}: dy_t {tuple(dy_t.shape)} is not (D, B, O) "
+        raise ValueError(f"{what}: dy_t {tuple(dy_t.shape)} is not (D, B, O) "
                          f"= {(d, b, o)}")
+    name = instance or backward_instance(h, f)
+    _check_instance(name, ("cin_bwd", "cin_bwd_wide"))
     dev = xk_t.device
     dxk = torch.empty((d, b, h), dtype=torch.float32, device=dev)
     dx0 = torch.empty((d, b, f), dtype=torch.float32, device=dev)
@@ -207,7 +275,7 @@ def cin_layer_t_backward(xk_t: torch.Tensor, x0_t: torch.Tensor,
     if d * b == 0 or h * o == 0:   # empty sums
         return dxk.zero_(), dx0.zero_(), dw.zero_()
     lib = _lib_bwd()
-    _refuse_smem("CIN backward kernel", lib.cin_bwd_smem_bytes(h, f), h, f)
+    _refuse_smem(name, lib, h, f)
     # bf16 scratch: w1 transposed to (F·O, Hp) and xk as (D·B, Hp), Hp = pad16(H)
     hp = lib.cin_bwd_scratch_cols(h)
     wt = torch.empty((f * o, hp), dtype=torch.bfloat16, device=dev)
@@ -218,12 +286,13 @@ def cin_layer_t_backward(xk_t: torch.Tensor, x0_t: torch.Tensor,
             raise RuntimeError(f"cin_bwd could not plan its dW splits: CUDA error {-splits}")
         part = torch.empty((splits if splits > 1 else 0, h, f * o),
                            dtype=torch.float32, device=dev)
-        err = lib.cin_bwd(xk_t.data_ptr(), x0_t.data_ptr(), w1.data_ptr(),
-                          dy_t.data_ptr(), dxk.data_ptr(), dx0.data_ptr(),
-                          dw.data_ptr(), wt.data_ptr(), xb.data_ptr(),
-                          part.data_ptr(), d, b, h, f, o,
-                          torch.cuda.current_stream(dev).cuda_stream)
+        err = getattr(lib, name)(xk_t.data_ptr(), x0_t.data_ptr(), w1.data_ptr(),
+                                 dy_t.data_ptr(), dxk.data_ptr(), dx0.data_ptr(),
+                                 dw.data_ptr(), wt.data_ptr(), xb.data_ptr(),
+                                 part.data_ptr(), d, b, h, f, o,
+                                 torch.cuda.current_stream(dev).cuda_stream)
     if err:
-        raise RuntimeError(f"cin_bwd launch failed with CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     cin_bwd_launches += 1
+    instance_launches[name] = instance_launches.get(name, 0) + 1
     return dxk, dx0, dw

@@ -46,8 +46,8 @@
 //      which both passes read with 16-byte copies.
 //   1. cin_bwd_rows_kernel: one block of 16 warps per 128-row tile (and
 //      128-wide slice of H for dxk), twice the rows of the first design, so
-//      the weight is streamed from L2 half as often (64-row tiles of 8 warps
-//      where H is too wide for the shared memory of 128). For each (O tile,
+//      the weight is streamed from L2 half as often; cin_bwd takes only the
+//      shapes whose 128-row tiles fit (Hp <= 176 at F 26). For each (O tile,
 //      field f) it streams the (128, Hp) slice of wt through a 2-deep
 //      cp.async ring, recomputes U_f = xb @ w1_f with mma.sync m16n8k16
 //      (bf16 in, f32 accumulate), reduces U_f * dy over O into dx0, forms the du_f tile
@@ -70,6 +70,27 @@
 // No atomics: the same inputs give the same bits on every run. Every kernel
 // masks the ragged edges of the rows, H, F and O.
 //
+// cin_bwd_wide, the second instance of the same contract, takes the shapes
+// whose rows pass above does not fit with 128-row tiles (Hp > 176 at F 26;
+// kernels/cin.py: backward_instance). The block rows pass has no 64-row
+// form: on an NVIDIA H100 80GB HBM3 at 700 W the wide instance took 5-18%
+// less time than one at Hp 192 to 288 (F 26 and 39), and 12-43% more than
+// the 128-row one at H 26 to 176 (tools/cin_instances.py, PERF.md).
+// Only its rows pass differs (cin_bwd_rows_wide_kernel): nothing of width
+// Hp is held whole. A block walks a fixed list of items through a 2-deep
+// cp.async ring of (128, 128) k-chunks: for each (O tile, field) the blocks
+// of the first H slice recompute U_f = xb @ w1_f over the k-chunks of xb and
+// wt, in k order (the same mma chain as above, so the two instances give the
+// same U), then every block forms du_f and adds du_f @ w1_f^T into its
+// 128-wide HC slice of dxk from that slice's chunk of wt. One barrier an
+// item and one more for du. prep, dW and the reduce are the ones above, so
+// the instance takes every H at F <= 112 (128-row tiles) or F <= 429 (64).
+// On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md) the
+// backward takes 1.63-1.64 ms at H 384 and 2.14-2.19 at H 512 (F 26, B 4096,
+// O 128), 6.4x its bound, against 0.60-0.64 for three library calls: the
+// first H slice's blocks walk every k-chunk of U while the others wait on
+// one chunk a field, on mma.sync.
+//
 // Launches go on the caller's stream. Nothing here synchronises or allocates:
 // the caller passes the outputs, the bf16 scratch of w1 and xk, and the f32
 // partials.
@@ -85,7 +106,7 @@ using bf16 = __nv_bfloat16;
 constexpr int TO = 128;          // O columns per weight tile or dW tile
 // the rows kernel
 // rows a block: 128 (16 warps, 8 along the rows x 2 along O for U or H for
-// dxk) where the shared memory allows it, else 64 (8 warps)
+// dxk); the wide rows pass takes 64 (8 warps) where F leaves no room for 128
 constexpr int TB_MAX = 128;
 constexpr int WARP_N = 64;       // U columns per warp
 constexpr int NT = WARP_N / 8;   // 8-wide mma tiles per warp in U
@@ -109,7 +130,18 @@ size_t rows_smem_bytes(int tb, int h, int f) {
          + 2 * tb * sizeof(float);             // dx0 halves
 }
 
-int rows_tb(int h, int f) { return rows_smem_bytes(TB_MAX, h, f) <= SMEM_MAX ? TB_MAX : 64; }
+// The wide rows pass: k-chunks of WK columns of H, stored WKS apart.
+constexpr int WK = HC;
+constexpr int WKS = WK + 8;
+
+size_t rows_wide_smem_bytes(int tb, int f) {
+  return 2 * size_t(tb + TO) * WKS * sizeof(bf16)  // two slots: an xb chunk and a wt chunk
+         + size_t(tb) * TS * sizeof(bf16)          // the du tile
+         + size_t(tb) * f * sizeof(float)          // x0 tile
+         + 2 * tb * sizeof(float);                 // dx0 halves
+}
+
+int rows_wide_tb(int f) { return rows_wide_smem_bytes(TB_MAX, f) <= SMEM_MAX ? TB_MAX : 64; }
 
 // The dW kernel's layout for HB rows of H a block: G fields, KC rows a stage,
 // NS stages in the ring (as many rows in flight as the shared memory holds
@@ -398,6 +430,199 @@ __global__ void __launch_bounds__(TB * 4, 1)
   }
 }
 
+// Starts the copy of rows row0 .. row0 + ROWS of a (., hp) bf16 matrix,
+// columns col0 .. col0 + WK, into dst (stride WKS); zero past `valid` rows
+// and past hp.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void load_chunk(bf16* dst, const bf16* __restrict__ src, size_t row0,
+                                           int valid, int hp, int col0) {
+  constexpr int CH = WK / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+    const int r = i / CH, c = (i - r * CH) * 8;
+    const bool ok = r < valid && col0 + c < hp;
+    cp_async16(dst + r * WKS + c, ok ? src + (row0 + r) * hp + col0 + c : src, ok ? 16 : 0);
+  }
+}
+
+// The rows pass of cin_bwd_wide. Item i of a block: with per = n_c + 1 items
+// a step in the first H slice (n_c U chunks, then the dxk chunk) and 1
+// elsewhere, step i / per = (O tile, field) and chunk i % per.
+template <int TB>
+__global__ void __launch_bounds__(TB * 4, 1)
+    cin_bwd_rows_wide_kernel(const bf16* __restrict__ xb, const float* __restrict__ x0,
+                             const bf16* __restrict__ wt, const float* __restrict__ dy,
+                             float* __restrict__ dxk, float* __restrict__ dx0, int m_total,
+                             int h, int f_total, int o) {
+  constexpr int RTHREADS = TB * 4, ROW_WARPS = TB / 16;
+  constexpr int SLOT = (TB + TO) * WKS;  // bf16 elements of a ring slot
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hp = pad16(h);
+  bf16* ring = reinterpret_cast<bf16*>(smem);  // slot: xb chunk (TB rows), then wt chunk (TO)
+  bf16* du = ring + 2 * SLOT;
+  float* x0s = reinterpret_cast<float*>(du + TB * TS);
+  float* red = x0s + TB * f_total;
+
+  const int r0 = blockIdx.x * TB, c0 = blockIdx.y * HC;
+  const bool lead = blockIdx.y == 0;  // the blocks of the first H slice give dx0
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, q = lane >> 3, lr = lane & 7;
+  const int wm = warp % ROW_WARPS, wn = warp / ROW_WARPS;
+  const int row_a = wm * 16 + g;  // this thread's rows in the tile: row_a, row_a + 8
+  const int n_ot = (o + TO - 1) / TO, steps = n_ot * f_total;
+  const int n_c = (hp + WK - 1) / WK, per = lead ? n_c + 1 : 1, items = steps * per;
+
+  // item i's chunks into ring slot i & 1
+  auto load_item = [&](int i) {
+    const int step = i / per, c = i - step * per;
+    const int ot = step / f_total, f = step - ot * f_total, o0 = ot * TO;
+    bf16* slot = ring + (i & 1) * SLOT;
+    const size_t wrow = size_t(f) * o + o0;
+    if (c < per - 1) {  // a U chunk: xb and wt at columns c * WK
+      load_chunk<TB, RTHREADS>(slot, xb, r0, m_total - r0, hp, c * WK);
+      load_chunk<TO, RTHREADS>(slot + TB * WKS, wt, wrow, o - o0, hp, c * WK);
+    } else {  // the dxk chunk: wt at this block's H slice
+      load_chunk<TO, RTHREADS>(slot + TB * WKS, wt, wrow, o - o0, hp, c0);
+    }
+    cp_async_commit();
+  };
+
+  load_item(0);
+  for (int i = tid; i < TB * f_total; i += RTHREADS) {
+    const int m = r0 + i / f_total;
+    x0s[i] = m < m_total ? x0[size_t(r0) * f_total + i] : 0.f;
+  }
+
+  float acc[2 * NP][4];  // dxk: rows row_a (+8), columns of the pairs this warp owns
+#pragma unroll
+  for (int j = 0; j < 2 * NP; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float dyr[NT][4];  // dy at this thread's rows and U columns of the current O tile
+  float u[NT][4];    // U_f at this thread's rows and columns, over the U chunks
+
+  for (int it = 0; it < items; ++it) {
+    const int step = it / per, c = it - step * per;
+    const int ot = step / f_total, f = step - ot * f_total, o0 = ot * TO;
+    if (f == 0 && c == 0) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int col = o0 + wn * WARP_N + 8 * j + 2 * t;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int m = r0 + row_a + 8 * hr;
+          const float* src = dy + size_t(m) * o + col;
+          dyr[j][2 * hr] = (m < m_total && col < o) ? src[0] : 0.f;
+          dyr[j][2 * hr + 1] = (m < m_total && col + 1 < o) ? src[1] : 0.f;
+        }
+      }
+    }
+    cp_async_wait<0>();
+    // item it is in; every warp is done with item it - 1, whose slot is free
+    __syncthreads();
+    if (it + 1 < items) load_item(it + 1);
+    const bf16* xs = ring + (it & 1) * SLOT;
+    const bf16* ws = xs + TB * WKS;
+
+    if (c < per - 1) {
+      // U_f over this chunk's k, continuing the chain of the earlier chunks
+      if (c == 0) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) u[j][0] = u[j][1] = u[j][2] = u[j][3] = 0.f;
+      }
+      const int kw = min(WK, hp - c * WK);
+      for (int k = 0; k < kw; k += 16) {
+        const bf16* pa = xs + row_a * WKS + k + 2 * t;
+        uint32_t a[4];
+        a[0] = *reinterpret_cast<const uint32_t*>(pa);
+        a[1] = *reinterpret_cast<const uint32_t*>(pa + 8 * WKS);
+        a[2] = *reinterpret_cast<const uint32_t*>(pa + 8);
+        a[3] = *reinterpret_cast<const uint32_t*>(pa + 8 * WKS + 8);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const bf16* pb = ws + (wn * WARP_N + 8 * j + g) * WKS + k + 2 * t;
+          uint32_t bb[2];
+          bb[0] = *reinterpret_cast<const uint32_t*>(pb);
+          bb[1] = *reinterpret_cast<const uint32_t*>(pb + 8);
+          mma_bf16(u[j], a, bb);
+        }
+      }
+      if (c == per - 2) {  // U_f is whole: this thread's share of dx0
+        float sa = 0.f, sb = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          sa += u[j][0] * dyr[j][0] + u[j][1] * dyr[j][1];
+          sb += u[j][2] * dyr[j][2] + u[j][3] * dyr[j][3];
+        }
+        sa += __shfl_xor_sync(0xffffffffu, sa, 1);
+        sa += __shfl_xor_sync(0xffffffffu, sa, 2);
+        sb += __shfl_xor_sync(0xffffffffu, sb, 1);
+        sb += __shfl_xor_sync(0xffffffffu, sb, 2);
+        if (t == 0) {
+          red[wn * TB + row_a] = sa;
+          red[wn * TB + row_a + 8] = sb;
+        }
+      }
+      continue;
+    }
+
+    // du_f = x0[:, f] * dy, rounded to bf16, into shared memory
+    const float xa = x0s[row_a * f_total + f], xc = x0s[(row_a + 8) * f_total + f];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = wn * WARP_N + 8 * j + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(du + row_a * TS + col) =
+          __floats2bfloat162_rn(xa * dyr[j][0], xa * dyr[j][1]);
+      *reinterpret_cast<__nv_bfloat162*>(du + (row_a + 8) * TS + col) =
+          __floats2bfloat162_rn(xc * dyr[j][2], xc * dyr[j][3]);
+    }
+    __syncthreads();
+
+    if (lead && tid < TB) {
+      // one thread per row adds the two column halves, in the same order on every run
+      const int m = r0 + tid;
+      if (m < m_total) {
+        float* p = dx0 + size_t(m) * f_total + f;
+        const float v = red[tid] + red[TB + tid];
+        *p = ot ? *p + v : v;
+      }
+    }
+
+    // dxk += du_f @ w1_f^T over this block's H slice, the chunk read transposed
+    for (int k = 0; k < TO; k += 16) {
+      const bf16* pa = du + row_a * TS + k + 2 * t;
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(pa);
+      a[1] = *reinterpret_cast<const uint32_t*>(pa + 8 * TS);
+      a[2] = *reinterpret_cast<const uint32_t*>(pa + 8);
+      a[3] = *reinterpret_cast<const uint32_t*>(pa + 8 * TS + 8);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const int n0 = (2 * i + wn) * 16;  // in the slice
+        if (c0 + n0 < hp) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, ws + (k + lr + 8 * (q & 1)) * WKS + n0 + 8 * (q >> 1));
+          mma_bf16(acc[2 * i], a, b);
+          mma_bf16(acc[2 * i + 1], a, b + 2);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int col = c0 + (2 * i + wn) * 16 + 8 * jj + 2 * t;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = r0 + row_a + 8 * hr;
+        if (m >= m_total) continue;
+        float* dst = dxk + size_t(m) * h + col;
+        if (col < h) dst[0] = acc[2 * i + jj][2 * hr];
+        if (col + 1 < h) dst[1] = acc[2 * i + jj][2 * hr + 1];
+      }
+    }
+  }
+}
+
 // Starts the copies of one stage: rows [m0, m0 + KC) of xb (columns h0..h0+HB),
 // dy (columns o0..o0+TO) and x0 (the block's fields f0..f0+G), zero past the
 // split's end re, past Hp, O and F.
@@ -567,6 +792,20 @@ cudaError_t rows_launch(const bf16* xb, const float* x0, const bf16* wt, const f
   return cudaGetLastError();
 }
 
+template <int TB>
+cudaError_t rows_wide_launch(const bf16* xb, const float* x0, const bf16* wt, const float* dy,
+                             float* dxk, float* dx0, int m, int h, int f, int o,
+                             cudaStream_t s) {
+  const size_t smem = rows_wide_smem_bytes(TB, f);
+  const cudaError_t err =
+      cudaFuncSetAttribute(cin_bwd_rows_wide_kernel<TB>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((m + TB - 1) / TB, (pad16(h) + HC - 1) / HC);
+  cin_bwd_rows_wide_kernel<TB><<<grid, TB * 4, smem, s>>>(xb, x0, wt, dy, dxk, dx0, m, h, f, o);
+  return cudaGetLastError();
+}
+
 // Blocks of cin_bwd_dw_kernel<HB> an SM, with its shared memory allowed.
 template <int HB>
 cudaError_t dw_per_sm(int* n) {
@@ -632,6 +871,44 @@ cudaError_t dw_dispatch(bool dy16, const bf16* xb, const float* x0, const float*
               : dw_launch<HB, false>(xb, x0, dy, out, m, h, f, o, rps, splits, s);
 }
 
+// prep, the rows pass (the wide one with `wide`), dW and its reduce.
+int backward(bool wide, const float* xk, const float* x0, const float* w1, const float* dy,
+             float* dxk, float* dx0, float* dw, void* wt, void* xb, float* part, int d, int b,
+             int h, int f, int o, cudaStream_t s) {
+  const int hp = pad16(h), fo = f * o, m = d * b;
+  const int wbx = (fo + 31) / 32, wblocks = wbx * ((hp + 31) / 32);
+  const long long xblocks = (static_cast<long long>(m) * (hp / 8) + PTHREADS - 1) / PTHREADS;
+  prep_kernel<<<static_cast<unsigned>(wblocks + xblocks), PTHREADS, 0, s>>>(
+      w1, static_cast<bf16*>(wt), xk, static_cast<bf16*>(xb), h, hp, fo, m, wbx, wblocks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bf16* xbc = static_cast<const bf16*>(xb);
+  const bf16* wtc = static_cast<const bf16*>(wt);
+  if (wide) {
+    err = rows_wide_tb(f) == TB_MAX
+              ? rows_wide_launch<TB_MAX>(xbc, x0, wtc, dy, dxk, dx0, m, h, f, o, s)
+              : rows_wide_launch<64>(xbc, x0, wtc, dy, dxk, dx0, m, h, f, o, s);
+  } else {
+    err = rows_launch<TB_MAX>(xbc, x0, wtc, dy, dxk, dx0, m, h, f, o, s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int rps, splits;
+  if ((err = dw_splits(m, h, f, o, &rps, &splits)) != cudaSuccess) return static_cast<int>(err);
+  const bool dy16 = o % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  float* out = splits > 1 ? part : dw;
+  const int hb = dw_hb(h);
+  err = hb == 32   ? dw_dispatch<32>(dy16, xbc, x0, dy, out, m, h, f, o, rps, splits, s)
+        : hb == 64 ? dw_dispatch<64>(dy16, xbc, x0, dy, out, m, h, f, o, rps, splits, s)
+                   : dw_dispatch<128>(dy16, xbc, x0, dy, out, m, h, f, o, rps, splits, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (splits > 1) {
+    const size_t n = size_t(h) * fo;
+    const int blocks = static_cast<int>((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+    cin_bwd_reduce_kernel<<<blocks, 256, 0, s>>>(part, dw, n, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -639,7 +916,7 @@ extern "C" {
 // Dynamic shared memory of the largest block of the backward; the caller
 // refuses shapes above the card's limit.
 size_t cin_bwd_smem_bytes(int h, int f) {
-  const size_t rows = rows_smem_bytes(rows_tb(h, f), h, f), dw = dw_smem_bytes(h);
+  const size_t rows = rows_smem_bytes(TB_MAX, h, f), dw = dw_smem_bytes(h);
   return rows > dw ? rows : dw;
 }
 
@@ -659,40 +936,30 @@ int cin_bwd_splits(int m, int h, int f, int o) {
 // dx0 (D, B, F), dw (H, F*O) f32, all contiguous on the current device; wt is
 // (F*O, pad16(H)) and xb (D*B, pad16(H)) bf16 scratch, part
 // (cin_bwd_splits(D*B, H, F, O), H, F*O) f32 scratch (unused when there is one
-// split). Returns the CUDA error code of the launches (0 on success).
+// split). Returns the CUDA error code of the launches (0 on success;
+// cudaErrorInvalidValue, with nothing launched, where the shared memory would
+// exceed the card's limit).
 int cin_bwd(const float* xk, const float* x0, const float* w1, const float* dy, float* dxk,
             float* dx0, float* dw, void* wt, void* xb, float* part, int d, int b, int h, int f,
             int o, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int hp = pad16(h), fo = f * o, m = d * b;
-  const int wbx = (fo + 31) / 32, wblocks = wbx * ((hp + 31) / 32);
-  const long long xblocks = (static_cast<long long>(m) * (hp / 8) + PTHREADS - 1) / PTHREADS;
-  prep_kernel<<<static_cast<unsigned>(wblocks + xblocks), PTHREADS, 0, s>>>(
-      w1, static_cast<bf16*>(wt), xk, static_cast<bf16*>(xb), h, hp, fo, m, wbx, wblocks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = rows_tb(h, f) == TB_MAX
-            ? rows_launch<TB_MAX>(static_cast<const bf16*>(xb), x0, static_cast<const bf16*>(wt),
-                                  dy, dxk, dx0, m, h, f, o, s)
-            : rows_launch<64>(static_cast<const bf16*>(xb), x0, static_cast<const bf16*>(wt), dy,
-                              dxk, dx0, m, h, f, o, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int rps, splits;
-  if ((err = dw_splits(m, h, f, o, &rps, &splits)) != cudaSuccess) return static_cast<int>(err);
-  const bool dy16 = o % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
-  const bf16* xbc = static_cast<const bf16*>(xb);
-  float* out = splits > 1 ? part : dw;
-  const int hb = dw_hb(h);
-  err = hb == 32   ? dw_dispatch<32>(dy16, xbc, x0, dy, out, m, h, f, o, rps, splits, s)
-        : hb == 64 ? dw_dispatch<64>(dy16, xbc, x0, dy, out, m, h, f, o, rps, splits, s)
-                   : dw_dispatch<128>(dy16, xbc, x0, dy, out, m, h, f, o, rps, splits, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (splits > 1) {
-    const size_t n = size_t(h) * fo;
-    const int blocks = static_cast<int>((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-    cin_bwd_reduce_kernel<<<blocks, 256, 0, s>>>(part, dw, n, splits);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (cin_bwd_smem_bytes(h, f) > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return backward(false, xk, x0, w1, dy, dxk, dx0, dw, wt, xb, part, d, b, h, f, o,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// The wide instance's dynamic shared memory of its largest block.
+size_t cin_bwd_wide_smem_bytes(int h, int f) {
+  const size_t rows = rows_wide_smem_bytes(rows_wide_tb(f), f), dw = dw_smem_bytes(h);
+  return rows > dw ? rows : dw;
+}
+
+// The contract of cin_bwd, with the wide rows pass.
+int cin_bwd_wide(const float* xk, const float* x0, const float* w1, const float* dy, float* dxk,
+                 float* dx0, float* dw, void* wt, void* xb, float* part, int d, int b, int h,
+                 int f, int o, void* stream) {
+  if (cin_bwd_wide_smem_bytes(h, f) > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  return backward(true, xk, x0, w1, dy, dxk, dx0, dw, wt, xb, part, d, b, h, f, o,
+                  static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

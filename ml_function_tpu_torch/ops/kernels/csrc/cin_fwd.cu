@@ -25,8 +25,9 @@
 // rounds w1 to bf16 and writes each field's (128, Hp) weight tile, O padded
 // with zeros, as one contiguous block in that same layout, so the producer
 // moves a tile with one bulk copy (cp.async.bulk, the TMA's plain form) into
-// a ring of up to 8 stages, each guarded by a full and an empty mbarrier:
-// fields are in flight while earlier ones are multiplied, with no block-wide
+// a ring of 2 to 8 stages (fewer only where F is), each guarded by a full
+// and an empty mbarrier: fields are in flight while earlier ones are
+// multiplied, with no block-wide
 // barrier in the loop. For each field f a consumer warpgroup forms
 // U_f = xk @ w1_f (64 x 128, f32 in 64 registers a thread) from zero with
 // Hp / 16 chained wgmma m64n128k16 (bf16 in, f32 accumulate), both operands
@@ -49,9 +50,29 @@
 // layer (two k-steps a field) latency-bound, and each block stages its xk
 // tile before its first field with nothing to overlap it (one block an SM).
 //
+// cin_fwd_wide, the second instance of the same contract, takes the shapes
+// whose whole (128, Hp) xk tile and two (128, Hp) weight stages do not fit
+// beside x0 (Hp > 272 at F 26; kernels/cin.py: forward_instance). Where one
+// stage would still fit (Hp 288 to 416 at F 26) it takes 1-13% less time
+// than a one-stage block instance would, whose copies and products run in
+// turn; at H 26 to 256, with two stages or more, 2-52% more (F 26 and 39;
+// NVIDIA H100 80GB HBM3 at 700 W; tools/cin_instances.py, PERF.md). A block
+// takes 64 rows (one consumer warpgroup) and keeps their (64, Hq) bf16 xk
+// tile whole, Hq = H rounded up to 64, at most 184 KB; the weight comes
+// through the same kind of bulk-copy ring in (128, 64) k-chunks of 16 KB,
+// each its own core-matrix block, written so by the prep launch. For each
+// field U_f is formed from zero as one chain of Hq / 16 wgmma in k order,
+// four a chunk, the next chunk's issued before the last one's wait, and then
+// folded as above, so U and Z still never reach device memory, and at an H
+// that both instances take the two give the same bits. The ring needs two
+// stages, so the instance holds Hq <= 1472 at F <= 39 (the wrapper raises
+// past it). On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md)
+// it takes 0.22 ms at (D 8, B 4096, F 26, H 512, O 128), 2.0x its
+// tensor-core bound, against 0.33-0.35 ms for a bf16 GEMM and the F-reduce.
+//
 // Launches go on the caller's stream. Nothing here synchronises or allocates:
 // the caller passes y and the bf16 scratch for the weight tiles
-// (cin_fwd_scratch_rows x cin_fwd_scratch_cols).
+// (cin_fwd_scratch_rows x cin_fwd_scratch_cols, or cin_fwd_wide_scratch_elems).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,8 +89,15 @@ constexpr int THREADS = CONSUMERS + 32;  // and one producer warp
 constexpr int MAX_STAGES = 8;
 constexpr size_t SMEM_LIMIT = 232448;    // shared memory a block may use on the H100
 constexpr size_t BAR_BYTES = 128;        // the full and empty mbarriers
+// the wide instance
+constexpr int WTM = 64;                    // batch rows a block: one warpgroup
+constexpr int WCONSUMERS = 128;
+constexpr int WTHREADS = WCONSUMERS + 32;  // and one producer warp
+constexpr int KC = 64;                     // k of a weight chunk
+constexpr int MIN_WIDE_STAGES = 2;         // a chunk is released after the next one's issue
 
 __host__ __device__ inline int pad16(int h) { return (h + 15) / 16 * 16; }
+__host__ __device__ inline int pad64(int h) { return (h + 63) / 64 * 64; }
 
 // Offset in elements of (row, k) in a tile of rows x hp bf16 in the core-matrix
 // layout wgmma reads without swizzle: 8 rows x 8 k (128 contiguous bytes) a
@@ -93,10 +121,30 @@ Plan plan(int h, int f) {
   p.a_off = BAR_BYTES;
   p.w_off = p.a_off + size_t(TM) * p.hp * sizeof(bf16);
   const size_t x0_bytes = size_t(TM) * f * sizeof(float);
+  // two stages at least, so that one field's copy overlaps another's
+  // product; where two do not fit, total is past the card's limit
   int s = MAX_STAGES < f ? MAX_STAGES : (f > 0 ? f : 1);
-  while (s > 1 && p.w_off + s * tile + x0_bytes > SMEM_LIMIT) --s;
+  const int least = s < 2 ? s : 2;
+  while (s > least && p.w_off + s * tile + x0_bytes > SMEM_LIMIT) --s;
   p.stages = s;
   p.x0_off = p.w_off + s * tile;
+  p.total = p.x0_off + x0_bytes;
+  return p;
+}
+
+// The wide instance's: mbarriers, the (64, Hq) xk tile, the chunk ring, x0.
+// Where two stages do not fit, total is past the card's limit.
+Plan wide_plan(int h, int f) {
+  Plan p;
+  p.hp = pad64(h);
+  const size_t chunk = size_t(TN) * KC * sizeof(bf16);
+  p.a_off = BAR_BYTES;
+  p.w_off = p.a_off + size_t(WTM) * p.hp * sizeof(bf16);
+  const size_t x0_bytes = size_t(WTM) * f * sizeof(float);
+  int s = MAX_STAGES;
+  while (s > MIN_WIDE_STAGES && p.w_off + s * chunk + x0_bytes > SMEM_LIMIT) --s;
+  p.stages = s;
+  p.x0_off = p.w_off + s * chunk;
   p.total = p.x0_off + x0_bytes;
   return p;
 }
@@ -187,29 +235,32 @@ __device__ __forceinline__ void wgmma_128(float* u, uint64_t da, uint64_t db, in
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// The weight tiles: tile (f, ot) is w1[:, f*O + ot*128 + n] for n < 128 as a
-// (128, hp) bf16 block in the core-matrix layout, zero for k >= H and for
-// columns past O, stored at tile index f * n_ot + ot. One thread a 16-byte
-// chunk; eight consecutive threads write one core matrix's 128 bytes.
+// The weight tiles: tile (f, ot, c) is w1[c * kc + k, f*O + ot*128 + n] for
+// n < 128, k < kc as a (128, kc) bf16 block in the core-matrix layout, zero
+// for k >= H and for columns past O, stored at tile index (f * n_ot + ot) *
+// n_c + c. The block instance takes one chunk of kc = Hp, the wide instance
+// n_c chunks of KC. One thread a 16-byte chunk; eight consecutive threads
+// write one core matrix's 128 bytes.
 __global__ void w_prep_kernel(const float* __restrict__ w1, bf16* __restrict__ wt, int h,
-                              int hp, int f_total, int o, int n_ot) {
-  const int chunks = TN * (hp / 8);  // a tile's 16-byte chunks
+                              int kc, int n_c, int f_total, int o, int n_ot) {
+  const int chunks = TN * (kc / 8);  // a tile's 16-byte chunks
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= f_total * n_ot * chunks) return;
+  if (i >= f_total * n_ot * n_c * chunks) return;
   const int tile = i / chunks, rem = i - tile * chunks;
-  const int n8 = rem & 7, kc = (rem >> 3) % (hp / 8), ng = (rem >> 3) / (hp / 8);
-  const int fi = tile / n_ot, oc = (tile - fi * n_ot) * TN + ng * 8 + n8;
+  const int n8 = rem & 7, kq = (rem >> 3) % (kc / 8), ng = (rem >> 3) / (kc / 8);
+  const int fot = tile / n_c, c = tile - fot * n_c;
+  const int fi = fot / n_ot, oc = (fot - fi * n_ot) * TN + ng * 8 + n8;
   float v[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
-    const int k = kc * 8 + e;
+    const int k = c * kc + kq * 8 + e;
     v[e] = (k < h && oc < o) ? w1[size_t(k) * f_total * o + size_t(fi) * o + oc] : 0.f;
   }
   uint4 out;
   __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
   for (int e = 0; e < 4; ++e) p[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-  // rem = ng * hp + kc * 8 + n8 chunks: element ng * 8 * hp + kc * 64 + n8 * 8
+  // rem = ng * kc + kq * 8 + n8 chunks: element ng * 8 * kc + kq * 64 + n8 * 8
   reinterpret_cast<uint4*>(wt)[size_t(tile) * chunks + rem] = out;
 }
 
@@ -219,15 +270,15 @@ constexpr int STAGE_UNROLL = 8;  // loads each consumer thread keeps in flight w
 // core-matrix layout, zero past B and H. Eight consecutive threads fill one
 // core matrix (rows i % 8 of a group), so a warp stores 512 contiguous bytes;
 // each thread first loads STAGE_UNROLL chunks of 8 floats, then stores them.
-template <bool VEC>
+template <int ROWS, int NT, bool VEC>
 __device__ __forceinline__ void stage_xk(bf16* as, const float* __restrict__ xk_d, int b0,
                                          int b_total, int h, int hp, int tid) {
-  const int kcs = hp / 8, n = TM * kcs;
-  for (int i0 = tid; i0 < n; i0 += CONSUMERS * STAGE_UNROLL) {
+  const int kcs = hp / 8, n = ROWS * kcs;
+  for (int i0 = tid; i0 < n; i0 += NT * STAGE_UNROLL) {
     float v[STAGE_UNROLL][8];
 #pragma unroll
     for (int u = 0; u < STAGE_UNROLL; ++u) {
-      const int i = i0 + u * CONSUMERS;
+      const int i = i0 + u * NT;
       const int r8 = i & 7, kc = (i >> 3) % kcs, rg = (i >> 3) / kcs;
       const int b = b0 + rg * 8 + r8;
       const bool row_ok = i < n && b < b_total;
@@ -250,7 +301,7 @@ __device__ __forceinline__ void stage_xk(bf16* as, const float* __restrict__ xk_
     }
 #pragma unroll
     for (int u = 0; u < STAGE_UNROLL; ++u) {
-      const int i = i0 + u * CONSUMERS;
+      const int i = i0 + u * NT;
       if (i >= n) break;
       const int r8 = i & 7, kc = (i >> 3) % kcs, rg = (i >> 3) / kcs;
       uint4 out;
@@ -259,6 +310,62 @@ __device__ __forceinline__ void stage_xk(bf16* as, const float* __restrict__ xk_
       for (int e = 0; e < 4; ++e) p[e] = __floats2bfloat162_rn(v[u][2 * e], v[u][2 * e + 1]);
       *reinterpret_cast<uint4*>(as + core_offset(rg * 8 + r8, kc * 8, hp)) = out;
     }
+  }
+}
+
+// The block's (ROWS, F) slice of x0, f32, zero past B.
+template <int ROWS, int NT>
+__device__ __forceinline__ void stage_x0(float* x0s, const float* __restrict__ x0, int d, int b0,
+                                         int b_total, int f_total, int tid) {
+  const float* x0_d = x0 + size_t(d) * b_total * f_total + size_t(b0) * f_total;
+  const int x0_n = min(ROWS, b_total - b0) * f_total;  // the tile's valid x0 floats
+  for (int i0 = tid; i0 < ROWS * f_total; i0 += NT * STAGE_UNROLL) {
+    float v[STAGE_UNROLL];
+#pragma unroll
+    for (int u = 0; u < STAGE_UNROLL; ++u) {
+      const int i = i0 + u * NT;
+      v[u] = i < x0_n ? x0_d[i] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < STAGE_UNROLL; ++u)
+      if (i0 + u * NT < ROWS * f_total) x0s[i0 + u * NT] = v[u];
+  }
+}
+
+// y's (ROWS, 128) tile from the fold's accumulators: acc[4j .. 4j + 3] is
+// (row_a, col), (row_a, col + 1), (row_a + 8, col), (row_a + 8, col + 1) with
+// col = 8j + 2q of the O tile.
+__device__ __forceinline__ void store_y(float* __restrict__ y, const float* acc, int d, int b0,
+                                        int b_total, int o, int ot, int row_a, int q) {
+  float* y_d = y + size_t(d) * b_total * o;
+  const bool pairs = (o & 1) == 0;  // then (row * o + even col) is 8-byte aligned
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = ot * TN + 8 * j + 2 * q;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int b = b0 + row_a + 8 * half;
+      if (b >= b_total) continue;
+      float* dst = y_d + size_t(b) * o + col;
+      const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+      if (pairs && col + 1 < o) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        if (col < o) dst[0] = v0;
+        if (col + 1 < o) dst[1] = v1;
+      }
+    }
+  }
+}
+
+// acc += x0[row_a, f] * U_f (rows row_a) and x0[row_a + 8, f] * U_f.
+__device__ __forceinline__ void fold(float* acc, const float* u, float xa, float xb) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    acc[4 * j] += xa * u[4 * j];
+    acc[4 * j + 1] += xa * u[4 * j + 1];
+    acc[4 * j + 2] += xb * u[4 * j + 2];
+    acc[4 * j + 3] += xb * u[4 * j + 3];
   }
 }
 
@@ -307,23 +414,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   // stage xk (bf16, core-matrix layout) and x0 (f32) while the first tiles fly
   const float* xk_d = xk + size_t(d) * b_total * h;
   if ((h & 3) == 0 && (reinterpret_cast<uintptr_t>(xk) & 15) == 0) {
-    stage_xk<true>(as, xk_d, b0, b_total, h, hp, tid);
+    stage_xk<TM, CONSUMERS, true>(as, xk_d, b0, b_total, h, hp, tid);
   } else {
-    stage_xk<false>(as, xk_d, b0, b_total, h, hp, tid);
+    stage_xk<TM, CONSUMERS, false>(as, xk_d, b0, b_total, h, hp, tid);
   }
-  const float* x0_d = x0 + size_t(d) * b_total * f_total + size_t(b0) * f_total;
-  const int x0_n = min(TM, b_total - b0) * f_total;  // the tile's valid x0 floats
-  for (int i0 = tid; i0 < TM * f_total; i0 += CONSUMERS * STAGE_UNROLL) {
-    float v[STAGE_UNROLL];
-#pragma unroll
-    for (int u = 0; u < STAGE_UNROLL; ++u) {
-      const int i = i0 + u * CONSUMERS;
-      v[u] = i < x0_n ? x0_d[i] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < STAGE_UNROLL; ++u)
-      if (i0 + u * CONSUMERS < TM * f_total) x0s[i0 + u * CONSUMERS] = v[u];
-  }
+  stage_x0<TM, CONSUMERS>(x0s, x0, d, b0, b_total, f_total, tid);
   // the xk tile was written by the threads; wgmma reads it through the async proxy
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
@@ -353,37 +448,103 @@ __global__ void __launch_bounds__(THREADS, 1)
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_operands(u);
     if (lane == 0) mbar_arrive(smem_u32(empty + s));  // this warp is done with the stage
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      acc[4 * j] += xa * u[4 * j];
-      acc[4 * j + 1] += xa * u[4 * j + 1];
-      acc[4 * j + 2] += xb * u[4 * j + 2];
-      acc[4 * j + 3] += xb * u[4 * j + 3];
-    }
+    fold(acc, u, xa, xb);
     if (++s == stages) s = 0, phase ^= 1;
   }
+  store_y(y, acc, d, b0, b_total, o, ot, row_a, q);
+}
 
-  // acc[4j .. 4j + 3] is (row_a, col), (row_a, col + 1), (row_a + 8, col),
-  // (row_a + 8, col + 1) with col = 8j + 2q of the O tile
-  float* y_d = y + size_t(d) * b_total * o;
-  const bool pairs = (o & 1) == 0;  // then (row * o + even col) is 8-byte aligned
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = ot * TN + 8 * j + 2 * q;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int b = b0 + row_a + 8 * half;
-      if (b >= b_total) continue;
-      float* dst = y_d + size_t(b) * o + col;
-      const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-      if (pairs && col + 1 < o) {
-        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-      } else {
-        if (col < o) dst[0] = v0;
-        if (col + 1 < o) dst[1] = v1;
+// The wide instance: 64 rows a block, the weight in (128, KC) k-chunks.
+__global__ void __launch_bounds__(WTHREADS, 1)
+    cin_fwd_wide_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
+                        const bf16* __restrict__ wt, float* __restrict__ y, int b_total, int h,
+                        int f_total, int o, int hp, int stages, int a_off, int w_off,
+                        int x0_off) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + MAX_STAGES;
+  bf16* as = reinterpret_cast<bf16*>(smem + a_off);
+  unsigned char* ws = smem + w_off;
+  float* x0s = reinterpret_cast<float*>(smem + x0_off);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b0 = blockIdx.x * WTM, ot = blockIdx.y, n_ot = gridDim.y, d = blockIdx.z;
+  const int n_c = hp / KC;
+  const uint32_t chunk_bytes = uint32_t(TN) * KC * sizeof(bf16);
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), WCONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == WCONSUMERS / 32) {  // the producer: every field's chunks, in order
+    if (lane == 0) {
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(wt);
+      int s = 0;
+      uint32_t phase = 0;
+      for (int fi = 0; fi < f_total; ++fi) {
+        for (int c = 0; c < n_c; ++c) {
+          mbar_wait(smem_u32(empty + s), phase ^ 1);
+          mbar_expect_tx(smem_u32(full + s), chunk_bytes);
+          bulk_copy(smem_u32(ws + size_t(s) * chunk_bytes),
+                    src + ((size_t(fi) * n_ot + ot) * n_c + c) * chunk_bytes, chunk_bytes,
+                    smem_u32(full + s));
+          if (++s == stages) s = 0, phase ^= 1;
+        }
       }
     }
+    return;
   }
+
+  const float* xk_d = xk + size_t(d) * b_total * h;
+  if ((h & 3) == 0 && (reinterpret_cast<uintptr_t>(xk) & 15) == 0) {
+    stage_xk<WTM, WCONSUMERS, true>(as, xk_d, b0, b_total, h, hp, tid);
+  } else {
+    stage_xk<WTM, WCONSUMERS, false>(as, xk_d, b0, b_total, h, hp, tid);
+  }
+  stage_x0<WTM, WCONSUMERS>(x0s, x0, d, b0, b_total, f_total, tid);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync 1, %0;\n" ::"n"(WCONSUMERS) : "memory");
+
+  const int g = lane >> 2, q = lane & 3;
+  const int row_a = warp * 16 + g;  // this thread's rows: row_a, row_a + 8
+  const uint32_t a_base = smem_u32(as), w_base = smem_u32(ws);
+
+  float acc[64], u[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = u[i] = 0.f;
+
+  int s = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int fi = 0; fi < f_total; ++fi) {
+    fence_operands(u);
+    for (int c = 0; c < n_c; ++c) {
+      mbar_wait(smem_u32(full + s), phase);
+      const uint32_t b_base = w_base + uint32_t(s) * chunk_bytes;
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)  // U_f from zero, one chain in k order
+        wgmma_128(u, make_desc(a_base + (c * (KC / 16) + kk) * 256, hp),
+                  make_desc(b_base + kk * 256, KC), c > 0 || kk > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (c > 0) {  // the previous chunk's products are done: free its stage
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (lane == 0) mbar_arrive(smem_u32(empty + prev));
+      }
+      prev = s;
+      if (++s == stages) s = 0, phase ^= 1;
+    }
+    const float xa = x0s[row_a * f_total + fi], xb = x0s[(row_a + 8) * f_total + fi];
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operands(u);
+    if (lane == 0) mbar_arrive(smem_u32(empty + prev));
+    fold(acc, u, xa, xb);
+  }
+  store_y(y, acc, d, b0, b_total, o, ot, row_a, q);
 }
 
 }  // namespace
@@ -434,10 +595,46 @@ int cin_fwd(const float* xk, const float* x0, const float* w1, float* y, void* w
   }
   const int n_ot = (o + TN - 1) / TN;
   const int chunks = f * n_ot * TN * (p.hp / 8);
-  w_prep_kernel<<<(chunks + 255) / 256, 256, 0, s>>>(w1, static_cast<bf16*>(wt), h, p.hp, f, o,
-                                                      n_ot);
+  w_prep_kernel<<<(chunks + 255) / 256, 256, 0, s>>>(w1, static_cast<bf16*>(wt), h, p.hp, 1, f,
+                                                      o, n_ot);
   const dim3 grid((b + TM - 1) / TM, n_ot, d);
   kernel<<<grid, THREADS, p.total, s>>>(
+      xk, x0, static_cast<const bf16*>(wt), y, b, h, f, o, p.hp, p.stages,
+      static_cast<int>(p.a_off), static_cast<int>(p.w_off), static_cast<int>(p.x0_off));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wide instance's dynamic shared memory a block; past the card's limit
+// where its two-stage ring does not fit.
+size_t cin_fwd_wide_smem_bytes(int h, int f) { return wide_plan(h, f).total; }
+
+// bf16 elements of the wide instance's weight scratch: F x O tiles x
+// Hq / 64 chunks of (128, 64).
+size_t cin_fwd_wide_scratch_elems(int h, int f, int o) {
+  return size_t(f) * ((o + TN - 1) / TN) * pad64(h) * TN;
+}
+
+// The contract of cin_fwd, with wt of cin_fwd_wide_scratch_elems(H, F, O)
+// bf16 elements.
+int cin_fwd_wide(const float* xk, const float* x0, const float* w1, float* y, void* wt, int d,
+                 int b, int h, int f, int o, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Plan p = wide_plan(h, f);
+  if (p.total > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(cin_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(SMEM_LIMIT));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready = true;
+  }
+  const int n_ot = (o + TN - 1) / TN, n_c = p.hp / KC;
+  const long long chunks = static_cast<long long>(f) * n_ot * n_c * TN * (KC / 8);
+  w_prep_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, s>>>(
+      w1, static_cast<bf16*>(wt), h, KC, n_c, f, o, n_ot);
+  const dim3 grid((b + WTM - 1) / WTM, n_ot, d);
+  cin_fwd_wide_kernel<<<grid, WTHREADS, p.total, s>>>(
       xk, x0, static_cast<const bf16*>(wt), y, b, h, f, o, p.hp, p.stages,
       static_cast<int>(p.a_off), static_cast<int>(p.w_off), static_cast<int>(p.x0_off));
   return static_cast<int>(cudaGetLastError());

@@ -16,6 +16,22 @@
 // double-buffered by the step's parity behind one __syncwarp, and every lane
 // reads its row's values as 16-byte broadcasts. Padded units and rows past B
 // load from a valid address, compute on zeros and store nothing.
+//
+// Wide instances (gru_fwd_wide, gru_bwd_wide), for H > 64: a block is G
+// groups of TU threads (TU = H rounded up to 32, at most 256; G = 256 / TU,
+// so 2 up to H 128 and 1 past it), and group g takes RG batch rows (8, or 1
+// where 8 rows' state does not fit in shared memory, past H 3,600). Thread
+// (g, j) owns hidden units j, j + TU, ... of its group's rows, so no H is
+// refused for its width (the backward's dwh scratch, gru_bwd.cu, must still
+// fit in device memory). Each step the block publishes its rows' bf16 h (and in the backward
+// bf16 dhh) in shared memory as [unit][row], a group's RG rows of a unit in
+// one 16-byte load, and a thread forms its units' products for its RG rows
+// at once, each weight read once for RG rows. The bf16-rounded wh sits in
+// shared memory where it fits (6 H^2 bytes: to H 194 in the forward, 191 in
+// the backward) and is read from global memory (the L2), rounded as it is
+// read, past that. The f32 h and the backward's carried dh stay in device
+// memory, each read back by the thread that wrote it, its loads issued
+// before the product that hides them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +43,93 @@ constexpr int WHP = 16;           // hidden units a row of a warp instance, padd
 constexpr int WARPS = 4;          // warps a block of a warp instance
 constexpr int WROWS = 2 * WARPS;  // batch rows a block: two a warp
 constexpr int L2_AHEAD = 4;       // steps ahead whose inputs a warp moves to L2
+
+// The wide instances' plan, which sets a block's rows from H (the wrappers
+// pass no rows to the wide instances).
+constexpr int WIDE_THREADS = 256;           // threads a block at most
+constexpr int WIDE_RG = 8;                  // batch rows a group, where they fit
+constexpr size_t SMEM_LIMIT = 232448;       // shared memory a block may use on the H100
+constexpr size_t WIDE_RED_BYTES = 256;      // the backward's da sums: (warps, RG) floats
+
+inline int wide_unit_threads(int h) {
+  const int t = (h + 31) / 32 * 32;
+  return t < WIDE_THREADS ? t : WIDE_THREADS;
+}
+inline int wide_groups(int h) {
+  const int g = WIDE_THREADS / wide_unit_threads(h);
+  return g > 1 ? g : 1;
+}
+// bf16 elements between rows of the shared wh: 3H rounded up to 2 mod 4, so
+// that a warp reading one column of consecutive rows (wh . dhh) hits 32 banks.
+inline int wide_ldw(int h) {
+  int l = 3 * h;
+  while (l % 4 != 2) ++l;
+  return l;
+}
+inline size_t wide_wh_bytes(int h) { return (size_t(2) * h * wide_ldw(h) + 15) / 16 * 16; }
+__device__ __forceinline__ size_t wide_wh_bytes_dev(int h, int ldw) {
+  return (size_t(2) * h * ldw + 15) / 16 * 16;
+}
+// The shared state a block keeps besides wh: bf16 h ([H][rows]) twice in
+// the forward; bf16 h_prev and dhh ([H][rows], [3H][rows]) of `slots` steps
+// and the da sums in the backward.
+inline size_t wide_fwd_state(int h, int rows) { return size_t(4) * h * rows; }
+inline size_t wide_bwd_state(int h, int rows, int slots) {
+  return size_t(8) * h * rows * slots + WIDE_RED_BYTES;
+}
+inline int wide_rg(int h) {
+  return wide_bwd_state(h, wide_groups(h) * WIDE_RG, 1) <= SMEM_LIMIT ? WIDE_RG : 1;
+}
+// Steps whose bf16 h_prev and dhh the backward keeps for one update of its
+// dwh partial: as many as fit beside wh_bytes, at most 8.
+constexpr int WIDE_MAX_SLOTS = 8;
+inline int wide_bwd_slots(int h, int rows, size_t wh_bytes) {
+  int s = WIDE_MAX_SLOTS;
+  while (s > 1 && wh_bytes + wide_bwd_state(h, rows, s) > SMEM_LIMIT) --s;
+  return s;
+}
+
+// n bf16 values from shared memory as floats (n = 8: one 16-byte load).
+template <int N>
+__device__ __forceinline__ void load_bf16(float* out, const __nv_bfloat16* p) {
+  if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int v = 0; v < N / 8; ++v) {
+      const uint4 w = reinterpret_cast<const uint4*>(p)[v];
+      const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(q[i]);
+        out[8 * v + 2 * i] = f.x;
+        out[8 * v + 2 * i + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = __bfloat162float(p[i]);
+  }
+}
+
+// wh[k, c] rounded to bf16: from the shared copy (WS) or from device memory.
+template <bool WS>
+__device__ __forceinline__ float wide_w(const __nv_bfloat16* whs, const float* __restrict__ wh,
+                                        int ldw, int h3, int k, int c) {
+  if constexpr (WS) {
+    return __bfloat162float(whs[k * ldw + c]);
+  } else {
+    return __bfloat162float(__float2bfloat16_rn(wh[k * h3 + c]));
+  }
+}
+
+// wh (H, 3H) -> the shared bf16 copy, rows ldw apart.
+__device__ __forceinline__ void stage_wh_bf16(__nv_bfloat16* whs, const float* __restrict__ wh,
+                                              int h, int ldw) {
+  const int h3 = 3 * h;
+  for (int e = threadIdx.x; e < h * h3; e += blockDim.x) {
+    const int k = e / h3, c = e - k * h3;
+    whs[k * ldw + c] = __float2bfloat16_rn(wh[e]);
+  }
+}
 
 // Round to the nearest bf16 (ties to even) and back: the reference's bf16
 // cast of each operand of a recurrent product.

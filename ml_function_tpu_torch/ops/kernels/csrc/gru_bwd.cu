@@ -59,6 +59,31 @@
 // partial, also in shared memory, summing over the block's rows in a fixed
 // order. The partials are summed over blocks as above.
 //
+// gru_bwd_wide, for H > 64 (gru.cuh): each step, behind a block barrier, a
+// thread recomputes its units' three products for its group's RG rows (each
+// bf16 weight read once for the RG rows), forms the gradients, writes dxw
+// and publishes bf16 dhh in shared memory, keeping dh_prev's first part in
+// dh0's slot (device memory, its own row and unit, the carry of dh); after a
+// second barrier it adds wh . dhh (row j of wh against the rows' dhh, over c
+// in order) into that carry, and the block adds h_prev^T . dhh of its rows
+// into its own (H, 3H) dwh partial in device memory, each entry owned by one
+// thread; a third barrier ends that. The bf16 h_prev and dhh of up to 8
+// steps stay in shared memory (as many as fit: gru.cuh, wide_bwd_slots), so
+// the partial is read and written once for those steps, eight entries' loads
+// in flight at a time, its sums in a fixed order. Every input of a step is
+// loaded before the product that hides its latency. The grid is at most as
+// many blocks as the card holds at once, each taking row tiles i, i + grid,
+// ... in that order into its one partial, so the partials (gru_bwd_wide_
+// partials of them, 12 H^2 bytes each: 1.9 GB at H 1100 on 132 SMs) are
+// bounded by the card, not by B. They are summed in block order by the same
+// second launch, so the same inputs give the same bits on one card. da is each
+// thread's units in order, a warp butterfly, then the warps in order. At
+// DIEN's batch with kd 128 the three products (77 GFLOP, 1.17 ms at the f32
+// rate) bound it; on an NVIDIA H100 80GB HBM3 at 700 W it takes several
+// times that, and loses to cuDNN's nn.GRU backward past H 128 (PERF.md,
+// chip_smoke.py): one block of 8 warps an SM waits on each step's loads and
+// three barriers, and the dwh partial still crosses the L2 every few steps.
+//
 // Launches go on the caller's stream. Nothing here synchronises or allocates.
 
 #include "gru.cuh"
@@ -388,6 +413,225 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
   }
 }
 
+// ----------------------------------------------------------- gru_bwd_wide
+
+// RG rows a group, G groups a block of G * tu threads; WS: wh in shared
+// memory; `slots` steps' bf16 h_prev and dhh kept for each dwh update. Block
+// i takes the row tiles i, i + gridDim.x, ... in that order, all into its one
+// dwh partial.
+template <int RG, int G, bool WS>
+__global__ void __launch_bounds__(gru::WIDE_THREADS)
+    gru_bwd_wide_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
+                        const float* __restrict__ mask, const float* __restrict__ att,
+                        const float* __restrict__ h0, const float* __restrict__ seq,
+                        const float* __restrict__ dseq, float* __restrict__ dxw,
+                        float* __restrict__ da, float* __restrict__ dh0,
+                        float* __restrict__ part, int b_total, int l, int h, int tu, int ldw,
+                        int slots) {
+  constexpr int ROWS = G * RG;
+  using bf16 = __nv_bfloat16;
+  using gru::add;
+  using gru::mul;
+  using gru::sub;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  bf16* whs = reinterpret_cast<bf16*>(wide_smem);
+  const size_t state_off = WS ? gru::wide_wh_bytes_dev(h, ldw) : 0;
+  bf16* hp_slots = reinterpret_cast<bf16*>(wide_smem + state_off);  // [slot][H][ROWS]
+  bf16* dh_slots = hp_slots + slots * h * ROWS;                     // [slot][3H][ROWS]
+  float* red = reinterpret_cast<float*>(dh_slots + slots * 3 * h * ROWS);  // [warps][RG]
+  const int h3 = 3 * h, nw = h * h3;
+  int slot = 0;  // this step's slot; the steps since the last dwh update fill 0 .. slot
+  bf16* hps = hp_slots;
+  bf16* dhs = dh_slots;
+  const int g = threadIdx.x / tu, ju = threadIdx.x - g * tu;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* pb = part + size_t(blockIdx.x) * nw;
+  if (WS) gru::stage_wh_bf16(whs, wh, h, ldw);
+  const int tiles = (b_total + ROWS - 1) / ROWS;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int bb = tile * ROWS, b0 = bb + g * RG;
+
+    // bf16 h_prev of step t as [unit][row]: h0 at t = 0, else seq[t - 1]
+    auto publish_h_prev = [&](int t) {
+#pragma unroll 4
+      for (int e = threadIdx.x; e < h * ROWS; e += blockDim.x) {
+        const int k = e / ROWS, r = e - k * ROWS, b = bb + r;
+        const float v = b >= b_total ? 0.f : t == 0 ? h0[b * h + k] : seq[(b * l + t - 1) * h + k];
+        hps[e] = __float2bfloat16_rn(v);
+      }
+    };
+    publish_h_prev(l - 1);
+    __syncthreads();
+
+    for (int t = l - 1; t >= 0; --t) {
+      float m[RG], a[RG], da_sum[RG];
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        const bool live = b0 + r < b_total;
+        m[r] = live ? mask[(b0 + r) * l + t] : 0.f;
+        a[r] = live ? att[(b0 + r) * l + t] : 0.f;
+        da_sum[r] = 0.f;
+      }
+      for (int j = ju; j < h; j += tu) {
+        // the unit's inputs of this step, in flight during the product: h_prev,
+        // the projections, dseq and the carry dh from step t + 1 (this
+        // thread's own store in dh0's slot)
+        float hp[RG], xu[RG], xr[RG], xn[RG], ds[RG], dh[RG];
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          const int b = b0 + r;
+          const bool live = b < b_total;
+          const int bl = live ? b * l + t : 0;
+          const float* xt = xw + size_t(bl) * h3;
+          hp[r] = !live ? 0.f : t == 0 ? h0[b * h + j] : seq[(bl - 1) * h + j];
+          xu[r] = live ? xt[j] : 0.f;
+          xr[r] = live ? xt[h + j] : 0.f;
+          xn[r] = live ? xt[2 * h + j] : 0.f;
+          ds[r] = live ? dseq[bl * h + j] : 0.f;
+          dh[r] = live && t < l - 1 ? dh0[b * h + j] : 0.f;
+        }
+        float hu[RG], hr[RG], hn[RG];
+#pragma unroll
+        for (int r = 0; r < RG; ++r) hu[r] = hr[r] = hn[r] = 0.f;
+#pragma unroll 4
+        for (int k = 0; k < h; ++k) {  // over k in order, as the forward
+          float x[RG];
+          gru::load_bf16<RG>(x, hps + k * ROWS + g * RG);
+          const float wu = gru::wide_w<WS>(whs, wh, ldw, h3, k, j);
+          const float wr = gru::wide_w<WS>(whs, wh, ldw, h3, k, h + j);
+          const float wn = gru::wide_w<WS>(whs, wh, ldw, h3, k, 2 * h + j);
+#pragma unroll
+          for (int r = 0; r < RG; ++r) {
+            hu[r] = fmaf(x[r], wu, hu[r]);
+            hr[r] = fmaf(x[r], wr, hr[r]);
+            hn[r] = fmaf(x[r], wn, hn[r]);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          const int b = b0 + r;
+          float du_pre = 0.f, dr_pre = 0.f, dhn = 0.f;
+          if (b < b_total) {
+            const int bl = b * l + t;
+            const float u0 = gru::sigmoid(add(xu[r], hu[r]));
+            const float rg = gru::sigmoid(add(xr[r], hr[r]));
+            const float n = tanhf(add(xn[r], mul(rg, hn[r])));
+            const float u = mul(a[r], u0);
+            const float dh_t = add(dh[r], ds[r]);
+            const float dh_new = mul(dh_t, m[r]);
+            float dh_prev = mul(dh_t, sub(1.f, m[r]));
+            const float du = mul(dh_new, sub(n, hp[r]));
+            const float dn = mul(dh_new, u);
+            dh_prev = add(dh_prev, mul(dh_new, sub(1.f, u)));
+            da_sum[r] += mul(du, u0);
+            const float du0 = mul(du, a[r]);
+            const float dn_pre = mul(dn, sub(1.f, mul(n, n)));
+            const float dr = mul(dn_pre, hn[r]);
+            dhn = mul(dn_pre, rg);
+            du_pre = mul(mul(du0, u0), sub(1.f, u0));
+            dr_pre = mul(mul(dr, rg), sub(1.f, rg));
+            float* dxt = dxw + size_t(bl) * h3;
+            dxt[j] = du_pre;
+            dxt[h + j] = dr_pre;
+            dxt[2 * h + j] = dn_pre;
+            dh0[b * h + j] = dh_prev;
+          }
+          const int c = g * RG + r;
+          dhs[j * ROWS + c] = __float2bfloat16_rn(du_pre);
+          dhs[(h + j) * ROWS + c] = __float2bfloat16_rn(dr_pre);
+          dhs[(2 * h + j) * ROWS + c] = __float2bfloat16_rn(dhn);
+        }
+      }
+      // da of the group's rows: this thread's units, then the warp, then its warps in order
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        float v = da_sum[r];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane == 0) red[warp * RG + r] = v;
+      }
+      __syncthreads();  // dhh and the da sums are in
+
+      if (ju < RG) {
+        const int b = b0 + ju;
+        if (b < b_total) {
+          const int w0 = g * (tu / 32);
+          float v = red[w0 * RG + ju];
+          for (int w = 1; w < tu / 32; ++w) v += red[(w0 + w) * RG + ju];
+          da[b * l + t] = v;
+        }
+      }
+      // dh = dh_prev + (wh . dhh)[j]: row j of wh against the row's dhh, over c in order
+      for (int j = ju; j < h; j += tu) {
+        float prev[RG], acc[RG];
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          prev[r] = b0 + r < b_total ? dh0[(b0 + r) * h + j] : 0.f;
+          acc[r] = 0.f;
+        }
+#pragma unroll 4
+        for (int c = 0; c < h3; ++c) {
+          float d[RG];
+          gru::load_bf16<RG>(d, dhs + c * ROWS + g * RG);
+          const float w = gru::wide_w<WS>(whs, wh, ldw, h3, j, c);
+#pragma unroll
+          for (int r = 0; r < RG; ++r) acc[r] = fmaf(d[r], w, acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          if (b0 + r < b_total) dh0[(b0 + r) * h + j] = add(prev[r], acc[r]);
+        }
+      }
+      if (slot == slots - 1 || t == 0) {
+        // the block's dwh partial: entry (k, c) += sum over the filled slots and
+        // the block's rows of h_prev[k] * dhh[c], in slot then row order, KB
+        // rows of k at a time so that their loads overlap
+        constexpr int KB = 8;
+        // the block's first update writes the partial
+        const bool first = tile == blockIdx.x && t + slot == l - 1;
+        for (int c = threadIdx.x; c < h3; c += blockDim.x) {
+          float* pc = pb + c;
+          for (int k0 = 0; k0 < h; k0 += KB) {
+            float old[KB], v[KB];
+#pragma unroll
+            for (int i = 0; i < KB; ++i) {
+              old[i] = first || k0 + i >= h ? 0.f : pc[size_t(k0 + i) * h3];
+              v[i] = 0.f;
+            }
+            for (int sl = 0; sl <= slot; ++sl) {
+              float d[ROWS];
+              gru::load_bf16<ROWS>(d, dh_slots + (size_t(sl) * h3 + c) * ROWS);
+#pragma unroll
+              for (int i = 0; i < KB; ++i) {
+                if (k0 + i >= h) break;
+                float x[ROWS];
+                gru::load_bf16<ROWS>(x, hp_slots + (size_t(sl) * h + k0 + i) * ROWS);
+                float s = 0.f;
+#pragma unroll
+                for (int r = 0; r < ROWS; ++r) s = fmaf(x[r], d[r], s);
+                v[i] += s;
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < KB; ++i)
+              if (k0 + i < h) pc[size_t(k0 + i) * h3] = first ? v[i] : old[i] + v[i];
+          }
+        }
+        __syncthreads();  // every thread is done with the slots
+        slot = 0;
+      } else {
+        ++slot;  // the next step fills a slot nobody reads now
+      }
+      hps = hp_slots + slot * h * ROWS;
+      dhs = dh_slots + slot * h3 * ROWS;
+      if (t > 0) {
+        publish_h_prev(t - 1);
+        __syncthreads();
+      }
+    }
+  }  // the last update's barrier ends the tile: its slots are free for the next
+}
+
 // --------------------------------------------------------- the dwh sum
 
 constexpr int SUM_SLICES = 8;     // slices of the blocks, each summed in block order
@@ -421,6 +665,65 @@ int sum_partials(const float* part, float* dwh, int blocks, int nw, cudaStream_t
   gru_dwh_sum_kernel<<<(nw + SUM_ENTRIES - 1) / SUM_ENTRIES, SUM_SLICES * SUM_ENTRIES, 0, s>>>(
       part, dwh, blocks, nw);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wide backward at (B, H) on the current device: its grid is one block a
+// row tile, at most as many as the card holds at once (SMs times the blocks
+// an SM takes at this shared memory), so its dwh partials, one a block, are
+// bounded by the card and not by B. With launch false it only returns the
+// grid (or minus a CUDA error code); with launch true it launches the
+// backward and the sum of its partials and returns the CUDA error code.
+template <int RG, int G, bool WS>
+int bwd_wide(bool launch, const float* xw, const float* wh, const float* mask,
+             const float* att, const float* h0, const float* seq, const float* dseq,
+             float* dxw, float* dwh, float* da, float* dh0, float* part, int b, int l, int h,
+             cudaStream_t s) {
+  const int tu = gru::wide_unit_threads(h), ldw = gru::wide_ldw(h), rows = G * RG;
+  const size_t wh_bytes = WS ? gru::wide_wh_bytes(h) : 0;
+  const int slots = gru::wide_bwd_slots(h, rows, wh_bytes);
+  const size_t smem = wh_bytes + gru::wide_bwd_state(h, rows, slots);
+  cudaError_t err = cudaFuncSetAttribute(gru_bwd_wide_kernel<RG, G, WS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_bwd_wide_kernel<RG, G, WS>,
+                                                        G * tu, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
+  if (err != cudaSuccess) return launch ? static_cast<int>(err) : -static_cast<int>(err);
+  const int tiles = (b + rows - 1) / rows;
+  const int blocks = tiles < sms * per_sm ? tiles : sms * per_sm;
+  if (!launch) return blocks;
+  gru_bwd_wide_kernel<RG, G, WS><<<blocks, G * tu, smem, s>>>(
+      xw, wh, mask, att, h0, seq, dseq, dxw, da, dh0, part, b, l, h, tu, ldw, slots);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return sum_partials(part, dwh, blocks, h * 3 * h, s);
+}
+
+// The instance of bwd_wide that the plan (gru.cuh) names for H > 64.
+int bwd_wide_plan(bool launch, const float* xw, const float* wh, const float* mask,
+                  const float* att, const float* h0, const float* seq, const float* dseq,
+                  float* dxw, float* dwh, float* da, float* dh0, float* part, int b, int l,
+                  int h, cudaStream_t s) {
+  const int g = gru::wide_groups(h), rg = gru::wide_rg(h);
+  const bool ws =
+      gru::wide_wh_bytes(h) + gru::wide_bwd_state(h, g * rg, 1) <= gru::SMEM_LIMIT;
+  if (rg == gru::WIDE_RG && g == 2 && ws)
+    return bwd_wide<gru::WIDE_RG, 2, true>(launch, xw, wh, mask, att, h0, seq, dseq, dxw, dwh,
+                                           da, dh0, part, b, l, h, s);
+  if (rg == gru::WIDE_RG && g == 1)
+    return ws ? bwd_wide<gru::WIDE_RG, 1, true>(launch, xw, wh, mask, att, h0, seq, dseq, dxw,
+                                                dwh, da, dh0, part, b, l, h, s)
+              : bwd_wide<gru::WIDE_RG, 1, false>(launch, xw, wh, mask, att, h0, seq, dseq, dxw,
+                                                 dwh, da, dh0, part, b, l, h, s);
+  if (rg == 1 && g == 1 && !ws)
+    return bwd_wide<1, 1, false>(launch, xw, wh, mask, att, h0, seq, dseq, dxw, dwh, da, dh0,
+                                 part, b, l, h, s);
+  const int err = static_cast<int>(cudaErrorInvalidValue);
+  return launch ? err : -err;
 }
 
 }  // namespace
@@ -464,6 +767,26 @@ int gru_bwd_warp(const float* xw, const float* wh, const float* mask, const floa
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return sum_partials(part, dwh, blocks, h * 3 * h, s);
+}
+
+// The same contract for H > 64, with no rows argument (the plan in gru.cuh
+// sets a block's rows from H) and part (gru_bwd_wide_partials(B, H), H, 3H)
+// f32. H <= 64 returns cudaErrorInvalidValue and launches nothing.
+int gru_bwd_wide(const float* xw, const float* wh, const float* mask, const float* att,
+                 const float* h0, const float* seq, const float* dseq, float* dxw, float* dwh,
+                 float* da, float* dh0, float* part, int b, int l, int h, void* stream) {
+  if (h <= 64) return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_wide_plan(true, xw, wh, mask, att, h0, seq, dseq, dxw, dwh, da, dh0, part, b, l,
+                       h, static_cast<cudaStream_t>(stream));
+}
+
+// The (H, 3H) dwh partials gru_bwd_wide writes at (B, H) on the current
+// device: one a block, min(ceil(B / rows), blocks the card holds at once);
+// minus a CUDA error code if H <= 64 or the runtime cannot say.
+int gru_bwd_wide_partials(int b, int h) {
+  if (h <= 64) return -static_cast<int>(cudaErrorInvalidValue);
+  return bwd_wide_plan(false, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, nullptr, nullptr, nullptr, nullptr, b, 0, h, nullptr);
 }
 
 }  // extern "C"

@@ -44,6 +44,18 @@
 // the bound: every step waits for the slowest of a block's 8 warps, and the
 // recurrent product reads wh from shared memory every step.
 //
+// gru_fwd_wide, for H > 64 (gru.cuh): each step a thread forms its units'
+// three products for its group's RG rows, reading each bf16 weight once
+// for the RG rows and the rows' bf16 h as one 16-byte broadcast a unit k,
+// with the unit's inputs (its f32 h read back from seq, the projections)
+// already in flight; it writes the new h to seq and its bf16 copy to the
+// other of two shared buffers, and one block barrier ends the step. At
+// DIEN's batch with kd 128 (B 4096, L 64, H 128: 25.8 GFLOP of recurrent products, 0.39
+// ms at the f32 rate against 0.15 ms of bytes) the f32 FMAs bound it; on an
+// NVIDIA H100 80GB HBM3 at 700 W it takes about 3.5x that, faster than
+// cuDNN's nn.GRU (PERF.md, chip_smoke.py): the block's warps wait on each
+// step's loads and barrier.
+//
 // The TPU kernel put channels on sublanes and the batch on lanes
 // ((L, 3H, B) after two transposes) so that small H did not pad to 128 lanes;
 // here both instances read xw, mask and att in their batch-major layout with
@@ -229,6 +241,105 @@ __global__ void __launch_bounds__(WARPS * 32, 4)
   }
 }
 
+// ----------------------------------------------------------- gru_fwd_wide
+
+// RG rows a group, G groups a block of G * tu threads; WS: wh in shared memory.
+template <int RG, int G, bool WS>
+__global__ void __launch_bounds__(gru::WIDE_THREADS, 2)
+    gru_fwd_wide_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
+                        const float* __restrict__ mask, const float* __restrict__ att,
+                        const float* __restrict__ h0, float* __restrict__ seq, int b_total, int l,
+                        int h, int tu, int ldw) {
+  constexpr int ROWS = G * RG;
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  using bf16 = __nv_bfloat16;
+  bf16* whs = reinterpret_cast<bf16*>(wide_smem);
+  const size_t state_off = WS ? gru::wide_wh_bytes_dev(h, ldw) : 0;
+  // bf16 h as [unit][row], twice: step t reads hb and writes hb_next, and the
+  // barrier that ends the step comes before anyone writes hb again
+  bf16* hb = reinterpret_cast<bf16*>(wide_smem + state_off);
+  bf16* hb_next = hb + h * ROWS;
+  const int h3 = 3 * h;
+  const int g = threadIdx.x / tu, ju = threadIdx.x - g * tu;
+  const int bb = blockIdx.x * ROWS, b0 = bb + g * RG;
+  if (WS) gru::stage_wh_bf16(whs, wh, h, ldw);
+  for (int e = threadIdx.x; e < h * ROWS; e += blockDim.x) {
+    const int k = e / ROWS, r = e - k * ROWS, b = bb + r;
+    hb[e] = __float2bfloat16_rn(b < b_total ? h0[b * h + k] : 0.f);
+  }
+  __syncthreads();
+
+  for (int t = 0; t < l; ++t) {
+    float m[RG], a[RG];
+#pragma unroll
+    for (int r = 0; r < RG; ++r) {
+      const bool live = b0 + r < b_total;
+      m[r] = live ? mask[(b0 + r) * l + t] : 0.f;
+      a[r] = live ? att[(b0 + r) * l + t] : 0.f;
+    }
+    for (int j = ju; j < h; j += tu) {
+      // the unit's inputs of this step, in flight during the product: h from
+      // seq[t - 1] (this thread's own store) or h0, and the projections
+      float hv[RG], xu[RG], xr[RG], xn[RG];
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        const int b = b0 + r;
+        const bool live = b < b_total;
+        const int bl = live ? b * l + t : 0;
+        const float* xt = xw + size_t(bl) * h3;
+        hv[r] = !live ? 0.f : t == 0 ? h0[b * h + j] : seq[(bl - 1) * h + j];
+        xu[r] = live ? xt[j] : 0.f;
+        xr[r] = live ? xt[h + j] : 0.f;
+        xn[r] = live ? xt[2 * h + j] : 0.f;
+      }
+      float hu[RG], hr[RG], hn[RG];
+#pragma unroll
+      for (int r = 0; r < RG; ++r) hu[r] = hr[r] = hn[r] = 0.f;
+      // over k in order, as gru.cuh's recurrent_product: the plain version's bits
+#pragma unroll 4
+      for (int k = 0; k < h; ++k) {
+        float x[RG];
+        gru::load_bf16<RG>(x, hb + k * ROWS + g * RG);
+        const float wu = gru::wide_w<WS>(whs, wh, ldw, h3, k, j);
+        const float wr = gru::wide_w<WS>(whs, wh, ldw, h3, k, h + j);
+        const float wn = gru::wide_w<WS>(whs, wh, ldw, h3, k, 2 * h + j);
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          hu[r] = fmaf(x[r], wu, hu[r]);
+          hr[r] = fmaf(x[r], wr, hr[r]);
+          hn[r] = fmaf(x[r], wn, hn[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RG; ++r) {
+        const int b = b0 + r;
+        const float hnew = gru::step(hv[r], xu[r], xr[r], xn[r], m[r], a[r], hu[r], hr[r],
+                                     hn[r]);
+        if (b < b_total) seq[(b * l + t) * h + j] = hnew;
+        hb_next[j * ROWS + g * RG + r] = __float2bfloat16_rn(b < b_total ? hnew : 0.f);
+      }
+    }
+    __syncthreads();  // every thread has read hb and written hb_next
+    bf16* const used = hb;
+    hb = hb_next;
+    hb_next = used;
+  }
+}
+
+template <int RG, int G, bool WS>
+int fwd_wide_launch(const float* xw, const float* wh, const float* mask, const float* att,
+                    const float* h0, float* seq, int b, int l, int h, cudaStream_t s) {
+  const int tu = gru::wide_unit_threads(h), ldw = gru::wide_ldw(h), rows = G * RG;
+  const size_t smem = (WS ? gru::wide_wh_bytes(h) : 0) + gru::wide_fwd_state(h, rows);
+  cudaError_t err = cudaFuncSetAttribute(gru_fwd_wide_kernel<RG, G, WS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gru_fwd_wide_kernel<RG, G, WS><<<(b + rows - 1) / rows, G * tu, smem, s>>>(
+      xw, wh, mask, att, h0, seq, b, l, h, tu, ldw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -258,6 +369,25 @@ int gru_fwd_warp(const float* xw, const float* wh, const float* mask, const floa
   gru_fwd_warp_kernel<<<blocks, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       xw, wh, mask, att, h0, seq, b, l, h);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract for H > 64, with no rows argument: the plan (gru.cuh)
+// sets a block's rows from H. H <= 64 returns cudaErrorInvalidValue and
+// launches nothing.
+int gru_fwd_wide(const float* xw, const float* wh, const float* mask, const float* att,
+                 const float* h0, float* seq, int b, int l, int h, void* stream) {
+  if (h <= 64) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int g = gru::wide_groups(h), rg = gru::wide_rg(h), rows = g * rg;
+  const bool ws = gru::wide_wh_bytes(h) + gru::wide_fwd_state(h, rows) <= gru::SMEM_LIMIT;
+  if (rg == gru::WIDE_RG && g == 2 && ws)
+    return fwd_wide_launch<gru::WIDE_RG, 2, true>(xw, wh, mask, att, h0, seq, b, l, h, s);
+  if (rg == gru::WIDE_RG && g == 1)
+    return ws ? fwd_wide_launch<gru::WIDE_RG, 1, true>(xw, wh, mask, att, h0, seq, b, l, h, s)
+              : fwd_wide_launch<gru::WIDE_RG, 1, false>(xw, wh, mask, att, h0, seq, b, l, h, s);
+  if (rg == 1 && g == 1 && !ws)
+    return fwd_wide_launch<1, 1, false>(xw, wh, mask, att, h0, seq, b, l, h, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

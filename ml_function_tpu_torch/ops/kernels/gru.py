@@ -13,17 +13,26 @@ how the design answers that. One call runs the whole recurrence over L steps:
 
 with xw (B, L, 3H) the hoisted projections ``x @ wx + b`` in their own
 layout (columns [u | r | n]), wh (H, 3H), mask and att (B, L), h0 (B, H) and
-the output seq (B, L, H), all f32, for H ≤ ``MAX_HIDDEN``. The backward
+the output seq (B, L, H), all f32, for any H ≥ 1 within int32 indexing
+(past H 64 the backward also needs scratch for its dwh partials: one
+(H, 3H) f32 partial a block, at most as many blocks as the card holds at
+once, 1.9 GB at H 1100 on an H100's 132 SMs). The backward
 replays the recurrence in reverse from the saved seq, recomputing the gates,
 as the reference's custom vjp does; it rounds h_prev, wh and the recurrent
 cotangent dhh to bf16 at each of its two products. The mask gets no
 gradient (the reference returns zeros for it).
 
-Each kernel has two instances of one C contract, chosen by H alone
+Each kernel has three instances of one C contract, chosen by H alone
 (``forward_instance``, ``backward_instance``): ``gru_fwd_warp`` and
-``gru_bwd_warp`` for H ≤ 16 (DIEN's and SIM's recurrences: a warp two batch
-rows, nothing in the step loop waiting on another warp), ``gru_fwd`` and
-``gru_bwd`` for 17 ≤ H ≤ 64 (a block 256 / H rows).
+``gru_bwd_warp`` for H ≤ 16 (DIEN's and SIM's recurrences at dim 8: a warp
+two batch rows, nothing in the step loop waiting on another warp),
+``gru_fwd`` and ``gru_bwd`` for 17 ≤ H ≤ 64 (a block 256 / H rows), and
+``gru_fwd_wide`` and ``gru_bwd_wide`` for H > 64 (DIEN's kd at dim 64 and
+up: a thread owns several hidden units, the bf16 wh in shared memory where
+it fits, and the backward's dwh partials in device memory). The wide
+instances take no rows argument: their library plans a block's rows from H
+(``csrc/gru.cuh``) and states the backward's partials
+(``gru_bwd_wide_partials``).
 
 ``gru_sequence`` is a ``torch.autograd.Function``: for tensors on the CPU
 both directions run the plain versions, for CUDA tensors they launch the
@@ -40,9 +49,10 @@ import torch
 from . import _build
 from ._checks import check_cuda_inputs, on_cpu
 
-# The kernels hold wh, and in the backward its (H, 3H) gradient partials, in
-# shared memory: 2 · 64 · 192 floats at H 64 (kd = 2·D for D ≤ 32).
-MAX_HIDDEN = 64
+# The block instances hold wh, and in the backward its (H, 3H) gradient
+# partials, in shared memory: 2 · 64 · 192 floats at H 64. Past it the wide
+# instances take every H.
+BLOCK_MAX_HIDDEN = 64
 THREADS = 256   # a block instance's block is rows_per_block(H) rows of H threads
 # The warp instances (``gru_fwd_warp``, ``gru_bwd_warp``): H ≤ 16, a thread
 # per (batch row, hidden unit), two rows a warp, 8 rows a block.
@@ -50,9 +60,11 @@ WARP_MAX_HIDDEN = 16
 WARP_ROWS = 8
 NDIMS = {"xw": 3, "wh": 2, "mask": 2, "att": 2, "h0": 2, "seq": 3, "dseq": 3}
 
-# Launches of each CUDA kernel since its count was last set to 0.
+# Launches of each CUDA kernel since its count was last set to 0, and of
+# each instance (C function) by name since the dict was last cleared.
 gru_fwd_launches = 0
 gru_bwd_launches = 0
+instance_launches: dict = {}
 
 
 def rows_per_block(h: int) -> int:
@@ -61,33 +73,39 @@ def rows_per_block(h: int) -> int:
 
 
 def _instance(kernel: str, what: str, h: int) -> str:
-    if not 1 <= h <= MAX_HIDDEN:
-        raise ValueError(f"{what}: hidden size H = {h} is beyond the kernels' "
-                         f"1..{MAX_HIDDEN}")
-    return f"{kernel}_warp" if h <= WARP_MAX_HIDDEN else kernel
+    if h < 1:
+        raise ValueError(f"{what}: hidden size H = {h} is below 1")
+    if h <= WARP_MAX_HIDDEN:
+        return f"{kernel}_warp"
+    return kernel if h <= BLOCK_MAX_HIDDEN else f"{kernel}_wide"
 
 
 def forward_instance(h: int) -> str:
     """The C function of ``csrc/gru_fwd.cu`` that takes hidden size H:
     ``gru_fwd_warp`` for H ≤ 16 (DIEN's and SIM's recurrences),
-    ``gru_fwd`` for 17 ≤ H ≤ 64. Raises ``ValueError`` past those."""
+    ``gru_fwd`` for 17 ≤ H ≤ 64, ``gru_fwd_wide`` past that."""
     return _instance("gru_fwd", "gru_sequence", h)
 
 
 def backward_instance(h: int) -> str:
     """The C function of ``csrc/gru_bwd.cu`` that takes hidden size H:
     ``gru_bwd_warp`` for H ≤ 16 (DIEN's and SIM's recurrences),
-    ``gru_bwd`` for 17 ≤ H ≤ 64. Raises ``ValueError`` past those."""
+    ``gru_bwd`` for 17 ≤ H ≤ 64, ``gru_bwd_wide`` past that."""
     return _instance("gru_bwd", "gru_sequence backward", h)
 
 
-def instance_rows(name: str, h: int) -> int:
-    """Batch rows a block of the named instance takes at hidden size H."""
-    return WARP_ROWS if name.endswith("_warp") else rows_per_block(h)
+def instance_rows(name: str, h: int) -> int | None:
+    """Batch rows a block of the named instance takes at hidden size H, as
+    the wrapper passes them; None for a wide instance, whose library plans
+    its own."""
+    if name.endswith("_warp"):
+        return WARP_ROWS
+    return None if name.endswith("_wide") else rows_per_block(h)
 
 
-def backward_rows(h: int) -> int:
-    """Batch rows a block of the backward instance for H takes."""
+def backward_rows(h: int) -> int | None:
+    """Batch rows a block of the backward instance for H takes (None past
+    H 64: the wide instance plans its own)."""
     return instance_rows(backward_instance(h), h)
 
 
@@ -230,10 +248,9 @@ def _check(what: str, **t: torch.Tensor):
         raise ValueError(f"{what}: shapes {bad} do not fit xw {tuple(t['xw'].shape)} "
                          "(B, L, 3H): wh (H, 3H), mask and att (B, L), h0 (B, H), "
                          "seq and dseq (B, L, H)")
-    if not 1 <= h <= MAX_HIDDEN:
-        raise ValueError(f"{what}: hidden size H = {h} is beyond the kernels' "
-                         f"1..{MAX_HIDDEN}")
-    if b * l * h3 >= 2 ** 31:
+    if h < 1:
+        raise ValueError(f"{what}: hidden size H = {h} is below 1")
+    if max(b * l * h3, h * h3) >= 2 ** 31:
         raise ValueError(f"{what}: shape (B={b}, L={l}, H={h}) is beyond the "
                          "kernels' int32 indexing")
     return b, l, h
@@ -241,13 +258,17 @@ def _check(what: str, **t: torch.Tensor):
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu`` with both its C functions bound."""
+    """The library of ``csrc/<name>.cu`` with its three C functions bound."""
     lib = _build.load(name)
     n_ptr = 6 if name == "gru_fwd" else 12
-    for fname in (name, f"{name}_warp"):
+    for fname in (name, f"{name}_warp", f"{name}_wide"):
         fn = getattr(lib, fname)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        n_int = 3 if fname.endswith("_wide") else 4   # (B, L, H[, rows])
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    if name == "gru_bwd":
+        lib.gru_bwd_wide_partials.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.gru_bwd_wide_partials.restype = ctypes.c_int
     return lib
 
 
@@ -255,25 +276,27 @@ def gru_sequence_forward(xw, wh, mask, att, h0, instance: str | None = None
                          ) -> torch.Tensor:
     """The forward kernel (``csrc/gru_fwd.cu``) on CUDA tensors: the
     contract of ``gru_sequence_reference``, through ``instance`` (default:
-    the one ``forward_instance`` names; the block instance takes every H of
-    the kernels, the warp instance raises past 16). Raises on anything the
+    the one ``forward_instance`` names; the warp instance takes H ≤ 16, the
+    block instance H ≤ 64, the wide one H > 64). Raises on anything the
     kernel does not take; never runs the plain version."""
     global gru_fwd_launches
     b, l, h = _check("gru_sequence", xw=xw, wh=wh, mask=mask, att=att, h0=h0)
     name = instance or forward_instance(h)
-    if name not in ("gru_fwd", "gru_fwd_warp"):
+    if name not in ("gru_fwd", "gru_fwd_warp", "gru_fwd_wide"):
         raise ValueError(f"gru_sequence: no forward instance {name!r}")
     seq = xw.new_empty((b, l, h))
     if b * l == 0:   # nothing to run: seq is empty
         return seq
+    rows = instance_rows(name, h)
     with torch.cuda.device(xw.device):
         err = getattr(_lib("gru_fwd"), name)(
             xw.data_ptr(), wh.data_ptr(), mask.data_ptr(), att.data_ptr(),
-            h0.data_ptr(), seq.data_ptr(), b, l, h, instance_rows(name, h),
+            h0.data_ptr(), seq.data_ptr(), b, l, h, *([] if rows is None else [rows]),
             torch.cuda.current_stream(xw.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     gru_fwd_launches += 1
+    instance_launches[name] = instance_launches.get(name, 0) + 1
     return seq
 
 
@@ -291,15 +314,22 @@ def gru_sequence_backward(xw, wh, mask, att, h0, seq, dseq):
     dwh = torch.empty_like(wh)   # the kernel writes every entry
     if b * l == 0:   # no step: the gradients of wh and h0 are zero
         return dxw, dwh.zero_(), da, dh0.zero_()
-    name, rows = backward_instance(h), backward_rows(h)
-    part = xw.new_empty((-(-b // rows), h, 3 * h))
+    name, rows, lib = backward_instance(h), backward_rows(h), _lib("gru_bwd")
     with torch.cuda.device(xw.device):
-        err = getattr(_lib("gru_bwd"), name)(
+        # one (H, 3H) dwh partial a block; the wide instance's library states
+        # its count on this card
+        blocks = -(-b // rows) if rows else lib.gru_bwd_wide_partials(b, h)
+        if blocks < 0:
+            raise RuntimeError(f"{name} could not plan its grid: CUDA error {-blocks}")
+        part = xw.new_empty((blocks, h, 3 * h))
+        err = getattr(lib, name)(
             xw.data_ptr(), wh.data_ptr(), mask.data_ptr(), att.data_ptr(),
             h0.data_ptr(), seq.data_ptr(), dseq.data_ptr(), dxw.data_ptr(),
             dwh.data_ptr(), da.data_ptr(), dh0.data_ptr(), part.data_ptr(),
-            b, l, h, rows, torch.cuda.current_stream(xw.device).cuda_stream)
+            b, l, h, *([] if rows is None else [rows]),
+            torch.cuda.current_stream(xw.device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     gru_bwd_launches += 1
+    instance_launches[name] = instance_launches.get(name, 0) + 1
     return dxw, dwh, da, dh0

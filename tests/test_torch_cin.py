@@ -40,7 +40,7 @@ def _jax_params(cin, seed=0):
     return jax.tree_util.tree_map(np.asarray, cin.init(jax.random.PRNGKey(seed)))
 
 
-@pytest.mark.parametrize("hidden", [(128,), (128, 128)])
+@pytest.mark.parametrize("hidden", [(128,), (128, 128), (384, 128)])
 def test_cin_layer_t_matches_jax_kernel(hidden):
     """Each layer of the chain, fed the same inputs in both packages."""
     b, f, d = 256, 5, 4
@@ -91,6 +91,7 @@ def _torch_layer_grads(layer, xk, x0, w1, dy, same):
     (4, 256, 16, 5, 128, False),   # H != F
     (4, 256, 5, 5, 128, True),     # layer 0: xk is x0
     (2, 256, 7, 3, 128, False),    # odd H
+    (2, 256, 384, 4, 128, False),  # an H the card's wide instances take (F6)
 ])
 def test_cin_layer_t_gradients_match_jax_vjp(d, b, h, f, o, same):
     xk, x0, w1, dy = _layer_inputs(d, b, h, f, o, seed=4)
@@ -215,6 +216,34 @@ def test_cin_forced_routes_match_jax(kernel):
     with torch.no_grad():
         got = tm.features(torch.from_numpy(e))
     _close(got.numpy(), jm.features(params, jnp.asarray(e)))
+
+
+def test_cin_module_with_a_wide_layer_matches_jax():
+    """CIN (384, 128) forced onto the fused layer ('pallas', as the reference
+    takes it whatever H): features, logit and every gradient against the
+    JAX block running its Pallas kernels in interpret mode. On the card its
+    second layer takes the wide instances (F6)."""
+    b, f, d, hidden = 256, 4, 2, (384, 128)
+    jm = JCIN(f, d, hidden=hidden, out_logit=True, kernel="pallas")
+    params = _jax_params(jm, seed=9)
+    tm = TCIN(f, d, hidden=hidden, out_logit=True, kernel="pallas")
+    params_from_numpy(tm, params)
+    rng = np.random.default_rng(9)
+    e = rng.normal(0, 1, (b, f, d)).astype(np.float32)
+    r = rng.normal(0, 1, (b,)).astype(np.float32)
+    gp, ge = jax.grad(lambda p, x: jnp.sum(jm(p, x) * r), argnums=(0, 1))(
+        params, jnp.asarray(e))
+    with torch.no_grad():
+        _close(tm.features(torch.from_numpy(e)).numpy(),
+               jm.features(params, jnp.asarray(e)))
+    et = torch.from_numpy(e).requires_grad_()
+    (tm(et) * torch.from_numpy(r)).sum().backward()
+    _close(et.grad.numpy(), ge)
+    for name, p in tm.named_parameters():
+        want = gp
+        for k in name.split("."):
+            want = want[k]
+        _close(p.grad.numpy(), want)
 
 
 @pytest.mark.parametrize("shape", [(256, 5, 128, 4), (100, 5, 128, 4),

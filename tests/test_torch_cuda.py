@@ -171,7 +171,8 @@ def _bwd_inputs(card, d, b, h, f, o):
 @pytest.mark.parametrize("d,b,h,f,o", [
     (4, 200, 5, 5, 100),    # ragged B and O
     (3, 77, 37, 3, 130),    # odd H, O past one 128-wide tile
-    (2, 300, 200, 3, 128),  # H past one 128-wide slice of dxk
+    (2, 300, 200, 3, 128),  # H past one 128-wide slice of dxk (the wide instance)
+    (2, 300, 180, 3, 128),  # the same on the block instance (Hp 192 at F 3)
     (2, 256, 1, 1, 8),      # one field, one row of w1
     (8, 256, 26, 26, 128),  # the first CIN layer of xDeepFM at B 256
     (8, 4096, 26, 26, 128),   # xDeepFM's two CIN layers at the path's B 4096
@@ -196,6 +197,87 @@ def test_cin_bwd_dw_is_the_same_on_every_run(card, h):
     for _ in range(2):
         again = tcin.cin_layer_t_backward(xk, x0, w1, dy)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# (D, B, H, F, O): F6's CIN shapes at a reduced B (H 384, H 512 and the F-39
+# edge take both wide instances), then a small ragged shape forced through
+# the wide instances
+CIN_WIDE_SHAPES = [(8, 512, 384, 26, 128), (8, 512, 512, 26, 128), (2, 1000, 1024, 39, 128)]
+
+
+@pytest.mark.parametrize("d,b,h,f,o", CIN_WIDE_SHAPES + [(3, 77, 70, 5, 130)])
+def test_cin_wide_instances_match_plain_version(card, d, b, h, f, o):
+    xk, x0, w1, dy = _bwd_inputs(card, d, b, h, f, o)
+    wide = (d, b, h, f, o) not in CIN_WIDE_SHAPES
+    fi = "cin_fwd_wide" if wide else tcin.forward_instance(h, f)
+    bi = "cin_bwd_wide" if wide else tcin.backward_instance(h, f)
+    assert (fi, bi) == ("cin_fwd_wide", "cin_bwd_wide")
+    tcin.instance_launches.clear()
+    y = tcin._launch_fwd(xk, x0, w1, instance=fi)
+    runs = [tcin.cin_layer_t_backward(xk, x0, w1, dy, instance=bi) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert tcin.instance_launches == {fi: 1, bi: 3}
+    _close(y, tcin.cin_layer_t_reference(xk, x0, w1))
+    for g, w in zip(runs[0], tcin.cin_layer_t_backward_reference(xk, x0, w1, dy)):
+        _close(g, w)
+    assert all(torch.equal(a, c) for again in runs[1:] for a, c in zip(runs[0], again))
+
+
+def test_cin_instances_give_the_same_bits_where_both_run(card):
+    """At H 176 (F 26), the widest H of the block backward's 128-row tiles,
+    both instances of each direction take the shape; they form U_f in the
+    same k order, so their outputs are the same bits."""
+    xk, x0, w1, dy = _bwd_inputs(card, 8, 512, 176, 26, 128)
+    block = tcin._launch_fwd(xk, x0, w1, instance="cin_fwd")
+    wide = tcin._launch_fwd(xk, x0, w1, instance="cin_fwd_wide")
+    g_block = tcin.cin_layer_t_backward(xk, x0, w1, dy, instance="cin_bwd")
+    g_wide = tcin.cin_layer_t_backward(xk, x0, w1, dy, instance="cin_bwd_wide")
+    assert torch.equal(block, wide)
+    assert all(torch.equal(a, c) for a, c in zip(g_block, g_wide))
+
+
+# (H, F, forward instance, backward instance): xDeepFM's layers; the block
+# backward's last H at F 26 (its 128-row tiles: 768·(Hp + 8) + 83,968 bytes
+# of shared memory, Hp ≤ 176) and the block forward's (two weight stages:
+# 768·Hp + 128 + 512·F, Hp ≤ 272), where each wide instance becomes the
+# faster (tools/cin_instances.py); the F6 shapes; the wide forward's last Hq
+# at F 39 (1472), and past it
+@pytest.mark.parametrize("h,f,fwd,bwd", [
+    (26, 26, "cin_fwd", "cin_bwd"), (128, 26, "cin_fwd", "cin_bwd"),
+    (176, 26, "cin_fwd", "cin_bwd"), (177, 26, "cin_fwd", "cin_bwd_wide"),
+    (256, 26, "cin_fwd", "cin_bwd_wide"), (272, 26, "cin_fwd", "cin_bwd_wide"),
+    (273, 26, "cin_fwd_wide", "cin_bwd_wide"), (384, 26, "cin_fwd_wide", "cin_bwd_wide"),
+    (512, 26, "cin_fwd_wide", "cin_bwd_wide"), (1024, 39, "cin_fwd_wide", "cin_bwd_wide"),
+    (1472, 39, "cin_fwd_wide", "cin_bwd_wide"), (1473, 39, None, "cin_bwd_wide"),
+])
+def test_instance_by_shape(card, h, f, fwd, bwd):
+    assert tcin.backward_instance(h, f) == bwd
+    if fwd is None:
+        with pytest.raises(NotImplementedError, match="shared memory"):
+            tcin.forward_instance(h, f)
+    else:
+        assert tcin.forward_instance(h, f) == fwd
+
+
+@pytest.mark.parametrize("name,hp", [("dlrm", {"bottom": (16,), "top": (32, 16)}),
+                                     ("fibinet", {"hidden": (32, 16)})])
+def test_dlrm_and_fibinet_on_the_card_match_the_cpu(card, name, hp):
+    """A forward and an SGD step from the same weights on both devices; no
+    kernel runs (both models' products are tensor operations)."""
+    fs, data = make_criteo_like(n_rows=512, n_dense=4, n_sparse=6,
+                                vocab_size=50, embed_dim=4, seed=2)
+    models = [get_model(name, fs, device=dev, generator=torch.Generator().manual_seed(0),
+                        **hp) for dev in ("cpu", card)]
+    assert models[1].embedding.table.device.type == "cuda"
+    with torch.inference_mode():
+        want, _, _ = models[0](data)
+        got, _, _ = models[1](data)
+    _close(got, want)
+    outs = [make_train_step(m, make_optimizer("sgd", 0.1).init(m))(data) for m in models]
+    _close(outs[1]["loss"], outs[0]["loss"])
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        err = (q.grad.cpu() - p.grad).norm() / p.grad.norm()
+        assert err <= RTOL, err
 
 
 def test_train_step_on_the_card_matches_the_cpu(card):
@@ -478,16 +560,56 @@ def test_gru_kernel_refuses_what_it_does_not_take(card):
         tgru.gru_sequence(xw, wh, mask.bool(), att, h0)
     with pytest.raises(ValueError, match="shapes"):
         tgru.gru_sequence(xw, wh, mask[:, :3].contiguous(), att, h0)
-    big = torch.zeros(2, 3, 3 * 65, device=card)
+    empty = torch.zeros(2, 3, 0, device=card)   # H 0: the only H the kernels refuse
     with pytest.raises(ValueError, match="hidden size"):
-        tgru.gru_sequence(big, torch.zeros(65, 195, device=card), torch.ones(2, 3, device=card),
-                          torch.ones(2, 3, device=card), torch.zeros(2, 65, device=card))
+        tgru.gru_sequence(empty, torch.zeros(0, 0, device=card), torch.ones(2, 3, device=card),
+                          torch.ones(2, 3, device=card), torch.zeros(2, 0, device=card))
     # an input that requires grad is taken: the backward runs the kernel
     w = wh.clone().requires_grad_()
     before = tgru.gru_bwd_launches
     tgru.gru_sequence(xw, w, mask, att, h0).sum().backward()
     torch.cuda.synchronize()
     assert tgru.gru_bwd_launches == before + 1 and w.grad.shape == wh.shape
+
+
+# (B, L, H): F6's wide shapes at a reduced B: DIEN's recurrences at kd 128
+# and 256, H 65 (the wide instances' first) and H 1100 (five units a thread)
+GRU_WIDE_SHAPES = [(512, 64, 128), (512, 16, 256), (300, 7, 65), (37, 5, 1100)]
+
+
+@pytest.mark.parametrize("gate", ["att", "ones"])
+@pytest.mark.parametrize("b,l,h", GRU_WIDE_SHAPES)
+def test_gru_wide_instances_match_plain_version(card, b, l, h, gate):
+    """Past H 64 both directions take their wide instances: the forward
+    gives the plain version's bits, the backward is within its bars and the
+    same bits on a rerun; row 1, masked at every step, carries h0."""
+    xw, wh, mask, att, h0, dseq = _gru_inputs(card, b, l, h, "ragged")
+    args = (xw, wh, mask, att if gate == "att" else torch.ones_like(att), h0)
+    tgru.instance_launches.clear()
+    seq = tgru.gru_sequence_forward(*args)
+    grads = tgru.gru_sequence_backward(*args, seq, dseq)
+    again = tgru.gru_sequence_backward(*args, seq, dseq)
+    torch.cuda.synchronize()
+    assert tgru.instance_launches == {"gru_fwd_wide": 1, "gru_bwd_wide": 2}
+    assert torch.equal(seq, tgru.gru_sequence_reference(*args))
+    assert torch.equal(seq[1], h0[1].expand(l, -1))
+    for g, w in zip(grads, tgru.gru_sequence_backward_reference(*args, seq, dseq)):
+        _close(g, w)
+    assert all(torch.equal(g, r) for g, r in zip(grads, again))
+
+
+def test_gru_bwd_wide_partials_are_bounded_by_the_card(card):
+    """The wide backward's grid, and so its (H, 3H) dwh partials, stops at
+    the blocks the card holds at once: the same count at B 65,536 and
+    131,072, no more than 8 blocks (of 256 threads) an SM, and at a small B
+    no more than B."""
+    lib = tgru._lib("gru_bwd")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for h in (65, 128, 256, 1100, 4000):
+        cap = lib.gru_bwd_wide_partials(1 << 16, h)
+        assert 1 <= cap <= 8 * sms and lib.gru_bwd_wide_partials(1 << 17, h) == cap
+        assert 1 <= lib.gru_bwd_wide_partials(5, h) <= 5
+    assert lib.gru_bwd_wide_partials(4096, 64) < 0   # H 64 is the block instance's
 
 
 def _hist_ids(card, n, v, seed):

@@ -169,10 +169,17 @@ def test_backward_instance_by_hidden_size(h, name, rows):
     assert tgru.backward_rows(h) * h <= 1024      # threads a block of the block instance
 
 
-@pytest.mark.parametrize("h", [0, 65])
+@pytest.mark.parametrize("h", [0, 65, 128, 1100, 4000])
 def test_backward_instance_refuses_past_the_kernels(h):
-    with pytest.raises(ValueError, match="hidden size"):
-        tgru.backward_instance(h)
+    """Below H 1 the kernels refuse; past 64 the wide instance takes every H
+    (H 4000: one row a group), with rows and dwh partials its library plans
+    (the wrapper passes no rows and asks ``gru_bwd_wide_partials``)."""
+    if h == 0:
+        with pytest.raises(ValueError, match="hidden size"):
+            tgru.backward_instance(h)
+        return
+    assert tgru.backward_instance(h) == "gru_bwd_wide"
+    assert tgru.backward_rows(h) is None
 
 
 def test_warp_buffers_put_the_two_rows_on_distinct_banks():

@@ -121,7 +121,14 @@ def test_forward_instance_by_hidden_size(h, name, rows):
     assert tgru.backward_instance(h) == name.replace("fwd", "bwd")
 
 
-@pytest.mark.parametrize("h", [0, 65])
+@pytest.mark.parametrize("h", [0, 65, 128, 1100])
 def test_forward_instance_refuses_past_the_kernels(h):
-    with pytest.raises(ValueError, match="hidden size"):
-        tgru.forward_instance(h)
+    """Below H 1 the kernels refuse; past 64, where the block instance ends,
+    the wide instance takes every H, with rows its library plans (the
+    wrapper passes none)."""
+    if h == 0:
+        with pytest.raises(ValueError, match="hidden size"):
+            tgru.forward_instance(h)
+        return
+    assert tgru.forward_instance(h) == "gru_fwd_wide"
+    assert tgru.instance_rows("gru_fwd_wide", h) is None

@@ -106,8 +106,8 @@ def test_get_model_unknown_name_lists_registry():
     fs = criteo_feature_set([10] * 3, n_dense=2, embed_dim=4)
     with pytest.raises(KeyError, match="deepfm.*xdeepfm"):
         get_model("nope", fs, device="cpu")
-    assert sorted(MODEL_REGISTRY) == ["autoint", "deepfm", "dien", "din", "sim",
-                                      "xdeepfm"]
+    assert sorted(MODEL_REGISTRY) == ["autoint", "deepfm", "dien", "din", "dlrm",
+                                      "fibinet", "sim", "xdeepfm"]
 
 
 def test_get_model_defaults_to_the_card():

@@ -40,8 +40,10 @@ from ml_function_tpu_torch.ops.recurrent import AUGRU, GRU
 
 torch.set_num_threads(1)
 
-# (B, L, H) of tests/test_gru_kernel.py
-SHAPES = [(16, 12, 8), (8, 7, 8), (8, 9, 8)]
+# (B, L, H) of tests/test_gru_kernel.py, then two H that the card's wide
+# instances take (F6): the first past the block instances, and DIEN's kd at
+# dim 64
+SHAPES = [(16, 12, 8), (8, 7, 8), (8, 9, 8), (8, 5, 65), (4, 4, 128)]
 BARS = {False: (1e-5, 1e-4), True: (1e-4, 1e-3)}   # cast_bf16 → (fwd, grad)
 
 
