@@ -132,14 +132,20 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     and gru2: scored through ``load_scorer`` (2 gru_fwd a batch, on
     ``gru_fwd_wide``; within 1e-4 of the plain versions) and 5 Adam steps
     against the plain route (2 + 2 a step), and the rates;
-18. DLRM and FiBiNET at the JAX board's width (26 fields of 100k ids, 13
-    dense, dim 8, default hyperparameters), built on the card by
-    ``get_model``: scored through ``load_scorer`` at B 4096 (finite
-    probabilities within 1e-4 of the same weights scored on the CPU; no
-    kernel launched), 5 Adam steps on the card against the same 5 on the
-    CPU (phase 5's bars with f32 matmuls on both; with bf16 matmul inputs
-    the losses to 1e-3 and the gradients' gaps printed), and training
-    examples/s, device time a step and peak memory at B 16,384;
+18. the interaction models, DLRM, FiBiNET, LR, FM, FNN, FFM, FwFM, PNN,
+    DeepCross, Wide&Deep, DCN (v1 and v2), NFM and AFM, and MMoE, at the JAX
+    board's width (26 fields of 100k ids, 13 dense, dim 8, default
+    hyperparameters), each built on the card by ``get_model``: scored
+    through ``load_scorer`` at B 4096 on features alone (finite
+    probabilities; with f32 matmuls on both devices within 1e-4 of the same
+    weights scored on the CPU, on the bf16 path the logits within one bf16
+    step, 2^-8, of their max; no kernel launched), 5 Adam steps on the card
+    against the same 5 on the CPU (phase 5's bars with f32 matmuls on both;
+    on the bf16 path the losses to 1e-3 and the gradients at one bf16 step
+    of max|g|; the CPU's first step takes the card's ReLU decisions, each
+    overridden pre-activation within 1e-5 of its layer's max of 0), MMoE's
+    click BCE (its batches carry ``click``) card against CPU to 1e-3, and
+    training examples/s, device time a step and peak memory at B 16,384;
 19. one ``{"kernels": [...]}`` line (each kernel with its instances and the
     shapes each took), then ``{"ok": true, "device": ...}`` last. The run's
     wall time is printed before them.
@@ -1621,6 +1627,14 @@ GRU_WIDE = ((BATCH, 64, 128), (BATCH, 64, 256), (300, 7, 65), (37, 5, 1100))
 # DIEN at dim 64: kd = 2·64 = 128, both recurrences on the wide instances
 DIEN_WIDE_DATA = dict(DIEN_DATA, embed_dim=64)
 INTERACTION_TRAIN_BATCH = 16384   # the JAX board's smallest batch (bench.py:97)
+# (label, registry name, hyperparameters): every interaction model of the
+# port, the registry's defaults but for DCN's cross network, taken both ways
+INTERACTION_MODELS = (
+    ("dlrm", "dlrm", {}), ("fibinet", "fibinet", {}), ("lr", "lr", {}),
+    ("fm", "fm", {}), ("fnn", "fnn", {}), ("ffm", "ffm", {}), ("fwfm", "fwfm", {}),
+    ("pnn", "pnn", {}), ("deepcross", "deepcross", {}), ("wide_deep", "wide_deep", {}),
+    ("dcn", "dcn", {}), ("dcn_v2", "dcn", {"version": 2}), ("nfm", "nfm", {}),
+    ("afm", "afm", {}), ("mmoe", "mmoe", {}))
 
 
 def check_wide_cin(cin_mod) -> tuple:
@@ -1908,14 +1922,57 @@ def dien_wide_phase(drive, launches_by_path, instances_by_path) -> None:
         step_rates("dien_kd128", model, batches, "kernel route, kd 128")
 
 
+@contextlib.contextmanager
+def relu_decisions(model, masks: dict, impose: bool, flips: list):
+    """Within the block, the first forward through each ReLU ``Activation``
+    of ``model`` either records which pre-activations are positive into
+    ``masks`` (``impose=False``) or takes those decisions from ``masks``
+    (``impose=True``: the output is the input times the recorded mask, the
+    same function and gradient wherever the two devices agree), appending
+    to ``flips`` each layer's count of pre-activations on the other side
+    and the largest of their |z| over the layer's max |z|."""
+    from ml_function_tpu_torch.ops.core import Activation
+
+    def hook(i):
+        def fn(mod, inputs, out):
+            if i in seen:
+                return None
+            seen.add(i)
+            z = inputs[0].detach()
+            if not impose:
+                masks[i] = z > 0
+                return None
+            m = masks[i].to(z.device)
+            other = (z > 0) != m
+            flips.append((int(other.sum()), float(z.abs()[other].max() / z.abs().max())
+                          if bool(other.any()) else 0.0))
+            return inputs[0] * m.to(z.dtype)
+        return fn
+
+    seen = set()
+    acts = [m for m in model.modules() if isinstance(m, Activation) and m.kind == "relu"]
+    hooks = [m.register_forward_hook(hook(i)) for i, m in enumerate(acts)]
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+
+
 def interaction_phases(drive, launches_by_path) -> None:
-    """DLRM and FiBiNET at the JAX board's width (bench.py:54-55: 26 fields of
-    100k ids, 13 dense, dim 8; default hyperparameters), built on the card
-    by ``get_model``: exported and scored through ``load_scorer`` at B 4096
-    (finite probabilities, within 1e-4 of the same weights scored on the
-    CPU, no kernel launched), 5 Adam steps on the card against the same 5
-    on the CPU (with f32 matmuls and with the bf16 path), and the training
-    rates at B 16384."""
+    """Every interaction model of the port (``INTERACTION_MODELS``) at the JAX
+    board's width (bench.py:35-40: 26 fields of 100k ids, 13 dense, dim 8;
+    default hyperparameters), built on the card by ``get_model``: exported
+    and scored through ``load_scorer`` at B 4096 on features alone (finite
+    probabilities, no kernel launched; with f32 matmuls on both devices the
+    scores within 1e-4 of the same weights scored on the CPU, on the bf16
+    path the logits within one bf16 step of their max), 5 Adam steps on the
+    card against the same 5 on the CPU (with f32 matmuls and with the bf16
+    path; the CPU's first step takes the card's ReLU decisions), and the
+    training rates and peak memory at B 16384. The models share one
+    dataset, whose ``click`` (max(label, Bernoulli(0.3)), as bench.py:65-69
+    draws it) MMoE's batches carry; its click BCE is held card against CPU
+    too."""
     from ml_function_tpu_torch.features.schema import criteo_feature_set
     from ml_function_tpu_torch.features.synthetic import make_criteo_like
     from ml_function_tpu_torch.models import get_model
@@ -1924,56 +1981,106 @@ def interaction_phases(drive, launches_by_path) -> None:
     from ml_function_tpu_torch.train.loop import iter_batches
 
     fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
-    _, data = make_criteo_like(n_rows=2 * INTERACTION_TRAIN_BATCH, vocab_size=100_000,
-                               seed=4)
-    serve = _rows(data, 3 * BATCH + 1000)
+    n_rows = 2 * INTERACTION_TRAIN_BATCH
+    _, data = make_criteo_like(n_rows=n_rows, vocab_size=100_000, seed=4)
+    bern = np.random.default_rng(4).uniform(size=n_rows) < 0.3
+    data["click"] = np.maximum(data["label"], bern.astype(np.float32))
+    serve = {k: v for k, v in _rows(data, 3 * BATCH + 1000).items() if k != "click"}
     batches = list(iter_batches(data, BATCH))[:5]
     big = list(iter_batches(data, INTERACTION_TRAIN_BATCH))
-    for name in ("dlrm", "fibinet"):
-        model = get_model(name, fs, generator=torch.Generator().manual_seed(0))
+    for label, name, hp in INTERACTION_MODELS:
+        t = time.perf_counter()
+        model = get_model(name, fs, generator=torch.Generator().manual_seed(0), **hp)
         if next(model.parameters()).device.type != "cuda":
-            fail(f"get_model did not place {name} on the card by default")
+            fail(f"get_model did not place {label} on the card by default")
         with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
-            export_model(tmp, name, fs, model, hyperparams={})
+            export_model(tmp, name, fs, model, hyperparams=hp)
             scorer = load_scorer(tmp, batch_size=BATCH)
             cpu_scorer = load_scorer(tmp, batch_size=BATCH, device="cpu")
-        scores = drive(f"{name}_serving", lambda: scorer.predict_proba(serve))
-        if launches_by_path[f"{name}_serving"] != expect():
-            fail(f"{name} scoring launched {launches_by_path[f'{name}_serving']}")
-        if scores.shape != (len(serve["label"]),) or not np.isfinite(scores).all() \
-                or not ((scores > 0) & (scores < 1)).all():
-            fail(f"{name} scores are not finite probabilities")
-        diff = float(np.abs(scores - cpu_scorer.predict_proba(serve)).max())
-        print(f"{name}_serving: {len(scores)} rows on {next(scorer.model.parameters()).device}"
-              f", vs the same weights on the CPU: max |score diff| {diff:.3e}")
-        if diff > 1e-4:
-            fail(f"{name} scores on the card differ from the CPU's by {diff}")
-        score_rates(f"{name}_serving", scorer, serve, "no kernel")
+        if next(scorer.model.parameters()).device.type != "cuda":
+            fail(f"load_scorer did not place {label} on the card by default")
+        # with f32 matmuls the two devices compute one f32 function in
+        # another summation order; on the bf16 path an f32 value a few ulps
+        # apart can round to the neighbouring bf16 value (ROADMAP.md R3),
+        # which moves a logit by up to one bf16 step of its terms
+        for f32 in ("1", "0"):
+            os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
+            path = f"{label}_serving" + ("_f32" if f32 == "1" else "")
+            scores = drive(path, lambda: scorer.predict_proba(serve))
+            if launches_by_path[path] != expect():
+                fail(f"{label} scoring launched {launches_by_path[path]}")
+            if scores.shape != (len(serve["label"]),) or not np.isfinite(scores).all() \
+                    or not ((scores > 0) & (scores < 1)).all():
+                fail(f"{label} scores are not finite probabilities")
+            ref = cpu_scorer.predict_proba(serve)
+            diff = float(np.abs(scores - ref).max())
+            lg, ref_lg = (np.log(p.astype(np.float64)) - np.log1p(-p.astype(np.float64))
+                          for p in (scores, ref))
+            lg_gap = float(np.abs(lg - ref_lg).max() / np.abs(ref_lg).max())
+            mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
+            print(f"{path} ({mode}): {len(scores)} rows on "
+                  f"{next(scorer.model.parameters()).device}, vs the same weights on "
+                  f"the CPU: max |score diff| {diff:.3e}, max |logit diff|/max|logit| "
+                  f"{lg_gap:.3e}")
+            if f32 == "1" and diff > 1e-4:
+                fail(f"{label} scores on the card differ from the CPU's by {diff}")
+            if f32 == "0" and lg_gap > BF16_PATH_RTOL:
+                fail(f"{label} logits on the bf16 path differ from the CPU's by "
+                     f"{lg_gap} of their max")
+        os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+        score_rates(f"{label}_serving", scorer, serve, "no kernel")
         del scorer
 
         # with f32 matmuls phase 5's bars hold every parameter; on the bf16
         # path the two devices' f32 sums can round a bf16 input cotangent of
         # the towers one bf16 step apart (ROADMAP.md R3), and the gradients
-        # below it are held at that step (BF16_PATH_RTOL)
+        # below it are held at that step (BF16_PATH_RTOL). A ReLU
+        # pre-activation within rounding of 0 can fall on either side on the
+        # two devices, which moves the gradients of its example's rows (PNN:
+        # one of 524,288); the CPU's first step takes the card's decisions,
+        # and the run fails if one it overrides is not within 1e-5 of 0
         init = {k: v.detach().clone() for k, v in model.state_dict().items()}
         cpu_model = cpu_scorer.model
         cpu_init = {k: v.cpu() for k, v in init.items()}
         for f32 in ("1", "0"):
             os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
-            path = f"{name}_training" + ("_f32" if f32 == "1" else "")
-            losses, grads = drive(path, lambda: _adam_steps(model, init, batches))
-            ref_losses, ref_grads = _adam_steps(cpu_model, cpu_init, batches)
+            path = f"{label}_training" + ("_f32" if f32 == "1" else "")
+            masks, flips = {}, []
+            with relu_decisions(model, masks, False, flips):
+                losses, grads = drive(path, lambda: _adam_steps(model, init, batches))
+            with relu_decisions(cpu_model, masks, True, flips):
+                ref_losses, ref_grads = _adam_steps(cpu_model, cpu_init, batches)
+            n_flips = sum(n for n, _ in flips)
+            worst_z = max((z for _, z in flips), default=0.0)
             mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
-            compare_runs(f"{name} ({mode})", losses, grads, ref_losses, ref_grads,
-                         "the CPU run", note=f"launches {launches_by_path[path]}",
+            compare_runs(f"{label} ({mode})", losses, grads, ref_losses, ref_grads,
+                         "the CPU run", note=f"launches {launches_by_path[path]}; "
+                         f"ReLU pre-activations the CPU's step 1 took from the card: "
+                         f"{n_flips} of {sum(m.numel() for m in masks.values())} "
+                         f"(largest |z| {worst_z:.2e} of its layer's max)",
                          grad_rtol=RTOL if f32 == "1" else BF16_PATH_RTOL)
+            if worst_z > 1e-5:
+                fail(f"{label}: a ReLU pre-activation at {worst_z} of its layer's max "
+                     "falls on another side on the card than on the CPU")
             if launches_by_path[path] != expect():
-                fail(f"{name} training launched a kernel")
+                fail(f"{label} training launched a kernel")
         os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
-        del cpu_scorer, cpu_model
         model.load_state_dict(init)
-        step_rates(name, model, big, "the JAX board's width and smallest batch")
-        del model
+        cpu_model.load_state_dict(cpu_init)
+        with torch.no_grad():
+            aux = [m(batches[0])[2] for m in (model, cpu_model)]
+        for k in sorted(set(aux[0]) - {"emb_l2"}):
+            got, ref = float(aux[0][k]), float(aux[1][k])
+            print(f"{label} {k} on the card {got:.7f}, on the CPU {ref:.7f}, "
+                  f"rel diff {abs(got - ref) / abs(ref):.3e}")
+            if not abs(got - ref) <= RTOL * abs(ref):
+                fail(f"{label}'s {k} differs from the CPU's by more than {RTOL}")
+        if name == "mmoe" and "click_bce" not in aux[0]:
+            fail("MMoE's batches carry click but its aux has no click_bce")
+        del cpu_scorer, cpu_model, aux
+        step_rates(label, model, big, "the JAX board's width and smallest batch")
+        del model, init, cpu_init
+        print(f"{label}: {time.perf_counter() - t:.1f} s")
 
 
 def main() -> int:
@@ -2114,10 +2221,10 @@ def main() -> int:
     wide_cin_phase(drive, launches_by_path, instances_by_path, plain_cin)
     # 17. DIEN at kd 128: serving and training on the wide (AU)GRU instances
     dien_wide_phase(drive, launches_by_path, instances_by_path)
-    # 18. DLRM and FiBiNET at the board's width, card against CPU
+    # 18. the interaction models and MMoE at the board's width, card against CPU
     t = time.perf_counter()
     interaction_phases(drive, launches_by_path)
-    print(f"DLRM and FiBiNET: {time.perf_counter() - t:.1f} s")
+    print(f"interaction models: {time.perf_counter() - t:.1f} s")
 
     # 19. result lines: each kernel's launches are those of the newest path
     # that runs it; every path's own counts ride along, and each instance

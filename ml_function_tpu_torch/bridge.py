@@ -1,9 +1,11 @@
 """Weights across the two packages, by key path.
 
 The JAX package keeps parameters as a nested dict; ``export_model`` writes it
-to ``weights.npz`` under flat keys ``params/<a>/<b>/<c>``. The port's modules
-are named after the same keys, so ``params/mlp/layer0/dense/w`` is the
-state-dict key ``mlp.layer0.dense.w`` and the copy is one lookup per leaf.
+to ``weights.npz`` under flat keys ``params/<a>/<b>/<c>``, a list's entries
+under their index (MMoE's ``params/experts/w/0``). The port's modules are
+named after the same keys, so ``params/mlp/layer0/dense/w`` is the
+state-dict key ``mlp.layer0.dense.w`` (a list is an ``nn.ParameterList``:
+``experts.w.0``) and the copy is one lookup per leaf.
 Both directions are strict: a missing key, a key left over or a shape that
 differs raises.
 """
@@ -17,15 +19,30 @@ import torch
 from torch import nn
 
 
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """Leaves by key path; a list or tuple's entries by their index, as
+    ``tree_flatten_with_path`` names them."""
     out: Dict[str, Any] = {}
-    for k, v in tree.items():
+    items = (tree.items() if isinstance(tree, Mapping)
+             else ((str(i), v) for i, v in enumerate(tree)))
+    for k, v in items:
         key = f"{prefix}{k}"
-        if isinstance(v, Mapping):
+        if isinstance(v, (Mapping, list, tuple)):
             out.update(_flatten(v, key + "/"))
         else:
             out[key] = v
     return out
+
+
+def _lists(node: Any) -> Any:
+    """Nodes keyed "0" … "n-1" (an ``nn.ParameterList``) as lists, the
+    JAX tree's form."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and set(node) == {str(i) for i in range(len(node))}:
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 def params_from_numpy(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
@@ -60,7 +77,8 @@ def params_from_numpy(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
 
 
 def params_to_numpy(model: nn.Module) -> Dict[str, Any]:
-    """The model's parameters as the JAX package's nested dict of arrays."""
+    """The model's parameters as the JAX package's nested dict of arrays
+    (lists where the JAX tree has them)."""
     tree: Dict[str, Any] = {}
     for name, p in model.named_parameters():
         *path, leaf = name.split(".")
@@ -68,7 +86,7 @@ def params_to_numpy(model: nn.Module) -> Dict[str, Any]:
         for k in path:
             node = node.setdefault(k, {})
         node[leaf] = p.detach().cpu().numpy().copy()
-    return tree
+    return _lists(tree)
 
 
 def flat_params(model: nn.Module) -> Dict[str, np.ndarray]:

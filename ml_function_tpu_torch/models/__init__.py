@@ -9,19 +9,34 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..ops.base import init_parameters
 from .base import Model
-from .interaction import DLRM, AutoInt, DeepFM, FiBiNET, xDeepFM
+from .interaction import (AFM, DCN, DLRM, FFM, FM, FNN, LR, NFM, PNN,
+                          AutoInt, DeepCross, DeepFM, FiBiNET, FwFM, WideDeep,
+                          fnn_from_fm, xDeepFM)
 from .longseq import SIM
+from .multitask import MMoE
 from .sequence import DIEN, DIN
 
 MODEL_REGISTRY = {
-    "autoint": AutoInt,
+    "lr": LR,
+    "fm": FM,
+    "fnn": FNN,
+    "ffm": FFM,
+    "fwfm": FwFM,
+    "pnn": PNN,
+    "deepcross": DeepCross,
+    "wide_deep": WideDeep,
     "deepfm": DeepFM,
-    "dien": DIEN,
-    "din": DIN,
-    "dlrm": DLRM,
-    "fibinet": FiBiNET,
-    "sim": SIM,
+    "dcn": DCN,
+    "nfm": NFM,
     "xdeepfm": xDeepFM,
+    "afm": AFM,
+    "autoint": AutoInt,
+    "fibinet": FiBiNET,
+    "dlrm": DLRM,
+    "din": DIN,
+    "dien": DIEN,
+    "sim": SIM,
+    "mmoe": MMoE,
 }
 
 
@@ -41,5 +56,7 @@ def get_model(name: str, feature_set, device: DeviceLike = None,
     return model.to(dev)
 
 
-__all__ = ["Model", "MODEL_REGISTRY", "get_model", "AutoInt", "DeepFM",
-           "DIEN", "DIN", "DLRM", "FiBiNET", "SIM", "xDeepFM"]
+__all__ = ["Model", "MODEL_REGISTRY", "get_model", "fnn_from_fm", "AFM",
+           "AutoInt", "DCN", "DeepCross", "DeepFM", "DIEN", "DIN", "DLRM",
+           "FFM", "FiBiNET", "FM", "FNN", "FwFM", "LR", "MMoE", "NFM", "PNN",
+           "SIM", "WideDeep", "xDeepFM"]

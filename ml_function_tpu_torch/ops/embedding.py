@@ -1,16 +1,18 @@
 """Fused embedding tables (primary width).
 
-Counterpart of ``FusedEmbedding`` in ``ml_function_tpu/ops/embedding.py``.
-All vocabs share one ``table`` (V, D) of cross embeddings and one ``linear``
-(V, 1) of first-order weights, addressed by global row ids (per-field id +
-vocab offset). Id 0 of every vocab is the padding row.
+Counterpart of ``FusedEmbedding`` and ``gather_rows`` in
+``ml_function_tpu/ops/embedding.py``. All vocabs share one ``table`` (V, D)
+of cross embeddings and one ``linear`` (V, 1) of first-order weights,
+addressed by global row ids (per-field id + vocab offset). Id 0 of every
+vocab is the padding row. A store may hold ``linear`` alone (FFM, LR).
 
 Lookups take the reference's two routes:
 - the sparse lookups (``sparse_all``, ``sparse``, ``sparse_linear``) are one
   ``index_select`` over the global ids, flag or not, as the reference's
   grouped gather never reaches its merge-scatter kernel (the grouping
   itself exists for the TPU's scheduling and is not carried over);
-- sequence lookups (``seq``) go through ``_rows`` → ``_gather``, which takes
+- sequence lookups (``seq``) and the auxiliary tables' ``gather_rows`` go
+  through ``_gather``, which takes
   ``kernels/embedding_grad.fused_gather`` (its backward the merge-scatter
   kernel) when ``ML_FUNCTION_TPU_MERGE_SCATTER=1``, read once at import into
   ``_USE_MERGE_SCATTER`` as in the reference, and ``index_select``
@@ -60,19 +62,41 @@ def _gather(table: torch.Tensor, flat_ids: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, flat_ids)
 
 
-class FusedEmbedding(nn.Module):
-    """``table`` (V, D) + ``linear`` (V, 1) over a FeatureSet's vocabs."""
+def gather_rows(table: torch.Tensor, ids: torch.Tensor,
+                tape_key: Optional[str] = None) -> torch.Tensor:
+    """(…,) row ids → (…, W) rows of one table, through ``_gather``: the
+    sequence lookups and the tables that live outside a ``FusedEmbedding``
+    (FFM's (V, F·K) blocks).
 
-    def __init__(self, feature_set: FeatureSet, with_linear: bool = True):
+    ``tape_key`` names the lookup for the sparse-row path's RowTape, which
+    the port does not have yet (``row_tape`` raises), so no lookup is ever
+    taped and the key is only carried. The reference's int8 branch (a
+    quantized serving table) comes with ``load_scorer(quantize='int8')``,
+    Queue 1 item 6 of ``ROADMAP.md``; the port's tables are f32."""
+    rows = _gather(table, ids.reshape(-1))
+    return rows.reshape(*ids.shape, table.shape[1])
+
+
+class FusedEmbedding(nn.Module):
+    """``table`` (V, D) + ``linear`` (V, 1) over a FeatureSet's vocabs;
+    ``with_table=False`` keeps ``linear`` alone."""
+
+    def __init__(self, feature_set: FeatureSet, with_linear: bool = True,
+                 with_table: bool = True):
         super().__init__()
         if feature_set.mixed_width:
             raise NotImplementedError(
                 "mixed-width tables (narrow sub-tables with align "
                 "projections) come with the slice of the remaining models")
+        if not (with_table or with_linear):
+            raise ValueError("a FusedEmbedding holds a table, a linear or both")
         self.feature_set = feature_set
         self.with_linear = with_linear
         v, d = feature_set.total_vocab, feature_set.embed_dim
-        self.table = nn.Parameter(torch.empty(v, d))
+        if with_table:
+            self.table = nn.Parameter(torch.empty(v, d))
+        else:
+            self.register_parameter("table", None)
         if with_linear:
             self.linear = nn.Parameter(torch.empty(v, 1))
         else:
@@ -93,7 +117,10 @@ class FusedEmbedding(nn.Module):
         """Normal(0.05) rows; ``pre_weight`` {vocab: (n, w) matrix}
         warm-starts the first n rows and w columns of that vocab's block."""
         fs = self.feature_set
-        self.table.copy_(normal_init(self.table.shape, generator))
+        if self.table is not None:
+            self.table.copy_(normal_init(self.table.shape, generator))
+        elif pre_weight:
+            raise ValueError("pre_weight needs a table")
         for name, w in (pre_weight or {}).items():
             w = torch.as_tensor(np.asarray(w, dtype=np.float32))
             off = fs.vocab_offsets[name]
@@ -101,13 +128,14 @@ class FusedEmbedding(nn.Module):
         if self.linear is not None:
             self.linear.copy_(normal_init(self.linear.shape, generator))
 
-    def _global_sparse_ids(self, ids: torch.Tensor) -> torch.Tensor:
+    def global_sparse_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """(B, F) per-field ids → global row ids."""
         return ids.long() + self._offsets[None, :]
 
     def sparse_all(self, ids: torch.Tensor
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """(B, F) ids → ((B, F, D) cross, (B, F) linear or None)."""
-        gids = self._global_sparse_ids(ids)
+        gids = self.global_sparse_ids(ids)
         cross = _take(self.table, gids)
         if self.linear is None:
             return cross, None
@@ -115,23 +143,17 @@ class FusedEmbedding(nn.Module):
 
     def sparse(self, ids: torch.Tensor) -> torch.Tensor:
         """(B, F) ids → (B, F, D) cross embeddings (no linear lookup)."""
-        return _take(self.table, self._global_sparse_ids(ids))
+        return _take(self.table, self.global_sparse_ids(ids))
 
     def sparse_linear(self, ids: torch.Tensor) -> torch.Tensor:
         """(B, F) ids → (B, F) first-order weights (no cross lookup)."""
-        return _take(self.linear, self._global_sparse_ids(ids))[..., 0]
-
-    def _rows(self, table: torch.Tensor, global_ids: torch.Tensor) -> torch.Tensor:
-        """(…,) global row ids → (…, W) rows of one table, through
-        ``_gather``."""
-        rows = _gather(table, global_ids.reshape(-1))
-        return rows.reshape(*global_ids.shape, table.shape[1])
+        return _take(self.linear, self.global_sparse_ids(ids))[..., 0]
 
     def seq(self, name: str, ids: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, L) ids → ((B, L, D) rows with pad rows zeroed, (B, L) mask)."""
         mask = ids != 0
-        rows = self._rows(self.table, ids.long() + self.feature_set.seq_offset(name))
+        rows = gather_rows(self.table, ids.long() + self.feature_set.seq_offset(name))
         return rows * mask[..., None], mask
 
     def l2_from_sparse(self, emb: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,10 @@
-"""Feature-interaction blocks of the port: FM, the linear unit and CIN.
+"""Feature-interaction blocks of the port: FM, pair products, PNN's outer
+product, the DCN cross networks, the linear unit, CIN and AFM's attention.
 
 Counterpart of ``ml_function_tpu/ops/interactions.py``. All take field
-embeddings ``e`` of shape (B, F, D).
+embeddings ``e`` of shape (B, F, D). The FM sums and the pair products are
+f32; ``OuterProduct``, the cross networks and AFM's ``Dense`` layers round
+their matmul inputs to bf16 (``bf16_matmul``), as the reference does.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .base import glorot_uniform
+from .base import bf16_matmul, glorot_uniform
 from .core import Dense
 from .kernels.cin import cin_layer_t, supports
 
@@ -24,6 +27,104 @@ def fm_interaction(e: torch.Tensor) -> torch.Tensor:
     s = e.sum(dim=1)
     sq = e.square().sum(dim=1)
     return 0.5 * (s.square() - sq).sum(dim=-1)
+
+
+def fm_interaction_vector(e: torch.Tensor) -> torch.Tensor:
+    """NFM's bi-interaction vector (B, F, D) → (B, D): the FM term before
+    its sum over D."""
+    s = e.sum(dim=1)
+    sq = e.square().sum(dim=1)
+    return 0.5 * (s.square() - sq)
+
+
+def triu_pairs(e: torch.Tensor) -> torch.Tensor:
+    """(2, P): (i, j) of every field pair i < j of (B, F, …) ``e`` in
+    row-major order (``np.triu_indices`` with k = 1), on e's device."""
+    n = e.shape[1]
+    return torch.triu_indices(n, n, offset=1, device=e.device)
+
+
+def pairwise_products(e: torch.Tensor) -> torch.Tensor:
+    """All F·(F−1)/2 elementwise pair products: (B, F, D) → (B, P, D)."""
+    iu, ju = triu_pairs(e)
+    return e[:, iu, :] * e[:, ju, :]
+
+
+def pairwise_inner_products(e: torch.Tensor) -> torch.Tensor:
+    """Pairwise inner products (B, F, D) → (B, P): the f32 Gram product read
+    at the upper triangle (PNN's inner signal)."""
+    g = torch.einsum("bfd,bgd->bfg", e, e)
+    iu, ju = triu_pairs(e)
+    return g[:, iu, ju]
+
+
+class OuterProduct(nn.Module):
+    """PNN's outer product with sum reduction: p = Σ_f e_f, signal =
+    vec(p·pᵀ) · ``kernel`` ((D², out), glorot)."""
+
+    def __init__(self, dim: int, out_dim: int = 1):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(dim * dim, out_dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.kernel.copy_(glorot_uniform(self.kernel.shape, generator))
+
+    def forward(self, e: torch.Tensor) -> torch.Tensor:
+        p = e.sum(dim=1)
+        outer = torch.einsum("bi,bj->bij", p, p).reshape(p.shape[0], -1)
+        return bf16_matmul(outer, self.kernel)
+
+
+class _CrossLayer(nn.Module):
+    """One cross layer's ``w`` ((dim, 1) for v1, (dim, dim) for v2, glorot)
+    and ``b`` (dim,)."""
+
+    def __init__(self, dim: int, width: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(dim, width))
+        self.b = nn.Parameter(torch.empty(dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.w.copy_(glorot_uniform(self.w.shape, generator))
+        self.b.zero_()
+
+
+class _CrossStack(nn.Module):
+    def __init__(self, dim: int, depth: int, width: int):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"layer{i}", _CrossLayer(dim, width))
+
+
+class CrossNet(_CrossStack):
+    """DCN-v1 cross network: x_{k+1} = x0 ⊙ (x_k·w_k) + b_k + x_k over
+    ``layer{i}`` with ``w`` (dim, 1)."""
+
+    def __init__(self, dim: int, depth: int = 3):
+        super().__init__(dim, depth, 1)
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        x = x0
+        for i in range(self.depth):
+            layer = getattr(self, f"layer{i}")
+            x = x0 * bf16_matmul(x, layer.w) + layer.b + x
+        return x
+
+
+class CrossNetMix(_CrossStack):
+    """DCN-v2 full-matrix cross layers: x_{k+1} = x0 ⊙ (x_k·W_k + b_k) +
+    x_k, ``w`` (dim, dim)."""
+
+    def __init__(self, dim: int, depth: int = 3):
+        super().__init__(dim, depth, dim)
+
+    def forward(self, x0: torch.Tensor) -> torch.Tensor:
+        x = x0
+        for i in range(self.depth):
+            layer = getattr(self, f"layer{i}")
+            x = x0 * (bf16_matmul(x, layer.w) + layer.b) + x
+        return x
 
 
 class LinearUnit(nn.Module):
@@ -110,3 +211,22 @@ class CIN(nn.Module):
         if not self.out_logit:
             return feats
         return self.head(feats)[:, 0]
+
+
+class AFMAttention(nn.Module):
+    """Attentional FM pooling: ``score1`` (relu) and ``score2`` score each
+    pair product, a softmax over the P pairs weights them, and ``proj``
+    maps the pooled (B, D) vector to a logit term."""
+
+    def __init__(self, dim: int, attn_dim: int = 16):
+        super().__init__()
+        self.score1 = Dense(dim, attn_dim)
+        self.score2 = Dense(attn_dim, 1, use_bias=False)
+        self.proj = Dense(dim, 1, use_bias=False)
+
+    def forward(self, pair_products: torch.Tensor) -> torch.Tensor:
+        """(B, P, D) → (B,)."""
+        h = torch.relu(self.score1(pair_products))
+        a = torch.softmax(self.score2(h), dim=1)              # (B, P, 1)
+        pooled = (a * pair_products).sum(dim=1)                # (B, D)
+        return self.proj(pooled)[:, 0]

@@ -26,9 +26,14 @@ def init_metrics(n_bins: int = N_BINS, device=None) -> MetricState:
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-example binary cross-entropy on logits (stable)."""
-    return (torch.clamp_min(logits, 0) - logits * labels
-            + torch.log1p(torch.exp(-logits.abs())))
+    """Per-example binary cross-entropy on logits (stable). At a logit of
+    exactly 0 its gradient is the reference's −y: ``jnp.maximum`` splits a
+    tie (1/2) and ``jnp.abs`` takes the positive side (1), where
+    ``clamp_min`` and ``abs`` would give 1 and 0, hence 1 − y (``ROADMAP.md``
+    R7). A tower of dead ReLUs with a zero head bias scores such logits."""
+    pos = torch.where(logits >= 0, logits, -logits)
+    return (torch.maximum(logits, torch.zeros_like(logits)) - logits * labels
+            + torch.log1p(torch.exp(-pos)))
 
 
 def update_metrics(state: MetricState, logits: torch.Tensor,

@@ -106,8 +106,10 @@ def test_get_model_unknown_name_lists_registry():
     fs = criteo_feature_set([10] * 3, n_dense=2, embed_dim=4)
     with pytest.raises(KeyError, match="deepfm.*xdeepfm"):
         get_model("nope", fs, device="cpu")
-    assert sorted(MODEL_REGISTRY) == ["autoint", "deepfm", "dien", "din", "dlrm",
-                                      "fibinet", "sim", "xdeepfm"]
+    assert sorted(MODEL_REGISTRY) == [
+        "afm", "autoint", "dcn", "deepcross", "deepfm", "dien", "din", "dlrm",
+        "ffm", "fibinet", "fm", "fnn", "fwfm", "lr", "mmoe", "nfm", "pnn", "sim",
+        "wide_deep", "xdeepfm"]
 
 
 def test_get_model_defaults_to_the_card():
@@ -200,6 +202,21 @@ def test_fused_embedding_lookup_and_pre_weight():
     assert torch.equal(fe.sparse(ids), cross)
     assert torch.equal(fe.sparse_linear(ids), lin)
     assert torch.all(cross[:, 1] == 9.0)   # C2 rows 0..1 come from pre_weight
+
+
+def test_fused_embedding_without_a_table():
+    """FFM's and LR's store: ``linear`` alone, the only state-dict key."""
+    fs = criteo_feature_set([5, 7, 5], n_dense=0, embed_dim=3)
+    fe = FusedEmbedding(fs, with_table=False)
+    init_parameters(fe, torch.Generator().manual_seed(0))
+    assert list(fe.state_dict()) == ["linear"] and fe.table is None
+    ids = torch.tensor([[1, 0, 4], [0, 1, 2]])
+    assert torch.equal(fe.sparse_linear(ids),
+                       fe.linear[ids + torch.tensor([0, 5, 12])][..., 0])
+    with pytest.raises(ValueError, match="pre_weight"):
+        fe.reset_parameters(torch.Generator(), pre_weight={"C1": np.ones((1, 3))})
+    with pytest.raises(ValueError, match="table, a linear or both"):
+        FusedEmbedding(fs, with_linear=False, with_table=False)
 
 
 def test_unported_routes_raise():

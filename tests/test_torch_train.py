@@ -304,6 +304,19 @@ def test_lr_schedules_match_optax(name, kw):
 # metrics
 
 
+def test_bce_gradient_at_a_zero_logit_is_the_reference_one():
+    """At logits of exactly 0 (and beside them) the per-example BCE's
+    gradient is the JAX package's: −y at 0, not the derivative σ(0) − y."""
+    logits = np.array([0.0, 0.0, -0.0, 1.5, -2.0], np.float32)
+    labels = np.array([0.0, 1.0, 1.0, 1.0, 0.0], np.float32)
+    want = jax.grad(lambda x: jnp.sum(jmetrics.bce_with_logits(
+        x, jnp.asarray(labels))))(jnp.asarray(logits))
+    x = torch.tensor(logits, requires_grad=True)
+    tmetrics.bce_with_logits(x, torch.from_numpy(labels)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), want, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(x.grad.numpy()[:3], -labels[:3])
+
+
 def test_streaming_metrics_match_jax():
     rng = np.random.default_rng(9)
     jm_state = jmetrics.init_metrics()
