@@ -23,7 +23,11 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    at AutoInt's shape by events and on the device), also at the two edges
    of their gate, at AutoInt's L with Dh 13 and a ragged B, and at SIM's
    top-8 ESU, with a random key mask and one batch row whose keys are all
-   masked (uniform weights over all keys);
+   masked (uniform weights over all keys), and at the sequence tier's two
+   shapes, every key valid: DSIN's sessions (B 16,384, L 8, H 2, Dh 8; the
+   warp instances, the forward's block instance timed beside) and DMIN's
+   refiner (B 4096, L 64, H 2, Dh 8; the block instances), each direction
+   also timed on the device;
 4. serving: full-width xDeepFM on the Criteo schema (26 fields of 100k ids,
    dim 8, CIN (128, 128), MLP (256, 128)) with seeded random weights,
    exported and scored through ``load_scorer`` → ``Scorer.predict_proba`` on
@@ -133,7 +137,8 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     ``gru_fwd_wide``; within 1e-4 of the plain versions) and 5 Adam steps
     against the plain route (2 + 2 a step), and the rates;
 18. the interaction models, DLRM, FiBiNET, LR, FM, FNN, FFM, FwFM, PNN,
-    DeepCross, Wide&Deep, DCN (v1 and v2), NFM and AFM, and MMoE, at the JAX
+    DeepCross, Wide&Deep, DCN (v1 and v2), NFM and AFM, and MMoE, ESMM and
+    PLE, at the JAX
     board's width (26 fields of 100k ids, 13 dense, dim 8, default
     hyperparameters), each built on the card by ``get_model``: scored
     through ``load_scorer`` at B 4096 on features alone (finite
@@ -143,10 +148,23 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     against the same 5 on the CPU (phase 5's bars with f32 matmuls on both;
     on the bf16 path the losses to 1e-3 and the gradients at one bf16 step
     of max|g|; the CPU's first step takes the card's ReLU decisions, each
-    overridden pre-activation within 1e-5 of its layer's max of 0), MMoE's
-    click BCE (its batches carry ``click``) card against CPU to 1e-3, and
-    training examples/s, device time a step and peak memory at B 16,384;
-19. one ``{"kernels": [...]}`` line (each kernel with its instances and the
+    overridden pre-activation within 1e-5 of its layer's max of 0), the
+    multi-task models' second-task BCE (their batches carry ``click``)
+    card against CPU to 1e-3, and training examples/s, device time a step
+    and peak memory at B 16,384;
+19. the behavior-sequence tier, BST, DSIN, SeqFM, DSTN, DMIN and MIND, on
+    the JAX bench's behavior batch (5,000 items, 100 categories, histories
+    of 64 random ids, dim 8, default hyperparameters; DSIN at the board's
+    B 2048 with sessions (8, 8), the others at B 4096), each as a model of
+    18 (scores and 5 Adam steps card against CPU, the CPU's first step
+    taking the card's ReLU and PReLU decisions, the aux terms, the rates
+    at its batch), with the field-attention flag: DSIN, SeqFM and DMIN
+    launch 1 field_attn_fwd a forward and 1 field_attn_bwd a step, and
+    their scores and 5 Adam steps are held against the same model on K3's
+    plain versions (phase 5's bars), DSIN's also on a ragged
+    ``make_behavior_data`` batch whose fully padded sessions reach K3; BST
+    (65 positions, past the gate), DSTN and MIND launch nothing;
+20. one ``{"kernels": [...]}`` line (each kernel with its instances and the
     shapes each took), then ``{"ok": true, "device": ...}`` last. The run's
     wall time is printed before them.
 
@@ -189,6 +207,11 @@ FA_MAIN = (BATCH, 27, 27, 2, 16)
 # instance's 4-byte copies at AutoInt's L with a ragged B, and SIM's top-8 ESU
 FA_EDGES = ((512, 64, 64, 2, 64), (300, 1, 4096, 2, 8), (1001, 27, 27, 2, 13),
             (129, 8, 8, 2, 4))
+# the sequence tier's attention under the flag (phase 19): DSIN's sessions at
+# the board's row (B 2048 · 8 sessions of 8, 2 heads of 8; the warp
+# instances) and DMIN's refiner at L 64 (exactly 4096 scores; the block
+# instances); every key valid, as in the board's histories
+FA_SEQ = ((2048 * 8, 8, 8, 2, 8), (BATCH, 64, 64, 2, 8))
 RTOL = 1e-3                # same rounding sites; only the f32 summation order differs
 # The step-1 gradient bar, as a share of a parameter's max|g|, of a model
 # trained with bf16 matmul inputs on the card against the CPU: each
@@ -446,9 +469,10 @@ def check_field_attn_kernels(fa_mod) -> list:
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     fwd_shapes, bwd_shapes = [], []
-    for shape in (FA_MAIN,) + FA_EDGES:
+    for shape in (FA_MAIN,) + FA_EDGES + FA_SEQ:
         b, lq, lk, h, dh = shape
-        masked = shape != FA_MAIN
+        masked = shape in FA_EDGES
+        timed = not masked     # the paths' shapes: on the device too
         q, k, v, bias, do, scale = _fa_inputs(gen, b, lq, lk, h, dh, masked)
         got = fa_mod.field_attention(q, k, v, bias, scale)
         grads = fa_mod.field_attention_backward(q, k, v, bias, do, scale)
@@ -482,7 +506,7 @@ def check_field_attn_kernels(fa_mod) -> list:
             if masked:
                 _check_close(f"field_attn_fwd's all-masked row (block instance) at {where}",
                              block_o[1], v[1].mean(dim=0, keepdim=True).expand(lq, -1, -1))
-            if shape == FA_MAIN:
+            if timed:
                 block["ms"] = event_ms(lambda: fa_mod.field_attention_forward(
                     q, k, v, bias, scale, instance="field_attn_fwd"))
                 block["device_ms"] = launch_ms(lambda: fa_mod.field_attention_forward(
@@ -504,7 +528,7 @@ def check_field_attn_kernels(fa_mod) -> list:
             **common, "instance": instance, "max_abs_err": err, "atol": atol,
             "ms": event_ms(lambda: fa_mod.field_attention(q, k, v, bias, scale)),
             "device_ms": (launch_ms(lambda: fa_mod.field_attention(q, k, v, bias, scale))
-                          if shape == FA_MAIN else None),
+                          if timed else None),
             "block_instance": block,
             "plain_ms": event_ms(
                 lambda: fa_mod.field_attention_reference(q, k, v, bias, scale)),
@@ -518,6 +542,8 @@ def check_field_attn_kernels(fa_mod) -> list:
             "atol_dq_dk_dv": [a for _, a in errs],
             "ms": event_ms(lambda: fa_mod.field_attention_backward(
                 q, k, v, bias, do, scale)),
+            "device_ms": (launch_ms(lambda: fa_mod.field_attention_backward(
+                q, k, v, bias, do, scale)) if shape in FA_SEQ else None),
             "plain_ms": event_ms(lambda: fa_mod.field_attention_backward_reference(
                 q, k, v, bias, do, scale)),
             "library_ms": sdpa_both_ms - sdpa_fwd_ms,
@@ -534,7 +560,8 @@ def check_field_attn_kernels(fa_mod) -> list:
               "the same bits on a second run, max_abs_err dq/dk/dv "
               + "/".join(f"{e:.3e}" for e in s["max_abs_err_dq_dk_dv"])
               + " (atol " + "/".join(f"{a:.3e}" for a in s["atol_dq_dk_dv"])
-              + f"), kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library "
+              + f"), kernel {s['ms']:.4f} ms (on the device {s['device_ms']}), plain "
+              f"{s['plain_ms']:.4f} ms, library "
               f"(SDPA f32 forward+backward less forward) {s['library_ms']:.4f} ms, "
               f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})")
     replaces = "ml_function_tpu/ops/kernels/field_attention.py"
@@ -1634,7 +1661,7 @@ INTERACTION_MODELS = (
     ("fm", "fm", {}), ("fnn", "fnn", {}), ("ffm", "ffm", {}), ("fwfm", "fwfm", {}),
     ("pnn", "pnn", {}), ("deepcross", "deepcross", {}), ("wide_deep", "wide_deep", {}),
     ("dcn", "dcn", {}), ("dcn_v2", "dcn", {"version": 2}), ("nfm", "nfm", {}),
-    ("afm", "afm", {}), ("mmoe", "mmoe", {}))
+    ("afm", "afm", {}), ("mmoe", "mmoe", {}), ("esmm", "esmm", {}), ("ple", "ple", {}))
 
 
 def check_wide_cin(cin_mod) -> tuple:
@@ -1924,13 +1951,14 @@ def dien_wide_phase(drive, launches_by_path, instances_by_path) -> None:
 
 @contextlib.contextmanager
 def relu_decisions(model, masks: dict, impose: bool, flips: list):
-    """Within the block, the first forward through each ReLU ``Activation``
-    of ``model`` either records which pre-activations are positive into
-    ``masks`` (``impose=False``) or takes those decisions from ``masks``
-    (``impose=True``: the output is the input times the recorded mask, the
-    same function and gradient wherever the two devices agree), appending
-    to ``flips`` each layer's count of pre-activations on the other side
-    and the largest of their |z| over the layer's max |z|."""
+    """Within the block, the first forward through each ReLU or PReLU
+    ``Activation`` of ``model`` either records which pre-activations are
+    positive into ``masks`` (``impose=False``) or takes those decisions
+    from ``masks`` (``impose=True``: the output is the input where the
+    recorded mask is set and 0, or alpha times the input for a PReLU,
+    elsewhere: the same function and gradient wherever the two devices
+    agree), appending to ``flips`` each layer's count of pre-activations on
+    the other side and the largest of their |z| over the layer's max |z|."""
     from ml_function_tpu_torch.ops.core import Activation
 
     def hook(i):
@@ -1946,11 +1974,14 @@ def relu_decisions(model, masks: dict, impose: bool, flips: list):
             other = (z > 0) != m
             flips.append((int(other.sum()), float(z.abs()[other].max() / z.abs().max())
                           if bool(other.any()) else 0.0))
+            if mod.kind == "prelu":
+                return torch.where(m, inputs[0], mod.alpha * inputs[0])
             return inputs[0] * m.to(z.dtype)
         return fn
 
     seen = set()
-    acts = [m for m in model.modules() if isinstance(m, Activation) and m.kind == "relu"]
+    acts = [m for m in model.modules()
+            if isinstance(m, Activation) and m.kind in ("relu", "prelu")]
     hooks = [m.register_forward_hook(hook(i)) for i, m in enumerate(acts)]
     try:
         yield
@@ -1959,25 +1990,162 @@ def relu_decisions(model, masks: dict, impose: bool, flips: list):
             h.remove()
 
 
-def interaction_phases(drive, launches_by_path) -> None:
-    """Every interaction model of the port (``INTERACTION_MODELS``) at the JAX
-    board's width (bench.py:35-40: 26 fields of 100k ids, 13 dense, dim 8;
-    default hyperparameters), built on the card by ``get_model``: exported
-    and scored through ``load_scorer`` at B 4096 on features alone (finite
-    probabilities, no kernel launched; with f32 matmuls on both devices the
-    scores within 1e-4 of the same weights scored on the CPU, on the bf16
-    path the logits within one bf16 step of their max), 5 Adam steps on the
-    card against the same 5 on the CPU (with f32 matmuls and with the bf16
-    path; the CPU's first step takes the card's ReLU decisions), and the
-    training rates and peak memory at B 16384. The models share one
-    dataset, whose ``click`` (max(label, Bernoulli(0.3)), as bench.py:65-69
-    draws it) MMoE's batches carry; its click BCE is held card against CPU
-    too."""
-    from ml_function_tpu_torch.features.schema import criteo_feature_set
-    from ml_function_tpu_torch.features.synthetic import make_criteo_like
+def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: list,
+                     drive, launches_by_path, per_batch: dict, per_step: dict,
+                     route: str = "no kernel", block_scaled: tuple = (),
+                     tower: str = "", decision_bf16_bar: float = 1e-5):
+    """One model built on the card by ``get_model`` against the same weights
+    on the CPU: exported and scored through ``load_scorer`` on features
+    alone (finite probabilities, ``per_batch`` launches a batch; with f32
+    matmuls on both devices the scores within 1e-4 of the CPU's, on the
+    bf16 path the logits within one bf16 step of their max), then 5 Adam
+    steps on ``batches`` on the card against the same 5 on the CPU (with
+    f32 matmuls and on the bf16 path, ``per_step`` launches a step; the
+    CPU's first step takes the card's ReLU and PReLU decisions; max|g| is
+    the block's for the parameters under a prefix in ``block_scaled``, as
+    ``parity_steps`` says), and each aux term other than ``emb_l2`` card
+    against CPU. Returns the model and its scorer on the card, at the
+    weights they were built with.
+
+    ``tower`` names the ``Dense`` whose input is the model's tower input
+    (a pooled sequence, whose f32 sums on the two devices can differ by
+    more than an ulp after earlier bf16 sites): on the bf16 path a row whose
+    logit is past one bf16 step of the max must then be one whose tower
+    input rounds to another bf16 value on the card than on the CPU, and
+    such rows at most 1% of them. ``decision_bf16_bar`` is the largest |z|,
+    over its layer's max, of a decision the CPU's bf16-path step takes from
+    the card (1e-5 with f32 matmuls)."""
     from ml_function_tpu_torch.models import get_model
     from ml_function_tpu_torch.ops.kernels import _build
     from ml_function_tpu_torch.serving import export_model, load_scorer
+
+    model = get_model(name, fs, generator=torch.Generator().manual_seed(0), **hp)
+    if next(model.parameters()).device.type != "cuda":
+        fail(f"get_model did not place {label} on the card by default")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        export_model(tmp, name, fs, model, hyperparams=hp)
+        scorer = load_scorer(tmp, batch_size=len(batches[0]["label"]))
+        cpu_scorer = load_scorer(tmp, batch_size=len(batches[0]["label"]), device="cpu")
+    if next(scorer.model.parameters()).device.type != "cuda":
+        fail(f"load_scorer did not place {label} on the card by default")
+    n_rows = len(serve["label"])
+    n_batches = -(-n_rows // scorer.batch_size)
+    # with f32 matmuls the two devices compute one f32 function in
+    # another summation order; on the bf16 path an f32 value a few ulps
+    # apart can round to the neighbouring bf16 value (ROADMAP.md R3),
+    # which moves a logit by up to one bf16 step of its terms
+    for f32 in ("1", "0"):
+        os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
+        path = f"{label}_serving" + ("_f32" if f32 == "1" else "")
+        taps = {}
+        if tower:
+            hooks = [dict(m.named_modules())[tower].register_forward_hook(
+                lambda mod, inp, out, k=k: taps.setdefault(k, []).append(
+                    inp[0].detach().bfloat16().cpu()))
+                for k, m in (("card", scorer.model), ("cpu", cpu_scorer.model))]
+        scores = drive(path, lambda: scorer.predict_proba(serve))
+        want = expect(**{k: v * n_batches for k, v in per_batch.items()})
+        if launches_by_path[path] != want:
+            fail(f"{label} scoring launched {launches_by_path[path]}, expected {want}")
+        if scores.shape != (len(serve["label"]),) or not np.isfinite(scores).all() \
+                or not ((scores > 0) & (scores < 1)).all():
+            fail(f"{label} scores are not finite probabilities")
+        ref = cpu_scorer.predict_proba(serve)
+        if tower:
+            for h in hooks:
+                h.remove()
+            x, y = (torch.cat(taps[k])[:n_rows] for k in ("card", "cpu"))
+            flipped = (x != y).reshape(n_rows, -1).any(dim=1).numpy()
+        diff = float(np.abs(scores - ref).max())
+        lg, ref_lg = (np.log(p.astype(np.float64)) - np.log1p(-p.astype(np.float64))
+                      for p in (scores, ref))
+        gaps = np.abs(lg - ref_lg) / np.abs(ref_lg).max()
+        lg_gap = float(gaps.max())
+        mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
+        print(f"{path} ({mode}): {len(scores)} rows on "
+              f"{next(scorer.model.parameters()).device}, vs the same weights on "
+              f"the CPU: max |score diff| {diff:.3e}, max |logit diff|/max|logit| "
+              f"{lg_gap:.3e} (99th percentile {np.quantile(gaps, 0.99):.3e}, rows "
+              f"past 1e-4 {int((gaps > 1e-4).sum())}, past 2^-8 "
+              f"{int((gaps > BF16_PATH_RTOL).sum())}); launches {launches_by_path[path]}"
+              + (f"; rows whose tower input rounds to another bf16 value on the "
+                 f"card: {int(flipped.sum())}" if tower else ""))
+        if f32 == "1" and diff > 1e-4:
+            fail(f"{label} scores on the card differ from the CPU's by {diff}")
+        past = gaps > BF16_PATH_RTOL
+        if tower and f32 == "0":
+            if (past & ~flipped).any() or past.sum() > max(1, n_rows // 100):
+                fail(f"{label} logits on the bf16 path differ from the CPU's by "
+                     f"{lg_gap} of their max in {int(past.sum())} rows, "
+                     f"{int((past & ~flipped).sum())} of them with the same tower input")
+        elif f32 == "0" and lg_gap > BF16_PATH_RTOL:
+            fail(f"{label} logits on the bf16 path differ from the CPU's by "
+                 f"{lg_gap} of their max")
+    os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+    score_rates(f"{label}_serving", scorer, serve, route)
+
+    # with f32 matmuls phase 5's bars hold every parameter; on the bf16
+    # path the two devices' f32 sums can round a bf16 input cotangent of
+    # the towers one bf16 step apart (ROADMAP.md R3), and the gradients
+    # below it are held at that step (BF16_PATH_RTOL). A ReLU
+    # pre-activation within rounding of 0 can fall on either side on the
+    # two devices, which moves the gradients of its example's rows (PNN:
+    # one of 524,288); the CPU's first step takes the card's decisions,
+    # and the run fails if one it overrides is not within 1e-5 of 0
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    cpu_model = cpu_scorer.model
+    cpu_init = {k: v.cpu() for k, v in init.items()}
+    for f32 in ("1", "0"):
+        os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
+        path = f"{label}_training" + ("_f32" if f32 == "1" else "")
+        masks, flips = {}, []
+        with relu_decisions(model, masks, False, flips):
+            losses, grads = drive(path, lambda: _adam_steps(model, init, batches))
+        with relu_decisions(cpu_model, masks, True, flips):
+            ref_losses, ref_grads = _adam_steps(cpu_model, cpu_init, batches)
+        n_flips = sum(n for n, _ in flips)
+        worst_z = max((z for _, z in flips), default=0.0)
+        mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
+        compare_runs(f"{label} ({mode})", losses, grads, ref_losses, ref_grads,
+                     "the CPU run", block_scaled, note=f"launches {launches_by_path[path]}; "
+                     f"(P)ReLU pre-activations the CPU's step 1 took from the card: "
+                     f"{n_flips} of {sum(m.numel() for m in masks.values())} "
+                     f"(largest |z| {worst_z:.2e} of its layer's max)",
+                     b=len(batches[0]["label"]),
+                     grad_rtol=RTOL if f32 == "1" else BF16_PATH_RTOL)
+        z_bar = 1e-5 if f32 == "1" else decision_bf16_bar
+        if worst_z > z_bar:
+            fail(f"{label}: a (P)ReLU pre-activation at {worst_z} of its layer's max "
+                 f"falls on another side on the card than on the CPU (bar {z_bar})")
+        want = expect(**{k: 5 * v for k, v in per_step.items()})
+        if launches_by_path[path] != want:
+            fail(f"{label} training launched {launches_by_path[path]}, expected {want}")
+    os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+    model.load_state_dict(init)
+    cpu_model.load_state_dict(cpu_init)
+    with torch.no_grad():
+        aux = [m(batches[0])[2] for m in (model, cpu_model)]
+    for k in sorted(set(aux[0]) - {"emb_l2"}):
+        got, ref = float(aux[0][k]), float(aux[1][k])
+        print(f"{label} {k} on the card {got:.7f}, on the CPU {ref:.7f}, "
+              f"rel diff {abs(got - ref) / abs(ref):.3e}")
+        if not abs(got - ref) <= RTOL * abs(ref):
+            fail(f"{label}'s {k} differs from the CPU's by more than {RTOL}")
+    return model, scorer
+
+
+def interaction_phases(drive, launches_by_path) -> None:
+    """Every interaction model of the port (``INTERACTION_MODELS``) at the JAX
+    board's width (bench.py:35-40: 26 fields of 100k ids, 13 dense, dim 8;
+    default hyperparameters), built on the card by ``get_model``:
+    ``card_against_cpu`` at B 4096 (no kernel launched), and the training
+    rates and peak memory at B 16384. The models share one dataset, whose
+    ``click`` (max(label, Bernoulli(0.3)), as bench.py:65-69 draws it) the
+    multi-task models' batches carry (ESMM's ``label`` is then a conversion
+    seen only on a click); their second task's BCE is held card against
+    CPU too."""
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.features.synthetic import make_criteo_like
     from ml_function_tpu_torch.train.loop import iter_batches
 
     fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
@@ -1988,99 +2156,127 @@ def interaction_phases(drive, launches_by_path) -> None:
     serve = {k: v for k, v in _rows(data, 3 * BATCH + 1000).items() if k != "click"}
     batches = list(iter_batches(data, BATCH))[:5]
     big = list(iter_batches(data, INTERACTION_TRAIN_BATCH))
+    second_task = {"mmoe": "click_bce", "ple": "click_bce", "esmm": "ctr_bce"}
     for label, name, hp in INTERACTION_MODELS:
         t = time.perf_counter()
-        model = get_model(name, fs, generator=torch.Generator().manual_seed(0), **hp)
-        if next(model.parameters()).device.type != "cuda":
-            fail(f"get_model did not place {label} on the card by default")
-        with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
-            export_model(tmp, name, fs, model, hyperparams=hp)
-            scorer = load_scorer(tmp, batch_size=BATCH)
-            cpu_scorer = load_scorer(tmp, batch_size=BATCH, device="cpu")
-        if next(scorer.model.parameters()).device.type != "cuda":
-            fail(f"load_scorer did not place {label} on the card by default")
-        # with f32 matmuls the two devices compute one f32 function in
-        # another summation order; on the bf16 path an f32 value a few ulps
-        # apart can round to the neighbouring bf16 value (ROADMAP.md R3),
-        # which moves a logit by up to one bf16 step of its terms
-        for f32 in ("1", "0"):
-            os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
-            path = f"{label}_serving" + ("_f32" if f32 == "1" else "")
-            scores = drive(path, lambda: scorer.predict_proba(serve))
-            if launches_by_path[path] != expect():
-                fail(f"{label} scoring launched {launches_by_path[path]}")
-            if scores.shape != (len(serve["label"]),) or not np.isfinite(scores).all() \
-                    or not ((scores > 0) & (scores < 1)).all():
-                fail(f"{label} scores are not finite probabilities")
-            ref = cpu_scorer.predict_proba(serve)
-            diff = float(np.abs(scores - ref).max())
-            lg, ref_lg = (np.log(p.astype(np.float64)) - np.log1p(-p.astype(np.float64))
-                          for p in (scores, ref))
-            lg_gap = float(np.abs(lg - ref_lg).max() / np.abs(ref_lg).max())
-            mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
-            print(f"{path} ({mode}): {len(scores)} rows on "
-                  f"{next(scorer.model.parameters()).device}, vs the same weights on "
-                  f"the CPU: max |score diff| {diff:.3e}, max |logit diff|/max|logit| "
-                  f"{lg_gap:.3e}")
-            if f32 == "1" and diff > 1e-4:
-                fail(f"{label} scores on the card differ from the CPU's by {diff}")
-            if f32 == "0" and lg_gap > BF16_PATH_RTOL:
-                fail(f"{label} logits on the bf16 path differ from the CPU's by "
-                     f"{lg_gap} of their max")
-        os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
-        score_rates(f"{label}_serving", scorer, serve, "no kernel")
+        model, scorer = card_against_cpu(label, name, fs, hp, serve, batches, drive,
+                                         launches_by_path, {}, {})
         del scorer
-
-        # with f32 matmuls phase 5's bars hold every parameter; on the bf16
-        # path the two devices' f32 sums can round a bf16 input cotangent of
-        # the towers one bf16 step apart (ROADMAP.md R3), and the gradients
-        # below it are held at that step (BF16_PATH_RTOL). A ReLU
-        # pre-activation within rounding of 0 can fall on either side on the
-        # two devices, which moves the gradients of its example's rows (PNN:
-        # one of 524,288); the CPU's first step takes the card's decisions,
-        # and the run fails if one it overrides is not within 1e-5 of 0
-        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
-        cpu_model = cpu_scorer.model
-        cpu_init = {k: v.cpu() for k, v in init.items()}
-        for f32 in ("1", "0"):
-            os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
-            path = f"{label}_training" + ("_f32" if f32 == "1" else "")
-            masks, flips = {}, []
-            with relu_decisions(model, masks, False, flips):
-                losses, grads = drive(path, lambda: _adam_steps(model, init, batches))
-            with relu_decisions(cpu_model, masks, True, flips):
-                ref_losses, ref_grads = _adam_steps(cpu_model, cpu_init, batches)
-            n_flips = sum(n for n, _ in flips)
-            worst_z = max((z for _, z in flips), default=0.0)
-            mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
-            compare_runs(f"{label} ({mode})", losses, grads, ref_losses, ref_grads,
-                         "the CPU run", note=f"launches {launches_by_path[path]}; "
-                         f"ReLU pre-activations the CPU's step 1 took from the card: "
-                         f"{n_flips} of {sum(m.numel() for m in masks.values())} "
-                         f"(largest |z| {worst_z:.2e} of its layer's max)",
-                         grad_rtol=RTOL if f32 == "1" else BF16_PATH_RTOL)
-            if worst_z > 1e-5:
-                fail(f"{label}: a ReLU pre-activation at {worst_z} of its layer's max "
-                     "falls on another side on the card than on the CPU")
-            if launches_by_path[path] != expect():
-                fail(f"{label} training launched a kernel")
-        os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
-        model.load_state_dict(init)
-        cpu_model.load_state_dict(cpu_init)
-        with torch.no_grad():
-            aux = [m(batches[0])[2] for m in (model, cpu_model)]
-        for k in sorted(set(aux[0]) - {"emb_l2"}):
-            got, ref = float(aux[0][k]), float(aux[1][k])
-            print(f"{label} {k} on the card {got:.7f}, on the CPU {ref:.7f}, "
-                  f"rel diff {abs(got - ref) / abs(ref):.3e}")
-            if not abs(got - ref) <= RTOL * abs(ref):
-                fail(f"{label}'s {k} differs from the CPU's by more than {RTOL}")
-        if name == "mmoe" and "click_bce" not in aux[0]:
-            fail("MMoE's batches carry click but its aux has no click_bce")
-        del cpu_scorer, cpu_model, aux
+        if name in second_task:
+            with torch.no_grad():
+                aux = model(batches[0])[2]
+            if second_task[name] not in aux:
+                fail(f"{label}'s batches carry click but its aux has no "
+                     f"{second_task[name]}")
         step_rates(label, model, big, "the JAX board's width and smallest batch")
-        del model, init, cpu_init
+        del model
         print(f"{label}: {time.perf_counter() - t:.1f} s")
+
+
+# The board's behavior-sequence tier (bench.py:737-741) on the bench's
+# behavior batch: (label, registry name, hyperparameters, batch, K3 launches
+# a forward under the flag, target-attention prefixes whose MLP gradients
+# are held at the block's max|g|). DSIN at the board's B 2048 with sessions
+# (8, 8), the others at DIN/DIEN's B 4096; default hyperparameters. BST's
+# blocks see 65 positions (the candidate appended): 65² > 4096, so its
+# attention takes the einsum route and launches nothing
+SEQUENCE_MODELS = (
+    ("bst", "bst", {}, BATCH, 0, ()),
+    ("dsin", "dsin", {"session_shape": (8, 8)}, 2048, 1, ("attn_i.", "attn_l.")),
+    ("seqfm", "seqfm", {}, BATCH, 1, ()),
+    ("dstn", "dstn", {}, BATCH, 0, ("attn0.",)),
+    ("dmin", "dmin", {}, BATCH, 1, ("attn0.", "attn1.")),
+    ("mind", "mind", {}, BATCH, 0, ()))
+# the Dense that takes each model's tower input (``card_against_cpu``)
+SEQUENCE_TOWERS = {"seqfm": "head"}
+SEQ_LEN = 64
+
+
+def seq_board_batch(n_rows: int, session_shape=None, seed: int = 1):
+    """The JAX bench's behavior batch (bench.py:146-186: item and cate
+    candidates of 5,000 items and 100 categories, histories of 64 random
+    ids, every one valid, dim 8, labels Bernoulli 0.4) drawn with numpy.
+    Returns (FeatureSet, data)."""
+    from ml_function_tpu_torch.features.schema import FeatureSet, SeqSpec, SparseSpec
+
+    iv, cv = 5001, 101
+    fs = FeatureSet(
+        sparse=(SparseSpec("item", iv, vocab_name="item", dim=8),
+                SparseSpec("cate", cv, vocab_name="cate", dim=8)),
+        seq=(SeqSpec("hist_item", iv, SEQ_LEN, vocab_name="item", dim=8,
+                     session_shape=session_shape),
+             SeqSpec("hist_cate", cv, SEQ_LEN, vocab_name="cate", dim=8,
+                     session_shape=session_shape)))
+    rng = np.random.default_rng(seed)
+    data = {"dense": np.zeros((n_rows, 0), np.float32),
+            "sparse": np.stack([rng.integers(1, iv, n_rows), rng.integers(1, cv, n_rows)],
+                               axis=1).astype(np.int32),
+            "seq": {"hist_item": rng.integers(1, iv, (n_rows, SEQ_LEN), dtype=np.int32),
+                    "hist_cate": rng.integers(1, cv, (n_rows, SEQ_LEN), dtype=np.int32)},
+            "label": (rng.random(n_rows) < 0.4).astype(np.float32)}
+    return fs, data
+
+
+def sequence_phases(drive, launches_by_path, plain_fa) -> None:
+    """The sequence tier (``SEQUENCE_MODELS``) at the board's shapes, with
+    ``ML_FUNCTION_TPU_FIELD_ATTN=1`` (set since phase 6): ``card_against_cpu``
+    on each (its K3 launches held: 1 field_attn_fwd a forward and 1
+    field_attn_bwd a step for DSIN, SeqFM and DMIN, none for the others),
+    then for the three on K3 the scores and 5 Adam steps against the same
+    model with K3's plain versions swapped in (DSIN also on a ragged
+    ``make_behavior_data`` batch, whose fully padded sessions reach K3
+    through ``safe_mask``), and the training rates and peak memory at each
+    model's batch."""
+    from ml_function_tpu_torch.features.synthetic import make_behavior_data
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.ops.kernels import _build
+    from ml_function_tpu_torch.serving import export_model, load_scorer
+    from ml_function_tpu_torch.train.loop import iter_batches
+
+    for label, name, hp, b, k3, attn in SEQUENCE_MODELS:
+        t = time.perf_counter()
+        fs, data = seq_board_batch(5 * b, hp.get("session_shape"))
+        serve = _rows(data, 3 * b + b // 4)
+        batches = list(iter_batches(data, b))
+        per_batch = {"field_attn_fwd": k3} if k3 else {}
+        per_step = {"field_attn_fwd": k3, "field_attn_bwd": k3} if k3 else {}
+        route = "field-attention kernel" if k3 else "no kernel"
+        model, scorer = card_against_cpu(
+            label, name, fs, hp, serve, batches, drive, launches_by_path, per_batch,
+            per_step, route, attn, SEQUENCE_TOWERS.get(name, "mlp.layer0.dense"),
+            BF16_PATH_RTOL)
+        if k3:
+            score_phase(f"{label}_serving_kernel", scorer, serve, drive, launches_by_path,
+                        plain_fa, per_batch)
+            parity_steps(label, model, batches, plain_fa, drive, launches_by_path,
+                         f"{label}_kernel_parity", per_step, attn)
+        del scorer
+        step_rates(label, model, batches, "the board's behavior batch")
+        del model
+        print(f"{label}: {time.perf_counter() - t:.1f} s")
+
+    # DSIN on ragged histories (lengths 32..64): sessions 5 to 8 of a short
+    # history are fully padded, so safe_mask's rows reach K3
+    t = time.perf_counter()
+    hp = {"session_shape": (8, 8)}
+    b = 2048
+    fs, data = make_behavior_data(n_rows=5 * b, n_items=5000, n_cates=100,
+                                  seq_len=SEQ_LEN, embed_dim=8, seed=3, **hp)
+    padded = int((~(data["seq"]["hist_item"].reshape(-1, 8, 8) != 0).any(axis=2)).sum())
+    print(f"dsin_ragged: {padded} of {5 * b * 8} sessions fully padded")
+    if not padded:
+        fail("the ragged DSIN batch has no fully padded session")
+    model = get_model("dsin", fs, generator=torch.Generator().manual_seed(0), **hp)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        export_model(tmp, "dsin", fs, model, hyperparams=hp)
+        scorer = load_scorer(tmp, batch_size=b)
+    score_phase("dsin_ragged_serving", scorer, _rows(data, 3 * b + b // 4), drive,
+                launches_by_path, plain_fa, {"field_attn_fwd": 1})
+    del scorer
+    parity_steps("dsin_ragged", model, list(iter_batches(data, b)), plain_fa, drive,
+                 launches_by_path, "dsin_ragged_kernel_parity",
+                 {"field_attn_fwd": 1, "field_attn_bwd": 1}, ("attn_i.", "attn_l."))
+    print(f"dsin_ragged: {time.perf_counter() - t:.1f} s")
 
 
 def main() -> int:
@@ -2225,8 +2421,13 @@ def main() -> int:
     t = time.perf_counter()
     interaction_phases(drive, launches_by_path)
     print(f"interaction models: {time.perf_counter() - t:.1f} s")
+    # 19. the sequence tier at the board's shapes, card against CPU, and
+    # DSIN, SeqFM and DMIN on K3 against its plain versions
+    t = time.perf_counter()
+    sequence_phases(drive, launches_by_path, plain_fa)
+    print(f"sequence tier: {time.perf_counter() - t:.1f} s")
 
-    # 19. result lines: each kernel's launches are those of the newest path
+    # 20. result lines: each kernel's launches are those of the newest path
     # that runs it; every path's own counts ride along, and each instance
     # (C function) with the shapes it took here
     for k in kernels:

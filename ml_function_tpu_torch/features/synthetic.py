@@ -1,6 +1,7 @@
 """Synthetic CTR data with planted structure (numpy only).
 
-The port's copies of ``make_criteo_like`` and ``make_behavior_data`` from
+The port's copies of ``make_criteo_like``, ``make_behavior_data``,
+``make_interest_drift_data`` and ``make_cvr_data`` from
 ``ml_function_tpu/features/synthetic.py``: the same seed gives the same rows
 in both packages.
 """
@@ -126,4 +127,77 @@ def make_behavior_data(
         "group": np.random.default_rng(seed + 90001).integers(
             0, max(n_rows // 20, 2), n_rows).astype(np.int32),
     }
+    return fs, batch
+
+
+def make_interest_drift_data(
+    n_rows: int = 4000,
+    n_items: int = 60,
+    seq_len: int = 24,
+    embed_dim: int = 8,
+    noise: float = 0.1,
+    seed: int = 0,
+) -> Tuple[FeatureSet, Dict[str, np.ndarray]]:
+    """Interest-drift data: the first half of each history follows a latent
+    anchor A, the second half an anchor B; the candidate is drawn near one of
+    them and the label says whether it matches the recent anchor (B), with
+    a ``noise`` share of labels flipped. A position-blind model cannot tell
+    the two classes apart."""
+    rng = np.random.default_rng(seed)
+    iv = n_items + 1
+    emb = rng.normal(0, 1.0, (iv, 6))
+    emb[0] = 0
+    half = seq_len // 2
+    hist = np.zeros((n_rows, seq_len), np.int32)
+    cand = np.zeros(n_rows, np.int32)
+    y = np.zeros(n_rows, np.float32)
+    for i in range(n_rows):
+        a, b = rng.normal(0, 1, 6), rng.normal(0, 1, 6)
+        for anchor, sl in ((a, slice(0, half)), (b, slice(half, seq_len))):
+            s = emb[1:] @ anchor
+            p = np.exp(s - s.max())
+            p /= p.sum()
+            hist[i, sl] = rng.choice(np.arange(1, iv), half, p=p)
+        recent = rng.random() < 0.5
+        s = emb[1:] @ (b if recent else a)
+        p = np.exp(s - s.max())
+        p /= p.sum()
+        cand[i] = rng.choice(np.arange(1, iv), p=p)
+        y[i] = 1.0 if recent else 0.0
+        if rng.random() < noise:
+            y[i] = 1.0 - y[i]
+    fs = FeatureSet(
+        sparse=(SparseSpec("item", iv, vocab_name="item", dim=embed_dim),),
+        seq=(SeqSpec("hist_item", iv, seq_len, vocab_name="item",
+                     dim=embed_dim),),
+    )
+    data = {"dense": np.zeros((n_rows, 0), np.float32),
+            "sparse": cand[:, None], "seq": {"hist_item": hist}, "label": y}
+    return fs, data
+
+
+def make_cvr_data(
+    n_rows: int = 20000,
+    n_dense: int = 4,
+    n_sparse: int = 8,
+    vocab_size: int = 30,
+    embed_dim: int = 8,
+    seed: int = 0,
+) -> Tuple[FeatureSet, Dict[str, np.ndarray]]:
+    """Impression-space CVR data for ESMM, MMoE and PLE: ``click`` from
+    ``make_criteo_like``'s planted signal, ``label`` (conversion) observed
+    only on clicks, from an independent planted signal."""
+    rng = np.random.default_rng(seed)
+    fs, batch = make_criteo_like(n_rows, n_dense, n_sparse, vocab_size,
+                                 embed_dim, seed)
+    click = batch.pop("label")
+    sparse = batch["sparse"]
+    true_cvr = rng.normal(0, 0.8, (n_sparse, vocab_size))
+    cvr_logit = np.stack([true_cvr[f, sparse[:, f]]
+                          for f in range(n_sparse)], axis=1).sum(axis=1)
+    cvr_logit = (cvr_logit - cvr_logit.mean()) / (cvr_logit.std() + 1e-9) * 2.0
+    conv_given_click = (rng.uniform(size=n_rows)
+                        < _sigmoid(cvr_logit - 1.0)).astype(np.float32)
+    batch["click"] = click
+    batch["label"] = click * conv_given_click
     return fs, batch

@@ -13,8 +13,8 @@ from .interaction import (AFM, DCN, DLRM, FFM, FM, FNN, LR, NFM, PNN,
                           AutoInt, DeepCross, DeepFM, FiBiNET, FwFM, WideDeep,
                           fnn_from_fm, xDeepFM)
 from .longseq import SIM
-from .multitask import MMoE
-from .sequence import DIEN, DIN
+from .multitask import ESMM, PLE, MMoE
+from .sequence import BST, DIEN, DIN, DMIN, DSIN, DSTN, MIND, SeqFM
 
 MODEL_REGISTRY = {
     "lr": LR,
@@ -35,8 +35,16 @@ MODEL_REGISTRY = {
     "dlrm": DLRM,
     "din": DIN,
     "dien": DIEN,
+    "bst": BST,
+    "dsin": DSIN,
+    "seqfm": SeqFM,
+    "dstn": DSTN,
+    "dmin": DMIN,
+    "mind": MIND,
     "sim": SIM,
+    "esmm": ESMM,
     "mmoe": MMoE,
+    "ple": PLE,
 }
 
 
@@ -57,6 +65,7 @@ def get_model(name: str, feature_set, device: DeviceLike = None,
 
 
 __all__ = ["Model", "MODEL_REGISTRY", "get_model", "fnn_from_fm", "AFM",
-           "AutoInt", "DCN", "DeepCross", "DeepFM", "DIEN", "DIN", "DLRM",
-           "FFM", "FiBiNET", "FM", "FNN", "FwFM", "LR", "MMoE", "NFM", "PNN",
+           "AutoInt", "BST", "DCN", "DeepCross", "DeepFM", "DIEN", "DIN",
+           "DLRM", "DMIN", "DSIN", "DSTN", "ESMM", "FFM", "FiBiNET", "FM",
+           "FNN", "FwFM", "LR", "MIND", "MMoE", "NFM", "PLE", "PNN", "SeqFM",
            "SIM", "WideDeep", "xDeepFM"]

@@ -123,7 +123,7 @@ def SIM(fs: FeatureSet,
         s_cand, s_beh, s_mask, l2_short, _ = behavior_inputs(fe, batch, candidate,
                                                              behavior)
         short_term, aux = m.dien.interest(s_cand, s_beh, s_mask)
-        h = _tower_input(fs, batch, cand, (long_term, short_term), emb, candidate)
+        h = _tower_input(fs, batch, (cand, long_term, short_term), emb, candidate)
         # both lookups count the sparse fields' l2: subtract one
         l2 = l2_long + l2_short - fe.l2_from_sparse(emb)
         return m.mlp(h, train)[:, 0], {"aux_loss": aux_weight * aux, "emb_l2": l2}

@@ -1,10 +1,10 @@
-"""Attention of the port: field self-attention (AutoInt) and target
-attention (DIN, DIEN).
+"""Attention of the port: field and sequence self-attention, transformer
+blocks, target attention and positional encodings.
 
-Counterpart of ``MultiHeadAttention``, ``TargetAttention`` and
-``attention_mask_bias`` in ``ml_function_tpu/ops/attention.py``;
-``TransformerBlock``, LSH attention and the positional encodings come with
-the slices of the models that use them.
+Counterpart of ``MultiHeadAttention``, ``TransformerBlock``,
+``TargetAttention``, ``attention_mask_bias``, ``sincos_position_encoding``
+and ``SessionPositionBias`` in ``ml_function_tpu/ops/attention.py``; LSH
+attention comes with the long-sequence tier's LSH item.
 Parameter names are the JAX pytree's keys (``q``, ``k``, ``v``, ``o``,
 ``ln``), so ``params/mha0/q`` is the state-dict key ``mha0.q``.
 """
@@ -13,13 +13,14 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from .base import bf16_matmul, glorot_uniform
-from .core import MLP, LayerNorm
+from .core import MLP, Dense, LayerNorm
 from .kernels.field_attention import MAX_HEAD_DIM, MAX_SCORES, field_attention
 from .kernels.flash_attention import flash_attention
 
@@ -123,6 +124,31 @@ class MultiHeadAttention(nn.Module):
         return out
 
 
+class TransformerBlock(nn.Module):
+    """Multi-head self-attention (``mha``, with its residual and LayerNorm),
+    then a position-wise ReLU FFN (``ffn``, ``ffn_out``) with a residual and
+    LayerNorm (``ln``). ``attention='lsh'`` (Reformer attention) raises; the
+    reference's causal and extra-bias options have no caller (BST uses
+    neither) and are left out."""
+
+    def __init__(self, dim: int, num_heads: int = 2,
+                 ffn_hidden: Tuple[int, ...] = (32,), attention: str = "softmax"):
+        super().__init__()
+        if attention == "lsh":
+            raise NotImplementedError(
+                "TransformerBlock(attention='lsh') (LSHSelfAttention) comes "
+                "with the LSH item of the long-sequence tier")
+        self.mha = MultiHeadAttention(dim, num_heads)
+        self.ffn = MLP(dim, ffn_hidden, activation="relu")
+        self.ffn_out = Dense(ffn_hidden[-1], dim)
+        self.ln = LayerNorm(dim)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        h = self.mha(x, mask=mask)
+        return self.ln(h + self.ffn_out(self.ffn(h)))
+
+
 class TargetAttention(nn.Module):
     """DIN's activation unit: score_t = MLP([c, s_t, c − s_t, c ⊙ s_t]) for
     the candidate c (B, D) and each step s_t of a (B, L, D) sequence; padded
@@ -156,3 +182,34 @@ class TargetAttention(nn.Module):
         if return_seq:
             return seq * w[..., None]
         return torch.einsum("bl,bld->bd", w, seq)
+
+
+def sincos_position_encoding(length: int, dim: int) -> torch.Tensor:
+    """(L, D) sin/cos encodings, computed in numpy as the reference does:
+    sin at even columns, cos at odd ones, angle pos / 10000^(2·(i//2)/D)."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim)[None, :]
+    angle = pos / np.power(10000.0, (2 * (i // 2)) / dim)
+    enc = np.zeros((length, dim), np.float32)
+    enc[:, 0::2] = np.sin(angle[:, 0::2])
+    enc[:, 1::2] = np.cos(angle[:, 1::2])
+    return torch.from_numpy(enc)
+
+
+class SessionPositionBias(nn.Module):
+    """DSIN's learned bias over (session, position, dim): x (B, S, Ls, D)
+    plus ``sess`` (S, 1, 1), ``pos`` (1, Ls, 1) and ``unit`` (1, 1, D), all
+    starting at zero."""
+
+    def __init__(self, session_num: int, session_len: int, dim: int):
+        super().__init__()
+        self.sess = nn.Parameter(torch.zeros(session_num, 1, 1))
+        self.pos = nn.Parameter(torch.zeros(1, session_len, 1))
+        self.unit = nn.Parameter(torch.zeros(1, 1, dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for p in (self.sess, self.pos, self.unit):
+            p.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.sess[None] + self.pos[None] + self.unit[None]

@@ -1,6 +1,7 @@
-"""Recurrent cells of the port: GRU and AUGRU.
+"""Recurrent cells of the port: GRU, AUGRU, LSTM and BiLSTM.
 
-Counterpart of ``GRU`` and ``AUGRU`` in ``ml_function_tpu/ops/recurrent.py``.
+Counterpart of ``GRU``, ``AUGRU``, ``LSTM`` and ``BiLSTM`` in
+``ml_function_tpu/ops/recurrent.py``.
 The input projections of every step are hoisted into one (B·L, D)·(D, 3H)
 product; the recurrence then runs on the small h·wh product and the gates.
 Gate convention (DIEN paper, not ``torch.nn.GRU``'s): u is the update gate,
@@ -22,7 +23,13 @@ Routes, by the reference's ``kernel`` field (default 'scan'):
 
 The port's ``AUGRU`` carries the ``kernel`` field too (the reference's
 always builds a scan GRU), so that DIEN's second recurrence can take the
-kernel route; LSTM and BiLSTM come with DSIN.
+kernel route.
+
+``LSTM`` (DSIN's session interaction, through ``BiLSTM``) is a step loop of
+the reference's body, not ``torch.nn.LSTM``: gates i, f, g, o from one
+(H, 4H) product, the forget gate's pre-activation +1.0, both products
+through ``bf16_matmul``, and masked steps holding h and c. ``wx`` (D, 4H),
+``wh`` (H, 4H), ``b`` (4H,).
 """
 
 from __future__ import annotations
@@ -104,3 +111,52 @@ class AUGRU(GRU):
                 att_scores: torch.Tensor, h0: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         return super().forward(x, mask, att_scores=att_scores, h0=h0)
+
+
+class LSTM(nn.Module):
+    """LSTM over (B, L, D) with a (B, L) mask → ((B, L, H) seq, (B, H) last
+    h). ``reverse=True`` walks every position from the last to the first,
+    padded ones included, as ``lax.scan(reverse=True)`` does; the sequence
+    keeps the input's order."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.in_dim, self.hidden = in_dim, hidden
+        self.wx = nn.Parameter(torch.empty(in_dim, 4 * hidden))
+        self.wh = nn.Parameter(torch.empty(hidden, 4 * hidden))
+        self.b = nn.Parameter(torch.empty(4 * hidden))
+
+    reset_parameters = GRU.reset_parameters
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, reverse: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, l, _ = x.shape
+        xw = (bf16_matmul(x.reshape(b * l, -1), self.wx) + self.b).reshape(b, l, -1)
+        h = c = x.new_zeros((b, self.hidden))
+        mask = mask.bool()
+        out = [None] * l
+        for t in (range(l - 1, -1, -1) if reverse else range(l)):
+            gates = xw[:, t] + bf16_matmul(h, self.wh)
+            i, f, g, o = gates.chunk(4, dim=-1)
+            i, f, o = torch.sigmoid(i), torch.sigmoid(f + 1.0), torch.sigmoid(o)
+            c_new = f * c + i * torch.tanh(g)
+            h_new = o * torch.tanh(c_new)
+            m = mask[:, t, None]
+            h, c = torch.where(m, h_new, h), torch.where(m, c_new, c)
+            out[t] = h
+        return torch.stack(out, dim=1), h
+
+
+class BiLSTM(nn.Module):
+    """Forward and reverse LSTMs (``fwd``, ``bwd``), their sequences
+    concatenated → (B, L, 2H)."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.fwd = LSTM(in_dim, hidden)
+        self.bwd = LSTM(in_dim, hidden)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        f_seq, _ = self.fwd(x, mask)
+        b_seq, _ = self.bwd(x, mask, reverse=True)
+        return torch.cat([f_seq, b_seq], dim=-1)

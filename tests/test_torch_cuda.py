@@ -1,8 +1,9 @@
 """Tests of the port that need the CUDA card; here they skip.
 
 The field-attention kernels are held to their plain versions at the shapes
-chip_smoke.py checks: AutoInt's (B 4096, L 27, H 2, Dh 16) and the gate's
-two edges, with a random key mask and one batch row whose keys are all
+chip_smoke.py checks: AutoInt's (B 4096, L 27, H 2, Dh 16), the gate's
+two edges, DSIN's sessions (B 16,384, L 8, H 2, Dh 8) and DMIN's refiner
+(B 4096, L 64, H 2, Dh 8), with a random key mask and one batch row whose keys are all
 masked, where the weights are uniform over all Lk keys. Each direction is
 also held to its plain version, and to its own bits on a rerun, at the
 edges of its two instances (L from 1 to 64 either side of the warp
@@ -300,9 +301,12 @@ def test_train_step_on_the_card_matches_the_cpu(card):
             assert err <= RTOL, err
 
 
-# (B, Lq, Lk, H, Dh, masked): AutoInt's shape, then the gate's two edges
+# (B, Lq, Lk, H, Dh, masked): AutoInt's shape, then the gate's two edges,
+# then DSIN's sessions at the board's row (B 2048 · 8 sessions of 8) and
+# DMIN's refiner at L 64 (exactly 4096 scores: the block instances)
 FA_SHAPES = [(4096, 27, 27, 2, 16, False), (512, 64, 64, 2, 64, True),
-             (300, 1, 4096, 2, 8, True)]
+             (300, 1, 4096, 2, 8, True), (16384, 8, 8, 2, 8, True),
+             (4096, 64, 64, 2, 8, True)]
 
 
 def _fa_inputs(card, b, lq, lk, h, dh, masked):
@@ -336,14 +340,16 @@ def test_field_attention_kernels_match_plain_versions(card, b, lq, lk, h, dh, ma
 # (B, Lq, Lk, H, Dh, instance): the backward's two instances either side of
 # the warp instance's limits (L 32, Dh 16, H 8), B not a multiple of the
 # warp instance's batch rows a block (4 / H), Dh not a multiple of 4 (its
-# 4-byte copies), SIM's top-8 ESU (Dh 4) and AutoInt's L 27
+# 4-byte copies), SIM's top-8 ESU (Dh 4) and AutoInt's L 27, then DSIN's
+# sessions and DMIN's refiner at their board shapes
 FA_BWD_CASES = [(4097, 27, 27, 2, 16, "warp"), (129, 8, 8, 2, 4, "warp"),
                 (7, 1, 1, 1, 8, "warp"), (9, 8, 8, 4, 8, "warp"),
                 (5, 32, 32, 1, 16, "warp"), (10, 27, 27, 2, 13, "warp"),
                 (6, 8, 32, 4, 8, "warp"), (11, 32, 8, 3, 16, "warp"),
                 (6, 33, 33, 2, 16, "block"), (5, 27, 27, 2, 17, "block"),
                 (3, 64, 64, 4, 64, "block"), (4, 1, 64, 1, 8, "block"),
-                (3, 8, 8, 9, 8, "block")]
+                (3, 8, 8, 9, 8, "block"), (16384, 8, 8, 2, 8, "warp"),
+                (4096, 64, 64, 2, 8, "block")]
 
 
 def _instance_name(kind, direction="bwd"):

@@ -107,8 +107,9 @@ def test_get_model_unknown_name_lists_registry():
     with pytest.raises(KeyError, match="deepfm.*xdeepfm"):
         get_model("nope", fs, device="cpu")
     assert sorted(MODEL_REGISTRY) == [
-        "afm", "autoint", "dcn", "deepcross", "deepfm", "dien", "din", "dlrm",
-        "ffm", "fibinet", "fm", "fnn", "fwfm", "lr", "mmoe", "nfm", "pnn", "sim",
+        "afm", "autoint", "bst", "dcn", "deepcross", "deepfm", "dien", "din",
+        "dlrm", "dmin", "dsin", "dstn", "esmm", "ffm", "fibinet", "fm", "fnn",
+        "fwfm", "lr", "mind", "mmoe", "nfm", "ple", "pnn", "seqfm", "sim",
         "wide_deep", "xdeepfm"]
 
 
