@@ -26,8 +26,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    masked (uniform weights over all keys), and at the sequence tier's two
    shapes, every key valid: DSIN's sessions (B 16,384, L 8, H 2, Dh 8; the
    warp instances, the forward's block instance timed beside) and DMIN's
-   refiner (B 4096, L 64, H 2, Dh 8; the block instances), each direction
-   also timed on the device;
+   refiner (B 4096, L 64, H 2, Dh 8; the block instances), and at FiGNN's
+   field attention (B 4096 and 16,384, L 26, H 2, Dh 4; the warp
+   instances), each direction also timed on the device;
 4. serving: full-width xDeepFM on the Criteo schema (26 fields of 100k ids,
    dim 8, CIN (128, 128), MLP (256, 128)) with seeded random weights,
    exported and scored through ``load_scorer`` → ``Scorer.predict_proba`` on
@@ -69,8 +70,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    into 5,202 rows; a quarter of the item ids are the pad id), at SIM's
    three a train step (B 512), with all ids equal, with none and with ids
    at V − 1, twice each and once through the whole backward (the same
-   bits). Kernel, sort, whole-backward, plain and library times (cuDNN's
-   ``nn.GRU``; ``index_add_``) and bounds;
+   bits), and at HPMN's and MIMN's two a train step (B 2048 and B 1024 on
+   the bench's behavior batch). Kernel, sort, whole-backward, plain and
+   library times (cuDNN's ``nn.GRU``; ``index_add_``) and bounds;
 9. DIEN serving: full-width DIEN (the JAX package's headline shape: 5,000
    items, 100 categories, histories of 64, dim 8, GRU hidden 16, MLP
    (200, 80)) from ``get_model`` exported and scored through
@@ -137,9 +139,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     ``gru_fwd_wide``; within 1e-4 of the plain versions) and 5 Adam steps
     against the plain route (2 + 2 a step), and the rates;
 18. the interaction models, DLRM, FiBiNET, LR, FM, FNN, FFM, FwFM, PNN,
-    DeepCross, Wide&Deep, DCN (v1 and v2), NFM and AFM, and MMoE, ESMM and
-    PLE, at the JAX
-    board's width (26 fields of 100k ids, 13 dense, dim 8, default
+    DeepCross, Wide&Deep, DCN (v1 and v2), NFM and AFM, MMoE, ESMM and
+    PLE, and CCPM, FGCNN, FLEN, ONN, FAT-DeepFFM, FiGNN, MLR and OENN, at
+    the JAX board's width (26 fields of 100k ids, 13 dense, dim 8, default
     hyperparameters), each built on the card by ``get_model``: scored
     through ``load_scorer`` at B 4096 on features alone (finite
     probabilities; with f32 matmuls on both devices within 1e-4 of the same
@@ -151,7 +153,14 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     overridden pre-activation within 1e-5 of its layer's max of 0), the
     multi-task models' second-task BCE (their batches carry ``click``)
     card against CPU to 1e-3, and training examples/s, device time a step
-    and peak memory at B 16,384;
+    and peak memory at B 16,384 (phases 18 and 19 take their rates at
+    ``BOARD_RATES_DEPTH``); FiGNN's attention under the flag launches
+    1 field_attn_fwd a forward and 1 field_attn_bwd a step, and its scores
+    and 5 Adam steps are held against the same model on K3's plain
+    versions, FiGNN's logits compared where its probabilities saturate;
+    ONN and FAT-DeepFFM are held against the CPU at 10k ids a field (the
+    same widths, a tenth of the rows: their 270 M-parameter tables' CPU
+    side would hold the run past 600 s) and timed at 100k;
 19. the behavior-sequence tier, BST, DSIN, SeqFM, DSTN, DMIN and MIND, on
     the JAX bench's behavior batch (5,000 items, 100 categories, histories
     of 64 random ids, dim 8, default hyperparameters; DSIN at the board's
@@ -163,7 +172,16 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     their scores and 5 Adam steps are held against the same model on K3's
     plain versions (phase 5's bars), DSIN's also on a ragged
     ``make_behavior_data`` batch whose fully padded sessions reach K3; BST
-    (65 positions, past the gate), DSTN and MIND launch nothing;
+    (65 positions, past the gate), DSTN and MIND launch nothing; then HPMN
+    (B 2048), MIMN (B 1024) and DTS on that batch, BST on LSH attention, and
+    SIM with the LSH exact search unit at its soft-search board shape (B
+    512, a 16,384-id stream, the top 256), each likewise, LSH bucket ids
+    compared card against CPU (a row past the bar must hold a key on
+    another bucket, each such key within rounding of a tie, and the CPU's
+    first training step takes the card's buckets), HPMN's and MIMN's
+    training also with the merge-scatter flag's attribute set against the
+    same steps without it (2 merge_scatter launches a step), and the
+    busy share of HPMN's, MIMN's and DTS's train steps by the profiler;
 20. one ``{"kernels": [...]}`` line (each kernel with its instances and the
     shapes each took), then ``{"ok": true, "device": ...}`` last. The run's
     wall time is printed before them.
@@ -211,8 +229,20 @@ FA_EDGES = ((512, 64, 64, 2, 64), (300, 1, 4096, 2, 8), (1001, 27, 27, 2, 13),
 # the board's row (B 2048 · 8 sessions of 8, 2 heads of 8; the warp
 # instances) and DMIN's refiner at L 64 (exactly 4096 scores; the block
 # instances); every key valid, as in the board's histories
-FA_SEQ = ((2048 * 8, 8, 8, 2, 8), (BATCH, 64, 64, 2, 8))
+# FiGNN's field attention at the board's width (phase 18: 26 fields, dim 8,
+# 2 heads of 4, no mask; the warp instances) at its scoring and its
+# training batch
+FA_SEQ = ((2048 * 8, 8, 8, 2, 8), (BATCH, 64, 64, 2, 8), (BATCH, 26, 26, 2, 4),
+          (16384, 26, 26, 2, 4))
 RTOL = 1e-3                # same rounding sites; only the f32 summation order differs
+# The models whose init logits pass f32's sigmoid range (FiGNN's reach ±90:
+# at the board's width 5,870 of 13,288 probabilities are exactly 0 or 1),
+# so a probability says nothing of its logit: their scoring checks compare
+# the logits of ``scorer.model`` instead, where the others compare
+# probabilities within 1e-4 (with f32 matmuls). The logits' bar bounds the
+# probabilities' at 1e-4, as the sigmoid's slope is at most 1/4.
+SATURATING = ("fignn",)
+SATURATED_LOGIT_BAR = 4e-4
 # The step-1 gradient bar, as a share of a parameter's max|g|, of a model
 # trained with bf16 matmul inputs on the card against the CPU: each
 # ``bf16_matmul`` rounds its input cotangent to bf16, and the two devices'
@@ -742,15 +772,15 @@ def ms_bound(n: int, d: int, v: int):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def check_merge_scatter(eg_mod, lookups: dict, num_rows: int, sim_lookups: dict,
-                        sim_rows: int) -> dict:
+def check_merge_scatter(eg_mod, lookups: dict, num_rows: int, path_lookups: dict) -> dict:
     """merge_scatter against merge_scatter_reference (its plain version: the
     same int32 sort and permutation, ``index_add_`` of ``ct[order]``) at
     DIEN's two sequence lookups (``lookups``: name → (N,) global ids on the
-    card, as a train step flattens them), at SIM's three a train step
-    (``sim_lookups``), with all N ids equal (one hot row), with N 0 and with
-    ids at V − 1; the kernel twice and the whole backward once, which must
-    give the same bits. Times at the lookups: the kernel alone on sorted ids
+    card, as a train step flattens them), at the other paths' lookups a
+    train step (``path_lookups``: path → (lookups, table rows); SIM's three,
+    HPMN's and MIMN's two), with all N ids equal (one hot row), with N 0 and
+    with ids at V − 1; the kernel twice and the whole backward once, which
+    must give the same bits. Times at the lookups: the kernel alone on sorted ids
     and its permutation, the sort alone, the whole backward (sort, kernel),
     the plain version and the library's ``zeros.index_add_`` on the
     unsorted ids, the last two also by the profiler (device time alone)."""
@@ -759,7 +789,8 @@ def check_merge_scatter(eg_mod, lookups: dict, num_rows: int, sim_lookups: dict,
     gen = torch.Generator(device="cuda").manual_seed(8)
     n_path = next(iter(lookups.values())).numel()
     cases = {**{k: (v, "dien", num_rows) for k, v in lookups.items()},
-             **{f"sim_{k}": (v, "sim", sim_rows) for k, v in sim_lookups.items()},
+             **{f"{p}_{k}": (v, p, rows) for p, (lk, rows) in path_lookups.items()
+                for k, v in lk.items()},
              "all_equal": (torch.full((n_path,), 17, device="cuda"), None, num_rows),
              "empty": (torch.zeros(0, dtype=torch.int64, device="cuda"), None, num_rows),
              "last_row": (torch.randint(num_rows - 3, num_rows, (4096,), device="cuda",
@@ -821,13 +852,17 @@ def check_merge_scatter(eg_mod, lookups: dict, num_rows: int, sim_lookups: dict,
                    shapes, "torch.zeros(V, D).index_add_(0, ids, ct) on the unsorted "
                    "ids, once a sequence lookup")
     # the sort and the whole backward beside the kernel, summed over DIEN's
-    # two lookups; all five times summed over SIM's three
+    # two lookups; all five times summed over each other path's lookups
     device = ("whole_backward_device_ms", "library_device_ms")
     for k in ("sort_ms", "whole_backward_ms", *device):
         entry[k] = sum(s[k] for s in shapes if s["lookup_of"] == "dien")
-    for k in ("ms", "sort_ms", "whole_backward_ms", "library_ms", "bound_ms", *device):
-        entry[f"sim_step_{k}"] = sum(s[k] for s in shapes if s["lookup_of"] == "sim")
-    for what, p in (("a DIEN step (2 lookups)", ""), ("a SIM step (3 lookups)", "sim_step_")):
+    for p in path_lookups:
+        for k in ("ms", "sort_ms", "whole_backward_ms", "library_ms", "plain_ms", "bound_ms",
+                  *device):
+            entry[f"{p}_step_{k}"] = sum(s[k] for s in shapes if s["lookup_of"] == p)
+    for what, p in (("a DIEN step (2 lookups)", ""),
+                    *((f"a {q.upper()} step ({len(lk)} lookups)", f"{q}_step_")
+                      for q, (lk, _) in path_lookups.items())):
         print(f"merge_scatter {what}: kernel {entry[p + 'ms']:.4f} ms, sort "
               f"{entry[p + 'sort_ms']:.4f} ms, whole backward "
               f"{entry[p + 'whole_backward_ms']:.4f} ms (device "
@@ -993,11 +1028,14 @@ def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path
 
 def compare_runs(name: str, losses, grads, ref_losses, ref_grads, ref_name: str,
                  block_scaled: tuple = (), note: str = "", b: int = BATCH,
-                 grad_rtol: float = RTOL) -> None:
+                 grad_rtol: float = RTOL, model_scaled: tuple = ()) -> None:
     """Two runs of 5 Adam steps from the same weights: losses within 1e-3
     relative, step-1 gradients within ``grad_rtol``·max|g| (+ 1e-3·|g|) of
     their own parameter (two bf16 neighbours agreeing, as ``parity_steps``
-    says)."""
+    says); max|g| is the block's under a prefix in ``block_scaled`` and the
+    whole model's under one in ``model_scaled`` (blocks whose gradients are
+    rounding residues many orders below the model's, whose own max|g| and
+    gap are printed)."""
     rel = [abs(a - r) / abs(r) for a, r in zip(losses, ref_losses)]
     print(f"{name} training parity, 5 Adam steps at B={b}: losses {losses}, "
           f"{ref_name} {ref_losses}, max rel diff {max(rel):.3e}; {note}")
@@ -1008,6 +1046,14 @@ def compare_runs(name: str, losses, grads, ref_losses, ref_grads, ref_name: str,
     worst, bad, stepped = 0.0, [], []
     block_max = {p: max(r.abs().max().item() for n, r in ref_grads.items()
                         if n.startswith(p)) for p in block_scaled}
+    model_max = max(r.abs().max().item() for r in ref_grads.values())
+    for p in model_scaled:
+        own = max(ref_grads[n].abs().max().item() for n in ref_grads if n.startswith(p))
+        gap = max((grads[n] - ref_grads[n].to(grads[n].device)).abs().max().item()
+                  for n in ref_grads if n.startswith(p))
+        print(f"{name}: {p}* gradients, own max|g| {own:.3e}, largest gap {gap:.3e}, "
+              f"held at the model's max|g| {model_max:.3e}")
+    block_max.update({p: model_max for p in model_scaled})
     for n, g in grads.items():
         r = ref_grads[n].to(g.device)
         scale = next((v for p, v in block_max.items() if n.startswith(p)),
@@ -1055,12 +1101,16 @@ def order_witness(model, batch, plain_route, fl_mod) -> None:
           + ", ".join(t for _, t in sorted(parts, reverse=True)[:4]))
 
 
-def step_rates(name: str, model, batches, what: str) -> None:
-    """Training examples/s at the batches' size (median of 20 steps, host
-    clock, each batch from the host), device time per step (CUDA events,
-    batch on the card) and peak memory."""
+def step_rates(name: str, model, batches, what: str, host_steps: int = 20,
+               event_reps: tuple = (10, 5), profile: bool = False) -> None:
+    """Training examples/s at the batches' size (median of ``host_steps``
+    steps, host clock, each batch from the host), device time per step (CUDA
+    events, batch on the card: the median of ``event_reps[0]`` samples of
+    ``event_reps[1]`` steps each) and peak memory; with ``profile``, the
+    card's busy time and its share of the window of one step under
+    ``torch.profiler``, and the kernels that take most of it."""
     from ml_function_tpu_torch.models.base import as_tensors
-    from ml_function_tpu_torch.tools.timing import event_ms
+    from ml_function_tpu_torch.tools.timing import event_ms, profile_device
     from ml_function_tpu_torch.train.loop import make_train_step
     from ml_function_tpu_torch.train.optimizers import make_optimizer
 
@@ -1071,22 +1121,29 @@ def step_rates(name: str, model, batches, what: str) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     walls = []
-    for i in range(20):
+    for i in range(host_steps):
         t = time.perf_counter()
         step(batches[i % len(batches)])
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
     peak = torch.cuda.max_memory_allocated() / 2**20
     on_card = as_tensors(batches[0], torch.device("cuda"))
-    step_ms = event_ms(lambda: step(on_card), reps=10, inner=5)
+    reps, inner = event_reps
+    step_ms = event_ms(lambda: step(on_card), reps=reps, inner=inner)
+    if profile:
+        by_kernel, busy, window = profile_device(lambda: step(on_card), 1)
+        top = ", ".join(f"{k[:48]} {v:.3f}" for k, v in list(by_kernel.items())[:4])
+        print(f"{name} training at B={len(batches[0]['label'])}, profiled: busy "
+              f"{busy:.3f} ms of a {window:.3f} ms window a step ({100 * busy / window:.1f}% "
+              f"busy), {sum(1 for _ in by_kernel)} kernel names; most: {top} ms")
     wall = statistics.median(walls)
     model.load_state_dict(init)
     b = len(batches[0]["label"])
     print(f"{name} training at B={b} ({what}): {wall * 1e3:.3f} ms a step, "
-          f"{b / wall:.1f} examples/s (median of 20, host clock, batch from "
-          f"host); device time per step {step_ms:.4f} ms (CUDA events, batch on "
-          f"the card, {b / step_ms * 1e3:.1f} examples/s); peak memory "
-          f"{peak:.1f} MiB")
+          f"{b / wall:.1f} examples/s (median of {host_steps}, host clock, batch from "
+          f"host); device time per step {step_ms:.4f} ms (CUDA events, median of "
+          f"{reps} samples of {inner} steps, batch on the card, "
+          f"{b / step_ms * 1e3:.1f} examples/s); peak memory {peak:.1f} MiB")
 
 
 def fit_run(name: str, model, tr, te, drive, launches_by_path, path: str,
@@ -1153,13 +1210,16 @@ def train_phase(model_name: str, plain_route, kernels: tuple, paths: tuple,
 
 
 def score_phase(name: str, scorer, data, drive, launches_by_path, plain_route,
-                per_batch: dict, route: str = "kernel") -> dict:
+                per_batch: dict, route: str = "kernel", event_reps: tuple = (25, 10),
+                saturates: bool = False) -> dict:
     """Score ``data`` through ``predict_proba`` on the card: finite
-    probabilities, ``per_batch`` launches a batch and none of any other
-    kernel, and scores within 1e-4 of the same scorer on the plain route;
-    then examples/s over full batches and one forward's device time.
-    Returns the scores and the batch that forward was timed on, already on
-    the card."""
+    probabilities in (0, 1), ``per_batch`` launches a batch and none of any
+    other kernel, and scores within 1e-4 of the same scorer on the plain
+    route; with ``saturates`` (a model whose logits pass f32's sigmoid
+    range) probabilities in [0, 1] and the logits of ``scorer.model`` on the
+    two routes within ``SATURATED_LOGIT_BAR``. Then examples/s over full
+    batches and one forward's device time (``score_rates``). Returns the
+    scores and the batch that forward was timed on, already on the card."""
     if next(scorer.model.parameters()).device.type != "cuda":
         fail("load_scorer did not place the model on the card by default")
     n_rows, b = len(data["label"]), scorer.batch_size
@@ -1170,28 +1230,40 @@ def score_phase(name: str, scorer, data, drive, launches_by_path, plain_route,
           f"launches {launches}")
     if scores.shape != (n_rows,) or not np.isfinite(scores).all():
         fail(f"scores not finite or of shape {scores.shape}")
-    if not ((scores > 0) & (scores < 1)).all():
-        fail("scores outside (0, 1)")
+    if not (((scores >= 0) & (scores <= 1)) if saturates else ((scores > 0) & (scores < 1))).all():
+        fail("scores outside " + ("[0, 1]" if saturates else "(0, 1)"))
     want = expect(**{k: v * n_batches for k, v in per_batch.items()})
     if launches != want:
         fail(f"{name} launched {launches}, expected {want}")
 
     # the same model with its kernel forced through the plain version
-    with plain_route():
-        ref_scores = scorer.predict_proba(data)
-    diff = float(np.abs(scores - ref_scores).max())
-    print(f"{name} vs the plain version: max |score diff| {diff:.3e}")
-    if diff > 1e-4:
-        fail(f"scores differ from the plain version's by {diff}")
-    batch = score_rates(name, scorer, data, route)
+    if saturates:
+        logits = scorer_logits(scorer, data)
+        with plain_route():
+            ref_logits = scorer_logits(scorer, data)
+        diff = float(np.abs(logits - ref_logits).max())
+        print(f"{name} vs the plain version: max |logit diff| {diff:.3e} ("
+              f"{int(((scores == 0) | (scores == 1)).sum())} probabilities at exactly 0 or 1)")
+        if diff > SATURATED_LOGIT_BAR:
+            fail(f"logits differ from the plain version's by {diff}")
+    else:
+        with plain_route():
+            ref_scores = scorer.predict_proba(data)
+        diff = float(np.abs(scores - ref_scores).max())
+        print(f"{name} vs the plain version: max |score diff| {diff:.3e}")
+        if diff > 1e-4:
+            fail(f"scores differ from the plain version's by {diff}")
+    batch = score_rates(name, scorer, data, route, event_reps)
     return scores, batch
 
 
-def score_rates(name: str, scorer, data, route: str) -> dict:
+def score_rates(name: str, scorer, data, route: str, event_reps: tuple = (25, 10)
+                ) -> dict:
     """Scoring rate at the scorer's batch size over 3 full batches (host
     batching, copies and the forward, as a caller of predict_proba sees it)
-    and one forward's device time on a batch already on the card, which is
-    returned."""
+    and one forward's device time on a batch already on the card (the
+    median of ``event_reps[0]`` samples of ``event_reps[1]`` forwards),
+    which is returned."""
     from ml_function_tpu_torch.models.base import as_tensors
     from ml_function_tpu_torch.tools.timing import event_ms
 
@@ -1207,12 +1279,25 @@ def score_rates(name: str, scorer, data, route: str) -> dict:
     wall = statistics.median(walls)
     batch = as_tensors(_rows(data, b), torch.device("cuda"))
     with torch.inference_mode():
-        fwd_ms = event_ms(lambda: scorer.model(batch))
+        fwd_ms = event_ms(lambda: scorer.model(batch), reps=event_reps[0],
+                          inner=event_reps[1])
     print(f"{name} at B={b} ({route} route): predict_proba {wall * 1e3:.3f} ms for "
           f"{3 * b} rows, {3 * b / wall:.1f} examples/s; one forward on "
           f"the card {fwd_ms:.4f} ms ({b / fwd_ms * 1e3:.1f} examples/s); "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return batch
+
+
+def scorer_logits(scorer, data) -> np.ndarray:
+    """The logits whose sigmoid ``scorer.predict_proba(data)`` returns, in
+    f64 on the host."""
+    from ml_function_tpu_torch.train.loop import iter_batches
+
+    out = []
+    with torch.inference_mode():
+        for batch in iter_batches(data, scorer.batch_size):
+            out.append(scorer.model(batch, train=False)[0].double().cpu())
+    return torch.cat(out).numpy()[:len(data["label"])]
 
 
 @contextlib.contextmanager
@@ -1265,9 +1350,16 @@ def dien_phases(drive, launches_by_path) -> list:
     sim_lookups = {name: torch.as_tensor(ids.reshape(-1).astype(np.int64)
                                          + sim_fs.seq_offset(name), device="cuda")
                    for name, ids in sim_seq.items()}
+    # HPMN's and MIMN's two at the board's rows (B 2048 and B 1024, every id
+    # of the bench's behavior batch valid)
+    path_lookups = {"sim": (sim_lookups, sim_fs.total_vocab)}
+    for label, b in (("hpmn", 2048), ("mimn", 1024)):
+        b_fs, b_data = seq_board_batch(b)
+        path_lookups[label] = ({name: torch.as_tensor(
+            ids.reshape(-1).astype(np.int64) + b_fs.seq_offset(name), device="cuda")
+            for name, ids in b_data["seq"].items()}, b_fs.total_vocab)
     entries = [*check_gru_kernels(gru_mod, hist_mask),
-               check_merge_scatter(eg_mod, lookups, fs.total_vocab, sim_lookups,
-                                   sim_fs.total_vocab)]
+               check_merge_scatter(eg_mod, lookups, fs.total_vocab, path_lookups)]
 
     @contextlib.contextmanager
     def plain_dien():
@@ -1661,7 +1753,30 @@ INTERACTION_MODELS = (
     ("fm", "fm", {}), ("fnn", "fnn", {}), ("ffm", "ffm", {}), ("fwfm", "fwfm", {}),
     ("pnn", "pnn", {}), ("deepcross", "deepcross", {}), ("wide_deep", "wide_deep", {}),
     ("dcn", "dcn", {}), ("dcn_v2", "dcn", {"version": 2}), ("nfm", "nfm", {}),
-    ("afm", "afm", {}), ("mmoe", "mmoe", {}), ("esmm", "esmm", {}), ("ple", "ple", {}))
+    ("afm", "afm", {}), ("mmoe", "mmoe", {}), ("esmm", "esmm", {}), ("ple", "ple", {}),
+    ("ccpm", "ccpm", {}), ("fgcnn", "fgcnn", {}), ("flen", "flen", {}),
+    ("onn", "onn", {}), ("fat_deepffm", "fat_deepffm", {}), ("fignn", "fignn", {}),
+    ("mlr", "mlr", {}), ("oenn", "oenn", {}))
+# K3 launches a forward under the flag: FiGNN's field self-attention
+INTERACTION_K3 = {"fignn": 1}
+# the largest |z|, over its layer's max, of a ReLU decision the CPU's
+# bf16-path step may take from the card (``card_against_cpu``): FGCNN's
+# tower sits behind its bf16-rounded recombination layers, whose inputs can
+# round to neighbouring bf16 values on the two devices (R3), so its bar is
+# one bf16 step, as phase 19's; the other models keep 1e-5
+INTERACTION_DECISION_BAR = {"fgcnn": BF16_PATH_RTOL}
+# Ids a field of the card-against-CPU check of ONN and FAT-DeepFFM, whose
+# CPU side would otherwise hold the run past 600 s (their (V, 26·4)
+# field-aware tables, as FFM's, hold 270 M parameters at 100k ids, whose
+# export and 10 CPU Adam steps take about a minute a model): the same
+# widths, a tenth of the rows. FFM is checked at the board's 100k ids, and
+# all three's B-16,384 rates are taken there.
+CPU_CHECK_VOCAB = {"onn": 10_000, "fat_deepffm": 10_000}
+# the depth of phases 18 and 19's rates, to keep the run under 600 s:
+# training (``step_rates``), the host clock's median of 8 steps and the
+# events' of 5 samples of 2 steps (the earlier phases' 20 and 10 × 5); one
+# forward (``score_rates``), the events' 5 samples of 2 (their 25 × 10)
+BOARD_RATES_DEPTH = dict(host_steps=8, event_reps=(5, 2))
 
 
 def check_wide_cin(cin_mod) -> tuple:
@@ -1990,10 +2105,138 @@ def relu_decisions(model, masks: dict, impose: bool, flips: list):
             h.remove()
 
 
+# The largest margin, over the key's largest |projection|, of an LSH bucket
+# that the CPU's first training step takes from the card: f32 rounding with
+# f32 matmuls; on the bf16 path a key whose projections' inputs round to
+# another bf16 value on the two devices (R3) moves by a few bf16 steps
+LSH_MARGIN_BAR = {"1": 1e-5, "0": 2.0 ** -6}
+# The largest gap, rank by rank, between the scores two devices' top-k
+# choices of SIM's soft search picked, over the row's largest |score|: the
+# scores are f32 sums of 8 products (no bf16 site), so only ties within
+# their rounding may be broken otherwise
+TOPK_GAP_BAR = 1e-5
+
+
+@contextlib.contextmanager
+def lsh_buckets(model, calls: list, impose: list = None, flips: list = None):
+    """Within the block, every ``LSHSelfAttention.buckets`` call of
+    ``model`` appends (bucket ids, margin) to ``calls``, the margin of a key
+    being the gap between its two largest projections over the largest
+    |projection|. With ``impose`` (another device's ``calls``) the first
+    call of each module and round returns that device's ids instead, and
+    ``flips`` gets (keys on another bucket, their largest margin here)."""
+    from ml_function_tpu_torch.ops.attention import LSHSelfAttention
+
+    mods = [m for m in model.modules() if isinstance(m, LSHSelfAttention)]
+    taken = set()
+
+    def wrap(mod, i):
+        real = mod.buckets
+
+        def buckets(qk, r=0):
+            ids = real(qk, r)
+            proj = qk @ getattr(mod, f"rotation{r}")
+            top = torch.cat([proj, -proj], dim=-1).topk(2, dim=-1).values
+            margin = (top[..., 0] - top[..., 1]) / top[..., 0].abs().clamp_min(1e-30)
+            if impose is not None and (i, r) not in taken:
+                taken.add((i, r))
+                want = impose[len(calls)][0].to(ids.device)
+                other = want != ids
+                flips.append((int(other.sum()), float(margin[other].max())
+                              if bool(other.any()) else 0.0))
+                ids = want
+            calls.append((ids.detach().cpu(), margin.detach().cpu()))
+            return ids
+        return buckets
+
+    for i, m in enumerate(mods):
+        m.buckets = wrap(m, i)
+    try:
+        yield bool(mods)
+    finally:
+        for m in mods:
+            del m.buckets
+
+
+def bucket_flips(card: list, cpu: list, rows_per_call: int, heads: int, skip: set):
+    """Keys whose LSH bucket differs between two devices' ``lsh_buckets``
+    records of one scoring pass: (count, largest margin on the CPU, the
+    set of data rows they belong to). Rows in ``skip`` (whose attention
+    input differs: another top-k choice) count, but their margins do not."""
+    n, worst, rows = 0, 0.0, set()
+    for i, ((a, _), (b, m)) in enumerate(zip(card, cpu)):
+        other = a != b
+        if bool(other.any()):
+            n += int(other.sum())
+            keys = other.nonzero()
+            data_rows = i * rows_per_call + keys[:, 0] // heads
+            rows.update(data_rows.tolist())
+            held = torch.tensor([int(r) not in skip for r in data_rows], dtype=torch.bool)
+            if bool(held.any()):
+                worst = max(worst, float(m[keys[held, 0], keys[held, 1]].max()))
+    return n, worst, rows
+
+
+@contextlib.contextmanager
+def topk_decisions(calls: list, impose: list = None, gaps: list = None):
+    """Within the block, every top-k choice of SIM's soft search
+    (``models.longseq.top_k_indices``) appends (indices, the scores at them)
+    to ``calls``. With ``impose`` (another device's ``calls``) the first
+    choice returns that device's indices instead, and ``gaps`` gets (rows
+    chosen otherwise, the largest gap rank by rank between the scores here
+    at this device's and at that device's choice, over the row's largest
+    |score|)."""
+    from ml_function_tpu_torch.models import longseq
+
+    real = longseq.top_k_indices
+
+    def top_k(scores, k):
+        idx = real(scores, k)
+        if impose is not None and not calls:
+            want = impose[0][0].to(idx.device)
+            other = (want != idx).any(dim=1)
+            gap = _score_gap(scores.gather(1, want), scores.gather(1, idx), scores)
+            gaps.append((int(other.sum()), float(gap.max())))
+            idx = want
+        calls.append((idx.detach().cpu(), scores.gather(1, idx).detach().cpu()))
+        return idx
+
+    longseq.top_k_indices = top_k
+    try:
+        yield
+    finally:
+        longseq.top_k_indices = real
+
+
+def _score_gap(a, b, scores):
+    """Rank by rank, the largest |a − b| of two rows of chosen scores over
+    the row's largest finite |score| (masked keys score −inf: equal ones
+    give no gap, a masked key against a valid one an infinite gap)."""
+    scale = torch.where(torch.isfinite(scores), scores.abs(), 0.0).amax(dim=1)
+    diff = torch.where(a == b, 0.0, (a - b).abs())
+    return diff.amax(dim=1) / scale.clamp_min(1e-30)
+
+
+def topk_flips(card: list, cpu: list, rows_per_call: int):
+    """Rows whose top-k choice differs between two devices' ``topk_decisions``
+    records of one scoring pass: (the set of rows, the largest gap rank by
+    rank between the two devices' chosen scores over the row's largest
+    |score|)."""
+    rows, worst = set(), 0.0
+    for i, ((ia, va), (ib, vb)) in enumerate(zip(card, cpu)):
+        other = (ia != ib).any(dim=1)
+        if bool(other.any()):
+            gap = _score_gap(va, vb, vb)
+            worst = max(worst, float(gap[other].max()))
+            rows.update((i * rows_per_call + other.nonzero()[:, 0]).tolist())
+    return rows, worst
+
+
 def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: list,
                      drive, launches_by_path, per_batch: dict, per_step: dict,
                      route: str = "no kernel", block_scaled: tuple = (),
-                     tower: str = "", decision_bf16_bar: float = 1e-5):
+                     tower: str = "", decision_bf16_bar: float = 1e-5,
+                     model_scaled: tuple = ()):
     """One model built on the card by ``get_model`` against the same weights
     on the CPU: exported and scored through ``load_scorer`` on features
     alone (finite probabilities, ``per_batch`` launches a batch; with f32
@@ -2014,11 +2257,23 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
     input rounds to another bf16 value on the card than on the CPU, and
     such rows at most 1% of them. ``decision_bf16_bar`` is the largest |z|,
     over its layer's max, of a decision the CPU's bf16-path step takes from
-    the card (1e-5 with f32 matmuls)."""
+    the card (1e-5 with f32 matmuls).
+
+    The probabilities are in (0, 1); for a model in ``SATURATING`` they
+    are in [0, 1] and the logits of the two scorers' models are compared
+    instead (with f32 matmuls within ``SATURATED_LOGIT_BAR``). ``model_scaled``
+    prefixes name blocks whose step-1 gradients are held at the model's
+    largest max|g| (see ``compare_runs``). For a model with LSH attention
+    the bucket ids, and for SIM the soft search's top-k choices, are compared
+    card against CPU: a row past the bar must hold a key on another bucket
+    or another top-k choice, each within rounding of a tie (``LSH_MARGIN_BAR``;
+    ``TOPK_GAP_BAR``), and the CPU's first training step takes the card's
+    choices."""
     from ml_function_tpu_torch.models import get_model
     from ml_function_tpu_torch.ops.kernels import _build
     from ml_function_tpu_torch.serving import export_model, load_scorer
 
+    t0 = time.perf_counter()
     model = get_model(name, fs, generator=torch.Generator().manual_seed(0), **hp)
     if next(model.parameters()).device.type != "cuda":
         fail(f"get_model did not place {label} on the card by default")
@@ -2026,10 +2281,12 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
         export_model(tmp, name, fs, model, hyperparams=hp)
         scorer = load_scorer(tmp, batch_size=len(batches[0]["label"]))
         cpu_scorer = load_scorer(tmp, batch_size=len(batches[0]["label"]), device="cpu")
+    times = [time.perf_counter()]
     if next(scorer.model.parameters()).device.type != "cuda":
         fail(f"load_scorer did not place {label} on the card by default")
     n_rows = len(serve["label"])
     n_batches = -(-n_rows // scorer.batch_size)
+    saturates = name in SATURATING
     # with f32 matmuls the two devices compute one f32 function in
     # another summation order; on the bf16 path an f32 value a few ulps
     # apart can round to the neighbouring bf16 value (ROADMAP.md R3),
@@ -2043,22 +2300,50 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
                 lambda mod, inp, out, k=k: taps.setdefault(k, []).append(
                     inp[0].detach().bfloat16().cpu()))
                 for k, m in (("card", scorer.model), ("cpu", cpu_scorer.model))]
-        scores = drive(path, lambda: scorer.predict_proba(serve))
+        card_b, cpu_b, card_k, cpu_k = [], [], [], []
+        with lsh_buckets(scorer.model, card_b) as lsh, topk_decisions(card_k):
+            scores = drive(path, lambda: scorer.predict_proba(serve))
         want = expect(**{k: v * n_batches for k, v in per_batch.items()})
         if launches_by_path[path] != want:
             fail(f"{label} scoring launched {launches_by_path[path]}, expected {want}")
+        in_range = ((scores >= 0) & (scores <= 1)) if saturates else ((scores > 0) & (scores < 1))
         if scores.shape != (len(serve["label"]),) or not np.isfinite(scores).all() \
-                or not ((scores > 0) & (scores < 1)).all():
+                or not in_range.all():
             fail(f"{label} scores are not finite probabilities")
-        ref = cpu_scorer.predict_proba(serve)
+        with lsh_buckets(cpu_scorer.model, cpu_b), topk_decisions(cpu_k):
+            ref = cpu_scorer.predict_proba(serve)
+        lsh_rows = np.zeros(n_rows, bool)
+        if card_k:
+            rows, worst_gap = topk_flips(card_k, cpu_k, scorer.batch_size)
+            lsh_rows[[r for r in rows if r < n_rows]] = True
+            print(f"{path}: soft search's top-k choices, card against CPU: {len(rows)} rows "
+                  f"chose otherwise, largest gap of the chosen scores {worst_gap:.3e} of "
+                  f"the row's largest (bar {TOPK_GAP_BAR:.1e})")
+            if worst_gap > TOPK_GAP_BAR:
+                fail(f"{label}: a top-k choice differs between card and CPU by {worst_gap}")
+        if lsh:
+            heads = next(m.num_heads for m in scorer.model.modules() if hasattr(m, "rotation0"))
+            n_flip, worst_margin, rows = bucket_flips(
+                card_b, cpu_b, scorer.batch_size, heads, set(np.nonzero(lsh_rows)[0].tolist()))
+            lsh_rows[[r for r in rows if r < n_rows]] = True
+            print(f"{path}: LSH bucket ids, card against CPU: {n_flip} of "
+                  f"{sum(a.numel() for a, _ in card_b)} keys on another bucket, in "
+                  f"{int(lsh_rows.sum())} rows, largest margin of a flipped key "
+                  f"{worst_margin:.3e} (bar {LSH_MARGIN_BAR[f32]:.1e})")
+            if worst_margin > LSH_MARGIN_BAR[f32]:
+                fail(f"{label}: an LSH bucket flips between card and CPU at margin "
+                     f"{worst_margin}")
         if tower:
             for h in hooks:
                 h.remove()
             x, y = (torch.cat(taps[k])[:n_rows] for k in ("card", "cpu"))
             flipped = (x != y).reshape(n_rows, -1).any(dim=1).numpy()
         diff = float(np.abs(scores - ref).max())
-        lg, ref_lg = (np.log(p.astype(np.float64)) - np.log1p(-p.astype(np.float64))
-                      for p in (scores, ref))
+        if saturates:
+            lg, ref_lg = scorer_logits(scorer, serve), scorer_logits(cpu_scorer, serve)
+        else:
+            lg, ref_lg = (np.log(p.astype(np.float64)) - np.log1p(-p.astype(np.float64))
+                          for p in (scores, ref))
         gaps = np.abs(lg - ref_lg) / np.abs(ref_lg).max()
         lg_gap = float(gaps.max())
         mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
@@ -2068,21 +2353,34 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
               f"{lg_gap:.3e} (99th percentile {np.quantile(gaps, 0.99):.3e}, rows "
               f"past 1e-4 {int((gaps > 1e-4).sum())}, past 2^-8 "
               f"{int((gaps > BF16_PATH_RTOL).sum())}); launches {launches_by_path[path]}"
+              + (f"; logits of the models, max |diff| {np.abs(lg - ref_lg).max():.3e} "
+                 f"(probabilities at exactly 0 or 1: {int(((scores == 0) | (scores == 1)).sum())})"
+                 if saturates else "")
               + (f"; rows whose tower input rounds to another bf16 value on the "
                  f"card: {int(flipped.sum())}" if tower else ""))
-        if f32 == "1" and diff > 1e-4:
-            fail(f"{label} scores on the card differ from the CPU's by {diff}")
-        past = gaps > BF16_PATH_RTOL
-        if tower and f32 == "0":
-            if (past & ~flipped).any() or past.sum() > max(1, n_rows // 100):
-                fail(f"{label} logits on the bf16 path differ from the CPU's by "
-                     f"{lg_gap} of their max in {int(past.sum())} rows, "
-                     f"{int((past & ~flipped).sum())} of them with the same tower input")
-        elif f32 == "0" and lg_gap > BF16_PATH_RTOL:
-            fail(f"{label} logits on the bf16 path differ from the CPU's by "
-                 f"{lg_gap} of their max")
+        # a row past the bar must be one of the at most 1% whose tower input
+        # (``tower``), an LSH bucket or a top-k choice differs between the devices
+        witnessed = lsh_rows | (flipped if tower and f32 == "0" else False)
+        if f32 == "0":
+            past = gaps > BF16_PATH_RTOL
+        elif saturates:
+            past = np.abs(lg - ref_lg) > SATURATED_LOGIT_BAR
+        else:
+            past = np.abs(scores - ref) > 1e-4
+        if (tower and f32 == "0") or lsh or card_k:
+            if (past & ~witnessed).any() or past.sum() > max(1, n_rows // 100):
+                fail(f"{label} scores differ from the CPU's past the bar in "
+                     f"{int(past.sum())} rows (max |score diff| {diff}, logits {lg_gap} "
+                     f"of their max), {int((past & ~witnessed).sum())} of them with the "
+                     "same tower input and buckets")
+        elif past.any():
+            fail(f"{label} scores on the card differ from the CPU's ({mode}) in "
+                 f"{int(past.sum())} rows: max |score diff| {diff}, logits {lg_gap} of "
+                 "their max")
     os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
-    score_rates(f"{label}_serving", scorer, serve, route)
+    times.append(time.perf_counter())
+    score_rates(f"{label}_serving", scorer, serve, route, BOARD_RATES_DEPTH["event_reps"])
+    times.append(time.perf_counter())
 
     # with f32 matmuls phase 5's bars hold every parameter; on the bf16
     # path the two devices' f32 sums can round a bf16 input cotangent of
@@ -2095,19 +2393,41 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     cpu_model = cpu_scorer.model
     cpu_init = {k: v.cpu() for k, v in init.items()}
+    cpu_s = 0.0
     for f32 in ("1", "0"):
         os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
         path = f"{label}_training" + ("_f32" if f32 == "1" else "")
-        masks, flips = {}, []
-        with relu_decisions(model, masks, False, flips):
+        masks, flips, card_b, cpu_b, b_flips = {}, [], [], [], []
+        card_k, cpu_k, k_gaps = [], [], []
+        with relu_decisions(model, masks, False, flips), lsh_buckets(model, card_b), \
+                topk_decisions(card_k):
             losses, grads = drive(path, lambda: _adam_steps(model, init, batches))
-        with relu_decisions(cpu_model, masks, True, flips):
+        with relu_decisions(cpu_model, masks, True, flips), \
+                lsh_buckets(cpu_model, cpu_b, card_b, b_flips) as lsh, \
+                topk_decisions(cpu_k, card_k, k_gaps):
+            t = time.perf_counter()
             ref_losses, ref_grads = _adam_steps(cpu_model, cpu_init, batches)
+            cpu_s += time.perf_counter() - t
+        if k_gaps:
+            n_rows_k, gap = k_gaps[0]
+            print(f"{path}: top-k choices the CPU's step 1 took from the card: {n_rows_k} "
+                  f"rows, largest gap {gap:.3e} (bar {TOPK_GAP_BAR:.1e})")
+            if gap > TOPK_GAP_BAR:
+                fail(f"{label}: a top-k choice differs between card and CPU by {gap}")
+        if lsh:
+            worst_margin = max(m for _, m in b_flips)
+            print(f"{path}: LSH buckets the CPU's step 1 took from the card: "
+                  f"{sum(n for n, _ in b_flips)} of {card_b[0][0].numel()} keys, largest "
+                  f"margin {worst_margin:.3e} (bar {LSH_MARGIN_BAR[f32]:.1e})")
+            if worst_margin > LSH_MARGIN_BAR[f32]:
+                fail(f"{label}: an LSH bucket flips between card and CPU at margin "
+                     f"{worst_margin}")
         n_flips = sum(n for n, _ in flips)
         worst_z = max((z for _, z in flips), default=0.0)
         mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
         compare_runs(f"{label} ({mode})", losses, grads, ref_losses, ref_grads,
-                     "the CPU run", block_scaled, note=f"launches {launches_by_path[path]}; "
+                     "the CPU run", block_scaled, model_scaled=model_scaled,
+                     note=f"launches {launches_by_path[path]}; "
                      f"(P)ReLU pre-activations the CPU's step 1 took from the card: "
                      f"{n_flips} of {sum(m.numel() for m in masks.values())} "
                      f"(largest |z| {worst_z:.2e} of its layer's max)",
@@ -2131,36 +2451,63 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
               f"rel diff {abs(got - ref) / abs(ref):.3e}")
         if not abs(got - ref) <= RTOL * abs(ref):
             fail(f"{label}'s {k} differs from the CPU's by more than {RTOL}")
+    times.append(time.perf_counter())
+    print(f"{label} card against CPU: {times[-1] - t0:.1f} s (build, export and loads "
+          f"{times[0] - t0:.1f}, scoring {times[1] - times[0]:.1f}, rates "
+          f"{times[2] - times[1]:.1f}, training {times[3] - times[2]:.1f}, of it the CPU's "
+          f"steps {cpu_s:.1f})")
     return model, scorer
 
 
-def interaction_phases(drive, launches_by_path) -> None:
+def interaction_phases(drive, launches_by_path, plain_fa) -> None:
     """Every interaction model of the port (``INTERACTION_MODELS``) at the JAX
     board's width (bench.py:35-40: 26 fields of 100k ids, 13 dense, dim 8;
     default hyperparameters), built on the card by ``get_model``:
-    ``card_against_cpu`` at B 4096 (no kernel launched), and the training
-    rates and peak memory at B 16384. The models share one dataset, whose
-    ``click`` (max(label, Bernoulli(0.3)), as bench.py:65-69 draws it) the
-    multi-task models' batches carry (ESMM's ``label`` is then a conversion
-    seen only on a click); their second task's BCE is held card against
-    CPU too."""
+    ``card_against_cpu`` at B 4096 (no kernel launched but FiGNN's K3 under
+    the flag, 1 field_attn_fwd a forward and 1 field_attn_bwd a step, whose
+    scores and 5 Adam steps are also held against the same model on K3's
+    plain versions; ONN and FAT-DeepFFM at ``CPU_CHECK_VOCAB`` ids), and the
+    training rates and peak memory at B 16384. The models share one
+    dataset, whose ``click`` (max(label, Bernoulli(0.3)), as bench.py:65-69
+    draws it) the multi-task models' batches carry (ESMM's ``label`` is then
+    a conversion seen only on a click); their second task's BCE is held card
+    against CPU too."""
     from ml_function_tpu_torch.features.schema import criteo_feature_set
     from ml_function_tpu_torch.features.synthetic import make_criteo_like
+    from ml_function_tpu_torch.models import get_model
     from ml_function_tpu_torch.train.loop import iter_batches
 
-    fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
-    n_rows = 2 * INTERACTION_TRAIN_BATCH
-    _, data = make_criteo_like(n_rows=n_rows, vocab_size=100_000, seed=4)
-    bern = np.random.default_rng(4).uniform(size=n_rows) < 0.3
-    data["click"] = np.maximum(data["label"], bern.astype(np.float32))
-    serve = {k: v for k, v in _rows(data, 3 * BATCH + 1000).items() if k != "click"}
-    batches = list(iter_batches(data, BATCH))[:5]
+    def dataset(vocab):
+        fs = criteo_feature_set([vocab] * 26, n_dense=13, embed_dim=8)
+        n_rows = 2 * INTERACTION_TRAIN_BATCH
+        _, data = make_criteo_like(n_rows=n_rows, vocab_size=vocab, seed=4)
+        bern = np.random.default_rng(4).uniform(size=n_rows) < 0.3
+        data["click"] = np.maximum(data["label"], bern.astype(np.float32))
+        serve = {k: v for k, v in _rows(data, 3 * BATCH + 1000).items() if k != "click"}
+        return fs, serve, list(iter_batches(data, BATCH))[:5], data
+
+    fs, serve, batches, data = dataset(100_000)
     big = list(iter_batches(data, INTERACTION_TRAIN_BATCH))
     second_task = {"mmoe": "click_bce", "ple": "click_bce", "esmm": "ctr_bce"}
     for label, name, hp in INTERACTION_MODELS:
         t = time.perf_counter()
-        model, scorer = card_against_cpu(label, name, fs, hp, serve, batches, drive,
-                                         launches_by_path, {}, {})
+        k3 = INTERACTION_K3.get(name, 0)
+        per_batch = {"field_attn_fwd": k3} if k3 else {}
+        per_step = {"field_attn_fwd": k3, "field_attn_bwd": k3} if k3 else {}
+        vocab = CPU_CHECK_VOCAB.get(name)
+        check = dataset(vocab) if vocab else (fs, serve, batches, data)
+        if vocab:
+            print(f"{label}: card against CPU at {vocab} ids a field")
+        model, scorer = card_against_cpu(
+            label, name, check[0], hp, check[1], check[2], drive, launches_by_path,
+            per_batch, per_step, "field-attention kernel" if k3 else "no kernel",
+            decision_bf16_bar=INTERACTION_DECISION_BAR.get(name, 1e-5))
+        if k3:
+            score_phase(f"{label}_serving_kernel", scorer, serve, drive, launches_by_path,
+                        plain_fa, per_batch, event_reps=BOARD_RATES_DEPTH["event_reps"],
+                        saturates=name in SATURATING)
+            parity_steps(label, model, batches, plain_fa, drive, launches_by_path,
+                         f"{label}_kernel_parity", per_step)
         del scorer
         if name in second_task:
             with torch.no_grad():
@@ -2168,7 +2515,11 @@ def interaction_phases(drive, launches_by_path) -> None:
             if second_task[name] not in aux:
                 fail(f"{label}'s batches carry click but its aux has no "
                      f"{second_task[name]}")
-        step_rates(label, model, big, "the JAX board's width and smallest batch")
+        if vocab:
+            del model, check
+            model = get_model(name, fs, generator=torch.Generator().manual_seed(0), **hp)
+        step_rates(label, model, big, "the JAX board's width and smallest batch",
+                   **BOARD_RATES_DEPTH)
         del model
         print(f"{label}: {time.perf_counter() - t:.1f} s")
 
@@ -2186,7 +2537,35 @@ SEQUENCE_MODELS = (
     ("seqfm", "seqfm", {}, BATCH, 1, ()),
     ("dstn", "dstn", {}, BATCH, 0, ("attn0.",)),
     ("dmin", "dmin", {}, BATCH, 1, ("attn0.", "attn1.")),
-    ("mind", "mind", {}, BATCH, 0, ()))
+    ("mind", "mind", {}, BATCH, 0, ()),
+    # the long-sequence tier: HPMN and MIMN at the board's rows
+    # (bench.py:742-743), DTS at DIN's batch, BST's blocks on LSH attention,
+    # and SIM's exact search unit on LSH attention at its soft-search board
+    # shape (bench.py:754-760: B 512, a 16,384-id stream, the top 256)
+    ("hpmn", "hpmn", {}, 2048, 0, ("attn.",)),
+    ("mimn", "mimn", {}, 1024, 0, ("attn_mem.", "attn_ch.")),
+    ("dts", "dts", {}, BATCH, 0, ("attn.",)),
+    ("bst_lsh", "bst", {"attention": "lsh"}, BATCH, 0, ()),
+    ("sim_lsh", "sim", {"search": "soft", "top_k": 256, "long_behavior": ("hist_long",),
+                        "esu_attention": "lsh"}, 512, 0, ("attn.", "dien.attn.")))
+# the models whose two sequence lookups also train 5 steps with the
+# merge-scatter flag's attribute set, against the same steps without it
+MERGE_SCATTER_MODELS = ("hpmn", "mimn")
+# the step loops whose training step's busy share the profiler reads; their
+# steps take hundreds of ms, so their rates take the medians of 4 host-clock
+# steps and of 3 samples of 2 steps by events
+PROFILED_MODELS = ("hpmn", "mimn", "dts")
+STEP_LOOP_RATES_DEPTH = dict(host_steps=4, event_reps=(3, 2))
+# MIMN's target attentions over its 4 memory slots and 4 channels read
+# slots that its 64 erase/add writes and channel updates have made nearly
+# equal, so at the board's batch their MLPs' step-1 gradients are rounding
+# residues some nine orders below the model's largest (about 1e-9 against
+# 5, of either sign on the two devices, with f32 matmuls too):
+# ``card_against_cpu`` holds them at the model's max|g|, which any such
+# residue passes, and prints their own. Against their own block's max|g|
+# they are held only by the CPU tests against JAX
+# (``tests/test_torch_longseq_tier.py``)
+NOISE_BLOCKS = {"mimn": ("attn_mem.", "attn_ch.")}
 # the Dense that takes each model's tower input (``card_against_cpu``)
 SEQUENCE_TOWERS = {"seqfm": "head"}
 SEQ_LEN = 64
@@ -2225,17 +2604,36 @@ def sequence_phases(drive, launches_by_path, plain_fa) -> None:
     then for the three on K3 the scores and 5 Adam steps against the same
     model with K3's plain versions swapped in (DSIN also on a ragged
     ``make_behavior_data`` batch, whose fully padded sessions reach K3
-    through ``safe_mask``), and the training rates and peak memory at each
-    model's batch."""
+    through ``safe_mask``), for HPMN and MIMN 5 Adam steps with the
+    merge-scatter flag's attribute set against the same steps without it (2
+    merge_scatter launches a step), and the training rates and peak memory
+    at each model's batch (``BOARD_RATES_DEPTH``). SIM's batch is the bench's
+    lifelong one (``profile_scoring.sim_batch``); the aux terms (HPMN's
+    ``cov_reg``, MIMN's ``util_reg``, DTS's ``guide_loss``, SIM's
+    ``aux_loss``) are held card against CPU."""
     from ml_function_tpu_torch.features.synthetic import make_behavior_data
     from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.ops import embedding
     from ml_function_tpu_torch.ops.kernels import _build
     from ml_function_tpu_torch.serving import export_model, load_scorer
+    from ml_function_tpu_torch.tools.profile_scoring import sim_batch
     from ml_function_tpu_torch.train.loop import iter_batches
+
+    @contextlib.contextmanager
+    def merge_scatter(on: bool):
+        """The merge-scatter flag's attribute (read at import) inside the
+        block."""
+        saved = embedding._USE_MERGE_SCATTER
+        embedding._USE_MERGE_SCATTER = on
+        try:
+            yield
+        finally:
+            embedding._USE_MERGE_SCATTER = saved
 
     for label, name, hp, b, k3, attn in SEQUENCE_MODELS:
         t = time.perf_counter()
-        fs, data = seq_board_batch(5 * b, hp.get("session_shape"))
+        fs, data = (sim_batch(5 * b) if name == "sim"
+                    else seq_board_batch(5 * b, hp.get("session_shape")))
         serve = _rows(data, 3 * b + b // 4)
         batches = list(iter_batches(data, b))
         per_batch = {"field_attn_fwd": k3} if k3 else {}
@@ -2244,14 +2642,21 @@ def sequence_phases(drive, launches_by_path, plain_fa) -> None:
         model, scorer = card_against_cpu(
             label, name, fs, hp, serve, batches, drive, launches_by_path, per_batch,
             per_step, route, attn, SEQUENCE_TOWERS.get(name, "mlp.layer0.dense"),
-            BF16_PATH_RTOL)
+            BF16_PATH_RTOL, NOISE_BLOCKS.get(name, ()))
         if k3:
             score_phase(f"{label}_serving_kernel", scorer, serve, drive, launches_by_path,
-                        plain_fa, per_batch)
+                        plain_fa, per_batch, event_reps=BOARD_RATES_DEPTH["event_reps"])
             parity_steps(label, model, batches, plain_fa, drive, launches_by_path,
                          f"{label}_kernel_parity", per_step, attn)
+        if name in MERGE_SCATTER_MODELS:
+            with merge_scatter(True):
+                parity_steps(label, model, batches, lambda: merge_scatter(False), drive,
+                             launches_by_path, f"{label}_merge_scatter_parity",
+                             {"merge_scatter": 2}, attn)
         del scorer
-        step_rates(label, model, batches, "the board's behavior batch")
+        step_rates(label, model, batches, "the board's behavior batch",
+                   **(STEP_LOOP_RATES_DEPTH if name in PROFILED_MODELS else BOARD_RATES_DEPTH),
+                   profile=name in PROFILED_MODELS)
         del model
         print(f"{label}: {time.perf_counter() - t:.1f} s")
 
@@ -2271,7 +2676,8 @@ def sequence_phases(drive, launches_by_path, plain_fa) -> None:
         export_model(tmp, "dsin", fs, model, hyperparams=hp)
         scorer = load_scorer(tmp, batch_size=b)
     score_phase("dsin_ragged_serving", scorer, _rows(data, 3 * b + b // 4), drive,
-                launches_by_path, plain_fa, {"field_attn_fwd": 1})
+                launches_by_path, plain_fa, {"field_attn_fwd": 1},
+                event_reps=BOARD_RATES_DEPTH["event_reps"])
     del scorer
     parity_steps("dsin_ragged", model, list(iter_batches(data, b)), plain_fa, drive,
                  launches_by_path, "dsin_ragged_kernel_parity",
@@ -2318,6 +2724,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    def lap(what):
+        """The wall time since the last lap, by phase."""
+        now = time.perf_counter()
+        print(f"wall time of {what}: {now - laps[-1]:.1f} s (run so far "
+              f"{now - T_START:.1f} s)", flush=True)
+        laps.append(now)
+
+    laps = [time.perf_counter()]
     # 3. kernels against their plain versions
     kernels = [check_cin_kernel(cin_mod), check_cin_bwd_kernel(cin_mod),
                *check_field_attn_kernels(fa_mod)]
@@ -2355,6 +2769,7 @@ def main() -> int:
     n_rows = 3 * BATCH + 1000
     _, data = make_criteo_like(n_rows=n_rows, vocab_size=100_000, seed=0)
 
+    lap("phase 3")
     # 4. serving xDeepFM
     hp = {"cin_hidden": [128, 128], "hidden": [256, 128]}
     model = get_model("xdeepfm", fs, device="cuda",
@@ -2372,6 +2787,7 @@ def main() -> int:
     train_phase("xdeepfm", plain_cin, ("cin_fwd", "cin_bwd"),
                 ("training_parity", "training_fit"), 0.65, drive, launches_by_path)
 
+    lap("phases 4-5")
     # 6. serving AutoInt, through the field-attention kernel
     hp = {"n_layers": 2, "num_heads": 2, "head_dim": 16}
     model = get_model("autoint", fs, generator=torch.Generator().manual_seed(0), **hp)
@@ -2393,13 +2809,16 @@ def main() -> int:
                 ("autoint_training_parity", "autoint_fit"), 0.6, drive,
                 launches_by_path)
 
+    lap("phases 6-7")
     # 8.-10. DIEN: its kernels, serving and training
     del scorer, batch
     kernels += dien_phases(drive, launches_by_path)
+    lap("phases 8-10")
 
     # 11.-14. SIM: the flash kernels, serving and training at both board
     # shapes, learning
     kernels += sim_phases(drive, launches_by_path)
+    lap("phases 11-14")
 
     # 15. F6: the wide CIN and (AU)GRU instances against their plain versions
     t = time.perf_counter()
@@ -2417,15 +2836,18 @@ def main() -> int:
     wide_cin_phase(drive, launches_by_path, instances_by_path, plain_cin)
     # 17. DIEN at kd 128: serving and training on the wide (AU)GRU instances
     dien_wide_phase(drive, launches_by_path, instances_by_path)
+    lap("phases 15-17")
     # 18. the interaction models and MMoE at the board's width, card against CPU
     t = time.perf_counter()
-    interaction_phases(drive, launches_by_path)
+    interaction_phases(drive, launches_by_path, plain_fa)
     print(f"interaction models: {time.perf_counter() - t:.1f} s")
+    lap("phase 18")
     # 19. the sequence tier at the board's shapes, card against CPU, and
     # DSIN, SeqFM and DMIN on K3 against its plain versions
     t = time.perf_counter()
     sequence_phases(drive, launches_by_path, plain_fa)
     print(f"sequence tier: {time.perf_counter() - t:.1f} s")
+    lap("phase 19")
 
     # 20. result lines: each kernel's launches are those of the newest path
     # that runs it; every path's own counts ride along, and each instance

@@ -12,7 +12,9 @@ from .base import Model
 from .interaction import (AFM, DCN, DLRM, FFM, FM, FNN, LR, NFM, PNN,
                           AutoInt, DeepCross, DeepFM, FiBiNET, FwFM, WideDeep,
                           fnn_from_fm, xDeepFM)
-from .longseq import SIM
+from .interaction_ext import (CCPM, FGCNN, FLEN, MLR, OENN, ONN, FATDeepFFM,
+                              FiGNN)
+from .longseq import DTS, HPMN, MIMN, SIM
 from .multitask import ESMM, PLE, MMoE
 from .sequence import BST, DIEN, DIN, DMIN, DSIN, DSTN, MIND, SeqFM
 
@@ -33,6 +35,14 @@ MODEL_REGISTRY = {
     "autoint": AutoInt,
     "fibinet": FiBiNET,
     "dlrm": DLRM,
+    "ccpm": CCPM,
+    "fgcnn": FGCNN,
+    "flen": FLEN,
+    "onn": ONN,
+    "oenn": OENN,
+    "fat_deepffm": FATDeepFFM,
+    "fignn": FiGNN,
+    "mlr": MLR,
     "din": DIN,
     "dien": DIEN,
     "bst": BST,
@@ -41,7 +51,10 @@ MODEL_REGISTRY = {
     "dstn": DSTN,
     "dmin": DMIN,
     "mind": MIND,
+    "dts": DTS,
+    "mimn": MIMN,
     "sim": SIM,
+    "hpmn": HPMN,
     "esmm": ESMM,
     "mmoe": MMoE,
     "ple": PLE,
@@ -65,7 +78,8 @@ def get_model(name: str, feature_set, device: DeviceLike = None,
 
 
 __all__ = ["Model", "MODEL_REGISTRY", "get_model", "fnn_from_fm", "AFM",
-           "AutoInt", "BST", "DCN", "DeepCross", "DeepFM", "DIEN", "DIN",
-           "DLRM", "DMIN", "DSIN", "DSTN", "ESMM", "FFM", "FiBiNET", "FM",
-           "FNN", "FwFM", "LR", "MIND", "MMoE", "NFM", "PLE", "PNN", "SeqFM",
-           "SIM", "WideDeep", "xDeepFM"]
+           "AutoInt", "BST", "CCPM", "DCN", "DeepCross", "DeepFM", "DIEN", "DIN",
+           "DLRM", "DMIN", "DSIN", "DSTN", "DTS", "ESMM", "FATDeepFFM", "FFM",
+           "FGCNN", "FiBiNET", "FiGNN", "FLEN", "FM", "FNN", "FwFM", "HPMN", "LR",
+           "MIMN", "MIND", "MLR", "MMoE", "NFM", "OENN", "ONN", "PLE", "PNN",
+           "SeqFM", "SIM", "WideDeep", "xDeepFM"]

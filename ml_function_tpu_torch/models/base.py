@@ -13,6 +13,7 @@ numpy arrays move to the model's device, nested ones included.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -44,6 +45,7 @@ class Model(nn.Module):
         super().__init__()
         self.name = name
         self.feature_set = feature_set
+        self._helpers: Dict[str, Callable] = {}
         for key, part in parts.items():
             if isinstance(part, nn.Parameter):
                 self.register_parameter(key, part)
@@ -51,6 +53,19 @@ class Model(nn.Module):
                 self.add_module(key, part)
         self._fwd = fwd
         self._inits = dict(inits or {})
+
+    def add_helper(self, name: str, fn: Callable) -> None:
+        """``model.<name>(*args)`` calls ``fn(model, *args)``: a model's own
+        entry point beside ``forward`` (DIEN's ``interest``, MIND's
+        ``interests``), bound at each access, so that a deep copy's helper
+        reads the copy's parameters."""
+        self._helpers[name] = fn
+
+    def __getattr__(self, name: str):
+        helpers = self.__dict__.get("_helpers", {})
+        if name in helpers:
+            return functools.partial(helpers[name], self)
+        return super().__getattr__(name)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The model's own parameters start at zero (``bias``), or from

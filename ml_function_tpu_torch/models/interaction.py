@@ -53,6 +53,14 @@ def _bias() -> nn.Parameter:
     return nn.Parameter(zeros(()))
 
 
+def _ffm_parts(fs: FeatureSet, k: int):
+    """The (V, F·K) field-aware ``ffm`` table (a block of K a field an id
+    meets) and its normal(0.05) init: FFM's, ONN's and FAT-DeepFFM's."""
+    shape = (fs.total_vocab, len(fs.sparse) * k)
+    return ({"ffm": nn.Parameter(torch.empty(shape))},
+            {"ffm": lambda g: normal_init(shape, g, stddev=0.05)})
+
+
 def _deep_input(inp, nd: int) -> torch.Tensor:
     """[flattened field embeddings ∥ dense features]: (B, F·D + Nd)."""
     return flatten_concat([inp["emb"]] + ([inp["dense"]] if nd else []))
@@ -94,10 +102,9 @@ def FFM(fs: FeatureSet, ffm_dim: int = 4) -> Model:
     ``ffm`` rows with each field's coefficient."""
     f, _, _ = _dims(fs)
     k = ffm_dim
-    parts = {"embedding": FusedEmbedding(fs, with_table=False),
-             "ffm": nn.Parameter(torch.empty(fs.total_vocab, f * k)),
+    ffm, inits = _ffm_parts(fs, k)
+    parts = {"embedding": FusedEmbedding(fs, with_table=False), **ffm,
              "bias": _bias(), **_maybe_dense_linear(fs)}
-    inits = {"ffm": lambda g: normal_init((fs.total_vocab, f * k), g, stddev=0.05)}
 
     def fwd(m, batch, train):
         gids = m.embedding.global_sparse_ids(batch["sparse"])

@@ -147,7 +147,7 @@ def DIEN(fs: FeatureSet,
         return m.mlp(h, train)[:, 0], {"aux_loss": aux_weight * aux, "emb_l2": l2}
 
     model = stateless("DIEN", fs, parts, fwd)
-    model.interest = lambda cand, beh, mask: interest(model, cand, beh, mask)
+    model.add_helper("interest", interest)
     return model
 
 
@@ -161,7 +161,7 @@ def BST(fs: FeatureSet,
     """Behavior Sequence Transformer: the candidate appended as the last
     position, sin/cos positions added, ``n_blocks`` transformer blocks
     (``block{i}``), masked mean pool → ReLU MLP with LayerNorm.
-    ``attention='lsh'`` raises (the LSH item of the long-sequence tier)."""
+    ``attention='lsh'`` takes Reformer's LSH attention in the blocks."""
     d, kd, n_other = _beh_dims(fs, candidate)
     in_dim = kd + n_other * d + len(fs.dense)
     parts = {"embedding": FusedEmbedding(fs, with_linear=False),
@@ -428,13 +428,11 @@ def MIND(fs: FeatureSet,
         h = _tower_input(fs, batch, (cand, read), emb, candidate)
         return m.mlp(h, train)[:, 0], {"emb_l2": l2}
 
+    def interests(m, batch):
+        batch = as_tensors(batch, m.bilinear.device)
+        _, beh, mask, _, _ = behavior_inputs(m.embedding, batch, candidate, behavior)
+        return route(m, beh, mask, detach=False)
+
     model = stateless("MIND", fs, parts, fwd, inits)
-
-    def interests(batch):
-        batch = as_tensors(batch, model.bilinear.device)
-        _, beh, mask, _, _ = behavior_inputs(model.embedding, batch, candidate,
-                                             behavior)
-        return route(model, beh, mask, detach=False)
-
-    model.interests = interests
+    model.add_helper("interests", interests)
     return model

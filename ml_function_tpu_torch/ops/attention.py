@@ -2,11 +2,11 @@
 blocks, target attention and positional encodings.
 
 Counterpart of ``MultiHeadAttention``, ``TransformerBlock``,
-``TargetAttention``, ``attention_mask_bias``, ``sincos_position_encoding``
-and ``SessionPositionBias`` in ``ml_function_tpu/ops/attention.py``; LSH
-attention comes with the long-sequence tier's LSH item.
+``LSHSelfAttention``, ``TargetAttention``, ``attention_mask_bias``,
+``sincos_position_encoding`` and ``SessionPositionBias`` in
+``ml_function_tpu/ops/attention.py``.
 Parameter names are the JAX pytree's keys (``q``, ``k``, ``v``, ``o``,
-``ln``), so ``params/mha0/q`` is the state-dict key ``mha0.q``.
+``ln``; LSH's ``qk``), so ``params/mha0/q`` is the state-dict key ``mha0.q``.
 """
 
 from __future__ import annotations
@@ -17,8 +17,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from . import threefry
 from .base import bf16_matmul, glorot_uniform
 from .core import MLP, Dense, LayerNorm
 from .kernels.field_attention import MAX_HEAD_DIM, MAX_SCORES, field_attention
@@ -127,18 +129,20 @@ class MultiHeadAttention(nn.Module):
 class TransformerBlock(nn.Module):
     """Multi-head self-attention (``mha``, with its residual and LayerNorm),
     then a position-wise ReLU FFN (``ffn``, ``ffn_out``) with a residual and
-    LayerNorm (``ln``). ``attention='lsh'`` (Reformer attention) raises; the
-    reference's causal and extra-bias options have no caller (BST uses
-    neither) and are left out."""
+    LayerNorm (``ln``). ``attention='lsh'`` makes ``mha`` an
+    ``LSHSelfAttention`` with the reference's chunks of 16; the reference's
+    causal, extra-bias and chunk-size options have no caller (BST uses none)
+    and are left out."""
 
     def __init__(self, dim: int, num_heads: int = 2,
                  ffn_hidden: Tuple[int, ...] = (32,), attention: str = "softmax"):
         super().__init__()
         if attention == "lsh":
-            raise NotImplementedError(
-                "TransformerBlock(attention='lsh') (LSHSelfAttention) comes "
-                "with the LSH item of the long-sequence tier")
-        self.mha = MultiHeadAttention(dim, num_heads)
+            self.mha = LSHSelfAttention(dim, num_heads)
+        elif attention == "softmax":
+            self.mha = MultiHeadAttention(dim, num_heads)
+        else:
+            raise ValueError(f"attention must be 'softmax' or 'lsh', got {attention!r}")
         self.ffn = MLP(dim, ffn_hidden, activation="relu")
         self.ffn_out = Dense(ffn_hidden[-1], dim)
         self.ln = LayerNorm(dim)
@@ -147,6 +151,113 @@ class TransformerBlock(nn.Module):
                 ) -> torch.Tensor:
         h = self.mha(x, mask=mask)
         return self.ln(h + self.ffn_out(self.ffn(h)))
+
+
+class LSHSelfAttention(nn.Module):
+    """Reformer's shared-QK attention over hash buckets, at the settings its
+    callers (BST's blocks, SIM's search unit) build it with: head dim
+    dim // num_heads, ``N_BUCKETS`` buckets, chunks of ``CHUNK``, the
+    rotations drawn from ``SEED``, the residual and LayerNorm. Each round
+    draws a random rotation R (not a parameter: ``threefry.normal`` of
+    ``fold_in(PRNGKey(SEED), round)``, the reference's draw), buckets each
+    key by argmax([qk·R, −qk·R]) (invalid keys into a virtual last bucket),
+    sorts the keys stably by (bucket, position), and lets each chunk of
+    ``CHUNK`` sorted keys attend to itself and the chunk before it (the
+    first to the last), a key to itself only at a −1e5 penalty. The softmax
+    is shifted by its max explicitly (at that penalty exp(logits −
+    logsumexp) would lose mass in f32); ``n_hashes`` rounds are combined by
+    their log-sum-exp. Then the output projection ``o``, the mask, the
+    residual and LayerNorm (``ln``). With L ≤ ``CHUNK`` it is exactly
+    shared-QK full attention. The reference's causal, head-dim, residual
+    and LayerNorm options have no caller and are left out."""
+
+    N_BUCKETS = 8
+    CHUNK = 16
+    SEED = 0
+    SELF_PENALTY = -1e5
+
+    def __init__(self, dim: int, num_heads: int = 2, n_hashes: int = 1):
+        super().__init__()
+        self.num_heads, self.n_hashes = num_heads, n_hashes
+        self.hd = max(dim // num_heads, 1)
+        proj = num_heads * self.hd
+        for name, shape in (("qk", (dim, proj)), ("v", (dim, proj)), ("o", (proj, dim))):
+            self.register_parameter(name, nn.Parameter(torch.empty(shape)))
+        self.ln = LayerNorm(dim)
+        base = threefry.prng_key(self.SEED)
+        for r in range(n_hashes):
+            self.register_buffer(f"rotation{r}", torch.from_numpy(threefry.normal(
+                threefry.fold_in(base, r), (self.hd, self.N_BUCKETS // 2))), persistent=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in ("qk", "v", "o"):
+            w = getattr(self, name)
+            w.copy_(glorot_uniform(w.shape, generator))
+
+    def buckets(self, qk: torch.Tensor, r: int = 0) -> torch.Tensor:
+        """Round r's bucket of each key: qk (N, L, hd) → (N, L) int64."""
+        proj = qk @ getattr(self, f"rotation{r}")
+        return torch.cat([proj, -proj], dim=-1).argmax(dim=-1)
+
+    def _one_round(self, qk, v, valid, r):
+        """qk, v (N, L, hd), valid (N, L) → (out (N, L, hd), lse (N, L))."""
+        n, l, hd = qk.shape
+        c = min(self.CHUNK, l)
+        lp = -(-l // c) * c
+        buckets = torch.where(valid, self.buckets(qk, r), self.N_BUCKETS)
+        pos = torch.arange(l, device=qk.device)
+        s_idx = torch.argsort(buckets * l + pos, dim=-1)
+        sqk = torch.gather(qk, 1, s_idx[..., None].expand(n, l, hd))
+        sv = torch.gather(v, 1, s_idx[..., None].expand(n, l, hd))
+        spos, svalid = s_idx, torch.gather(valid, 1, s_idx)
+        if lp != l:     # inert keys to a whole number of chunks
+            sqk = F.pad(sqk, (0, 0, 0, lp - l))
+            sv = F.pad(sv, (0, 0, 0, lp - l))
+            spos = F.pad(spos, (0, lp - l), value=l)
+            svalid = F.pad(svalid, (0, lp - l), value=False)
+        nc = lp // c
+
+        def window(t):   # this chunk ++ the previous one (the first: the last)
+            t = t.reshape(n, nc, c, *t.shape[2:])
+            return torch.cat([t, torch.roll(t, 1, dims=1)], dim=2)
+
+        cq = sqk.reshape(n, nc, c, hd)
+        ck, cv, kpos, kval = window(sqk), window(sv), window(spos), window(svalid)
+        qpos = spos.reshape(n, nc, c)
+        logits = torch.einsum("ngqd,ngkd->ngqk", cq, ck) / math.sqrt(hd)
+        logits = torch.where(kval[:, :, None, :], logits, NEG_INF)
+        logits = torch.where(kpos[:, :, None, :] == qpos[..., None],
+                             logits + self.SELF_PENALTY, logits)
+        mx = logits.amax(dim=-1, keepdim=True)
+        e = torch.exp(logits - mx)
+        se = e.sum(dim=-1, keepdim=True)
+        lse = (mx + torch.log(se))[..., 0].reshape(n, lp)[:, :l]
+        out = torch.einsum("ngqk,ngkd->ngqd", e / se, cv).reshape(n, lp, hd)[:, :l]
+        inv = torch.argsort(s_idx, dim=-1)       # back to time order
+        return (torch.gather(out, 1, inv[..., None].expand(n, l, hd)),
+                torch.gather(lse, 1, inv))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """x (B, L, D), mask (B, L) valid → (B, L, D)."""
+        b, l, _ = x.shape
+        h, hd = self.num_heads, self.hd
+        valid = (torch.ones((b, l), dtype=torch.bool, device=x.device)
+                 if mask is None else mask.bool())
+
+        def fold(t):
+            return t.reshape(b, l, h, hd).transpose(1, 2).reshape(b * h, l, hd)
+
+        qk, v = fold(bf16_matmul(x, self.qk)), fold(bf16_matmul(x, self.v))
+        val = valid.repeat_interleave(h, dim=0)
+        rounds = [self._one_round(qk, v, val, r) for r in range(self.n_hashes)]
+        if self.n_hashes == 1:
+            out = rounds[0][0]
+        else:           # each round weighted by its softmax mass
+            w = torch.softmax(torch.stack([s for _, s in rounds]), dim=0)[..., None]
+            out = (w * torch.stack([o for o, _ in rounds])).sum(dim=0)
+        out = out.reshape(b, h, l, hd).transpose(1, 2).reshape(b, l, h * hd)
+        return self.ln(bf16_matmul(out, self.o) * valid[..., None] + x)
 
 
 class TargetAttention(nn.Module):

@@ -72,16 +72,22 @@ class Adam(OptaxRule):
         return {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
 
     def _update(self, g, p, state, lr, group):
+        # optax's expression, one rounding an operation as there, in place
+        # on mu, nu and two scratch tensors: a table's update allocates two
+        # table-sized temporaries instead of a dozen
         b1, b2 = group["b1"], group["b2"]
-        mu = state["mu"] = (1 - b1) * g + b1 * state["mu"]
-        nu = state["nu"] = (1 - b2) * (g * g) + b2 * state["nu"]
+        mu, nu = state["mu"], state["nu"]
+        t = torch.mul(g, 1 - b1)
+        mu.mul_(b1).add_(t)                                 # (1 − b1)·g + b1·mu
+        torch.mul(g, g, out=t).mul_(1 - b2)
+        nu.mul_(b2).add_(t)                                 # (1 − b2)·g² + b2·nu
         k = self.count + 1
-        mu_hat = mu / (1 - b1 ** k)
-        nu_hat = nu / (1 - b2 ** k)
-        u = mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) + group["eps"])
+        u = torch.div(mu, 1 - b1 ** k)
+        torch.div(nu, 1 - b2 ** k, out=t).add_(group["eps_root"]).sqrt_().add_(group["eps"])
+        u.div_(t)
         if group["weight_decay"]:
-            u = u + group["weight_decay"] * p
-        return u * -lr
+            u.add_(torch.mul(p, group["weight_decay"], out=t))
+        return u.mul_(-lr)
 
 
 class Adagrad(OptaxRule):

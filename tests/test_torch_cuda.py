@@ -306,7 +306,7 @@ def test_train_step_on_the_card_matches_the_cpu(card):
 # DMIN's refiner at L 64 (exactly 4096 scores: the block instances)
 FA_SHAPES = [(4096, 27, 27, 2, 16, False), (512, 64, 64, 2, 64, True),
              (300, 1, 4096, 2, 8, True), (16384, 8, 8, 2, 8, True),
-             (4096, 64, 64, 2, 8, True)]
+             (4096, 64, 64, 2, 8, True), (4096, 26, 26, 2, 4, False)]
 
 
 def _fa_inputs(card, b, lq, lk, h, dh, masked):
@@ -349,7 +349,7 @@ FA_BWD_CASES = [(4097, 27, 27, 2, 16, "warp"), (129, 8, 8, 2, 4, "warp"),
                 (6, 33, 33, 2, 16, "block"), (5, 27, 27, 2, 17, "block"),
                 (3, 64, 64, 4, 64, "block"), (4, 1, 64, 1, 8, "block"),
                 (3, 8, 8, 9, 8, "block"), (16384, 8, 8, 2, 8, "warp"),
-                (4096, 64, 64, 2, 8, "block")]
+                (4096, 64, 64, 2, 8, "block"), (4096, 26, 26, 2, 4, "warp")]
 
 
 def _instance_name(kind, direction="bwd"):

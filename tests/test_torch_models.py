@@ -107,10 +107,11 @@ def test_get_model_unknown_name_lists_registry():
     with pytest.raises(KeyError, match="deepfm.*xdeepfm"):
         get_model("nope", fs, device="cpu")
     assert sorted(MODEL_REGISTRY) == [
-        "afm", "autoint", "bst", "dcn", "deepcross", "deepfm", "dien", "din",
-        "dlrm", "dmin", "dsin", "dstn", "esmm", "ffm", "fibinet", "fm", "fnn",
-        "fwfm", "lr", "mind", "mmoe", "nfm", "ple", "pnn", "seqfm", "sim",
-        "wide_deep", "xdeepfm"]
+        "afm", "autoint", "bst", "ccpm", "dcn", "deepcross", "deepfm", "dien",
+        "din", "dlrm", "dmin", "dsin", "dstn", "dts", "esmm", "fat_deepffm",
+        "ffm", "fgcnn", "fibinet", "fignn", "flen", "fm", "fnn", "fwfm", "hpmn",
+        "lr", "mimn", "mind", "mlr", "mmoe", "nfm", "oenn", "onn", "ple", "pnn",
+        "seqfm", "sim", "wide_deep", "xdeepfm"]
 
 
 def test_get_model_defaults_to_the_card():

@@ -322,12 +322,6 @@ def test_sequence_tier_entry_points_default_to_the_card():
             get_model(name, fs)
 
 
-def test_bst_lsh_attention_raises():
-    fs, _ = _port_batch()
-    with pytest.raises(NotImplementedError, match="LSH item"):
-        get_model("bst", fs, device="cpu", attention="lsh")
-
-
 def test_dsin_session_shape_must_cover_the_history():
     fs, _ = _port_batch()
     with pytest.raises(ValueError, match="session shape 3x4"):

@@ -242,6 +242,31 @@ def test_optimizer_matches_optax_after_three_steps(name, kw):
         _close(v, _at(want, n), 1e-5)
 
 
+@pytest.mark.parametrize("weight_decay", [0.0, 0.1])
+def test_adam_in_place_update_is_optax_expression_bitwise(weight_decay):
+    """Adam's update runs in place on its moments and two scratch tensors;
+    it gives the bits of optax's expression written out, one rounding an
+    operation, over three steps."""
+    gen = torch.Generator().manual_seed(0)
+    p0 = torch.randn(64, 8, generator=gen)
+    grads = [torch.randn(64, 8, generator=gen) for _ in range(3)]
+    b1, b2, eps, lr = 0.9, 0.999, 1e-8, 0.05
+    want, mu, nu = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
+    for k, g in enumerate(grads, start=1):
+        mu = (1 - b1) * g + b1 * mu
+        nu = (1 - b2) * (g * g) + b2 * nu
+        u = (mu / (1 - b1 ** k)) / (torch.sqrt(nu / (1 - b2 ** k) + 0.0) + eps)
+        if weight_decay:
+            u = u + weight_decay * want
+        want = want + u * -lr
+    p = torch.nn.Parameter(p0.clone())
+    opt = toptim.Adam([p], lr, weight_decay=weight_decay)
+    for g in grads:
+        p.grad = g.clone()
+        opt.step()
+    assert torch.equal(p.detach(), want)
+
+
 def test_a_parameter_without_gradient_steps_as_a_zero_gradient():
     p0, grads = _fixed_grads()
     zeroed = [jax.tree_util.tree_map(lambda a: a, g) for g in grads]
