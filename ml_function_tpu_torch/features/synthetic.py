@@ -1,7 +1,7 @@
 """Synthetic CTR data with planted structure (numpy only).
 
 The port's copies of ``make_criteo_like``, ``make_behavior_data``,
-``make_interest_drift_data`` and ``make_cvr_data`` from
+``make_interest_drift_data``, ``make_image_ctr_data`` and ``make_cvr_data`` from
 ``ml_function_tpu/features/synthetic.py``: the same seed gives the same rows
 in both packages.
 """
@@ -173,6 +173,43 @@ def make_interest_drift_data(
     )
     data = {"dense": np.zeros((n_rows, 0), np.float32),
             "sparse": cand[:, None], "seq": {"hist_item": hist}, "label": y}
+    return fs, data
+
+
+def make_image_ctr_data(
+    n_rows: int = 8000,
+    n_items: int = 100,
+    n_cates: int = 10,
+    seq_len: int = 12,
+    img_dim: int = 16,
+    embed_dim: int = 8,
+    seed: int = 0,
+) -> Tuple[FeatureSet, Dict[str, np.ndarray]]:
+    """Image-CTR data (DICM): every item has a unit-norm latent image
+    vector (the pad item's is 0), and the label depends on the similarity
+    of the ad's image to the mean of the history's images. The batch
+    carries the pre-extracted vectors ``image`` (B, img_dim) and
+    ``hist_image`` (B, L, img_dim)."""
+    rng = np.random.default_rng(seed)
+    fs, data = make_behavior_data(n_rows=n_rows, n_items=n_items,
+                                  n_cates=n_cates, seq_len=seq_len,
+                                  embed_dim=embed_dim, seed=seed)
+    item_img = rng.normal(0, 1.0, (n_items + 1, img_dim))
+    item_img /= np.linalg.norm(item_img, axis=1, keepdims=True) + 1e-9
+    item_img[0] = 0.0
+    seq_items = data["seq"]["hist_item"]
+    cand = data["sparse"][:, 0]
+    hist_image = item_img[seq_items]                       # (N, L, img)
+    image = item_img[cand]                                 # (N, img)
+    m = (seq_items != 0)
+    cnt = np.maximum(m.sum(1, keepdims=True), 1)
+    mean_hist = hist_image.sum(1) / cnt
+    vis = np.einsum("nd,nd->n", mean_hist, image)
+    vis = (vis - vis.mean()) / (vis.std() + 1e-9) * 2.0
+    data["label"] = (rng.uniform(size=n_rows) < _sigmoid(vis)).astype(
+        np.float32)
+    data["image"] = image.astype(np.float32)
+    data["hist_image"] = hist_image.astype(np.float32)
     return fs, data
 
 

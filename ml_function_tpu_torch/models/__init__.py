@@ -1,4 +1,4 @@
-"""Model registry of the port; it grows with each slice."""
+"""Model registry of the port: the reference's 42 names."""
 
 from __future__ import annotations
 
@@ -9,12 +9,14 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..ops.base import init_parameters
 from .base import Model
+from .image import DICM
 from .interaction import (AFM, DCN, DLRM, FFM, FM, FNN, LR, NFM, PNN,
                           AutoInt, DeepCross, DeepFM, FiBiNET, FwFM, WideDeep,
                           fnn_from_fm, xDeepFM)
 from .interaction_ext import (CCPM, FGCNN, FLEN, MLR, OENN, ONN, FATDeepFFM,
                               FiGNN)
 from .longseq import DTS, HPMN, MIMN, SIM
+from .match import DSSM, DeepMCP
 from .multitask import ESMM, PLE, MMoE
 from .sequence import BST, DIEN, DIN, DMIN, DSIN, DSTN, MIND, SeqFM
 
@@ -58,6 +60,9 @@ MODEL_REGISTRY = {
     "esmm": ESMM,
     "mmoe": MMoE,
     "ple": PLE,
+    "dssm": DSSM,
+    "deepmcp": DeepMCP,
+    "dicm": DICM,
 }
 
 
@@ -78,8 +83,8 @@ def get_model(name: str, feature_set, device: DeviceLike = None,
 
 
 __all__ = ["Model", "MODEL_REGISTRY", "get_model", "fnn_from_fm", "AFM",
-           "AutoInt", "BST", "CCPM", "DCN", "DeepCross", "DeepFM", "DIEN", "DIN",
-           "DLRM", "DMIN", "DSIN", "DSTN", "DTS", "ESMM", "FATDeepFFM", "FFM",
-           "FGCNN", "FiBiNET", "FiGNN", "FLEN", "FM", "FNN", "FwFM", "HPMN", "LR",
-           "MIMN", "MIND", "MLR", "MMoE", "NFM", "OENN", "ONN", "PLE", "PNN",
-           "SeqFM", "SIM", "WideDeep", "xDeepFM"]
+           "AutoInt", "BST", "CCPM", "DCN", "DeepCross", "DeepFM", "DeepMCP",
+           "DICM", "DIEN", "DIN", "DLRM", "DMIN", "DSIN", "DSSM", "DSTN", "DTS",
+           "ESMM", "FATDeepFFM", "FFM", "FGCNN", "FiBiNET", "FiGNN", "FLEN", "FM",
+           "FNN", "FwFM", "HPMN", "LR", "MIMN", "MIND", "MLR", "MMoE", "NFM",
+           "OENN", "ONN", "PLE", "PNN", "SeqFM", "SIM", "WideDeep", "xDeepFM"]

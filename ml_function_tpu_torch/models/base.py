@@ -87,16 +87,20 @@ class Model(nn.Module):
 def embed_inputs(fe: FusedEmbedding, batch: Mapping[str, Any],
                  with_linear: bool = True, l2: bool = True) -> Dict[str, Any]:
     """One lookup for all sparse fields. Returns dense (B, Nd), emb
-    (B, F, D), linear (B, F) and the embedding L2 aux term."""
-    if batch.get("emb_override"):
-        raise NotImplementedError(
-            "emb_override (the cold-start hook) comes with the slice of the "
-            "remaining models")
+    (B, F, D), linear (B, F) and the embedding L2 aux term.
+
+    The cold-start hook (``models/coldstart.py``): a batch entry
+    ``emb_override`` {field: (B, D)} replaces that field's gathered cross
+    rows, out of place, so that the gradient reaches the override and not
+    the table's rows. The field's first-order weight is not replaced."""
     out: Dict[str, Any] = {"dense": batch.get("dense")}
     if with_linear:
         emb, out["linear"] = fe.sparse_all(batch["sparse"])
     else:
         emb = fe.sparse(batch["sparse"])
+    for name, vec in (batch.get("emb_override") or {}).items():
+        col = torch.tensor([fe.feature_set.sparse_index(name)], device=emb.device)
+        emb = emb.index_copy(1, col, vec[:, None, :].to(emb.dtype))
     out["emb"] = emb
     out["l2"] = fe.l2_from_sparse(emb) if l2 else emb.new_zeros(())
     return out

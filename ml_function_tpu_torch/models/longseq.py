@@ -18,10 +18,12 @@ stream); the DIEN core takes the (AU)GRU kernel when ``kernel = 'pallas'`` is
 set on ``model.dien.gru1`` and ``model.dien.gru2``, as for DIEN.
 
 ``esu_attention='lsh'`` makes the exact search unit an
-``LSHSelfAttention``. Routes of the reference that the port does not take
-yet: the RowTape branch of soft search (the port's ``ops.embedding.row_tape``
-raises, slice 7) and the sequence-sharded search unit (slice 8; the port has
-no mesh context that could ask for it).
+``LSHSelfAttention``. Under a RowTape (the sparse-row path) soft search
+scores and selects from the whole stream's looked-up rows, as the
+reference does there, since a lookup's ids may depend on the batch alone.
+The reference's sequence-sharded search unit comes with parallelism
+(``ROADMAP.md`` Queue 1 item 8; the port has no mesh context that could ask
+for it).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from ..features.schema import FeatureSet
 from ..ops.attention import LSHSelfAttention, MultiHeadAttention, TargetAttention
 from ..ops.base import bf16_matmul, normal_init
 from ..ops.core import MLP, Dense
-from ..ops.embedding import FusedEmbedding
+from ..ops.embedding import FusedEmbedding, active_row_tape
 from ..ops.recurrent import GRU
 from .base import Model, behavior_inputs, stateless
 from .sequence import DIEN, _beh_dims, _tower_input
@@ -119,11 +121,19 @@ def SIM(fs: FeatureSet,
 
     def fwd(m, batch, train):
         fe = m.dien.embedding
-        if search == "soft":
+        if search == "soft" and active_row_tape() is None:
             cand, reduced, red_mask, l2_long, emb = soft_search(fe, batch)
-        else:   # hard search was applied in data preparation
+        else:   # hard search (applied in data preparation), or under a RowTape
             cand, reduced, red_mask, l2_long, emb = behavior_inputs(
                 fe, batch, candidate, long_behavior)
+            if search == "soft":
+                cand_long = torch.cat([emb[:, c, :] for c in long_score_cols], dim=-1)
+                scores = torch.einsum("bld,bd->bl", reduced, cand_long)
+                top_i = top_k_indices(torch.where(red_mask, scores, -torch.inf),
+                                      min(top_k, scores.shape[1]))
+                reduced = torch.gather(
+                    reduced, 1, top_i[..., None].expand(-1, -1, reduced.shape[-1]))
+                red_mask = torch.gather(red_mask, 1, top_i)
         if kd_long != kd:
             reduced = m.align_long(reduced)
         any_valid = red_mask.any(dim=1)

@@ -1,4 +1,5 @@
-"""Core dense blocks: Dense, LayerNorm, BatchNorm, Activation, MLP.
+"""Core dense blocks: Dense, LayerNorm, BatchNorm, Activation, MLP, and the
+score heads (ScoreHead, MergeScoreHead, intra_view_pool, Align).
 
 Counterpart of ``ml_function_tpu/ops/core.py``. Parameter layouts are those
 of the JAX pytree (``Dense.w`` is (in, out)), and module names are its keys,
@@ -196,3 +197,56 @@ def flatten_concat(xs: Sequence[torch.Tensor]) -> torch.Tensor:
     """Flatten each input to (B, -1) and concatenate."""
     flat = [x.reshape(x.shape[0], -1) for x in xs]
     return flat[0] if len(flat) == 1 else torch.cat(flat, dim=-1)
+
+
+class ScoreHead(nn.Module):
+    """One logit as the sum of (B,)-shaped contributions, plus a scalar
+    ``bias`` (reference ``ScoreHead``, no parameter without ``use_bias``)."""
+
+    def __init__(self, use_bias: bool = True):
+        super().__init__()
+        self.use_bias = use_bias
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(()))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.use_bias:
+            self.bias.zero_()
+
+    def forward(self, contributions: Sequence[torch.Tensor]) -> torch.Tensor:
+        total = sum(c.reshape(c.shape[0]) for c in contributions)
+        return total + self.bias if self.use_bias else total
+
+
+class MergeScoreHead(nn.Module):
+    """Flatten and concatenate the inputs, then one ``Dense(in_dim, 1)``
+    ``head``: a single logit, where the reference's source emits a 2-way
+    softmax (the same model class)."""
+
+    def __init__(self, in_dim: int):
+        super().__init__()
+        self.head = Dense(in_dim, 1)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        return self.head(flatten_concat(list(xs)))[:, 0]
+
+
+def intra_view_pool(x: torch.Tensor) -> torch.Tensor:
+    """The mean over axis 1, kept as an axis of 1."""
+    return x.mean(dim=1, keepdim=True)
+
+
+class Align(nn.Module):
+    """Project each input to ``out_dim`` by its own ``proj{i}`` Dense; an
+    input already that wide passes as it is (and has no ``proj{i}``)."""
+
+    def __init__(self, in_dims: Sequence[int], out_dim: int):
+        super().__init__()
+        self.in_dims, self.out_dim = tuple(in_dims), out_dim
+        for i, d in enumerate(self.in_dims):
+            if d != out_dim:
+                self.add_module(f"proj{i}", Dense(d, out_dim))
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> list:
+        return [x if d == self.out_dim else getattr(self, f"proj{i}")(x)
+                for i, (x, d) in enumerate(zip(xs, self.in_dims))]

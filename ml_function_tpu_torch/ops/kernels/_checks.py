@@ -30,3 +30,15 @@ def check_cuda_inputs(what: str, ndims: Mapping[str, int],
             raise ValueError(f"{what}: {name} must be a contiguous "
                              f"{ndim}-d float32 tensor, got {t.dtype} "
                              f"{tuple(t.shape)} contiguous={t.is_contiguous()}")
+
+
+def refuse_double_backward(what: str) -> None:
+    """A kernel's backward is not itself differentiable. Autograd runs a
+    backward with grad mode on only for ``create_graph=True`` (a
+    second-order gradient, as the cold-start meta step takes): raise then,
+    on the card and on the CPU alike, rather than return a gradient that
+    lacks the second-order term."""
+    if torch.is_grad_enabled():
+        raise RuntimeError(f"{what}: the kernel's backward has no double "
+                           "backward; a second-order gradient (create_graph="
+                           "True) cannot pass through it")

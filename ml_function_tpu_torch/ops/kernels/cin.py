@@ -37,7 +37,7 @@ import functools
 import torch
 
 from . import _build
-from ._checks import check_cuda_inputs, on_cpu
+from ._checks import check_cuda_inputs, on_cpu, refuse_double_backward
 
 BLOCK_B = 256
 # The kernels' inputs: 3-d activations, the 2-d weight.
@@ -104,6 +104,7 @@ class CINLayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy_t):
+        refuse_double_backward("cin_layer_t")
         xk_t, x0_t, w1 = ctx.saved_tensors
         if on_cpu(xk_t, x0_t, w1, dy_t):
             return cin_layer_t_backward_reference(xk_t, x0_t, w1, dy_t)

@@ -29,7 +29,7 @@ import functools
 import torch
 
 from . import _build
-from ._checks import check_cuda_inputs, on_cpu
+from ._checks import check_cuda_inputs, on_cpu, refuse_double_backward
 
 CHUNK = 256   # sorted entries a block of the kernel's first pass takes
 MAX_ROWS = 2 ** 31 - 1   # the ids are sorted as int32, as the reference's are
@@ -134,6 +134,7 @@ class FusedGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
+        refuse_double_backward("fused_gather")
         (ids,) = ctx.saved_tensors
         if on_cpu(ids, ct):
             return dense_grad_reference(ids, ct, ctx.num_rows), None

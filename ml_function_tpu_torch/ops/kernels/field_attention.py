@@ -30,7 +30,7 @@ import functools
 import torch
 
 from . import _build
-from ._checks import check_cuda_inputs, on_cpu
+from ._checks import check_cuda_inputs, on_cpu, refuse_double_backward
 
 # The reference's gate (``ml_function_tpu/ops/attention.py``): the kernels
 # hold the (Lq, Lk) score matrix of one (batch row, head) on chip.
@@ -90,6 +90,7 @@ class FieldAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        refuse_double_backward("field_attention")
         q, k, v, bias = ctx.saved_tensors
         if on_cpu(q, k, v, bias, do):
             grads = field_attention_backward_reference(q, k, v, bias, do, ctx.scale)

@@ -40,7 +40,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from ._checks import check_cuda_inputs, on_cpu
+from ._checks import check_cuda_inputs, on_cpu, refuse_double_backward
 
 NEG_INF = -1e9
 MAX_HEAD_DIM = 64
@@ -132,6 +132,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        refuse_double_backward("flash_attention")
         q, k, v, bias, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = (do * o).sum(dim=-1)

@@ -47,7 +47,7 @@ import functools
 import torch
 
 from . import _build
-from ._checks import check_cuda_inputs, on_cpu
+from ._checks import check_cuda_inputs, on_cpu, refuse_double_backward
 
 # The block instances hold wh, and in the backward its (H, 3H) gradient
 # partials, in shared memory: 2 · 64 · 192 floats at H 64. Past it the wide
@@ -218,6 +218,7 @@ class GRUSequence(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dseq):
+        refuse_double_backward("gru_sequence")
         xw, wh, mask, att, h0, seq = ctx.saved_tensors
         if on_cpu(xw, wh, mask, att, h0, seq, dseq):
             dxw, dwh, da, dh0 = gru_sequence_backward_reference(

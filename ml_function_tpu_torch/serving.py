@@ -4,6 +4,8 @@ Counterpart of ``ml_function_tpu/serving.py``. The export format is the
 reference's: ``weights.npz`` under flat ``params/...`` keys plus
 ``model.json`` (model name, feature schema, hyperparameters), so a directory
 written by either package's ``export_model`` loads into the other.
+``load_scorer(..., quantize='int8')`` scores from int8 serving tables
+(``quantize_for_serving``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ from .bridge import flat_params, params_from_numpy
 from .features.schema import DenseSpec, FeatureSet, SeqSpec, SparseSpec
 from .models import get_model
 from .models.base import Model
+from .ops.embedding import FusedEmbedding, QuantizedTable, quantize_table
 from .train.loop import iter_batches
+from .train.sparse import aux_row_tables
 
 
 class Scorer:
@@ -53,8 +57,8 @@ class ShardedScorer:
     """Scoring over row-sharded tables (reference ``ShardedScorer``)."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError("row-sharded tables (ShardedScorer) come "
-                                  "with slice 8, parallelism")
+        raise NotImplementedError("row-sharded tables (ShardedScorer) come with "
+                                  "parallelism, ROADMAP.md Queue 1 item 8")
 
 
 def _fs_to_json(fs: FeatureSet) -> dict:
@@ -86,15 +90,33 @@ def export_model(path: str, model_name: str, fs: FeatureSet, model: Model,
     return path
 
 
+@torch.no_grad()
+def quantize_for_serving(model: Model) -> Model:
+    """int8 serving storage for every vocab-row table, in place: the
+    ``embedding``'s (table, linear) pair packs into one (V, D+3) row
+    ``[q_cross·D, e_cross, q_lin, e_lin]`` (``FusedEmbedding.quantize_``),
+    its other tables wider than 1 and the auxiliary (V, W > 1) tables
+    (FFM's ``ffm``, OENN's ``order{k}``) into ``[q·W, e]`` rows, each with a
+    per-row power-of-2 scale. About 4× less table memory; the model can
+    score but not train. Returns the model."""
+    emb = getattr(model, "embedding", None)
+    if isinstance(emb, FusedEmbedding):
+        emb.quantize_()
+    for k, t in aux_row_tables(model).items():
+        if t.shape[1] > 1:
+            del model._parameters[k]
+            model.add_module(k, QuantizedTable(quantize_table(t)))
+    return model
+
+
 def load_scorer(path: str, batch_size: int = 4096,
                 quantize: Optional[str] = None,
                 device: DeviceLike = None) -> Scorer:
     """Restore an exported model for scoring on ``device`` (default: the
-    CUDA card; raises without one unless ``device='cpu'``)."""
-    if quantize == "int8":
-        raise NotImplementedError("int8 serving tables come with slice 7 "
-                                  "(the sparse path and serving)")
-    if quantize:
+    CUDA card; raises without one unless ``device='cpu'``);
+    ``quantize='int8'`` scores from int8 serving tables
+    (``quantize_for_serving``)."""
+    if quantize not in (None, "int8"):
         raise ValueError(f"unknown quantize mode {quantize!r}")
     dev = resolve_device(device)
     with open(os.path.join(path, "model.json")) as f:
@@ -105,4 +127,6 @@ def load_scorer(path: str, batch_size: int = 4096,
     model = get_model(meta["model"], fs, device=dev, **hp)
     with np.load(os.path.join(path, "weights.npz")) as arrays:
         params_from_numpy(model, dict(arrays))
+    if quantize == "int8":
+        quantize_for_serving(model)
     return Scorer(model, batch_size)

@@ -25,6 +25,7 @@ import torch
 
 from ..bridge import params_from_numpy
 from ..models.base import as_tensors
+from ..ops.embedding import has_int8_tables
 from .control import EarlyStopping, History, MetricMonitor, ReduceLROnPlateau
 from .metrics import (bce_with_logits, calibration, gauc, init_metrics,
                       metrics_summary, update_metrics)
@@ -69,6 +70,8 @@ def loss_fn(model, batch: Mapping[str, Any], train: bool = True):
 def make_train_step(model, optimizer):
     """``train_step(batch) -> {"loss", "bce", "logits", "label"}``: forward,
     loss, backward and one update of ``optimizer`` (bound to ``model``)."""
+    if has_int8_tables(model):
+        raise ValueError("a model with int8 serving tables cannot train")
     dev = _device(model)
 
     def train_step(batch):

@@ -26,7 +26,7 @@ from ml_function_tpu_torch.models import MODEL_REGISTRY, get_model
 from ml_function_tpu_torch.ops import attention as tattention
 from ml_function_tpu_torch.ops import core as tcore
 from ml_function_tpu_torch.ops.base import bf16_matmul, init_parameters
-from ml_function_tpu_torch.ops.embedding import FusedEmbedding, row_tape
+from ml_function_tpu_torch.ops.embedding import FusedEmbedding, RowTape, row_tape
 from ml_function_tpu_torch.ops.interactions import fm_interaction
 from ml_function_tpu_torch.serving import ShardedScorer
 
@@ -107,11 +107,13 @@ def test_get_model_unknown_name_lists_registry():
     with pytest.raises(KeyError, match="deepfm.*xdeepfm"):
         get_model("nope", fs, device="cpu")
     assert sorted(MODEL_REGISTRY) == [
-        "afm", "autoint", "bst", "ccpm", "dcn", "deepcross", "deepfm", "dien",
-        "din", "dlrm", "dmin", "dsin", "dstn", "dts", "esmm", "fat_deepffm",
-        "ffm", "fgcnn", "fibinet", "fignn", "flen", "fm", "fnn", "fwfm", "hpmn",
-        "lr", "mimn", "mind", "mlr", "mmoe", "nfm", "oenn", "onn", "ple", "pnn",
-        "seqfm", "sim", "wide_deep", "xdeepfm"]
+        "afm", "autoint", "bst", "ccpm", "dcn", "deepcross", "deepfm", "deepmcp",
+        "dicm", "dien", "din", "dlrm", "dmin", "dsin", "dssm", "dstn", "dts", "esmm",
+        "fat_deepffm", "ffm", "fgcnn", "fibinet", "fignn", "flen", "fm", "fnn",
+        "fwfm", "hpmn", "lr", "mimn", "mind", "mlr", "mmoe", "nfm", "oenn", "onn",
+        "ple", "pnn", "seqfm", "sim", "wide_deep", "xdeepfm"]
+    from ml_function_tpu.models import MODEL_REGISTRY as JAX_REGISTRY
+    assert sorted(MODEL_REGISTRY) == sorted(JAX_REGISTRY)
 
 
 def test_get_model_defaults_to_the_card():
@@ -222,18 +224,22 @@ def test_fused_embedding_without_a_table():
 
 
 def test_unported_routes_raise():
-    mixed = FeatureSet(sparse=(SparseSpec("a", 5, dim=4),
-                               SparseSpec("b", 5, dim=2)))
-    with pytest.raises(NotImplementedError, match="mixed-width"):
-        FusedEmbedding(mixed)
+    """Row-sharded serving raises, naming its roadmap item; the routes
+    that came with the store (a mixed-width store, the cold-start hook, the
+    RowTape) run."""
     fs = criteo_feature_set([5, 5], n_dense=1, embed_dim=4)
     m = get_model("deepfm", fs, device="cpu", hidden=(4,))
+    with pytest.raises(NotImplementedError, match="ShardedScorer.*item 8"):
+        ShardedScorer(m, None)
+    mixed = FeatureSet(sparse=(SparseSpec("a", 5, dim=4),
+                               SparseSpec("b", 5, dim=2)))
+    assert {n for n, _ in FusedEmbedding(mixed).named_parameters()} == {
+        "table", "linear", "table2", "linear2", "align2"}
     batch = {"dense": np.zeros((2, 1), np.float32),
              "sparse": np.ones((2, 2), np.int32),
              "emb_override": {"C1": np.zeros((2, 4), np.float32)}}
-    with pytest.raises(NotImplementedError, match="emb_override"):
+    with torch.no_grad():
+        assert torch.isfinite(m(batch)[0]).all()
+    with row_tape(RowTape("record")) as tape:
         m(batch)
-    with pytest.raises(NotImplementedError, match="RowTape"):
-        row_tape(None)
-    with pytest.raises(NotImplementedError, match="ShardedScorer"):
-        ShardedScorer(m, None)
+    assert [g for g, _ in tape.records] == ["table", "linear"]

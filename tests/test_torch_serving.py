@@ -147,9 +147,11 @@ def test_load_scorer_defaults_to_the_card(tmp_path):
         load_scorer(str(tmp_path / "m"))
 
 
-@pytest.mark.parametrize("mode,exc", [("int8", NotImplementedError),
+@pytest.mark.parametrize("mode,exc", [("int8", FileNotFoundError),
                                       ("fp4", ValueError)])
 def test_load_scorer_quantize_modes(mode, exc, tmp_path):
+    """'int8' is a mode (an empty directory then has no model to load);
+    any other raises ValueError before the directory is read."""
     with pytest.raises(exc):
         load_scorer(str(tmp_path), quantize=mode, device="cpu")
 
