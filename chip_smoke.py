@@ -158,9 +158,9 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     1 field_attn_fwd a forward and 1 field_attn_bwd a step, and its scores
     and 5 Adam steps are held against the same model on K3's plain
     versions, FiGNN's logits compared where its probabilities saturate;
-    ONN and FAT-DeepFFM are held against the CPU at 10k ids a field (the
-    same widths, a tenth of the rows: their 270 M-parameter tables' CPU
-    side would hold the run past 600 s) and timed at 100k;
+    FFM, ONN and FAT-DeepFFM are held against the CPU at 10k ids a field
+    (the same widths, a tenth of the rows: their 270 M-parameter tables'
+    CPU side would hold the run past 600 s) and timed at 100k;
 19. the behavior-sequence tier, BST, DSIN, SeqFM, DSTN, DMIN and MIND, on
     the JAX bench's behavior batch (5,000 items, 100 categories, histories
     of 64 random ids, dim 8, default hyperparameters; DSIN at the board's
@@ -200,9 +200,36 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     pass timed with peak memory there and at 26 fields of 1M ids; DeepFM
     scored from int8 tables against f32 at 26 x 100k, B 8192 (largest
     probability gap within 0.02, AUC within 2e-3, table bytes, rates);
-22. one ``{"kernels": [...]}`` line (each kernel with its instances and the
-    shapes each took), then ``{"ok": true, "device": ...}`` last. The run's
-    wall time is printed before them.
+22. train from files and resume: both native loaders built with g++ from
+    the port's copies (``ml_function_tpu_torch/native/*.cpp``, timed; a
+    failed build stops the run); a headerless Criteo TSV written from a
+    seed (36 × 4096 rows, 13 counts and 26 categorical fields of about
+    100k values, some empty; the last 16,384 rows a held-out file), the
+    held-out file parsed whole by ``load_criteo`` (26 × 100k buckets; rows
+    and MiB a second, and the training file's) and its first 2,048 rows
+    held against ``py_reference_parse`` (ids, labels and raw counts bit for
+    bit, the log1p counts within one f32 ulp, ROADMAP.md R12); xDeepFM at
+    phase 4's width trained from the file through ``CriteoFileIterator``
+    at B 4096 with Adam (2 cin_fwd and 2 cin_bwd a step; host clock and
+    CUDA events a step), checkpoints after steps 8, 16 and 24 (keep 3;
+    bytes, save seconds), the newest truncated, ``restore_latest`` into a
+    fresh model and optimizer on the card (step 16's, the same bits as a
+    host copy taken then; step 24's renamed ``.corrupt``; restore
+    seconds), steps 17-24 replayed against the uninterrupted losses
+    (``FILE_REPLAY_RTOL``), the resumed model exported and the held-out
+    file scored through ``load_scorer`` (within 1e-6 of the live model;
+    AUC); then a behavior CSV from ``make_behavior_data`` at DIEN's
+    headline shape (8 × 4096 rows) read by ``BehaviorFileIterator``
+    (native, buckets that map every id one to one; the ids the written
+    arrays' after the encode, bit for bit), DIEN on the kernel route with
+    the merge-scatter flag trained 4 steps (2 gru_fwd, 2 gru_bwd and 2
+    merge_scatter a step), its checkpoint restored into a fresh model and
+    optimizer with the same bits, and one more step on both;
+23. one ``{"kernels": [...]}`` line (each kernel with its instances and the
+    shapes each took; a kernel's ``launches`` are those of the newest path
+    that runs it, phase 22's for the CIN, (AU)GRU and merge-scatter
+    kernels), then ``{"ok": true, "device": ...}`` last. The run's wall
+    time is printed before them.
 
 Numerics: TF32 is off for matmuls and cuDNN, so every f32 product outside
 the kernels is a full f32 product. Imports nothing of JAX.
@@ -1805,13 +1832,14 @@ INTERACTION_K3 = {"fignn": 1}
 # round to neighbouring bf16 values on the two devices (R3), so its bar is
 # one bf16 step, as phase 19's; the other models keep 1e-5
 INTERACTION_DECISION_BAR = {"fgcnn": BF16_PATH_RTOL}
-# Ids a field of the card-against-CPU check of ONN and FAT-DeepFFM, whose
-# CPU side would otherwise hold the run past 600 s (their (V, 26·4)
-# field-aware tables, as FFM's, hold 270 M parameters at 100k ids, whose
-# export and 10 CPU Adam steps take about a minute a model): the same
-# widths, a tenth of the rows. FFM is checked at the board's 100k ids, and
-# all three's B-16,384 rates are taken there.
-CPU_CHECK_VOCAB = {"onn": 10_000, "fat_deepffm": 10_000}
+# Ids a field of the card-against-CPU check of FFM, ONN and FAT-DeepFFM,
+# whose CPU side would otherwise hold the run past 600 s (their (V, 26·4)
+# field-aware tables hold 270 M parameters at 100k ids, whose export and
+# CPU Adam steps take 30 s to a minute a model; FFM joined them when phase
+# 22 came, the whole run taking 595.5 s on an H100 with FFM at 100k): the
+# same widths, a tenth of the rows. All three's B-16,384 rates are taken at
+# the board's 100k ids.
+CPU_CHECK_VOCAB = {"ffm": 10_000, "onn": 10_000, "fat_deepffm": 10_000}
 # the depth of phases 18 and 19's rates, to keep the run under 600 s:
 # training (``step_rates``), the host clock's median of 8 steps and the
 # events' of 5 samples of 2 steps (the earlier phases' 20 and 10 × 5); one
@@ -2506,7 +2534,7 @@ def interaction_phases(drive, launches_by_path, plain_fa) -> None:
     ``card_against_cpu`` at B 4096 (no kernel launched but FiGNN's K3 under
     the flag, 1 field_attn_fwd a forward and 1 field_attn_bwd a step, whose
     scores and 5 Adam steps are also held against the same model on K3's
-    plain versions; ONN and FAT-DeepFFM at ``CPU_CHECK_VOCAB`` ids), and the
+    plain versions; FFM, ONN and FAT-DeepFFM at ``CPU_CHECK_VOCAB`` ids), and the
     training rates and peak memory at B 16384. The models share one
     dataset, whose ``click`` (max(label, Bernoulli(0.3)), as bench.py:65-69
     draws it) the multi-task models' batches carry (ESMM's ``label`` is then
@@ -3112,6 +3140,396 @@ def store_phase(drive, launches_by_path) -> None:
     int8_phase(drive, launches_by_path)
 
 
+# Training from files (phase 22): the Criteo width of phase 4 from a TSV the
+# script writes from a seed, and DIEN's headline shape from a behavior CSV
+FILE_BATCHES = 36                 # Criteo rows: 36 × 4096, the last 16,384 held out
+FILE_HELDOUT = 16384
+FILE_VALUES = 100_000             # distinct values drawn a categorical field
+FILE_BUCKETS = 100_000            # hash buckets a field
+FILE_SAVES = (8, 16, 24)          # steps after which a checkpoint is written
+FILE_REPLAY = range(17, 25)       # the steps replayed from step 16's checkpoint
+FILE_REF_ROWS = 2048              # rows held against the Python reference parse
+BEHAVIOR_FILE_BATCHES = 8
+BEHAVIOR_FILE_STEPS = 4
+# The replayed losses against the uninterrupted run's. The step after a
+# restore sees the same bits (its forward is deterministic); from then on
+# the embedding table's gradient is index_select's backward, whose atomic
+# adds sum each row's terms in an order that varies from run to run, so
+# the tables differ by f32 roundings, and Adam's first moments amplify a
+# rounding near 0 into an update of up to lr. Over 8 steps that moves the
+# mean loss by orders of magnitude less than 1e-4 of itself.
+FILE_REPLAY_RTOL = 1e-4
+
+
+def _auc(labels: np.ndarray, scores: np.ndarray) -> float:
+    """ROC AUC by ranks (Mann-Whitney), ties broken by order."""
+    order = np.argsort(scores, kind="stable")
+    ranks = np.empty(len(scores), np.float64)
+    ranks[order] = np.arange(1, len(scores) + 1)
+    pos = labels > 0.5
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def write_criteo_tsv(path: str, n_rows: int, seed: int) -> None:
+    """A headerless Criteo TSV from a numpy seed: label, 13 integer counts
+    (a tenth empty) and 26 categorical hex strings over FILE_VALUES values a
+    field (a twentieth empty). The label is drawn from the log counts of
+    I1 and I2 (a planted signal for the held-out AUC)."""
+    rng = np.random.default_rng(seed)
+    counts = np.array([str(v) for v in range(10_000)] + [""], dtype=object)
+    values = np.array([f"{v:08x}" for v in rng.permutation(1 << 24)[:FILE_VALUES]]
+                      + [""], dtype=object)
+    dense = rng.integers(0, 10_000, (n_rows, 13))
+    dense[rng.random((n_rows, 13)) < 0.1] = 10_000
+    cats = rng.integers(0, FILE_VALUES, (n_rows, 26))
+    cats[rng.random((n_rows, 26)) < 0.05] = FILE_VALUES
+    # each field hashes with its own salt, so one value list serves all 26
+    z = np.log1p(np.where(dense[:, :2] == 10_000, 0, dense[:, :2]))
+    z = (z - z.mean(0)) / z.std(0)
+    logit = 1.5 * z[:, 0] - 1.0 * z[:, 1] - 1.1
+    label = np.where(rng.random(n_rows) < 1 / (1 + np.exp(-logit)), "1", "0").astype(object)
+    cols = np.concatenate([label[:, None], counts[dense], values[cats]], axis=1)
+    with open(path, "w") as f:
+        f.write("\n".join("\t".join(r) for r in cols.tolist()))
+        f.write("\n")
+
+
+def write_behavior_csv(path: str, data: dict) -> None:
+    """``label,item,cate,hist_item,hist_cate`` with '|'-joined histories
+    (the padding zeros left out), as ``tests/fixtures/behavior_tiny.csv``."""
+    def lists(a):
+        return ["|".join(map(str, row[row != 0])) for row in a]
+
+    sp, seq = data["sparse"], data["seq"]
+    rows = zip(data["label"].astype(int).tolist(), sp[:, 0].tolist(), sp[:, 1].tolist(),
+               lists(seq["hist_item"]), lists(seq["hist_cate"]))
+    with open(path, "w") as f:
+        f.write("label,item,cate,hist_item,hist_cate\n")
+        f.write("\n".join(f"{a},{b},{c},{d},{e}" for a, b, c, d, e in rows))
+        f.write("\n")
+
+
+def _same_state(a: dict, b: dict) -> list:
+    """Keys whose arrays differ in dtype, shape or any bit."""
+    if sorted(a) != sorted(b):
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if a[k].dtype != b[k].dtype or a[k].tobytes() != b[k].tobytes()]
+
+
+def criteo_file_phase(drive, launches_by_path, tmp: str) -> None:
+    """Phase 22 (b): xDeepFM at the Criteo width trained from a TSV through
+    ``CriteoFileIterator``, checkpoints with a torn newest one, the
+    fallback's restore and replay, and the exported model's held-out
+    scores."""
+    from ml_function_tpu_torch.features import native_loader as nl
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.ops.kernels import cin as cin_mod
+    from ml_function_tpu_torch.serving import Scorer, export_model, load_scorer
+    from ml_function_tpu_torch.train import checkpoint as ckpt
+    from ml_function_tpu_torch.train.loop import TrainState, make_train_step
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    t = time.perf_counter()
+    whole = os.path.join(tmp, "criteo.tsv")
+    write_criteo_tsv(whole, FILE_BATCHES * BATCH, seed=0)
+    with open(whole, "rb") as f:
+        text = f.read()
+    cut = 0
+    for _ in range((FILE_BATCHES * BATCH) - FILE_HELDOUT):
+        cut = text.index(b"\n", cut) + 1
+    train_path, held_path = os.path.join(tmp, "train.tsv"), os.path.join(tmp, "heldout.tsv")
+    with open(train_path, "wb") as f:
+        f.write(text[:cut])
+    with open(held_path, "wb") as f:
+        f.write(text[cut:])
+    print(f"criteo file: {FILE_BATCHES * BATCH} rows, {len(text) / 2**20:.1f} MiB written "
+          f"in {time.perf_counter() - t:.1f} s ({FILE_HELDOUT} held out)")
+
+    # the parse: the held-out file whole, then the training file's rate
+    t = time.perf_counter()
+    held = nl.load_criteo(held_path, hash_buckets=FILE_BUCKETS)
+    held_s = time.perf_counter() - t
+    t = time.perf_counter()
+    nl.load_criteo(train_path, hash_buckets=FILE_BUCKETS)
+    train_s = time.perf_counter() - t
+    held_mb, train_mb = os.path.getsize(held_path) / 2**20, os.path.getsize(train_path) / 2**20
+    print(f"native parse (load_criteo, {nl._threads(None)} threads): held-out "
+          f"{FILE_HELDOUT} rows in {held_s * 1e3:.2f} ms ({FILE_HELDOUT / held_s:.1f} "
+          f"rows/s, {held_mb / held_s:.1f} MiB/s); training file "
+          f"{len(text[:cut].splitlines())} rows in {train_s * 1e3:.2f} ms "
+          f"({(FILE_BATCHES * BATCH - FILE_HELDOUT) / train_s:.1f} rows/s, "
+          f"{train_mb / train_s:.1f} MiB/s)")
+    if held["sparse"].shape != (FILE_HELDOUT, 26) or held["dense"].shape != (FILE_HELDOUT, 13):
+        fail(f"held-out parse has shapes {held['sparse'].shape}, {held['dense'].shape}")
+    # the first rows against the Python reference: ids and labels bit for
+    # bit, the raw counts bit for bit, their log1p within one f32 ulp (the
+    # C++ takes log1pf, the reference numpy's f64 log1p; ROADMAP.md R12)
+    head = b"".join(text[cut:].splitlines(keepends=True)[:FILE_REF_ROWS]).decode()
+    ref = nl.py_reference_parse(head, hash_buckets=FILE_BUCKETS)
+    raw_ref = nl.py_reference_parse(head, hash_buckets=FILE_BUCKETS, log1p=False)
+    raw = nl.parse_buffer(head.encode(), hash_buckets=FILE_BUCKETS, log1p=False)
+    n = FILE_REF_ROWS
+    exact = (held["sparse"][:n].tobytes() == ref["sparse"].tobytes()
+             and held["label"][:n].tobytes() == ref["label"].tobytes()
+             and raw["dense"].tobytes() == raw_ref["dense"].tobytes())
+    ulps = int(np.abs(held["dense"][:n].view(np.int32).astype(np.int64)
+                      - ref["dense"].view(np.int32).astype(np.int64)).max())
+    print(f"native parse against py_reference_parse, first {n} rows: ids, labels and "
+          f"raw counts bit for bit {exact}; log1p counts within {ulps} f32 ulp")
+    if not exact or ulps > 1:
+        fail("the native Criteo parse differs from py_reference_parse")
+
+    # xDeepFM trained from the file, checkpoints after steps 8, 16 and 24
+    fs = criteo_feature_set([FILE_BUCKETS] * 26, n_dense=13, embed_dim=8)
+    hp = {"cin_hidden": [128, 128], "hidden": [256, 128]}
+    thp = {k: tuple(v) for k, v in hp.items()}
+
+    def fresh(seed):
+        model = get_model("xdeepfm", fs, device="cuda",
+                          generator=torch.Generator().manual_seed(seed), **thp)
+        return model, make_optimizer("adam", 1e-3).init(model)
+
+    model, opt = fresh(0)
+    step = make_train_step(model, opt)
+    ck_dir = os.path.join(tmp, "ckpt")
+    losses, kept, saves, host16, per_step = {}, {}, [], None, []
+    walls, events = [], []
+
+    def cin_counts():
+        return cin_mod.cin_fwd_launches, cin_mod.cin_bwd_launches
+
+    def run():
+        nonlocal host16
+        it = nl.CriteoFileIterator(train_path, BATCH, hash_buckets=FILE_BUCKETS,
+                                   chunk_bytes=16 << 20)
+        n_steps = 0
+        t_prev = time.perf_counter()
+        for batch in it:
+            n_steps += 1
+            before = cin_counts()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(batch)
+            e1.record()
+            per_step.append(tuple(a - b for a, b in zip(cin_counts(), before)))
+            losses[n_steps] = out["loss"]
+            events.append((e0, e1))
+            if n_steps in FILE_REPLAY:
+                kept[n_steps] = batch
+            if n_steps in FILE_SAVES:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                ts = TrainState(model, opt, n_steps)
+                ckpt.save_checkpoint(ck_dir, ts, keep=3)
+                saves.append(time.perf_counter() - t)
+                if n_steps == 16:
+                    host16 = ckpt.state_arrays(ts)
+                t_prev = time.perf_counter()
+                continue
+            now = time.perf_counter()
+            walls.append(now - t_prev)
+            t_prev = now
+        torch.cuda.synchronize()
+        return n_steps
+
+    n_steps = drive("criteo_file_training", run)
+    want_steps = FILE_BATCHES - FILE_HELDOUT // BATCH
+    got = launches_by_path["criteo_file_training"]
+    if n_steps != want_steps or got != expect(cin_fwd=2 * n_steps, cin_bwd=2 * n_steps) \
+            or any(c != (2, 2) for c in per_step):
+        fail(f"xDeepFM from the file: {n_steps} steps (want {want_steps}), launches {got}, "
+             f"per step {sorted(set(per_step))}")
+    dev_ms = [a.elapsed_time(b) for a, b in events[1:]]
+    wall = statistics.median(walls[1:])
+    print(f"xdeepfm from the file: {n_steps} steps at B={BATCH}, 2 cin_fwd + 2 cin_bwd a "
+          f"step; {wall * 1e3:.3f} ms a step by the host clock (median, parse and the "
+          f"iterator's thread included: {BATCH / wall:.1f} examples/s), "
+          f"{statistics.median(dev_ms):.4f} ms by CUDA events (median over steps 2-"
+          f"{n_steps}); loss step 1 {float(losses[1]):.5f}, step {n_steps} "
+          f"{float(losses[n_steps]):.5f}")
+    size = os.path.getsize(os.path.join(ck_dir, "ckpt_0000000016", "arrays.npz"))
+    print(f"checkpoint: {size} bytes ({size / 2**20:.1f} MiB, {len(host16)} arrays); save "
+          f"{', '.join(f'{s:.3f}' for s in saves)} s")
+
+    # the newest checkpoint torn: the restore falls back to step 16
+    arrays = os.path.join(ck_dir, "ckpt_0000000024", "arrays.npz")
+    with open(arrays, "r+b") as f:
+        f.truncate(os.path.getsize(arrays) // 2)
+    model2, opt2 = fresh(1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ts2, _, path = ckpt.restore_latest(ck_dir, TrainState(model2, opt2, 0))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    names = sorted(os.listdir(ck_dir))
+    diff = _same_state(ckpt.state_arrays(ts2), host16) if ts2 is not None else ["none"]
+    print(f"torn newest checkpoint: restored {os.path.basename(path)} (step "
+          f"{ts2.step if ts2 else None}) in {restore_s:.3f} s; directory {names}; "
+          f"state the same bits as step 16's: {not diff}")
+    if (ts2 is None or ts2.step != 16 or not path.endswith("ckpt_0000000016")
+            or "ckpt_0000000024.corrupt" not in names or diff
+            or not all(p.is_cuda for p in model2.parameters())):
+        fail(f"the fallback past the torn checkpoint failed: {path}, {names}, {diff[:3]}")
+
+    # replay steps 17..24 from the restored state
+    step2 = make_train_step(model2, opt2)
+    replay = drive("criteo_file_replay", lambda: {i: step2(kept[i])["loss"]
+                                                  for i in FILE_REPLAY})
+    rel = max(abs(float(replay[i]) - float(losses[i])) / abs(float(losses[i]))
+              for i in FILE_REPLAY)
+    same_first = float(replay[17]) == float(losses[17])
+    print(f"replay of steps 17-24 from step 16's checkpoint: largest relative loss gap "
+          f"{rel:.3e} (bar {FILE_REPLAY_RTOL}); step 17's loss the same bits: {same_first}")
+    if rel > FILE_REPLAY_RTOL or not same_first \
+            or launches_by_path["criteo_file_replay"] != expect(cin_fwd=16, cin_bwd=16):
+        fail(f"the replayed losses leave the uninterrupted run's by {rel}")
+
+    # the resumed model exported and scored on the held-out file
+    exp = os.path.join(tmp, "export")
+    export_model(exp, "xdeepfm", fs, model2, hyperparams=hp)
+    scorer = load_scorer(exp, batch_size=BATCH)
+    scores = drive("criteo_file_scoring", lambda: scorer.predict_proba(held))
+    live = Scorer(model2, BATCH).predict_proba(held)
+    gap = float(np.abs(scores - live).max())
+    n_batches = -(-FILE_HELDOUT // BATCH)
+    print(f"held-out scores from the export (load_scorer, cuda): max |gap| to the live "
+          f"model {gap:.3e}; AUC {_auc(held['label'], scores):.4f} over {FILE_HELDOUT} "
+          f"rows (the label planted on I1 and I2)")
+    if gap > 1e-6 or not np.isfinite(scores).all() \
+            or launches_by_path["criteo_file_scoring"] != expect(cin_fwd=2 * n_batches):
+        fail(f"the export's held-out scores leave the live model's by {gap}")
+    del model, opt, model2, opt2, scorer
+
+
+def behavior_file_phase(drive, launches_by_path, tmp: str) -> None:
+    """Phase 22 (c): DIEN on the kernel route trained from a behavior CSV
+    through ``BehaviorFileIterator``, its checkpoint round trip and one more
+    step on both copies."""
+    from ml_function_tpu_torch.features import behavior_stream as bs
+    from ml_function_tpu_torch.features.synthetic import make_behavior_data
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.train import checkpoint as ckpt
+    from ml_function_tpu_torch.train.loop import TrainState, make_train_step
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    t = time.perf_counter()
+    n_rows = BEHAVIOR_FILE_BATCHES * BATCH
+    _, data = make_behavior_data(n_rows=n_rows, **DIEN_DATA)
+    path = os.path.join(tmp, "behavior.csv")
+    write_behavior_csv(path, data)
+    print(f"behavior file: {n_rows} rows, {os.path.getsize(path) / 2**20:.1f} MiB written "
+          f"in {time.perf_counter() - t:.1f} s")
+    # id → id % (buckets − 1) + 1 is one to one on 1..n while buckets ≥ n + 2
+    items, cates = DIEN_DATA["n_items"] + 2, DIEN_DATA["n_cates"] + 2
+    it = bs.BehaviorFileIterator(path, BATCH, seq_len=DIEN_DATA["seq_len"],
+                                 item_buckets=items, cate_buckets=cates, engine="native")
+    fs = it.feature_set(embed_dim=DIEN_DATA["embed_dim"])
+
+    def model_on_kernels(seed):
+        model = get_model("dien", fs, device="cuda",
+                          generator=torch.Generator().manual_seed(seed))
+        model.gru1.kernel = model.gru2.kernel = "pallas"
+        return model, make_optimizer("adam", 1e-3).init(model)
+
+    model, opt = model_on_kernels(0)
+    step = make_train_step(model, opt)
+    parsed, spare = [], []
+
+    def run():
+        for i, batch in enumerate(it):
+            parsed.append(batch)
+            if i < BEHAVIOR_FILE_STEPS:
+                step(batch)
+            elif i == BEHAVIOR_FILE_STEPS:
+                spare.append(batch)
+        torch.cuda.synchronize()
+
+    with merge_scatter_flag(True):
+        drive("behavior_file_training", run)
+    enc = lambda a, b: bs.encode_int_ids(a.astype(np.int64), b)  # noqa: E731
+    want = {"sparse": np.stack([enc(data["sparse"][:, 0], items),
+                                enc(data["sparse"][:, 1], cates)], axis=1),
+            "hist_item": enc(data["seq"]["hist_item"], items),
+            "hist_cate": enc(data["seq"]["hist_cate"], cates),
+            "label": data["label"]}
+    got = {"sparse": np.concatenate([b["sparse"] for b in parsed]),
+           "hist_item": np.concatenate([b["seq"]["hist_item"] for b in parsed]),
+           "hist_cate": np.concatenate([b["seq"]["hist_cate"] for b in parsed]),
+           "label": np.concatenate([b["label"] for b in parsed])}
+    bad = [k for k in want if want[k].dtype != got[k].dtype
+           or want[k].tobytes() != got[k].tobytes()]
+    one_to_one = len(np.unique(want["hist_item"])) == len(np.unique(data["seq"]["hist_item"]))
+    per = BEHAVIOR_FILE_STEPS
+    launches = launches_by_path["behavior_file_training"]
+    print(f"behavior stream (native): {len(parsed)} batches of {BATCH}, ids the written "
+          f"arrays' after the encode bit for bit: {not bad} (one to one: {one_to_one}); "
+          f"DIEN {per} steps on the kernel route, launches {launches}")
+    if bad or not one_to_one or len(parsed) != BEHAVIOR_FILE_BATCHES \
+            or launches != expect(gru_fwd=2 * per, gru_bwd=2 * per, merge_scatter=2 * per):
+        fail(f"the behavior stream's ids differ ({bad}) or DIEN's launches are {launches}")
+
+    ck_dir = os.path.join(tmp, "dien_ckpt")
+    t = time.perf_counter()
+    path_ck = ckpt.save_checkpoint(ck_dir, TrainState(model, opt, per))
+    save_s = time.perf_counter() - t
+    model2, opt2 = model_on_kernels(1)
+    t = time.perf_counter()
+    ts2, _ = ckpt.restore_checkpoint(path_ck, TrainState(model2, opt2, 0))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    diff = _same_state(ckpt.state_arrays(ts2), ckpt.state_arrays(TrainState(model, opt, per)))
+    size = os.path.getsize(os.path.join(path_ck, "arrays.npz"))
+    print(f"DIEN checkpoint: {size} bytes, save {save_s:.3f} s, restore {restore_s:.3f} s; "
+          f"restored state the same bits: {not diff}")
+    if diff or ts2.step != per:
+        fail(f"DIEN's checkpoint round trip differs at {diff[:3]}")
+
+    def both():
+        return [make_train_step(m, o)(spare[0]) for m, o in ((model, opt), (model2, opt2))]
+
+    with merge_scatter_flag(True):
+        outs = drive("behavior_file_resumed_step", both)
+    gap = abs(float(outs[0]["loss"]) - float(outs[1]["loss"]))
+    with torch.no_grad():
+        pgap = max(float((p - q).abs().max()) / max(float(p.abs().max()), 1e-30)
+                   for p, q in zip(model.parameters(), model2.parameters()))
+    print(f"one more step on both: loss gap {gap:.3e} (bar {FILE_REPLAY_RTOL} of the loss), "
+          f"largest parameter gap after it {pgap:.3e} of max|p|")
+    if gap > FILE_REPLAY_RTOL * abs(float(outs[0]["loss"])) \
+            or launches_by_path["behavior_file_resumed_step"] != expect(
+                gru_fwd=4, gru_bwd=4, merge_scatter=4):
+        fail(f"the resumed DIEN's step leaves the original's by {gap}")
+    del model, opt, model2, opt2
+
+
+def file_phase(drive, launches_by_path) -> None:
+    """Phase 22: train from files and resume. Both loaders built with g++
+    from the port's copies (timed), then ``criteo_file_phase`` and
+    ``behavior_file_phase``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ml_function_tpu_torch import native
+    from ml_function_tpu_torch.features import behavior_stream as bs
+    from ml_function_tpu_torch.features import native_loader as nl
+    from ml_function_tpu_torch.ops.kernels import _build
+
+    t = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(2) as pool:
+            libs = list(pool.map(native.build, ("criteo_loader", "behavior_loader")))
+        nl.get_lib()
+        bs._get_blib()
+    except Exception as e:  # noqa: BLE001 (a failed build stops the run)
+        fail(f"the native loaders did not build or load: {e}")
+    print(f"native loaders: g++ build {time.perf_counter() - t:.2f} s "
+          f"({', '.join(os.path.basename(str(p)) for p in libs)})")
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        criteo_file_phase(drive, launches_by_path, tmp)
+        behavior_file_phase(drive, launches_by_path, tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3282,10 +3700,15 @@ def main() -> int:
     # 21. the store: mixed widths, the sparse-row path, int8 scoring
     store_phase(drive, launches_by_path)
     lap("phase 21")
+    # 22. train from files and resume: xDeepFM from a Criteo TSV (CIN), DIEN
+    # from a behavior CSV ((AU)GRU, merge-scatter), checkpoints
+    file_phase(drive, launches_by_path)
+    lap("phase 22")
 
-    # 22. result lines: each kernel's launches are those of the newest path
-    # that runs it; every path's own counts ride along, and each instance
-    # (C function) with the shapes it took here
+    # 23. result lines: each kernel's launches are those of the newest path
+    # that runs it (phase 22's for the CIN, (AU)GRU and merge-scatter
+    # kernels); every path's own counts ride along, and each instance (C
+    # function) with the shapes it took here
     for k in kernels:
         runs = [p for p, c in launches_by_path.items() if c[k["name"]]]
         k["launches"] = launches_by_path[runs[-1]][k["name"]]

@@ -8,6 +8,13 @@ state-dict key ``mlp.layer0.dense.w`` (a list is an ``nn.ParameterList``:
 ``experts.w.0``) and the copy is one lookup per leaf.
 Both directions are strict: a missing key, a key left over or a shape that
 differs raises.
+
+Running state (the JAX ``model_state``, BatchNorm's running ``mean`` and
+``var``) lives in the port's buffers. The JAX ``MLP`` keeps a layer's
+statistics at ``layer{i}/mean`` where its parameters sit at
+``layer{i}/norm/...``; the port's ``BatchNorm`` module sits at
+``layer{i}.norm``, so its buffer ``layer{i}.norm.mean`` is the state key
+``layer{i}/mean`` (``state_buffers``).
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from .ops.core import BatchNorm
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -51,12 +60,11 @@ def params_from_numpy(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     (``params/...``, with ``state/...`` for running state)."""
     flat = _flatten(tree)
     if flat and all(k.startswith(("params/", "state/")) for k in flat):
-        state = [k for k in flat if k.startswith("state/")]
-        if state:
-            raise NotImplementedError(
-                f"model state {state[:3]} (BatchNorm running statistics) "
-                "crosses with the slice that brings a stateful model")
-        flat = {k[len("params/"):]: v for k, v in flat.items()}
+        state = {k[len("state/"):]: v for k, v in flat.items()
+                 if k.startswith("state/")}
+        flat = {k[len("params/"):]: v for k, v in flat.items()
+                if k.startswith("params/")}
+        state_from_numpy(model, state)
     want = dict(model.named_parameters())
     got = {k.replace("/", "."): v for k, v in flat.items()}
     missing = sorted(set(want) - set(got))
@@ -93,3 +101,45 @@ def flat_params(model: nn.Module) -> Dict[str, np.ndarray]:
     """``weights.npz`` keys (``params/<a>/<b>``) → arrays."""
     return {"params/" + k: v
             for k, v in _flatten(params_to_numpy(model)).items()}
+
+
+def state_buffers(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's running state by its JAX ``model_state`` key path:
+    every ``BatchNorm``'s ``mean`` and ``var`` buffers, keyed without the
+    module's own ``norm`` name (``mlp/layer0/mean``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, BatchNorm):
+            path = name.split(".") if name else []
+            if path and path[-1] == "norm":
+                path = path[:-1]
+            for b in ("mean", "var"):
+                out["/".join(path + [b])] = getattr(mod, b)
+    return out
+
+
+def state_from_numpy(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+    """Fill ``model``'s running state (``state_buffers``) from a nested
+    dict of arrays (the JAX ``model_state``) or from its flat key paths;
+    strict as ``params_from_numpy``."""
+    got = _flatten(tree)
+    want = state_buffers(model)
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise KeyError(f"model state keys differ: missing {missing}, "
+                       f"unexpected {extra}")
+    with torch.no_grad():
+        for key, buf in want.items():
+            arr = np.asarray(got[key])
+            if tuple(arr.shape) != tuple(buf.shape):
+                raise ValueError(f"state {key}: shape {tuple(arr.shape)} != "
+                                 f"{tuple(buf.shape)}")
+            buf.copy_(torch.tensor(arr, dtype=buf.dtype))
+    return model
+
+
+def flat_state(model: nn.Module) -> Dict[str, np.ndarray]:
+    """``weights.npz`` keys of the running state (``state/<path>``)."""
+    return {"state/" + k: v.detach().cpu().numpy().copy()
+            for k, v in state_buffers(model).items()}

@@ -1,9 +1,10 @@
 """Scoring and model export of the port.
 
 Counterpart of ``ml_function_tpu/serving.py``. The export format is the
-reference's: ``weights.npz`` under flat ``params/...`` keys plus
-``model.json`` (model name, feature schema, hyperparameters), so a directory
-written by either package's ``export_model`` loads into the other.
+reference's: ``weights.npz`` under flat ``params/...`` keys (and
+``state/...`` for BatchNorm's running statistics) plus ``model.json``
+(model name, feature schema, hyperparameters), so a directory written by
+either package's ``export_model`` loads into the other.
 ``load_scorer(..., quantize='int8')`` scores from int8 serving tables
 (``quantize_for_serving``).
 """
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
-from .bridge import flat_params, params_from_numpy
+from .bridge import flat_params, flat_state, params_from_numpy
 from .features.schema import DenseSpec, FeatureSet, SeqSpec, SparseSpec
 from .models import get_model
 from .models.base import Model
@@ -83,7 +84,8 @@ def _fs_from_json(d: dict) -> FeatureSet:
 def export_model(path: str, model_name: str, fs: FeatureSet, model: Model,
                  hyperparams: Optional[dict] = None) -> str:
     os.makedirs(path, exist_ok=True)
-    np.savez(os.path.join(path, "weights.npz"), **flat_params(model))
+    np.savez(os.path.join(path, "weights.npz"), **flat_params(model),
+             **flat_state(model))
     with open(os.path.join(path, "model.json"), "w") as f:
         json.dump({"model": model_name, "feature_set": _fs_to_json(fs),
                    "hyperparams": hyperparams or {}}, f)

@@ -23,7 +23,7 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..bridge import params_from_numpy
+from ..bridge import params_from_numpy, state_from_numpy
 from ..models.base import as_tensors
 from ..ops.embedding import has_int8_tables
 from .control import EarlyStopping, History, MetricMonitor, ReduceLROnPlateau
@@ -34,11 +34,14 @@ from .optimizers import OptimizerSpec, make_optimizer, set_learning_rate
 
 @dataclass
 class TrainState:
-    """What ``fit`` trained: the model (its parameters, in place), its bound
-    optimizer and the number of steps taken."""
+    """What ``fit`` trained: the model (its parameters and running state,
+    in place), its bound optimizer, the number of steps taken and the
+    ``torch.Generator`` the steps draw from, if any (the reference's
+    ``rng``); ``train/checkpoint.py`` saves and restores all of them."""
     model: torch.nn.Module
     optimizer: Any
     step: int
+    rng: Optional[torch.Generator] = None
 
 
 def _device(model: torch.nn.Module) -> torch.device:
@@ -235,9 +238,10 @@ def fit(model, data: Dict[str, Any], *, epochs: int = 1,
     - batches: ``iter_batches`` shuffled with ``seed + epoch``;
     - ``optimizer``: an ``OptimizerSpec`` (default Adam at
       ``learning_rate``), bound here to the model's parameters;
-    - ``init_params=(params, model_state)`` warm-starts from a nested dict
-      of arrays by key path (``bridge.params_from_numpy``; the JAX
-      package's parameters after ``np.asarray``), with a fresh optimizer;
+    - ``init_params=(params, model_state)`` warm-starts from nested dicts
+      of arrays by key path (``bridge.params_from_numpy`` and
+      ``state_from_numpy``; the JAX package's parameters and BatchNorm
+      state after ``np.asarray``), with a fresh optimizer;
     - ``steps_per_call`` runs the same single steps in order (the reference
       chains them to amortise the TPU's dispatch), so the result equals the
       unchained run; the examples/s timer then leaves out the first group;
@@ -261,11 +265,9 @@ def fit(model, data: Dict[str, Any], *, epochs: int = 1,
         raise ValueError("patience/plateau need eval_data to monitor")
     if init_params is not None:
         p0, s0 = init_params
-        if s0:
-            raise NotImplementedError(
-                "model state (BatchNorm running statistics) crosses with "
-                "the slice that brings a stateful model")
         params_from_numpy(model, p0)
+        if s0:
+            state_from_numpy(model, s0)
     spec = optimizer or make_optimizer("adam", learning_rate,
                                        inject_lr=bool(plateau))
     opt = spec.init(model)

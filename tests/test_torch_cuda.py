@@ -908,3 +908,36 @@ def test_sim_on_the_card_matches_the_cpu(card, monkeypatch):
         scale = next((v for k, v in attn_norm.items() if name.startswith(k)), p.grad.norm())
         err = (q.grad.cpu() - p.grad).norm() / scale
         assert err <= RTOL, (name, err)
+
+
+def test_checkpoint_round_trip_on_the_card(card, tmp_path):
+    """A checkpoint of an xDeepFM trained on the card (the CIN kernels,
+    B 256) restores into a fresh model and optimizer on the card with the
+    same bits, the card's generator state included, and lands there."""
+    from ml_function_tpu_torch.train import checkpoint as ckpt
+    from ml_function_tpu_torch.train.loop import TrainState, iter_batches, make_train_step
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+    fs, data = make_criteo_like(n_rows=768, n_dense=3, n_sparse=5, vocab_size=50,
+                                embed_dim=4)
+    hp = dict(cin_hidden=(128, 128), hidden=(16,))
+    model = get_model("xdeepfm", fs, device=card, **hp)
+    opt = make_optimizer("adam", 1e-2).init(model)
+    gen = torch.Generator(device=card).manual_seed(5)
+    step = make_train_step(model, opt)
+    for b in list(iter_batches(data, 256))[:3]:
+        step(b)
+        torch.rand(4, device=card, generator=gen)
+    want = ckpt.state_arrays(TrainState(model, opt, 3, gen))
+    path = ckpt.save_checkpoint(str(tmp_path), TrainState(model, opt, 3, gen))
+    fresh = get_model("xdeepfm", fs, device=card,
+                      generator=torch.Generator().manual_seed(1), **hp)
+    opt2 = make_optimizer("adam", 1e-2).init(fresh)
+    gen2 = torch.Generator(device=card).manual_seed(0)
+    got, _, where = ckpt.restore_latest(str(tmp_path), TrainState(fresh, opt2, 0, gen2))
+    assert where == path and got.step == 3
+    assert all(p.is_cuda for p in fresh.parameters())
+    assert all(s.is_cuda for st in opt2.state.values() for s in st.values())
+    have = ckpt.state_arrays(got)
+    assert sorted(have) == sorted(want)
+    for k in want:
+        assert have[k].tobytes() == want[k].tobytes(), k
