@@ -146,8 +146,8 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     through ``load_scorer`` at B 4096 on features alone (finite
     probabilities; with f32 matmuls on both devices within 1e-4 of the same
     weights scored on the CPU, on the bf16 path the logits within one bf16
-    step, 2^-8, of their max; no kernel launched), 3 Adam steps on the card
-    against the same 3 on the CPU (phase 5's bars with f32 matmuls on both;
+    step, 2^-8, of their max; no kernel launched), 2 Adam steps on the card
+    against the same 2 on the CPU (``CPU_CHECK_STEPS``) (phase 5's bars with f32 matmuls on both;
     on the bf16 path the losses to 1e-3 and the gradients at one bf16 step
     of max|g|; the CPU's first step takes the card's ReLU decisions, each
     overridden pre-activation within 1e-5 of its layer's max of 0), the
@@ -165,7 +165,7 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     the JAX bench's behavior batch (5,000 items, 100 categories, histories
     of 64 random ids, dim 8, default hyperparameters; DSIN at the board's
     B 2048 with sessions (8, 8), the others at B 4096), each as a model of
-    18 (scores and 3 Adam steps card against CPU, the CPU's first step
+    18 (scores and 2 Adam steps card against CPU, the CPU's first step
     taking the card's ReLU and PReLU decisions, the aux terms, the rates
     at its batch), with the field-attention flag: DSIN, SeqFM and DMIN
     launch 1 field_attn_fwd a forward and 1 field_attn_bwd a step, and
@@ -225,11 +225,36 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     the merge-scatter flag trained 4 steps (2 gru_fwd, 2 gru_bwd and 2
     merge_scatter a step), its checkpoint restored into a fresh model and
     optimizer with the same bits, and one more step on both;
-23. one ``{"kernels": [...]}`` line (each kernel with its instances and the
+23. row-sharded tables over ``torch.distributed``: the card has one H100,
+    so NCCL runs at world size 1, from a ``FileStore`` group of this
+    process, at xDeepFM's full width. (a) ``ShardedLookup`` called directly
+    at a model group of 1, psum and a2a, bf16-compressed, at the a2a
+    capacity of the slice's unique ids (lossless) and one below it (one id
+    dropped and counted), against ``index_select`` (f32 rows the same bits,
+    the bf16 ones the bf16 cast's; the table gradient within 1e-6 of the
+    max, and under compression each element within bf16's unit roundoff
+    2^-8 a rounding of its id's summed |cotangent|, one rounding for psum
+    and two for the a2a; times by events); (b)
+    ``ShardedScorer`` over phase 4's 13,288 rows at B 4096, the same bits as
+    ``Scorer`` on the same model, 2 cin_fwd a batch; (c) the CLI's ``run``
+    on the card: 32 Adam steps of xDeepFM on ``make_criteo_like`` data (26
+    × 100k ids) with a sharded checkpoint every 16 steps, then a second
+    run that resumes from step 16's (its losses against the uninterrupted
+    run's, ``FILE_REPLAY_RTOL``; step 17's the same bits), 2 + 2 CIN
+    launches a step and 2 cin_fwd an eval batch; the step's host clock
+    and CUDA events, the checkpoint's bytes, save and restore seconds; (d)
+    two CPU gloo ranks of a (1, 2) mesh (spawned first, beside (a) to (c),
+    on 3 cores each) train the card's seeded
+    weights 3 Adam steps at B 1024 with f32 matmuls and write a sharded
+    checkpoint, which the card restores by stitching into its (1, 1)
+    state: the parameters the ranks' gathered ones bit for bit, and the
+    held rows' scores within 1e-4 of the ranks' (f32 matmuls on the card
+    too). Each part's wall time is printed;
+24. one ``{"kernels": [...]}`` line (each kernel with its instances and the
     shapes each took; a kernel's ``launches`` are those of the newest path
-    that runs it, phase 22's for the CIN, (AU)GRU and merge-scatter
-    kernels), then ``{"ok": true, "device": ...}`` last. The run's wall
-    time is printed before them.
+    that runs it, phase 23's for the CIN kernels and phase 22's for the
+    (AU)GRU and merge-scatter ones), then ``{"ok": true, "device": ...}``
+    last. The run's wall time is printed before them.
 
 Numerics: TF32 is off for matmuls and cuDNN, so every f32 product outside
 the kernels is a full f32 product. Imports nothing of JAX.
@@ -241,6 +266,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1840,11 +1866,12 @@ INTERACTION_DECISION_BAR = {"fgcnn": BF16_PATH_RTOL}
 # same widths, a tenth of the rows. All three's B-16,384 rates are taken at
 # the board's 100k ids.
 CPU_CHECK_VOCAB = {"ffm": 10_000, "onn": 10_000, "fat_deepffm": 10_000}
-# the depth of phases 18 and 19's rates, to keep the run under 600 s:
-# training (``step_rates``), the host clock's median of 8 steps and the
-# events' of 5 samples of 2 steps (the earlier phases' 20 and 10 × 5); one
-# forward (``score_rates``), the events' 5 samples of 2 (their 25 × 10)
-BOARD_RATES_DEPTH = dict(host_steps=8, event_reps=(5, 2))
+# the depth of the rates of phases 18 to 21, to keep the run under 600 s:
+# training (``step_rates``), the host clock's median of 4 steps and the
+# events' of 3 samples of 2 steps (the earlier phases' 20 and 10 × 5; 8 and
+# 5 × 2 until phase 23 came); one forward (``score_rates``), the events' 3
+# samples of 2 (their 25 × 10)
+BOARD_RATES_DEPTH = dict(host_steps=4, event_reps=(3, 2))
 
 
 def check_wide_cin(cin_mod) -> tuple:
@@ -2639,11 +2666,12 @@ NOISE_BLOCKS = {"mimn": ("attn_mem.", "attn_ch.")}
 SEQUENCE_TOWERS = {"seqfm": "head"}
 SEQ_LEN = 64
 # the interaction models' and the sequence tier's steps card against CPU
-# (phases 18 and 19): 3 (5 before PR 15), a cut of depth that keeps the run
-# under 600 s with phases 20 and 21 (the CPU's steps took 71.9 and 89.6 s
-# of the two phases at 5); the kernel parity steps stay at 5, and phases 20
-# and 21 take 5
-CPU_CHECK_STEPS = 3
+# (phases 18 and 19): 2, cut from 5 and then from 3 as phases joined the run,
+# to keep it under 600 s (the CPU's steps took 71.9 and 89.6 s of the two
+# phases at 5, and 129.8 s of both at 3; the third went for phase 23); every
+# step-1 gradient and the losses of both steps stay held, the kernel parity
+# steps stay at 5, and phases 20 and 21 take 5
+CPU_CHECK_STEPS = 2
 
 
 def seq_board_batch(n_rows: int, session_shape=None, seed: int = 1):
@@ -3530,6 +3558,371 @@ def file_phase(drive, launches_by_path) -> None:
         behavior_file_phase(drive, launches_by_path, tmp)
 
 
+# Row-sharded tables over torch.distributed (phase 23). The card machine has
+# one H100, so NCCL runs at world size 1 (a FileStore group of this process);
+# the collective code paths run on the card, but no rank splits a table
+# there. Two CPU gloo ranks of a (1, 2) mesh do split one (part d).
+SHARD_STEPS = 32                  # CLI steps at B 4096 (test_frac 0.2 of 163,840 rows)
+SHARD_SAVE = 16                   # the sharded checkpoint the second run resumes from
+CPU_RANKS = 2
+CPU_RANK_BATCH = 1024             # a multiple of 256: the CIN kernel route on the card
+CPU_RANK_STEPS = 3
+CPU_RANK_THREADS = 3              # 8 cores: 3 for each CPU rank, 2 for parts (a)-(c)
+SHARD_SCORE_BAR = 1e-4            # the card's scores against the CPU ranks'
+XDFM_HP = {"cin_hidden": (128, 128), "hidden": (256, 128)}
+
+
+def _cpu_rank(rank: int, io_dir: str) -> None:
+    """One of the CPU gloo ranks of part (d): a (1, 2) mesh, the card's
+    xDeepFM weights (``weights.npz``) sharded, 3 Adam steps with f32
+    matmuls, a sharded checkpoint, and the scores of the held rows."""
+    os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = "1"
+    from ml_function_tpu_torch.bridge import sharded_params_to_numpy
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.parallel.context import sharded_embeddings
+    from ml_function_tpu_torch.parallel.mesh import make_mesh
+    from ml_function_tpu_torch.parallel.train import (create_sharded_state,
+                                                      make_sharded_train_step, shard_batch)
+    from ml_function_tpu_torch.train.checkpoint import save_checkpoint
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+    mesh = make_mesh(1, CPU_RANKS, device="cpu")
+    with np.load(os.path.join(io_dir, "weights.npz")) as w:
+        init = dict(w)
+    with np.load(os.path.join(io_dir, "batches.npz")) as d:
+        batches = [{k: d[f"{k}{i}"] for k in ("dense", "sparse", "label")}
+                   for i in range(CPU_RANK_STEPS + 1)]
+    model = get_model("xdeepfm", fs, device="cpu", **XDFM_HP)
+    ts = create_sharded_state(model, make_optimizer("adam", 1e-3), mesh, init_params=init)
+    step = make_sharded_train_step(ts.model, ts.optimizer, mesh)
+    losses = [float(step(shard_batch(b, mesh))["loss"]) for b in batches[:CPU_RANK_STEPS]]
+    ts.step = CPU_RANK_STEPS
+    save_checkpoint(os.path.join(io_dir, "ckpt"), ts)
+    with torch.no_grad(), sharded_embeddings(mesh):
+        probs = torch.sigmoid(ts.model(batches[-1])[0]).numpy()
+    full = sharded_params_to_numpy(ts.model, ts.layout, mesh)
+    if rank == 0:
+        flat = {}
+
+        def walk(node, key):
+            items = node.items() if isinstance(node, dict) else enumerate(node)
+            for k, v in items:
+                if isinstance(v, (dict, list)):
+                    walk(v, f"{key}{k}/")
+                else:
+                    flat[f"{key}{k}"] = v
+
+        walk(full, "params/")
+        np.savez(os.path.join(io_dir, "cpu_ranks.npz"), probs=probs,
+                 losses=np.asarray(losses), **flat)
+
+
+def shard_lookup_part(table, gids, mesh, fs) -> None:
+    """(a) ShardedLookup in both modes, bf16-compressed, and at a finite
+    capacity (the slice's unique ids: lossless; one fewer: one id
+    dropped), over NCCL at a model group of 1, against ``index_select``."""
+    from ml_function_tpu_torch.parallel.embedding import ShardedLookup
+    from ml_function_tpu_torch.tools.timing import event_ms
+
+    flat = gids.reshape(-1)
+    want = table.index_select(0, flat).reshape(*gids.shape, table.shape[1])
+    ct = torch.randn(want.shape, generator=torch.Generator("cuda").manual_seed(0),
+                     device="cuda")
+    t = table.detach().clone().requires_grad_()
+    t.index_select(0, flat).reshape(want.shape).mul(ct).sum().backward()
+    want_grad = t.grad
+    # each table element's summed cotangent magnitudes over its ids' occurrences
+    ct_abs = torch.zeros_like(want_grad).index_add_(
+        0, flat, ct.abs().reshape(-1, table.shape[1]))
+    hit = ct_abs > 0
+    uniq = int(torch.unique(flat).numel())
+    lib_ms = event_ms(lambda: table.index_select(0, flat), reps=10, inner=5)
+    print(f"sharded lookup: {flat.numel()} ids ({uniq} unique) into {table.shape[0]} rows "
+          f"of width {table.shape[1]}; index_select {lib_ms:.4f} ms (events)")
+    for mode, compress, cap in (("psum", None, None), ("a2a", None, None),
+                                ("psum", "bf16", None), ("a2a", "bf16", None),
+                                ("a2a", None, uniq), ("a2a", None, uniq - 1)):
+        sl = ShardedLookup(mesh, fs, mode=mode, capacity=cap, compress=compress)
+        got = sl.lookup(table, gids)
+        ref = want if compress is None else want.bfloat16().float()
+        overflow = sl.overflow_count(gids)
+        t = table.detach().clone().requires_grad_()
+        sl.lookup(t, gids).mul(ct).sum().backward()
+        diff = (t.grad - want_grad).abs()
+        if compress:
+            # the bf16 wire rounds the cotangent, each time within bf16's
+            # unit roundoff 2^-8 of it: psum each occurrence's once, the a2a
+            # each occurrence's and then each deduped slot's sum. So an
+            # element's error stays within 2^-8 a rounding of the summed
+            # magnitudes of its id's occurrences (a duplicated id adds up
+            # their roundings), with 2^-6 of that for the f32 sums
+            roundings = 2 if mode == "a2a" else 1
+            gerr = float((diff[hit] / ct_abs[hit]).max())
+            gbar = roundings * 2.0 ** -8 * (1 + 2.0 ** -6)
+            of = "of its summed |cotangent|"
+        else:
+            gerr = float(diff.max()) / float(want_grad.abs().max())
+            gbar, of = 1e-6, "of its max"
+        ms = event_ms(lambda: sl.lookup(table, gids), reps=10, inner=5)
+        same = bool(torch.equal(got, ref))
+        print(f"sharded lookup {mode} compress={compress} capacity={cap}: rows the same bits "
+              f"as index_select{' (bf16-cast)' if compress else ''}: {same}; overflow "
+              f"{overflow}; table gradient within {gerr:.3e} of index_select's "
+              f"backward ({of}; bar {gbar:.3e}); {ms:.4f} ms (events)")
+        dropped = cap is not None and cap < uniq
+        if dropped:
+            if same or overflow != uniq - cap:
+                fail(f"the a2a at capacity {cap} of {uniq} unique ids dropped {overflow}")
+        elif not same or overflow != 0 or gerr > gbar:
+            fail(f"ShardedLookup {mode} {compress} {cap} differs from index_select "
+                 f"(rows {same}, overflow {overflow}, gradient {gerr})")
+
+
+def shard_scorer_part(model, data, mesh, drive, launches_by_path) -> None:
+    """(b) ShardedScorer against Scorer on the same model: the same bits, 2
+    cin_fwd launches a batch."""
+    from ml_function_tpu_torch.serving import Scorer, ShardedScorer
+
+    Scorer(model, BATCH).predict_proba(data)          # warm
+    t = time.perf_counter()
+    want = Scorer(model, BATCH).predict_proba(data)
+    plain_s = time.perf_counter() - t
+    scorer = ShardedScorer(model, mesh, batch_size=BATCH)
+    t = time.perf_counter()
+    got = drive("sharded_scoring", lambda: scorer.predict_proba(data))
+    sharded_s = time.perf_counter() - t
+    n_batches = -(-len(data["label"]) // BATCH)
+    launches = launches_by_path["sharded_scoring"]
+    same = bool(np.array_equal(got, want))
+    print(f"ShardedScorer (1, 1) over NCCL: {len(got)} rows in {n_batches} batches, the "
+          f"same bits as Scorer: {same}; launches {launches}; {sharded_s:.3f} s against "
+          f"Scorer's {plain_s:.3f} s (host clock, one call each after a warm one)")
+    if not same or launches != expect(cin_fwd=2 * n_batches):
+        fail(f"ShardedScorer differs from Scorer ({same}) or launched {launches}")
+
+
+def shard_cli_part(tmp, drive, launches_by_path) -> None:
+    """(c) The CLI's ``run`` on the card: 32 Adam steps of xDeepFM on
+    ``make_criteo_like`` data with a sharded checkpoint every 16, then a
+    second run that resumes from step 16's; the resumed losses against the
+    uninterrupted run's, 2 + 2 CIN launches a step."""
+    from ml_function_tpu_torch.ops.kernels import cin as cin_mod
+    from ml_function_tpu_torch.train import cli
+
+    n_rows = SHARD_STEPS * BATCH * 5 // 4
+    argv = ["--config.model.name=xdeepfm", "--config.model.hidden=(256,128)",
+            "--config.model.extra.cin_hidden=[128,128]", "--config.model.embed_dim=8",
+            f"--config.data.n_rows={n_rows}", "--config.data.vocab_size=100000",
+            "--config.data.test_frac=0.2", f"--config.train.batch_size={BATCH}",
+            "--config.train.optimizer=adam", "--config.train.learning_rate=1e-3",
+            f"--config.train.checkpoint_every={SHARD_SAVE}", "--config.train.log_every=0"]
+    timings = {"save": [], "restore": []}
+    real_save, real_restore = cli.save_checkpoint, cli.restore_latest
+
+    def timed(kind, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timings[kind].append(time.perf_counter() - t)
+            return out
+        return call
+
+    def one_run(ck_dir, label):
+        cfg, _ = cli.parse_args(argv + [f"--config.train.checkpoint_dir={ck_dir}"])
+        losses, per_step, marks = {}, [], []
+        last = [0, 0]           # drive zeroes the counts before the run
+
+        def on_step(i, out):
+            now = (cin_mod.cin_fwd_launches, cin_mod.cin_bwd_launches)
+            per_step.append((now[0] - last[0], now[1] - last[1]))
+            last[:] = now
+            losses[i] = out["loss"]
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((i, time.perf_counter(), e))
+
+        with swapped(cli, "save_checkpoint", timed("save", real_save)), \
+                swapped(cli, "restore_latest", timed("restore", real_restore)):
+            res = drive(label, lambda: cli.run(cfg, device="cuda", on_step=on_step))
+        torch.cuda.synchronize()
+        host = [(b[1] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])
+                if a[0] % SHARD_SAVE and b[0] % SHARD_SAVE]
+        dev = [a[2].elapsed_time(b[2]) for a, b in zip(marks, marks[1:])
+               if a[0] % SHARD_SAVE and b[0] % SHARD_SAVE]
+        return res, {i: float(v) for i, v in losses.items()}, per_step, host, dev
+
+    dir_a, dir_b = os.path.join(tmp, "cli_a"), os.path.join(tmp, "cli_b")
+    t = time.perf_counter()
+    res_a, loss_a, steps_a, host, dev = one_run(dir_a, "cli_training")
+    print(f"CLI run on the card (xdeepfm, (1, 1) mesh, NCCL): {res_a['steps']} steps at "
+          f"B {BATCH} in {time.perf_counter() - t:.1f} s; the sharded step "
+          f"{statistics.median(host):.3f} ms by the host clock and "
+          f"{statistics.median(dev):.3f} ms by CUDA events (medians, steps between "
+          f"checkpoints); eval AUC {res_a['eval']['auc']:.4f} over "
+          f"{int(res_a['eval']['count'])} rows")
+    step16 = os.path.join(dir_a, f"ckpt_{SHARD_SAVE:010d}")
+    with open(os.path.join(step16, "manifest.json")) as f:
+        manifest = json.load(f)
+    size = sum(os.path.getsize(os.path.join(step16, n)) for n in os.listdir(step16))
+    print(f"sharded checkpoint: {size} bytes ({size / 2**20:.1f} MiB, format "
+          f"{manifest['format']}, {len(manifest['keys'])} arrays); save "
+          f"{', '.join(f'{s:.3f}' for s in timings['save'])} s")
+    n_eval = -(-int(res_a["eval"]["count"]) // BATCH)
+    if (res_a["steps"] != SHARD_STEPS or manifest["format"] != "sharded"
+            or any(c != (2, 2) for c in steps_a)
+            or launches_by_path["cli_training"] != expect(
+                cin_fwd=2 * SHARD_STEPS + 2 * n_eval, cin_bwd=2 * SHARD_STEPS)):
+        fail(f"the CLI run: {res_a['steps']} steps, format {manifest['format']}, launches "
+             f"{launches_by_path['cli_training']}, per step {sorted(set(steps_a))}")
+
+    os.makedirs(dir_b)
+    shutil.copytree(step16, os.path.join(dir_b, os.path.basename(step16)))
+    res_b, loss_b, steps_b, _, _ = one_run(dir_b, "cli_resumed")
+    rel = max(abs(loss_b[i] - loss_a[i]) / abs(loss_a[i]) for i in loss_b)
+    first = loss_b[SHARD_SAVE + 1] == loss_a[SHARD_SAVE + 1]
+    print(f"CLI resumed from step {SHARD_SAVE}'s sharded checkpoint (restore "
+          f"{timings['restore'][-1]:.3f} s): steps {sorted(loss_b)[0]}-{sorted(loss_b)[-1]}, "
+          f"largest relative loss gap to the uninterrupted run {rel:.3e} (bar "
+          f"{FILE_REPLAY_RTOL}), step {SHARD_SAVE + 1} the same bits: {first}; eval AUC "
+          f"{res_b['eval']['auc']:.4f}")
+    if (sorted(loss_b) != list(range(SHARD_SAVE + 1, SHARD_STEPS + 1)) or not first
+            or rel > FILE_REPLAY_RTOL or any(c != (2, 2) for c in steps_b)
+            or launches_by_path["cli_resumed"] != expect(
+                cin_fwd=2 * (SHARD_STEPS - SHARD_SAVE) + 2 * n_eval,
+                cin_bwd=2 * (SHARD_STEPS - SHARD_SAVE))):
+        fail(f"the resumed CLI run leaves the uninterrupted one by {rel} (launches "
+             f"{launches_by_path['cli_resumed']})")
+
+
+def start_cpu_ranks(fs, data, tmp, pool):
+    """Start part (d)'s two CPU gloo ranks on ``pool``: they take the seeded
+    xDeepFM weights and the first rows of ``data`` from files and need
+    nothing of the card, so they train while parts (a) to (c) run. Returns
+    (their directory, the future of their wall seconds)."""
+    from ml_function_tpu_torch.bridge import flat_params
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.parallel.launch import spawn
+
+    io_dir = os.path.join(tmp, "cpu_ranks")
+    os.makedirs(io_dir)
+    seeded = get_model("xdeepfm", fs, device="cpu",
+                       generator=torch.Generator().manual_seed(0), **XDFM_HP)
+    np.savez(os.path.join(io_dir, "weights.npz"), **flat_params(seeded))
+    b = CPU_RANK_BATCH
+    np.savez(os.path.join(io_dir, "batches.npz"),
+             **{f"{k}{i}": data[k][i * b:(i + 1) * b]
+                for i in range(CPU_RANK_STEPS + 1) for k in ("dense", "sparse", "label")})
+
+    def run() -> float:
+        t = time.perf_counter()
+        spawn(_cpu_rank, CPU_RANKS, (io_dir,), store_dir=io_dir, threads=CPU_RANK_THREADS)
+        return time.perf_counter() - t
+
+    return io_dir, pool.submit(run)
+
+
+def shard_cpu_ranks_part(fs, data, io_dir, ranks, drive, launches_by_path) -> None:
+    """(d) Two CPU gloo ranks of a (1, 2) mesh (``start_cpu_ranks``) train
+    the card's weights 3 steps and write a sharded checkpoint; the card
+    restores it by stitching into its (1, 1) state and scores the held
+    rows."""
+    from ml_function_tpu_torch.bridge import flat_params
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.serving import Scorer
+    from ml_function_tpu_torch.train import checkpoint as ckpt
+    from ml_function_tpu_torch.train.loop import TrainState
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    b = CPU_RANK_BATCH
+    ranks_s = ranks.result()
+    print(f"CPU gloo ranks (1, {CPU_RANKS}): {CPU_RANK_STEPS} steps at B {b}, a sharded "
+          f"checkpoint and the held rows' scores in {ranks_s:.1f} s, beside parts (a) to (c)")
+    with np.load(os.path.join(io_dir, "cpu_ranks.npz")) as r:
+        cpu = dict(r)
+    path = os.path.join(io_dir, "ckpt", f"ckpt_{CPU_RANK_STEPS:010d}")
+    files = sorted(os.listdir(path))
+    model = get_model("xdeepfm", fs, device="cuda",
+                      generator=torch.Generator().manual_seed(7), **XDFM_HP)
+    opt = make_optimizer("adam", 1e-3).init(model)
+    t = time.perf_counter()
+    ts, _ = ckpt.restore_checkpoint(path, TrainState(model, opt, 0))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    mine = flat_params(model)
+    same = all(np.array_equal(mine[k], cpu[k]) for k in mine) and sorted(mine) == sorted(
+        k for k in cpu if k.startswith("params/"))
+    held = {k: data[k][CPU_RANK_STEPS * b:(CPU_RANK_STEPS + 1) * b]
+            for k in ("dense", "sparse", "label")}
+    os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = "1"
+    try:
+        probs = drive("cpu_ranks_restored_scoring",
+                      lambda: Scorer(model, b).predict_proba(held))
+    finally:
+        os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+    gap = float(np.abs(probs - cpu["probs"]).max())
+    print(f"the CPU ranks' sharded checkpoint ({files}) restored on the card by stitching "
+          f"into (1, 1) in {restore_s:.3f} s: step {ts.step}, parameters the ranks' gathered "
+          f"ones bit for bit: {same}; scores of {b} held rows within {gap:.3e} of the CPU "
+          f"ranks' (bar {SHARD_SCORE_BAR}; f32 matmuls on both); CPU losses "
+          f"{', '.join(f'{x:.5f}' for x in cpu['losses'])}")
+    if (ts.step != CPU_RANK_STEPS or not same or gap > SHARD_SCORE_BAR
+            or files != ["manifest.json", "shards_00000.npz", "shards_00001.npz"]
+            or launches_by_path["cpu_ranks_restored_scoring"] != expect(cin_fwd=2)):
+        fail(f"the card's restore of the CPU ranks' checkpoint: step {ts.step}, params "
+             f"{same}, gap {gap}, files {files}")
+
+
+def sharded_phase(drive, launches_by_path) -> None:
+    """Phase 23: row-sharded tables over torch.distributed at xDeepFM's full
+    width: (a) the collective lookups, (b) ShardedScorer, (c) the CLI with a
+    sharded checkpoint and a resume, (d) two CPU gloo ranks that split a
+    table (started first, they train beside (a) to (c)), restored on the
+    card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.features.synthetic import make_criteo_like
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.ops.kernels import _build
+    from ml_function_tpu_torch.parallel.launch import init_single
+    from ml_function_tpu_torch.parallel.mesh import make_mesh
+
+    fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+    _, data = make_criteo_like(n_rows=3 * BATCH + 1000, vocab_size=100_000, seed=0)
+    # the pool's exit joins the CPU ranks, whatever fails, before tmp goes
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp, ThreadPoolExecutor(1) as pool:
+        io_dir, ranks = start_cpu_ranks(fs, data, tmp, pool)
+        t = time.perf_counter()
+        init_single(tmp)
+        mesh = make_mesh(device="cuda")
+        print(f"process group: NCCL at world size 1, mesh {mesh}")
+        try:
+            model = get_model("xdeepfm", fs, device="cuda",
+                              generator=torch.Generator().manual_seed(0), **XDFM_HP)
+            gids = (torch.as_tensor(data["sparse"][:BATCH], device="cuda").long()
+                    + torch.as_tensor(fs.sparse_offsets(), device="cuda")[None, :])
+            with torch.no_grad():
+                table = model.embedding.table.detach()
+            shard_lookup_part(table, gids, mesh, fs)
+            print(f"wall time of phase 23 (a): {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            shard_scorer_part(model, data, mesh, drive, launches_by_path)
+            del model
+            print(f"wall time of phase 23 (b): {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            shard_cli_part(tmp, drive, launches_by_path)
+            print(f"wall time of phase 23 (c): {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            shard_cpu_ranks_part(fs, data, io_dir, ranks, drive, launches_by_path)
+            print(f"wall time of phase 23 (d): {time.perf_counter() - t:.1f} s")
+        finally:
+            torch.distributed.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -3704,11 +4097,16 @@ def main() -> int:
     # from a behavior CSV ((AU)GRU, merge-scatter), checkpoints
     file_phase(drive, launches_by_path)
     lap("phase 22")
+    # 23. row-sharded tables over torch.distributed: the collective lookups,
+    # ShardedScorer, the CLI with a sharded checkpoint and a resume (CIN),
+    # and two CPU gloo ranks' sharded checkpoint restored on the card
+    sharded_phase(drive, launches_by_path)
+    lap("phase 23")
 
-    # 23. result lines: each kernel's launches are those of the newest path
-    # that runs it (phase 22's for the CIN, (AU)GRU and merge-scatter
-    # kernels); every path's own counts ride along, and each instance (C
-    # function) with the shapes it took here
+    # 24. result lines: each kernel's launches are those of the newest path
+    # that runs it (phase 23's for the CIN kernels, phase 22's for the
+    # (AU)GRU and merge-scatter ones); every path's own counts ride along,
+    # and each instance (C function) with the shapes it took here
     for k in kernels:
         runs = [p for p, c in launches_by_path.items() if c[k["name"]]]
         k["launches"] = launches_by_path[runs[-1]][k["name"]]

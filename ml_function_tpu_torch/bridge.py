@@ -19,7 +19,7 @@ statistics at ``layer{i}/mean`` where its parameters sit at
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,3 +143,71 @@ def flat_state(model: nn.Module) -> Dict[str, np.ndarray]:
     """``weights.npz`` keys of the running state (``state/<path>``)."""
     return {"state/" + k: v.detach().cpu().numpy().copy()
             for k, v in state_buffers(model).items()}
+
+
+def _unflag(flat: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Split ``weights.npz``-style keys into (params, state); a nested tree
+    passes as params."""
+    if flat and all(k.startswith(("params/", "state/")) for k in flat):
+        return ({k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")},
+                {k[len("state/"):]: v for k, v in flat.items() if k.startswith("state/")})
+    return flat, {}
+
+
+def shard_params_from_numpy(model: nn.Module, tree: Mapping[str, Any], mesh,
+                            layout: Mapping[str, Tuple[int, int]],
+                            state: Optional[Mapping[str, Any]] = None) -> nn.Module:
+    """Fill a sharded ``model`` from a nested dict of arrays (or flat
+    ``params/...`` keys) by key path, strictly: a parameter of ``layout``
+    (dotted name → (rows, padded rows)) takes this rank's block of the
+    array's rows, the array whole (``rows``) or padded (``padded rows``);
+    every other parameter takes the array as it is. ``state`` fills the
+    BatchNorm buffers."""
+    params, flat_state = _unflag(_flatten(tree))
+    if state:
+        flat_state = _flatten(state)
+    if flat_state:
+        state_from_numpy(model, flat_state)
+    want = dict(model.named_parameters())
+    got = {k.replace("/", "."): v for k, v in params.items()}
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise KeyError(f"parameter keys differ: missing {missing}, "
+                       f"unexpected {extra}")
+    with torch.no_grad():
+        for name, p in want.items():
+            arr = np.asarray(got[name])
+            if name in layout:
+                rows, padded = layout[name]
+                if arr.shape[0] not in (rows, padded):
+                    raise ValueError(f"{name}: {arr.shape[0]} rows, want {rows} "
+                                     f"or {padded}")
+                if arr.shape[0] < padded:
+                    arr = np.concatenate(
+                        [arr, np.zeros((padded - arr.shape[0],) + arr.shape[1:], arr.dtype)])
+                r = p.shape[0]
+                arr = arr[mesh.model_index * r:(mesh.model_index + 1) * r]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(arr.shape)} != {tuple(p.shape)}")
+            p.copy_(torch.tensor(arr, dtype=p.dtype))
+    return model
+
+
+def sharded_params_to_numpy(model: nn.Module, layout: Mapping[str, Tuple[int, int]],
+                            mesh) -> Dict[str, Any]:
+    """The JAX package's nested dict of a sharded model, every block gathered
+    over the model group and the padding rows dropped (collective: every
+    rank of the model group calls it)."""
+    from .parallel.comm import all_gather_tensor
+    tree: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        t = p.detach()
+        if name in layout:
+            t = all_gather_tensor(t.contiguous(), mesh.model_group)[:layout[name][0]]
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t.cpu().numpy().copy()
+    return _lists(tree)

@@ -7,6 +7,12 @@ terms in ``aux`` (``<task>_bce``), each only when the batch carries that
 task's array, so scoring needs features alone. Those terms are the plain
 mean over the batch: the ``weight`` mask of a padded tail batch does not
 reach them, as in the reference (``ROADMAP.md`` R5).
+
+Under a sharded state MMoE's expert stacks hold this rank's block of
+experts (``parallel/train.py``, expert parallelism): the rank runs its
+block on its batch shard, and an ``all_gather`` over the model group
+assembles the (B, E, ·) stack before the gates mix it; the blocks'
+cotangents of their shared input are summed over the group.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ from ..features.schema import FeatureSet
 from ..ops.base import glorot_uniform
 from ..ops.core import MLP, flatten_concat
 from ..ops.embedding import FusedEmbedding
+from ..parallel import context as pctx
+from ..parallel.comm import all_gather_cat, sum_grad
 from ..train.metrics import bce_with_logits
 from .base import Model, embed_inputs, stateless
 
@@ -132,9 +140,13 @@ def MMoE(fs: FeatureSet, n_experts: int = 4,
 
     def fwd(m, batch, train):
         h, l2 = _shared_input(m, batch, nd)
-        x = h[:, None, :].expand(h.shape[0], n_experts, in_dim)
+        e_local = m.experts.w[0].shape[0]         # this rank's expert block
+        group = pctx.active_mesh().model_group if e_local != n_experts else None
+        # each rank's block sends back only its part of h's cotangent
+        x = sum_grad(h, group)[:, None, :].expand(h.shape[0], e_local, in_dim)
         for w, b in zip(m.experts.w, m.experts.b):
             x = torch.relu(torch.einsum("bei,eio->beo", x, w) + b)
+        x = all_gather_cat(x, group, dim=1)
         gates = torch.softmax(torch.einsum("bi,tie->bte", h, m.gates.w)
                               + m.gates.b, dim=-1)                # (B, T, E)
         mixed = torch.einsum("bte,beo->bto", gates, x)            # (B, T, out)

@@ -5,7 +5,11 @@ Counterpart of ``ml_function_tpu/ops/core.py``. Parameter layouts are those
 of the JAX pytree (``Dense.w`` is (in, out)), and module names are its keys,
 so ``params/mlp/layer0/dense/w`` is the state-dict key ``mlp.layer0.dense.w``.
 BatchNorm keeps its running statistics as buffers and updates them in place
-in training mode, where the reference threads an explicit state.
+in training mode, where the reference threads an explicit state. Under a
+sharded context whose data axis is above 1 it takes the global batch's
+moments, as the reference's do under pjit: sums all-reduced over the data
+group, with a backward that crosses ranks (``parallel/comm.all_reduce_sum``),
+so every rank's running buffers stay equal.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import context as pctx
+from ..parallel.comm import all_reduce_sum
 from .base import bf16_matmul, glorot_uniform
 
 ACTIVATIONS = ("relu", "prelu", "dice", "sigmoid", "tanh", "gelu",
@@ -61,6 +67,15 @@ class LayerNorm(nn.Module):
         return (x - mu) * torch.rsqrt(var + self.eps) * self.scale + self.bias
 
 
+def _global_moments(x: torch.Tensor, axes, mesh):
+    """Mean and biased variance over the leading axes of every data rank's
+    ``x`` (equal shards), differentiable across ranks."""
+    n = x.numel() // x.shape[-1] * mesh.data
+    mean = all_reduce_sum(x.sum(dim=axes), mesh.data_group) / n
+    var = all_reduce_sum((x - mean).square().sum(dim=axes), mesh.data_group) / n
+    return mean, var
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the leading axes; running ``mean``/``var`` buffers
     are updated in place when ``train`` is true."""
@@ -82,8 +97,12 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = x.var(dim=axes, unbiased=False)
+            mesh = pctx.active_mesh()
+            if mesh is not None and mesh.data > 1:
+                mean, var = _global_moments(x, axes, mesh)
+            else:
+                mean = x.mean(dim=axes)
+                var = x.var(dim=axes, unbiased=False)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.mul_(m).add_((1 - m) * mean)

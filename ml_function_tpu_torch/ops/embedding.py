@@ -26,6 +26,13 @@ Lookups take the reference's routes:
   ``_USE_MERGE_SCATTER`` as in the reference, and ``index_select``
   otherwise.
 
+Under an active ``parallel.context.sharded_embeddings`` whose model axis is
+above 1, each table holds only this rank's row block, and every lookup past
+the two modes below (the primary ``table`` and ``linear`` reads, the narrow
+sub-tables, the sequences and ``gather_rows``) goes through the collective
+``parallel/embedding.ShardedLookup`` in their place, in the reference's
+order: the RowTape first, then int8, then the sharded route.
+
 Two modes replace the tables' rows before any of that:
 - **the RowTape** (``row_tape``, the sparse-row path of ``train/sparse.py``):
   in ``record`` mode every lookup logs (column group, global ids) and returns
@@ -49,6 +56,7 @@ import torch
 from torch import nn
 
 from ..features.schema import FeatureSet
+from ..parallel import context as pctx
 from .base import bf16_matmul, glorot_uniform, normal_init
 from .kernels.embedding_grad import fused_gather
 
@@ -170,9 +178,24 @@ def _width(table: Table) -> int:
     return table.width if isinstance(table, QuantizedTable) else table.shape[-1]
 
 
+def _sharded():
+    """The active context's collective lookup when its model axis is above
+    1, else None."""
+    if pctx.model_axis_size() <= 1:
+        return None
+    from ..parallel.embedding import ShardedLookup
+    return ShardedLookup(pctx.active_mesh(), None, mode=pctx.exchange_mode(),
+                         compress=pctx.exchange_compress(),
+                         capacity=pctx.exchange_capacity())
+
+
 def _take(table: torch.Tensor, global_ids: torch.Tensor) -> torch.Tensor:
     """(…,) global row ids → (…, W) rows of one table (``index_select``,
-    whose backward is PyTorch's ``index_add``)."""
+    whose backward is PyTorch's ``index_add``; the collective lookup over
+    this rank's block under a sharded context)."""
+    sh = _sharded()
+    if sh is not None:
+        return sh.lookup(table, global_ids)
     rows = table.index_select(0, global_ids.reshape(-1))
     return rows.reshape(*global_ids.shape, table.shape[1])
 
@@ -202,6 +225,9 @@ def gather_rows(table: Table, ids: torch.Tensor,
             return tape.gather(tape_key, ids, _width(table))
     if isinstance(table, QuantizedTable):
         return table.rows(ids)
+    sh = _sharded()
+    if sh is not None:
+        return sh.lookup(table, ids)
     rows = _gather(table, ids.reshape(-1))
     return rows.reshape(*ids.shape, table.shape[1])
 

@@ -1,0 +1,131 @@
+"""The collectives of the sharded paths, on a mesh group.
+
+Each takes a group of ``mesh.py`` (None without a process group, where it
+is the identity). The differentiable ones are ``torch.autograd.Function``s
+whose backward is the transpose that ``shard_map`` gives the same
+collective in the reference:
+
+- ``all_reduce_sum``: forward a sum over the group, backward a sum of the
+  cotangents over the group (every rank's loss reads the sum);
+- ``all_gather_cat``: forward the group's pieces concatenated, backward the
+  rank's own slice of the cotangent, summing nothing. Every rank of the
+  group holds the same cotangent of the gathered tensor (the ranks compute
+  the same thing from it), so a sum would count it once a rank;
+- ``sum_grad``: forward the identity, backward a sum of the cotangents over
+  the group: the input of a computation that each rank of the group runs on
+  its own block (MMoE's experts), whose cotangent each rank holds only in
+  part.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+# torch 2.13 names the gather into one tensor ``all_gather_single`` and
+# deprecates ``all_gather_into_tensor`` (a FutureWarning each call); torch
+# 2.11 has only the old name
+_gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
+def group_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place sum over ``group`` (no gradient)."""
+    if group is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def all_gather_tensor(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's ``x`` concatenated along ``dim`` in group-rank order (no
+    gradient)."""
+    if group is None:
+        return x
+    n = group_size(group)
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    _gather_into(out, x, group=group)
+    if dim == 0:
+        return out
+    return torch.cat(out.chunk(n, dim=0), dim=dim)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """(n, ...) → (n, ...): block ``p`` goes to group rank ``p``, and block
+    ``p`` of the result came from group rank ``p`` (``all_to_all_single``
+    with equal splits; its own transpose)."""
+    if group is None:
+        return x
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def barrier(group=None) -> None:
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier(group=group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable sum over ``group``."""
+    if group is None:
+        return x
+    return _AllReduceSum.apply(x, group)
+
+
+class _AllGatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return all_gather_tensor(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = group_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.size, ctx.size).contiguous(), None, None
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Differentiable gather along ``dim``; the backward takes this rank's
+    slice of the cotangent (see the module docstring)."""
+    if group is None:
+        return x
+    return _AllGatherCat.apply(x, group, dim)
+
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+def sum_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity, whose backward sums the cotangent over ``group``."""
+    if group is None:
+        return x
+    return _SumGrad.apply(x, group)

@@ -55,11 +55,47 @@ class Scorer:
 
 
 class ShardedScorer:
-    """Scoring over row-sharded tables (reference ``ShardedScorer``)."""
+    """Scoring over row-sharded tables (reference ``ShardedScorer``): a
+    serving fleet whose tables outgrow one device. ``model``'s tables (and
+    MMoE's expert stacks) are padded and replaced, in place, by this rank's
+    blocks of ``mesh`` (``parallel/train.shard_model_``); each global batch
+    is split over the data axis, its lookups ride the collective exchange
+    of sharded training, and every rank returns the full probabilities,
+    gathered over the data group. Every rank of the mesh calls
+    ``predict_proba`` with the same data."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("row-sharded tables (ShardedScorer) come with "
-                                  "parallelism, ROADMAP.md Queue 1 item 8")
+    def __init__(self, model: Model, mesh, batch_size: int = 4096,
+                 exchange: str = "psum", device: DeviceLike = None):
+        from .parallel.train import shard_model_
+        if batch_size % mesh.data:
+            raise ValueError(f"batch_size {batch_size} must divide the "
+                             f"data axis ({mesh.data})")
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        self.model = model
+        self.mesh = mesh
+        self.batch_size = batch_size
+        self.exchange = exchange
+        self.layout = shard_model_(model, mesh)
+
+    def predict_proba(self, data: Dict[str, Any]) -> np.ndarray:
+        from .parallel.comm import all_gather_tensor
+        from .parallel.context import sharded_embeddings
+        from .parallel.train import shard_batch
+        n = len(next(v for k, v in data.items() if k != "seq"))
+        if "label" not in data:
+            data = dict(data)
+            data["label"] = np.zeros(n, np.float32)
+        out = np.empty(n, np.float32)
+        pos = 0
+        with torch.inference_mode(), sharded_embeddings(self.mesh, mode=self.exchange):
+            for batch in iter_batches(data, self.batch_size):
+                logits, _, _ = self.model(shard_batch(batch, self.mesh), train=False)
+                p = all_gather_tensor(torch.sigmoid(logits), self.mesh.data_group)
+                take = int(batch["weight"].sum())
+                out[pos:pos + take] = p.cpu().numpy()[:take]
+                pos += take
+        return out
 
 
 def _fs_to_json(fs: FeatureSet) -> dict:

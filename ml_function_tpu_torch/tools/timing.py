@@ -49,10 +49,13 @@ def _kernel_intervals(prof):
 
 def profile_device(fn: Callable[[], object], n: int):
     """``n`` calls of ``fn`` under ``torch.profiler``: (device ms by kernel
-    name a call, busiest first; device busy ms a call; window ms a call)."""
+    name a call, busiest first; device busy ms a call; window ms a call).
+    It traces the card's activity alone: tracing the host's operators too
+    stretches the window of a step that launches many small kernels, and
+    takes seconds more to read back."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()

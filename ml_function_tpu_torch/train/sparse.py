@@ -167,12 +167,15 @@ def emb_row_keys(emb: nn.Module) -> Tuple[str, ...]:
                  if k.startswith(("table", "linear")))
 
 
-def row_table_groups(model: Model) -> Dict[str, nn.Parameter]:
+def row_table_groups(model: Model, aux_keys=None) -> Dict[str, nn.Parameter]:
     """Every row-updated table by its tape group: the ``embedding``'s
-    column groups and the auxiliary tables' keys."""
+    column groups and the auxiliary tables' keys (``aux_keys``, by default
+    ``aux_row_tables``; a sharded model names them, as its blocks no longer
+    have total_vocab rows)."""
     emb = getattr(model, "embedding", None)
     out = {k: getattr(emb, k) for k in emb_row_keys(emb)} if emb is not None else {}
-    aux = aux_row_tables(model)
+    aux = (aux_row_tables(model) if aux_keys is None
+           else {k: getattr(model, k) for k in aux_keys})
     clash = set(out) & set(aux)
     assert not clash, (f"aux row tables {clash} collide with FusedEmbedding "
                        "column-group names — rename the params")
@@ -180,10 +183,11 @@ def row_table_groups(model: Model) -> Dict[str, nn.Parameter]:
     return out
 
 
-def sparse_dense_tree(model: Model) -> List[Tuple[str, nn.Parameter]]:
+def sparse_dense_tree(model: Model, groups=None) -> List[Tuple[str, nn.Parameter]]:
     """(name, parameter) of everything the dense optimizer owns: every
-    parameter but the row tables."""
-    rows = {id(p) for p in row_table_groups(model).values()}
+    parameter but the row tables (``groups``, default ``row_table_groups``)."""
+    groups = row_table_groups(model) if groups is None else groups
+    rows = {id(p) for p in groups.values()}
     return [(n, p) for n, p in model.named_parameters() if id(p) not in rows]
 
 
@@ -210,13 +214,25 @@ def create_sparse_train_state(model: Model, dense_opt: OptimizerSpec,
         rows={g: row_opt.init(t.detach()) for g, t in row_table_groups(model).items()})
 
 
-def sparse_step_core(model: Model, dense: OptaxRule, batch):
+def local_gather(group: str, table: torch.Tensor, gids: torch.Tensor) -> torch.Tensor:
+    """The single-process gather: ``index_select`` of the recorded ids."""
+    return table.index_select(0, gids.reshape(-1)).reshape(*gids.shape, table.shape[1])
+
+
+def sparse_step_core(model: Model, dense: OptaxRule, batch, gather=None, *,
+                     groups=None, loss=None, sync=None):
     """Record, gather, inject, backward and the dense update. Returns (out,
-    per-group (ids (N,), gradients (N, W))). The reference passes the
-    gather in, for its sharded path's collective lookup; the port has no
-    sharded path yet (``ROADMAP.md`` Queue 1 item 8), so the rows are read
-    here."""
-    groups = row_table_groups(model)
+    per-group (ids (N,), gradients (N, W))).
+
+    ``gather(group, table, global_ids) -> (*ids.shape, W)`` reads the
+    recorded rows outside the loss, as the reference passes it in:
+    ``local_gather`` by default, the collective lookup on the sharded path
+    (``parallel/sparse.py``), which also passes its row ``groups``, its
+    ``loss`` (``loss_fn``'s signature: the global batch's share) and a
+    ``sync()`` that sums the dense gradients over the data group before the
+    dense update."""
+    gather = gather or local_gather
+    groups = row_table_groups(model) if groups is None else groups
     rec = RowTape("record")
     with torch.no_grad(), row_tape(rec):
         model(batch, train=True)
@@ -226,13 +242,15 @@ def sparse_step_core(model: Model, dense: OptaxRule, batch):
                 f"RowTape recorded unknown group {g!r} — gather_rows tape_key "
                 f"must name a top-level (total_vocab, ·) parameter (have: "
                 f"{sorted(groups)})")
-    rows_in = [groups[g].detach().index_select(0, gid.reshape(-1))
-               .reshape(*gid.shape, groups[g].shape[1]).requires_grad_()
-               for g, gid in rec.records]
+    with torch.no_grad():
+        rows_in = [gather(g, groups[g].detach(), gid).requires_grad_()
+                   for g, gid in rec.records]
     dense.zero_grad(set_to_none=True)
     with row_tape(RowTape("inject", rows_in)):
-        total, (logits, _, _, bce) = loss_fn(model, batch)
+        total, (logits, _, _, bce) = (loss or loss_fn)(model, batch)
     total.backward()
+    if sync is not None:
+        sync()
     dense.step()
     per_group = {}
     for g, table in groups.items():

@@ -219,18 +219,36 @@ def test_a_truncated_npz_is_unreadable_to_both_packages(tmp_path):
 
 
 def test_sharded_format_raises_naming_item_8(tmp_path):
-    fs, _ = make_criteo_like(**DATA_KW)
+    """Since item 8a the sharded format is written and read (here one rank's
+    unsharded state round-trips through it bit for bit); what item 8 still
+    lacks, item 8b's sequence-sharded search and pipeline, raises naming
+    it; and a manifest that claims shards its directory lacks reads as
+    torn."""
+    from ml_function_tpu_torch.parallel.context import sharded_embeddings
+    from ml_function_tpu_torch.parallel.mesh import make_mesh
+    fs, data = make_criteo_like(**DATA_KW)
     model = get_model("fm", fs, device="cpu")
     ts = tloop.TrainState(model, toptim.make_optimizer("adam").init(model), 0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ckpt.save_checkpoint(str(tmp_path), ts, format="sharded")
-    path = ckpt.save_checkpoint(str(tmp_path), ts)
+    _train(model, ts.optimizer, _batches(data, 1))
+    ts.step = 1
+    want = _snapshot(ts)
+    path = ckpt.save_checkpoint(str(tmp_path / "a"), ts, format="sharded")
+    assert sorted(os.listdir(path)) == ["manifest.json", "shards_00000.npz"]
+    model2 = get_model("fm", fs, device="cpu", generator=torch.Generator().manual_seed(1))
+    ts2, _ = ckpt.restore_checkpoint(
+        path, tloop.TrainState(model2, toptim.make_optimizer("adam").init(model2), 0))
+    _assert_same(_snapshot(ts2), want)
+    for flag in ({"seq_shard": True}, {"pp_microbatches": 2}):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            with sharded_embeddings(make_mesh(device="cpu"), **flag):
+                pass
+    path = ckpt.save_checkpoint(str(tmp_path / "b"), ts)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     manifest["format"] = "sharded"
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(manifest, f)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ckpt._UNREADABLE):
         ckpt.restore_checkpoint(path, ts)
 
 
@@ -398,3 +416,162 @@ def test_fit_takes_batchnorm_state(jax_bn):
         np.testing.assert_array_equal(pa.numpy(), pb.numpy(), err_msg=n)
     assert not np.array_equal(state_buffers(a)["mlp/layer0/mean"].numpy(),
                               s0["mlp/layer0/mean"])   # it trained from s0
+
+
+# ---------------------------------------------------------------------------
+# the sharded format (one spawn of 4 gloo ranks for the file,
+# ``torch_parallel_worker.checkpoint_cases``)
+
+SHARD_CASE = dict(model="deepfm", data="make_criteo_like",
+                  data_kw=dict(n_rows=96, n_dense=2, n_sparse=4, vocab_size=9,
+                               embed_dim=4, seed=3),
+                  hp=dict(hidden=(8,)), opt=("adam", 1e-2), batch=32)
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory):
+    """The ranks' results, the directory they wrote, and the JAX initial
+    parameters they started from."""
+    import pickle
+
+    import torch_parallel_worker as worker
+    from ml_function_tpu_torch.parallel.launch import spawn
+    io_dir = str(tmp_path_factory.mktemp("sharded_ckpt"))
+    fs, _ = jax_make(**SHARD_CASE["data_kw"])
+    params, _ = jax_get_model("deepfm", fs, **SHARD_CASE["hp"]).init(jax.random.PRNGKey(0))
+    case = dict(SHARD_CASE, params=jax.tree_util.tree_map(np.asarray, params))
+    with open(os.path.join(io_dir, "inputs.pkl"), "wb") as f:
+        pickle.dump({"dense": case}, f)
+    spawn(worker.checkpoint_cases, 4, (io_dir,), store_dir=io_dir)
+    out = {}
+    for r in range(4):
+        with open(os.path.join(io_dir, f"results_{r}.pkl"), "rb") as f:
+            out[r] = pickle.load(f)
+    return out, io_dir
+
+
+def test_sharded_checkpoint_same_grid(sharded_runs):
+    """On the (2, 2) grid that wrote it, every rank reads back its own
+    blocks bit for bit (parameters, Adam's moments beside the table rows,
+    count, step, generator), and the next step's loss is the same bits; the
+    ranks at data coordinate 0 wrote the blocks, rank 0 the manifest and the
+    replicated arrays; a sparse-row state's row blocks round-trip too."""
+    out, _ = sharded_runs
+    for r, res in out.items():
+        assert res["step"] == 2 and res["path"].endswith("ckpt_0000000002")
+        _assert_same(res["restored"], res["saved"])
+        assert res["next_losses"][0] == res["next_losses"][1]
+        _assert_same(res["sp_restored"], res["sp_saved"])
+        assert res["sp_step"] == 5
+    assert out[0]["files"] == ["manifest.json", "shards_00000.npz", "shards_00001.npz"]
+    # blocks differ by model coordinate, and agree along the data axis
+    t = "params/embedding/table"
+    assert not np.array_equal(out[0]["saved"][t], out[1]["saved"][t])
+    np.testing.assert_array_equal(out[0]["saved"][t], out[2]["saved"][t])
+
+
+def test_sharded_checkpoint_torn_shard_falls_back(sharded_runs):
+    """A truncated shard file in the newest checkpoint: every rank falls back
+    to the step-2 one (rank 0 probes and quarantines, all restore the step
+    it broadcast)."""
+    out, io_dir = sharded_runs
+    for res in out.values():
+        name, step, state = res["fallback"]
+        assert (name, step) == ("ckpt_0000000002", 2)
+        _assert_same(state, res["saved"])
+    assert "ckpt_0000000003.corrupt" in os.listdir(os.path.join(io_dir, "ck22"))
+
+
+def test_sharded_checkpoint_missing_shard_file_falls_back(sharded_runs, tmp_path):
+    """A newest checkpoint without ``shards_00001.npz`` (the model-index-1
+    blocks) still lists every key in ``shards_00000.npz``, but its blocks
+    cover half of each table: the probe counts it torn and the restore
+    falls back to the older one; restoring it by name raises rather than
+    fill the missing rows with zeros."""
+    import shutil
+    out, io_dir = sharded_runs
+    good = os.path.join(io_dir, "ck22", "ckpt_0000000002")
+    shutil.copytree(good, tmp_path / "ckpt_0000000002")
+    shutil.copytree(good, tmp_path / "ckpt_0000000003")
+    os.remove(tmp_path / "ckpt_0000000003" / "shards_00001.npz")
+    fs, _ = make_criteo_like(**SHARD_CASE["data_kw"])
+
+    def template():
+        model = get_model("deepfm", fs, device="cpu", **SHARD_CASE["hp"])
+        return tloop.TrainState(model, toptim.make_optimizer("adam", 1e-2).init(model), 0)
+
+    with pytest.raises(KeyError, match="cover"):
+        ckpt.restore_checkpoint(str(tmp_path / "ckpt_0000000003"), template())
+    ts, _, path = ckpt.restore_latest(str(tmp_path), template())
+    assert os.path.basename(path) == "ckpt_0000000002" and ts.step == 2
+    assert "ckpt_0000000003.corrupt" in os.listdir(tmp_path)
+    v = fs.total_vocab
+    blocks = [out[r]["saved"]["params/embedding/table"] for r in (0, 1)]
+    np.testing.assert_array_equal(_snapshot(ts)["params/embedding/table"],
+                                  np.concatenate(blocks)[:v])
+
+
+@pytest.mark.parametrize("template", ["unsharded", "sharded_1x1"])
+def test_sharded_checkpoint_another_grid(sharded_runs, template):
+    """The (2, 2) checkpoint restored on one rank: every table stitched from
+    its blocks and its padding dropped, into an unsharded state or a (1, 1)
+    sharded one; the parameters are the ranks' gathered ones bit for bit,
+    and Adam's moments the stitched blocks'."""
+    from ml_function_tpu_torch.parallel.mesh import make_mesh
+    from ml_function_tpu_torch.parallel.train import create_sharded_state
+    out, io_dir = sharded_runs
+    fs, _ = make_criteo_like(**SHARD_CASE["data_kw"])
+    model = get_model("deepfm", fs, device="cpu", generator=torch.Generator().manual_seed(4),
+                      **SHARD_CASE["hp"])
+    spec = toptim.make_optimizer("adam", 1e-2)
+    ts = (tloop.TrainState(model, spec.init(model), 0) if template == "unsharded"
+          else create_sharded_state(model, spec, make_mesh(device="cpu")))
+    ts, _ = ckpt.restore_checkpoint(os.path.join(io_dir, "ck22", "ckpt_0000000002"), ts)
+    assert ts.step == 2
+    got = _snapshot(ts)
+    full = out[0]["full"]
+    for name, p in ts.model.named_parameters():
+        *path, leaf = name.split(".")
+        node = full
+        for k in path:
+            node = node[int(k)] if isinstance(node, list) else node[k]
+        np.testing.assert_array_equal(p.detach().numpy(), node[leaf], err_msg=name)
+    v = fs.total_vocab
+    for key in ("opt_state/mu/embedding/table", "opt_state/nu/embedding/linear"):
+        blocks = [out[r]["saved"][key] for r in (0, 1)]
+        np.testing.assert_array_equal(got[key], np.concatenate(blocks)[:v], err_msg=key)
+    assert got["opt_state/count"] == 2
+
+
+def test_jax_sharded_checkpoint_imported(tmp_path):
+    """A sharded checkpoint that the JAX package wrote from a (2, 2) mesh
+    (padded tables, blocks in shard files) loads through
+    ``load_jax_checkpoint``: stitched, unpadded, the parameters and Adam's
+    state equal to the JAX state's."""
+    import optax
+
+    from ml_function_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from ml_function_tpu.parallel.train import (create_sharded_state,
+                                                make_sharded_train_step, shard_batch)
+    jfs, data = jax_make(**SHARD_CASE["data_kw"])
+    jm = jax_get_model("deepfm", jfs, **SHARD_CASE["hp"])
+    mesh = jax_make_mesh(data=2, model=2, devices=jax.devices()[:4])
+    opt = optax.adam(1e-2)
+    sts = create_sharded_state(jm, jax.random.PRNGKey(0), opt, mesh)
+    sts, _ = make_sharded_train_step(jm, opt, mesh, donate=False)(
+        sts, shard_batch(next(jloop.iter_batches(data, 32)), mesh))
+    path = jckpt.save_checkpoint(str(tmp_path), sts, format="sharded")
+    fs, _ = make_criteo_like(**SHARD_CASE["data_kw"])
+    model = get_model("deepfm", fs, device="cpu", **SHARD_CASE["hp"])
+    popt = toptim.make_optimizer("adam", 1e-2).init(model)
+    ts, _ = ckpt.load_jax_checkpoint(path, model, popt)
+    assert ts.step == 1 and popt.count == 1
+    v = fs.total_vocab
+    want = _flat_jax(sts.params)
+    for name, p in model.named_parameters():
+        key = name.replace(".", "/")
+        w = want[key][:p.shape[0]] if p.dim() else want[key]
+        np.testing.assert_array_equal(p.detach().numpy(), w, err_msg=name)
+    mu = _flat_jax(sts.opt_state[0].mu)
+    np.testing.assert_array_equal(popt.state[model.embedding.table]["mu"].numpy(),
+                                  mu["embedding/table"][:v])
