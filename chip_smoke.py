@@ -250,11 +250,36 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     state: the parameters the ranks' gathered ones bit for bit, and the
     held rows' scores within 1e-4 of the ranks' (f32 matmuls on the card
     too). Each part's wall time is printed;
-24. one ``{"kernels": [...]}`` line (each kernel with its instances and the
+24. item 8b over ``torch.distributed``, NCCL at world size 1 again: (a)
+    ``seq_sharded_soft_search`` called directly at SIM's board row (B 512,
+    16,384 keys, top 256) against the unsharded soft search's choice on the
+    same table, stream and candidates (the same positions; flips counted
+    with their score gaps); (b) dist and ring attention at (B 8, 2 heads,
+    256 queries, 16,384 keys, Dh 8), output and dq, dk, dv within 1e-5 of
+    a dense softmax's max; (c) ``make_pipeline`` at one stage and 4
+    microbatches on AutoInt at phase 3's width with 4 blocks, K3 under the
+    flag: logits and every parameter after one SGD step within 1e-5 of the
+    sequential stack's (f32 matmuls), 16 + 16 K3 launches a step; (d) two
+    CPU gloo ranks of a (1, 2) mesh (spawned first, beside (a), (b) and
+    phase 25) take one SGD step of SIM with ``seq_shard`` (B 64, a
+    1,024-long stream, top 32) and of AutoInt with ``pp_microbatches=2`` (4
+    blocks over 2 stages, B 1024) from the card's seeded weights; the
+    card's unsharded steps on the same weights and batch give the loss,
+    the logits and every parameter within 1e-4 (f32 matmuls on both).
+    Times by events, beside the card's name and power limit;
+25. graph pretraining on the card, on a planted-partition graph of 20,000
+    nodes and 200,000 edges (4 communities): DeepWalk (the port's native
+    walks, the walk rate printed, then word2vec), LINE and SDNE for a
+    bounded number of steps, DeepWalk and LINE above the JAX tests'
+    community-separation bars (0.3, 0.2); 20 word2vec steps from the same
+    tables and draws on the card and on the CPU within 1e-4; each trainer's
+    step time by events, beside the card's name and power limit;
+26. one ``{"kernels": [...]}`` line (each kernel with its instances and the
     shapes each took; a kernel's ``launches`` are those of the newest path
-    that runs it, phase 23's for the CIN kernels and phase 22's for the
-    (AU)GRU and merge-scatter ones), then ``{"ok": true, "device": ...}``
-    last. The run's wall time is printed before them.
+    that runs it, phase 24's pipeline for the field-attention kernels,
+    phase 23's for the CIN kernels and phase 22's for the (AU)GRU and
+    merge-scatter ones), then ``{"ok": true, "device": ...}`` last. The
+    run's wall time is printed before them.
 
 Numerics: TF32 is off for matmuls and cuDNN, so every f32 product outside
 the kernels is a full f32 product. Imports nothing of JAX.
@@ -263,6 +288,7 @@ the kernels is a full f32 product. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -1092,8 +1118,9 @@ def _one_bf16_step(g, r):
 
 def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path,
                  path: str, per_step: dict, block_scaled: tuple = ()) -> None:
-    """5 Adam steps on the kernels against the same steps from the same
-    weights on the plain versions (``plain_route()`` forces every kernel of
+    """Adam steps on the kernels, one a batch of ``batches`` (5 on most
+    paths), against the same steps from the same weights on the plain
+    versions (``plain_route()`` forces every kernel of
     the model there, both directions): losses within 1e-3 relative, step-1
     gradients within 1e-3·max|g| of their own parameter, and ``per_step``
     launches a step. A weight gradient is rounded to bf16 (R3), so an f32
@@ -1867,11 +1894,12 @@ INTERACTION_DECISION_BAR = {"fgcnn": BF16_PATH_RTOL}
 # the board's 100k ids.
 CPU_CHECK_VOCAB = {"ffm": 10_000, "onn": 10_000, "fat_deepffm": 10_000}
 # the depth of the rates of phases 18 to 21, to keep the run under 600 s:
-# training (``step_rates``), the host clock's median of 4 steps and the
-# events' of 3 samples of 2 steps (the earlier phases' 20 and 10 × 5; 8 and
-# 5 × 2 until phase 23 came); one forward (``score_rates``), the events' 3
-# samples of 2 (their 25 × 10)
-BOARD_RATES_DEPTH = dict(host_steps=4, event_reps=(3, 2))
+# training (``step_rates``), the host clock's median of 2 steps and the
+# events' of 2 samples of 1 step (the earlier phases' 20 and 10 × 5; 8 and
+# 5 × 2 until phase 23 came, 4 and 3 × 2 until phases 24 and 25 came, when a
+# run from a `git archive` took 593.8 s); one forward (``score_rates``), the
+# events' 2 samples of 1 (their 25 × 10)
+BOARD_RATES_DEPTH = dict(host_steps=2, event_reps=(2, 1))
 
 
 def check_wide_cin(cin_mod) -> tuple:
@@ -2644,14 +2672,17 @@ SEQUENCE_MODELS = (
     ("bst_lsh", "bst", {"attention": "lsh"}, BATCH, 0, ()),
     ("sim_lsh", "sim", {"search": "soft", "top_k": 256, "long_behavior": ("hist_long",),
                         "esu_attention": "lsh"}, 512, 0, ("attn.", "dien.attn.")))
-# the models whose two sequence lookups also train 5 steps with the
-# merge-scatter flag's attribute set, against the same steps without it
+# the models whose two sequence lookups also train 3 steps (5 until phases 24
+# and 25 came) with the merge-scatter flag's attribute set, against the same
+# steps without it
 MERGE_SCATTER_MODELS = ("hpmn", "mimn")
+MERGE_SCATTER_STEPS = 3
 # the step loops whose training step's busy share the profiler reads; their
-# steps take hundreds of ms, so their rates take the medians of 4 host-clock
-# steps and of 3 samples of 2 steps by events
+# steps take hundreds of ms, so their rates take the medians of 2 host-clock
+# steps and of 2 samples of 1 step by events (4 and 3 × 2 until phases 24
+# and 25 came)
 PROFILED_MODELS = ("hpmn", "mimn", "dts")
-STEP_LOOP_RATES_DEPTH = dict(host_steps=4, event_reps=(3, 2))
+STEP_LOOP_RATES_DEPTH = dict(host_steps=2, event_reps=(2, 1))
 # MIMN's target attentions over its 4 memory slots and 4 channels read
 # slots that its 64 erase/add writes and channel updates have made nearly
 # equal, so at the board's batch their MLPs' step-1 gradients are rounding
@@ -2707,7 +2738,7 @@ def sequence_phases(drive, launches_by_path, plain_fa) -> None:
     then for the three on K3 the scores and 5 Adam steps against the same
     model with K3's plain versions swapped in (DSIN also on a ragged
     ``make_behavior_data`` batch, whose fully padded sessions reach K3
-    through ``safe_mask``), for HPMN and MIMN 5 Adam steps with the
+    through ``safe_mask``), for HPMN and MIMN 3 Adam steps with the
     merge-scatter flag's attribute set against the same steps without it (2
     merge_scatter launches a step), and the training rates and peak memory
     at each model's batch (``BOARD_RATES_DEPTH``). SIM's batch is the bench's
@@ -2741,7 +2772,8 @@ def sequence_phases(drive, launches_by_path, plain_fa) -> None:
                          f"{label}_kernel_parity", per_step, attn)
         if name in MERGE_SCATTER_MODELS:
             with merge_scatter_flag(True):
-                parity_steps(label, model, batches, lambda: merge_scatter_flag(False), drive,
+                parity_steps(label, model, batches[:MERGE_SCATTER_STEPS],
+                             lambda: merge_scatter_flag(False), drive,
                              launches_by_path, f"{label}_merge_scatter_parity",
                              {"merge_scatter": 2}, attn)
         del scorer
@@ -3572,6 +3604,18 @@ SHARD_SCORE_BAR = 1e-4            # the card's scores against the CPU ranks'
 XDFM_HP = {"cin_hidden": (128, 128), "hidden": (256, 128)}
 
 
+def _flat_tree(tree, prefix="params/") -> dict:
+    """A gathered parameter tree's leaves under their ``weights.npz`` keys."""
+    out = {}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
 def _cpu_rank(rank: int, io_dir: str) -> None:
     """One of the CPU gloo ranks of part (d): a (1, 2) mesh, the card's
     xDeepFM weights (``weights.npz``) sharded, 3 Adam steps with f32
@@ -3602,21 +3646,10 @@ def _cpu_rank(rank: int, io_dir: str) -> None:
     save_checkpoint(os.path.join(io_dir, "ckpt"), ts)
     with torch.no_grad(), sharded_embeddings(mesh):
         probs = torch.sigmoid(ts.model(batches[-1])[0]).numpy()
-    full = sharded_params_to_numpy(ts.model, ts.layout, mesh)
+    full = _flat_tree(sharded_params_to_numpy(ts.model, ts.layout, mesh))
     if rank == 0:
-        flat = {}
-
-        def walk(node, key):
-            items = node.items() if isinstance(node, dict) else enumerate(node)
-            for k, v in items:
-                if isinstance(v, (dict, list)):
-                    walk(v, f"{key}{k}/")
-                else:
-                    flat[f"{key}{k}"] = v
-
-        walk(full, "params/")
         np.savez(os.path.join(io_dir, "cpu_ranks.npz"), probs=probs,
-                 losses=np.asarray(losses), **flat)
+                 losses=np.asarray(losses), **full)
 
 
 def shard_lookup_part(table, gids, mesh, fs) -> None:
@@ -3923,6 +3956,499 @@ def sharded_phase(drive, launches_by_path) -> None:
             torch.distributed.destroy_process_group()
 
 
+
+# Item 8b over torch.distributed (phase 24). NCCL at world size 1 again, so
+# the sequence-parallel and pipeline routes run on the card with a model
+# group of 1; two CPU gloo ranks of a (1, 2) mesh split the stream and the
+# block stack (part d).
+SEARCH_8B = (512, 256)             # SIM's board row (bench.py:749-758): B 512, top 256 of 16,384
+# (B, H, Lq, Lk, Dh): the flash row's 8 rows of 16,384 keys (2 heads of 8),
+# 256 queries (a dense softmax over 16,384 queries would hold 17 GB of scores)
+ATTN_8B = (8, 2, 256, 16384, 8)
+ATTN_8B_BAR = 1e-5                 # of the dense softmax's max |value|, output and gradients
+PIPE_8B = dict(n_layers=4, micro=4)   # AutoInt at phase 3's width, one stage
+PIPE_8B_BAR = 1e-5                 # of the sequential stack's max |value| (f32 matmuls)
+RANKS_8B_SIM = dict(n_rows=64, L=1024, top_k=32)   # reduced depth: L divides by 2
+RANKS_8B_AUTOINT_ROWS = 1024
+RANKS_8B_LR = 0.05                 # SGD: the update is linear in the gradient
+# One step's parameter changes held against each other, leaf by leaf, each
+# over its own largest change, floored at UPDATE_FLOOR of the model's
+# largest: a leaf whose gradient is zero but for rounding (an attention
+# MLP's output bias, under the softmax) moves by noise alone. A stage
+# gradient left unsummed or summed twice moves a leaf's change by all of it
+# (1.0); f32 rounding of the parameters after the step is ulp(|p|) over the
+# floor, up to 2e-3 here.
+UPDATE_FLOOR = 1e-3
+UPDATE_8B_BAR = 1e-2
+
+
+def sim_long_batch(n_rows: int, L: int, seed: int):
+    """The bench's behavior schema (``profile_scoring.sim_batch``: 5,000
+    items, 100 categories, histories of 64, dim 8) with an L-long stream,
+    one id in ten a pad (0)."""
+    from ml_function_tpu_torch.tools.profile_scoring import sim_batch
+    fs, data = sim_batch(n_rows, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    spec = fs.seq_spec("hist_long")
+    long = rng.integers(1, spec.vocab_size, (n_rows, L), dtype=np.int32)
+    long[rng.random((n_rows, L)) < 0.1] = 0
+    fs = fs.replace(seq=tuple(dataclasses.replace(s, max_len=L) if s is spec else s
+                              for s in fs.seq))
+    data["seq"]["hist_long"] = long
+    return fs, data
+
+
+def ranks_8b_cases():
+    """(name, model, feature set, hyperparameters, flags, batch) of part
+    (d): a ``seq_shard`` SIM step and a pipelined AutoInt step (4 blocks
+    over 2 stages, 2 microbatches)."""
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.features.synthetic import make_criteo_like
+    s = RANKS_8B_SIM
+    fs, data = sim_long_batch(s["n_rows"], s["L"], seed=3)
+    sim = ("sim_seq_shard", "sim", fs, dict(search="soft", top_k=s["top_k"],
+                                            long_behavior=("hist_long",), hidden=(200, 80)),
+           dict(seq_shard=True), data)
+    afs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+    _, adata = make_criteo_like(n_rows=RANKS_8B_AUTOINT_ROWS, vocab_size=100_000, seed=5)
+    auto = ("autoint_pp2", "autoint", afs, dict(n_layers=4, num_heads=2, head_dim=16),
+            dict(pp_microbatches=2), adata)
+    return [sim, auto]
+
+
+def _cpu_rank_8b(rank: int, io_dir: str) -> None:
+    """One of part (d)'s CPU gloo ranks: for each case the card's seeded
+    weights (``weights_<name>.npz``) sharded over a (1, 2) mesh, one SGD
+    step with the case's flag and f32 matmuls; rank 0 writes the loss, the
+    logits and the gathered parameters after it."""
+    os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = "1"
+    from ml_function_tpu_torch.bridge import sharded_params_to_numpy
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.parallel import comm
+    from ml_function_tpu_torch.parallel.mesh import make_mesh
+    from ml_function_tpu_torch.parallel.train import (create_sharded_state,
+                                                      make_sharded_train_step, shard_batch)
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    mesh = make_mesh(1, CPU_RANKS, device="cpu")
+    for name, model_name, fs, hp, flags, data in ranks_8b_cases():
+        with np.load(os.path.join(io_dir, f"weights_{name}.npz")) as w:
+            init = dict(w)
+        model = get_model(model_name, fs, device="cpu", **hp)
+        ts = create_sharded_state(model, make_optimizer("sgd", RANKS_8B_LR), mesh,
+                                  init_params=init)
+        out = make_sharded_train_step(ts.model, ts.optimizer, mesh, **flags)(
+            shard_batch(data, mesh))
+        logits = comm.all_gather_tensor(out["logits"], mesh.data_group).numpy()
+        full = _flat_tree(sharded_params_to_numpy(ts.model, ts.layout, mesh))
+        if rank == 0:
+            np.savez(os.path.join(io_dir, f"ranks_{name}.npz"), loss=float(out["loss"]),
+                     logits=logits, **full)
+
+
+def start_cpu_ranks_8b(tmp, pool):
+    """Start part (d)'s ranks on ``pool`` after writing each case's seeded
+    weights; returns (their directory, the future of their wall seconds)."""
+    from ml_function_tpu_torch.bridge import flat_params
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.parallel.launch import spawn
+
+    io_dir = os.path.join(tmp, "cpu_ranks_8b")
+    os.makedirs(io_dir)
+    for name, model_name, fs, hp, _, _ in ranks_8b_cases():
+        seeded = get_model(model_name, fs, device="cpu",
+                           generator=torch.Generator().manual_seed(0), **hp)
+        np.savez(os.path.join(io_dir, f"weights_{name}.npz"), **flat_params(seeded))
+
+    def run() -> float:
+        t = time.perf_counter()
+        spawn(_cpu_rank_8b, CPU_RANKS, (io_dir,), store_dir=io_dir, threads=CPU_RANK_THREADS)
+        return time.perf_counter() - t
+
+    return io_dir, pool.submit(run)
+
+
+def seq_search_part(mesh, smi: str) -> None:
+    """(a) ``seq_sharded_soft_search`` at SIM's board row, called directly
+    (a model group of 1 takes SIM's unsharded route), against the
+    unsharded soft search's choice on the same table, stream and candidates:
+    the same positions, flips counted with their score gaps."""
+    from ml_function_tpu_torch.models.longseq import top_k_indices
+    from ml_function_tpu_torch.parallel.longseq import seq_sharded_soft_search
+    from ml_function_tpu_torch.tools.profile_scoring import sim_batch
+    from ml_function_tpu_torch.tools.timing import event_ms
+
+    b, k = SEARCH_8B
+    fs, data = sim_batch(b)
+    gen = torch.Generator("cuda").manual_seed(0)
+    table = torch.randn((fs.total_vocab, fs.embed_dim), generator=gen, device="cuda") * 0.05
+    ids = torch.as_tensor(data["seq"]["hist_long"], device="cuda")
+    item = (torch.as_tensor(data["sparse"][:, fs.sparse_index("item")], device="cuda").long()
+            + fs.sparse_offsets()[fs.sparse_index("item")])
+    cand = table[item]
+    mask = ids != 0
+
+    def unsharded():
+        rows = table[ids.long() + fs.seq_offset("hist_long")] * mask[..., None]
+        scores = torch.where(mask, torch.einsum("bld,bd->bl", rows, cand), -torch.inf)
+        return top_k_indices(scores, k), scores
+
+    def sharded():
+        return seq_sharded_soft_search(mesh, fs, ("hist_long",), k, table,
+                                       {"hist_long": ids}, cand)
+
+    want, scores = unsharded()
+    got, red = sharded()
+    other = (got != want).any(dim=1)
+    gap = float(_score_gap(scores.gather(1, got), scores.gather(1, want), scores).max())
+    same_mask = bool(torch.equal(red, mask.gather(1, want)))
+    ms, plain_ms = event_ms(sharded, reps=5, inner=2), event_ms(unsharded, reps=5, inner=2)
+    print(f"sequence-sharded search at B {b}, {ids.shape[1]} keys, top {k} (model group "
+          f"of 1, NCCL): {int(other.sum())} of {b} rows choose otherwise than the "
+          f"unsharded soft search (largest score gap {gap:.3e} of the row's max |score|), "
+          f"masks the same: {same_mask}; {ms:.3f} ms against the unsharded search's "
+          f"{plain_ms:.3f} ms (events; {smi})")
+    if bool(other.any()) or not same_mask:
+        fail(f"the sequence-sharded search chose otherwise in {int(other.sum())} rows")
+
+
+def seq_attention_part(mesh, smi: str) -> None:
+    """(b) Ring and dist attention at the flash row's keys, against a dense
+    softmax over the same inputs: the output and dq, dk, dv of <out, ct>."""
+    from ml_function_tpu_torch.parallel.seq_parallel import (NEG_INF,
+                                                             make_seq_parallel_attention)
+    from ml_function_tpu_torch.tools.timing import event_ms
+
+    b, h, lq, lk, dh = ATTN_8B
+    gen = torch.Generator("cuda").manual_seed(1)
+    q = torch.randn((b, h, lq, dh), generator=gen, device="cuda")
+    k, v = (torch.randn((b, h, lk, dh), generator=gen, device="cuda") for _ in range(2))
+    ct = torch.randn((b, h, lq, dh), generator=gen, device="cuda")
+    mask = torch.rand((b, lk), generator=gen, device="cuda") > 0.3
+    mask[:, 0] = True
+    mask[1, 8:] = False                 # a row with 8 valid keys
+    bias = torch.where(mask, 0.0, NEG_INF)[:, None, None, :]
+
+    def dense(q, k, v, mask=None):
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k) / float(np.sqrt(dh)) + bias
+        return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v)
+
+    def with_grads(fn):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        out = fn(qq, kk, vv, mask)
+        (out * ct).sum().backward()
+        return [out.detach(), qq.grad, kk.grad, vv.grad]
+
+    ref = with_grads(dense)
+    dense_ms = event_ms(lambda: dense(q, k, v), reps=5, inner=2)
+    for mode in ("dist", "ring"):
+        attn = make_seq_parallel_attention(mesh, mode=mode)
+        got = with_grads(attn)
+        errs = [float((g - r).abs().max()) / float(r.abs().max()) for g, r in zip(got, ref)]
+        ms = event_ms(lambda: attn(q, k, v, mask), reps=5, inner=2)
+        print(f"{mode} attention at (B, H, Lq, Lk, Dh) {ATTN_8B} (model group of 1, NCCL): "
+              f"output, dq, dk, dv within {', '.join(f'{e:.3e}' for e in errs)} of the dense "
+              f"softmax's max (bar {ATTN_8B_BAR}); forward {ms:.3f} ms against the dense "
+              f"softmax's {dense_ms:.3f} ms (events; {smi})")
+        if max(errs) > ATTN_8B_BAR or not all(bool(torch.isfinite(g).all()) for g in got):
+            fail(f"{mode} attention leaves the dense softmax by {errs}")
+
+
+def update_gap(init, got, want):
+    """(the worst leaf's |Δgot − Δwant| over its max |Δwant|, that leaf),
+    Δ a parameter's change from ``init`` (in f64), each max floored at
+    ``UPDATE_FLOOR`` of the largest change of any leaf."""
+    delta = {k: (got[k].astype(np.float64) - init[k], want[k].astype(np.float64) - init[k])
+             for k in init}
+    floor = UPDATE_FLOOR * max(float(np.abs(dw).max(initial=0.0)) for _, dw in delta.values())
+    gaps = {k: float(np.abs(dg - dw).max(initial=0.0))
+            / max(float(np.abs(dw).max(initial=0.0)), floor, 1e-30)
+            for k, (dg, dw) in delta.items()}
+    worst = max(gaps, key=gaps.get)
+    return gaps[worst], worst
+
+
+def pipeline_part(mesh, fs, data, drive, launches_by_path, smi: str) -> None:
+    """(c) ``make_pipeline`` at one stage and 4 microbatches on AutoInt at
+    phase 3's width with 4 blocks, K3 under the flag: the forward and one
+    SGD step against the sequential stack's, 16 + 16 K3 launches a step."""
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.models.base import as_tensors
+    from ml_function_tpu_torch.tools.timing import event_ms
+    from ml_function_tpu_torch.train.metrics import bce_with_logits
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    n_layers, micro = PIPE_8B["n_layers"], PIPE_8B["micro"]
+    batch = as_tensors(_rows(data, BATCH), "cuda")
+    runs = {}
+    os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = "1"
+    try:
+        for route in ("sequential", "pipeline"):
+            model = get_model("autoint", fs, device="cuda", n_layers=n_layers,
+                              generator=torch.Generator().manual_seed(0))
+            opt = make_optimizer("sgd", RANKS_8B_LR).init(model)
+            # the model's own forward, its block stack through its own pipeline
+            # branch (every block one stage's) or block after block
+            forward = ((lambda b: model.pipelined_forward(b, mesh, micro))
+                       if route == "pipeline" else model)
+
+            def step():
+                opt.zero_grad(set_to_none=True)
+                logits = forward(batch)[0]
+                bce_with_logits(logits, batch["label"]).mean().backward()
+                opt.step()
+                return logits.detach()
+
+            init = {n: p.detach().cpu().numpy().astype(np.float64)
+                    for n, p in model.named_parameters()}
+            logits = drive(f"autoint_{route}_8b", step)
+            params = {n: p.detach().clone() for n, p in model.named_parameters()}
+            # the step's time after the compared one, the first step's costs gone
+            runs[route] = (logits, params, event_ms(step, reps=3, inner=1, warmup=1))
+    finally:
+        os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+    (lw, pw, sw), (lg, pg, sg) = runs["sequential"], runs["pipeline"]
+    ferr = float((lg - lw).abs().max()) / float(lw.abs().max())
+    perr = max(float((pg[n] - pw[n]).abs().max()) / max(float(pw[n].abs().max()), 1e-30)
+               for n in pw)
+    uerr, uleaf = update_gap(init, {n: t.cpu().numpy() for n, t in pg.items()},
+                             {n: t.cpu().numpy() for n, t in pw.items()})
+    launches = launches_by_path["autoint_pipeline_8b"]
+    print(f"make_pipeline on AutoInt ({n_layers} blocks, one stage, {micro} microbatches, "
+          f"B {BATCH}, K3 under the flag, f32 matmuls): logits within {ferr:.3e} and every "
+          f"parameter after one SGD step within {perr:.3e} of the sequential stack's (of "
+          f"each one's max; bar {PIPE_8B_BAR}), every parameter's change in it within "
+          f"{uerr:.3e} (of its largest, at {uleaf}; bar {UPDATE_8B_BAR}); launches a step "
+          f"{launches} (sequential {launches_by_path['autoint_sequential_8b']}); a later "
+          f"step {sg:.3f} ms against {sw:.3f} ms (events; {smi})")
+    want = n_layers * micro
+    if (ferr > PIPE_8B_BAR or perr > PIPE_8B_BAR or uerr > UPDATE_8B_BAR
+            or launches != expect(field_attn_fwd=want, field_attn_bwd=want)):
+        fail(f"the pipeline leaves the sequential stack by {ferr}, {perr}, {uerr} or "
+             f"launched {launches}")
+
+
+def ranks_8b_part(io_dir, ranks, drive, launches_by_path, smi: str) -> None:
+    """(d) The CPU ranks' sequence-sharded SIM step and pipelined AutoInt
+    step against the card's unsharded step on the same weights and batch:
+    the loss, the logits and every parameter after it within
+    ``SHARD_SCORE_BAR``, and every parameter's change in the step within
+    ``UPDATE_8B_BAR`` of its largest (f32 matmuls on both)."""
+    from ml_function_tpu_torch.bridge import flat_params, params_from_numpy
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.train.loop import make_train_step
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    print(f"CPU gloo ranks (1, {CPU_RANKS}) of item 8b: both steps in "
+          f"{ranks.result():.1f} s, beside parts (a), (b) and phase 25 ({smi})")
+    per_step = {"sim_seq_shard": expect(field_attn_fwd=1, field_attn_bwd=1),
+                "autoint_pp2": expect(field_attn_fwd=4, field_attn_bwd=4)}
+    os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = "1"
+    try:
+        for name, model_name, fs, hp, flags, data in ranks_8b_cases():
+            with np.load(os.path.join(io_dir, f"weights_{name}.npz")) as w:
+                init = dict(w)
+            with np.load(os.path.join(io_dir, f"ranks_{name}.npz")) as r:
+                cpu = dict(r)
+            model = get_model(model_name, fs, device="cuda", **hp)
+            params_from_numpy(model, init)
+            step = make_train_step(model, make_optimizer("sgd", RANKS_8B_LR).init(model))
+            out = drive(f"ranks_8b_{name}_card", lambda: step(data))
+            mine = flat_params(model)
+            loss_gap = abs(float(out["loss"]) - float(cpu["loss"]))
+            logit_gap = float(np.abs(out["logits"].cpu().numpy() - cpu["logits"]).max())
+            param_gap = max(float(np.abs(mine[k] - cpu[k]).max()) for k in mine)
+            same_keys = sorted(mine) == sorted(k for k in cpu if k.startswith("params/"))
+            uerr, uleaf = (update_gap({k: init[k].astype(np.float64) for k in mine}, cpu, mine)
+                           if same_keys else (float("inf"), None))
+            launches = launches_by_path[f"ranks_8b_{name}_card"]
+            print(f"{name} ({flags}) on two CPU ranks against the card's unsharded step: "
+                  f"loss {float(cpu['loss']):.6f} against {float(out['loss']):.6f} (gap "
+                  f"{loss_gap:.3e}), logits within {logit_gap:.3e}, every parameter after "
+                  f"one SGD step within {param_gap:.3e} (bar {SHARD_SCORE_BAR}), every "
+                  f"parameter's change in it within {uerr:.3e} of its largest (at {uleaf}; "
+                  f"bar {UPDATE_8B_BAR}); the card's launches {launches} ({smi})")
+            if (not same_keys or max(loss_gap, logit_gap, param_gap) > SHARD_SCORE_BAR
+                    or uerr > UPDATE_8B_BAR or launches != per_step[name]):
+                fail(f"{name}: the CPU ranks' step leaves the card's by {loss_gap}, "
+                     f"{logit_gap}, {param_gap}, {uerr} (keys {same_keys}, launches "
+                     f"{launches})")
+    finally:
+        os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+
+
+def item_8b_phase(drive, launches_by_path, smi: str, then=None) -> None:
+    """Phase 24: the sequence-sharded search, ring and dist attention and the
+    pipeline on the card over NCCL at world size 1, and two CPU gloo ranks
+    that split SIM's stream and AutoInt's blocks (started first, they train
+    beside parts (a), (b) and ``then``, phase 25; part (c) runs last)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.features.synthetic import make_criteo_like
+    from ml_function_tpu_torch.ops.kernels import _build
+    from ml_function_tpu_torch.parallel.launch import init_single
+    from ml_function_tpu_torch.parallel.mesh import make_mesh
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp, ThreadPoolExecutor(1) as pool:
+        t = time.perf_counter()
+        io_dir, ranks = start_cpu_ranks_8b(tmp, pool)
+        init_single(tmp)
+        mesh = make_mesh(device="cuda")
+        try:
+            seq_search_part(mesh, smi)
+            print(f"wall time of phase 24 (a): {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            seq_attention_part(mesh, smi)
+            print(f"wall time of phase 24 (b): {time.perf_counter() - t:.1f} s")
+            if then is not None:
+                then()
+            t = time.perf_counter()
+            ranks_8b_part(io_dir, ranks, drive, launches_by_path, smi)
+            print(f"wall time of phase 24 (d) after the ranks: {time.perf_counter() - t:.1f} s")
+            # last, so that the kernels line's K3 launches are the pipeline's
+            t = time.perf_counter()
+            fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+            _, data = make_criteo_like(n_rows=BATCH, vocab_size=100_000, seed=0)
+            pipeline_part(mesh, fs, data, drive, launches_by_path, smi)
+            print(f"wall time of phase 24 (c): {time.perf_counter() - t:.1f} s")
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+
+# Graph pretraining on the card (phase 25): a planted-partition graph of the
+# JAX bench's walk-engine size (bench.py:672: 20,000 nodes, 200,000 edges,
+# taken undirected) with 4 communities, 9 edges in 10 inside one.
+GRAPH_25 = dict(n_nodes=20_000, n_edges=200_000, communities=4, p_intra=0.9, seed=0)
+DEEPWALK_25 = dict(num_walks=2, walk_length=10, window=2, dim=64)
+# LINE's loss is a batch mean, so its learning rate is a sample's times B:
+# 400 at B 4096 is about 0.1 a sample. At the paper's 0.025 a sample the
+# 1,500 steps (about 300 edge samples a node) left the communities mixed
+# (separation 0.06 to 0.19 in CPU runs of this graph; 0.30 at this setting)
+LINE_25 = dict(dim=64, order="second", steps=1500, batch_size=4096, learning_rate=400.0)
+SDNE_25 = dict(hidden=(256, 128), epochs=1)
+# the JAX tests' community-separation bars (tests/test_embedding_pretrain.py:65-77)
+SEPARATION_BARS = {"deepwalk": 0.3, "line": 0.2}
+W2V_PARITY_STEPS = 20
+W2V_PARITY_BAR = 1e-4      # Adam: the card's and the CPU's summation orders differ
+
+
+def planted_graph(n_nodes, n_edges, communities, p_intra, seed):
+    """(CSRGraph, each node id's community): edges from a uniform source to
+    a node of its community with probability ``p_intra``, else to any node."""
+    from ml_function_tpu_torch.embedding_pretrain import from_edges
+    rng = np.random.default_rng(seed)
+    comm = np.arange(n_nodes) % communities
+    src = rng.integers(0, n_nodes, n_edges)
+    same = rng.integers(0, n_nodes // communities, n_edges) * communities + comm[src]
+    dst = np.where(rng.random(n_edges) < p_intra, same, rng.integers(0, n_nodes, n_edges))
+    g = from_edges([(str(s), str(d), 1.0) for s, d in zip(src.tolist(), dst.tolist())],
+                   undirected=True)
+    return g, comm[np.array([int(name) for name in g.node_names])]
+
+
+def separation(emb, labels, per: int = 1000, seed: int = 0) -> float:
+    """The JAX tests' ``intra_inter_ratio`` on 1,000 nodes of each of
+    communities 0 and 1: the two mean intra-community cosines minus twice
+    the mean cosine across (on the card)."""
+    rng = np.random.default_rng(seed)
+    pick = np.concatenate([rng.choice(np.nonzero(labels == c)[0], per, replace=False)
+                           for c in (0, 1)])
+    x = torch.as_tensor(emb[pick], device="cuda")
+    x = x / (x.norm(dim=1, keepdim=True) + 1e-9)
+    sim = x @ x.T
+    k = per
+    intra = ((sim[:k, :k].sum() - k) / (k * k - k)
+             + (sim[k:, k:].sum() - k) / (k * k - k))
+    return float(intra - sim[:k, k:].mean() * 2)
+
+
+def _timed(fn):
+    """(fn's result, its CUDA-event ms)."""
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def graph_phase(drive, launches_by_path, smi: str) -> None:
+    """Phase 25: DeepWalk (the port's native walks, then word2vec), LINE and
+    SDNE on the card for a bounded number of steps, the first two held to
+    the JAX tests' community-separation bars; word2vec from the same tables
+    and draws on the card and on the CPU."""
+    from ml_function_tpu_torch.embedding_pretrain.line import LineConfig, train_line
+    from ml_function_tpu_torch.embedding_pretrain.native_walks import deepwalk_walks_native
+    from ml_function_tpu_torch.embedding_pretrain.sdne import SDNEConfig, train_sdne
+    from ml_function_tpu_torch.embedding_pretrain.walks import walks_to_skipgram_pairs
+    from ml_function_tpu_torch.embedding_pretrain.word2vec import (Word2VecConfig,
+                                                                    train_word2vec)
+
+    t = time.perf_counter()
+    g, labels = planted_graph(**GRAPH_25)
+    print(f"planted-partition graph: {g.num_nodes} nodes, {g.num_edges} directed edges, "
+          f"{GRAPH_25['communities']} communities in {time.perf_counter() - t:.1f} s ({smi})")
+    dw = DEEPWALK_25
+    deepwalk_walks_native(g, 1, 2, seed=1)               # the build, and a warm call
+    t = time.perf_counter()
+    walks = deepwalk_walks_native(g, dw["num_walks"], dw["walk_length"], seed=0)
+    walk_s = time.perf_counter() - t
+    t = time.perf_counter()
+    pairs = walks_to_skipgram_pairs(walks, dw["window"], seed=0)
+    pair_s = time.perf_counter() - t
+    cfg = Word2VecConfig(dim=dw["dim"], seed=0)
+    per_epoch = len(pairs) // cfg.batch_size
+    steps = per_epoch * max(cfg.epochs, -(-cfg.min_steps // per_epoch))
+    emb, w2v_ms = _timed(lambda: drive("deepwalk_word2vec", lambda: train_word2vec(
+        pairs, g.num_nodes, cfg, device="cuda")))
+    sep = {"deepwalk": separation(emb, labels)}
+    print(f"DeepWalk: native walks {walks.shape} at {walks.size / walk_s:.4g} steps/s "
+          f"({walk_s:.3f} s, {os.cpu_count()} threads), {len(pairs)} skip-gram pairs in "
+          f"{pair_s:.2f} s (host), word2vec {steps} Adam steps at B {cfg.batch_size} in "
+          f"{w2v_ms:.1f} ms, {w2v_ms / steps:.4f} ms a step (events); separation "
+          f"{sep['deepwalk']:.4f} (bar {SEPARATION_BARS['deepwalk']}); launches "
+          f"{launches_by_path['deepwalk_word2vec']} ({smi})")
+
+    lcfg = LineConfig(seed=0, **LINE_25)
+    emb, line_ms = _timed(lambda: train_line(g, lcfg, device="cuda"))
+    sep["line"] = separation(emb, labels)
+    print(f"LINE ({lcfg.order} order): {lcfg.steps} SGD steps at B {lcfg.batch_size} in "
+          f"{line_ms:.1f} ms, {line_ms / lcfg.steps:.4f} ms a step (events, the host's "
+          f"alias draws included); separation {sep['line']:.4f} (bar "
+          f"{SEPARATION_BARS['line']}) ({smi})")
+
+    scfg = SDNEConfig(seed=0, **SDNE_25)
+    emb, sdne_ms = _timed(lambda: train_sdne(g, scfg, device="cuda"))
+    sdne_steps = scfg.epochs * (g.num_nodes // scfg.batch_size)
+    print(f"SDNE {scfg.hidden}: {sdne_steps} Adam steps at B {scfg.batch_size} over "
+          f"{g.num_nodes}-wide adjacency rows and the final encoding in {sdne_ms:.1f} ms, "
+          f"{sdne_ms / sdne_steps:.4f} ms a step (events, the host's rows included); "
+          f"embeddings {emb.shape}, finite: {bool(np.isfinite(emb).all())}, separation "
+          f"{separation(emb, labels):.4f} ({smi})")
+
+    # word2vec from bridged tables and replayed draws, card against CPU
+    rng = np.random.default_rng(7)
+    init = ((rng.normal(size=(g.num_nodes, 64)) * 0.5 / 64).astype(np.float32),
+            np.zeros((g.num_nodes, 64), np.float32))
+    slots = [rng.integers(0, 1 << 20, (cfg.batch_size, cfg.negatives))
+             for _ in range(W2V_PARITY_STEPS)]
+    sub = pairs[:W2V_PARITY_STEPS * cfg.batch_size]
+    pcfg = Word2VecConfig(dim=64, seed=0, min_steps=0)
+    tables = {}
+    for dev in ("cuda", "cpu"):
+        replay = iter(slots)
+        tables[dev] = train_word2vec(sub, g.num_nodes, pcfg, init=init,
+                                     sampler=lambda b, k: next(replay), device=dev)
+    gap = float(np.abs(tables["cuda"] - tables["cpu"]).max())
+    print(f"word2vec {W2V_PARITY_STEPS} Adam steps from the same tables and draws: the "
+          f"card's table within {gap:.3e} of the CPU's (bar {W2V_PARITY_BAR}; {smi})")
+    if (any(sep[k] <= SEPARATION_BARS[k] for k in SEPARATION_BARS) or gap > W2V_PARITY_BAR
+            or not np.isfinite(emb).all()):
+        fail(f"graph pretraining: separation {sep}, word2vec card against CPU {gap}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -4102,10 +4628,24 @@ def main() -> int:
     # and two CPU gloo ranks' sharded checkpoint restored on the card
     sharded_phase(drive, launches_by_path)
     lap("phase 23")
+    # 24. item 8b over NCCL at world size 1: the sequence-sharded search,
+    # ring and dist attention, the pipeline on AutoInt (K3, 16 + 16 a step),
+    # and two CPU gloo ranks that split SIM's stream and AutoInt's blocks,
+    # which train while the card runs (a) to (c) and
+    # 25. graph pretraining: DeepWalk on the native walks, LINE and SDNE
 
-    # 24. result lines: each kernel's launches are those of the newest path
-    # that runs it (phase 23's for the CIN kernels, phase 22's for the
-    # (AU)GRU and merge-scatter ones); every path's own counts ride along,
+    def phase_25():
+        t = time.perf_counter()
+        graph_phase(drive, launches_by_path, smi)
+        print(f"wall time of phase 25: {time.perf_counter() - t:.1f} s")
+
+    item_8b_phase(drive, launches_by_path, smi, then=phase_25)
+    lap("phases 24-25")
+
+    # 26. result lines: each kernel's launches are those of the newest path
+    # that runs it (phase 24's for the field-attention kernels, phase 23's
+    # for the CIN kernels, phase 22's for the (AU)GRU and merge-scatter
+    # ones); every path's own counts ride along,
     # and each instance (C function) with the shapes it took here
     for k in kernels:
         runs = [p for p, c in launches_by_path.items() if c[k["name"]]]

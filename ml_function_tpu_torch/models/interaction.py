@@ -345,8 +345,10 @@ def AutoInt(fs: FeatureSet, n_layers: int = 2, num_heads: int = 2,
     (``mha0`` … ``mha{n-1}``), then flatten → logit (``head``). Dense
     features join as one projected pseudo-field (``dense_proj``), the last.
     The embedding keeps its ``linear`` table, as the reference's does, and
-    does not read it. The reference's pipeline-parallel branch comes with
-    the parallelism slice."""
+    does not read it. Under a sharding context with ``pp_microbatches`` and
+    a model group above 1, the block stack runs as a GPipe pipeline
+    (``pipelined_blocks``); ``model.pipelined_forward(batch, mesh, micro)``
+    takes that route on any mesh."""
     f, d, nd = _dims(fs)
     n_fields = f + (1 if nd else 0)
     parts = {"embedding": FusedEmbedding(fs), "head": Dense(n_fields * d, 1)}
@@ -356,17 +358,61 @@ def AutoInt(fs: FeatureSet, n_layers: int = 2, num_heads: int = 2,
         parts[f"mha{i}"] = MultiHeadAttention(d, num_heads, head_dim,
                                               use_res=True, use_ln=True)
 
-    def fwd(m, batch, train):
+    def pp():
+        """(mesh, microbatches) when the context asks for the pipeline over
+        a model group above 1."""
+        from ..parallel import context as pctx
+        micro = pctx.pp_microbatches()
+        if not micro or pctx.model_axis_size() <= 1:
+            return None
+        return pctx.active_mesh(), micro
+
+    def run(m, batch, pipe):
         inp = embed_inputs(m.embedding, batch, with_linear=False)
         e = inp["emb"]
         if nd:
             e = torch.cat([e, m.dense_proj(inp["dense"])[:, None, :]], dim=1)
-        for i in range(n_layers):
-            e = getattr(m, f"mha{i}")(e)
+        blocks = [getattr(m, f"mha{i}") for i in range(n_layers)]
+        if pipe is not None:
+            e = pipelined_blocks(blocks, e, *pipe)
+        else:
+            for blk in blocks:
+                e = blk(e)
         logit = m.head(e.reshape(e.shape[0], -1))
         return logit[:, 0], {"emb_l2": inp["l2"]}
 
-    return stateless("AutoInt", fs, parts, fwd)
+    def fwd(m, batch, train):
+        return run(m, batch, pp())
+
+    model = stateless("AutoInt", fs, parts, fwd)
+    # the forward with the pipeline taken on any mesh, a one-stage one too
+    model.add_helper("pipelined_forward",
+                     lambda m, batch, mesh, micro: run(m, batch, (mesh, micro)))
+    return model
+
+
+def pipelined_blocks(blocks, e: torch.Tensor, mesh, micro: int) -> torch.Tensor:
+    """AutoInt's block stack on e (B, F, D) as a GPipe pipeline of
+    ``micro`` microbatches over ``mesh``'s model group: the rank at model
+    coordinate s runs ``blocks[s·bps]`` … ``blocks[s·bps+bps−1]``, bps =
+    len(blocks) / stages."""
+    from ..parallel.pipeline import make_pipeline, stack_stage_params
+    if len(blocks) % mesh.model:
+        raise ValueError(f"pipeline over {mesh.model} stages needs n_layers "
+                         f"divisible ({len(blocks)} blocks)")
+    bps = len(blocks) // mesh.model
+    stacked = stack_stage_params([
+        {f"b{j}": dict(blocks[s * bps + j].named_parameters()) for j in range(bps)}
+        for s in range(mesh.model)])
+
+    def stage_fn(sp, x):
+        eb = x.reshape(x.shape[0], *e.shape[1:])
+        for j in range(bps):
+            eb = torch.func.functional_call(blocks[j], sp[f"b{j}"], (eb,))
+        return eb.reshape(x.shape[0], -1)
+
+    pipe = make_pipeline(mesh, stage_fn, n_microbatches=micro)
+    return pipe(stacked, e.reshape(e.shape[0], -1)).reshape(e.shape)
 
 
 def DCN(fs: FeatureSet, cross_depth: int = 3,

@@ -21,9 +21,10 @@ set on ``model.dien.gru1`` and ``model.dien.gru2``, as for DIEN.
 ``LSHSelfAttention``. Under a RowTape (the sparse-row path) soft search
 scores and selects from the whole stream's looked-up rows, as the
 reference does there, since a lookup's ids may depend on the batch alone.
-The reference's sequence-sharded search unit comes with parallelism
-(``ROADMAP.md`` Queue 1 item 8; the port has no mesh context that could ask
-for it).
+Under a sharding context with ``seq_shard`` and a model group above 1, soft
+search runs with the long key axis sharded over ``model``
+(``parallel/longseq.py``), and the selected ids are looked up as on the
+unsharded route.
 """
 
 from __future__ import annotations
@@ -93,23 +94,42 @@ def SIM(fs: FeatureSet,
         parts["align_long"] = Dense(kd_long, kd)
     cand_cols = [fs.sparse_index(n) for n in candidate]
 
+    def seq_shard_mesh():
+        """The active mesh when the sequence-sharded search applies: soft
+        search, no RowTape, ``seq_shard`` and a model group above 1."""
+        from ..parallel import context as pctx
+        if (search == "soft" and active_row_tape() is None
+                and pctx.seq_shard_active() and pctx.model_axis_size() > 1):
+            return pctx.active_mesh()
+        return None
+
     def soft_search(fe, batch):
-        """The stop-gradient scoring pass over the whole stream, the top k,
-        then a differentiable lookup of the selected ids only: (cand,
-        reduced, red_mask, l2_long, emb). The full-stream lookup keeps
-        nothing for backward, and the table's gradient covers B·k rows."""
+        """The scoring pass without a gradient, the top k, then a
+        differentiable lookup of the selected ids only: (cand, reduced,
+        red_mask, l2_long, emb). The full-stream lookup keeps nothing for
+        backward, and the table's gradient covers B·k rows. Under the
+        sequence-sharded context the scoring pass runs sharded."""
         emb = fe.sparse(batch["sparse"])
         cand = torch.cat([emb[:, c, :] for c in cand_cols], dim=-1)
-        with torch.no_grad():
-            rows, long_mask = [], None
-            for n in long_behavior:
-                e, m = fe.seq(n, batch["seq"][n])
-                rows.append(e)
-                long_mask = m if long_mask is None else long_mask | m
-            cand_long = torch.cat([emb[:, c, :] for c in long_score_cols], dim=-1)
-            scores = torch.einsum("bld,bd->bl", torch.cat(rows, dim=-1), cand_long)
-            scores = torch.where(long_mask, scores, -torch.inf)
-        top_i = top_k_indices(scores, min(top_k, scores.shape[1]))
+        cand_long = torch.cat([emb[:, c, :] for c in long_score_cols], dim=-1).detach()
+        mesh = seq_shard_mesh()
+        if mesh is not None:
+            from ..parallel import context as pctx
+            from ..parallel.longseq import seq_sharded_soft_search
+            k = min(top_k, fs.seq_spec(long_behavior[0]).max_len)
+            top_i, _ = seq_sharded_soft_search(
+                mesh, fs, long_behavior, k, fe.table, batch["seq"], cand_long,
+                capacity=pctx.exchange_capacity(), compress=pctx.exchange_compress())
+        else:
+            with torch.no_grad():
+                rows, long_mask = [], None
+                for n in long_behavior:
+                    e, m = fe.seq(n, batch["seq"][n])
+                    rows.append(e)
+                    long_mask = m if long_mask is None else long_mask | m
+                scores = torch.einsum("bld,bd->bl", torch.cat(rows, dim=-1), cand_long)
+                scores = torch.where(long_mask, scores, -torch.inf)
+            top_i = top_k_indices(scores, min(top_k, scores.shape[1]))
         reduced, red_mask = [], None
         l2 = fe.l2_from_sparse(emb)     # emb_l2 covers the rows used downstream
         for n in long_behavior:

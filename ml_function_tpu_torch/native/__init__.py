@@ -1,7 +1,8 @@
 """Build the port's C++ data loaders with g++ and load them with ctypes.
 
 ``<name>.cpp`` in this directory (the port's own copies of the JAX
-package's ``native/criteo_loader.cpp`` and ``behavior_loader.cpp``) is
+package's ``native/criteo_loader.cpp``, ``behavior_loader.cpp`` and
+``walk_engine.cpp``) is
 compiled at first use into ``build/lib<name>-<hash>.so`` beside it, as
 ``ops/kernels/_build.py`` builds the CUDA sources; the hash covers the
 source and the flags, so an edited source builds anew. Importing this

@@ -14,7 +14,19 @@ collective in the reference:
 - ``sum_grad``: forward the identity, backward a sum of the cotangents over
   the group: the input of a computation that each rank of the group runs on
   its own block (MMoE's experts), whose cotangent each rank holds only in
-  part.
+  part;
+- ``replicated_sum``: forward a sum over the group, backward the identity:
+  the sum is replicated, and every rank of the group holds the same
+  cotangent of it (``psum``'s transpose under ``shard_map``'s replication
+  check);
+- ``mean_grad``: forward the identity, backward the cotangent over the
+  group size: an output that each rank computes whole and ``shard_map``
+  returns unchecked as replicated (its transpose splits the cotangent over
+  the devices);
+- ``ppermute``: group rank i sends to rank (i + shift) mod n; the backward
+  is the reverse permute of the cotangent (``lax.ppermute``'s transpose).
+
+``all_max`` (``pmax``) takes no gradient, as the reference stops it.
 """
 
 from __future__ import annotations
@@ -66,6 +78,30 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over ``group`` (no gradient)."""
+    out = x.detach().clone()
+    if group is not None:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    n = group_size(group)
+    if n == 1 or shift % n == 0:
+        return x.clone()
+    r = group_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    # P2POp takes global ranks; NCCL and gloo both refuse a send to self,
+    # which a shift of 0 mod n (handled above) would be
+    ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (r + shift) % n), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (r - shift) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
     return out
 
 
@@ -129,3 +165,58 @@ def sum_grad(x: torch.Tensor, group) -> torch.Tensor:
     if group is None:
         return x
     return _SumGrad.apply(x, group)
+
+
+class _ReplicatedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def replicated_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """A sum over ``group`` whose backward is the identity (see the module
+    docstring)."""
+    if group is None:
+        return x
+    return _ReplicatedSum.apply(x, group)
+
+
+class _MeanGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def mean_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """The identity, whose backward divides the cotangent by the group's
+    size."""
+    n = group_size(group)
+    return x if n == 1 else _MeanGrad.apply(x, n)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _permute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.group, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """Differentiable cyclic shift over ``group``: group rank i's ``x`` lands
+    on rank (i + shift) mod n. A group of one (or none) is a local copy."""
+    if group_size(group) == 1:
+        return x.clone()
+    return _Ppermute.apply(x, group, shift)

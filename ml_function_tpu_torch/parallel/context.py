@@ -6,12 +6,10 @@ Counterpart of ``ml_function_tpu/parallel/context.py``. Models call
 ``with sharded_embeddings(mesh): ...`` those lookups read row-sharded
 tables through ``parallel/embedding.ShardedLookup`` instead of a local
 gather. The same context tells BatchNorm to take the data group's moments
-and MMoE to gather its expert blocks over the model group.
-
-``seq_shard`` (SIM's sequence-sharded search) and ``pp_microbatches``
-(GPipe) are the reference's flags for ``parallel/longseq.py`` and
-``parallel/pipeline.py``, which the port does not have yet: setting either
-raises ``NotImplementedError``.
+and MMoE to gather its expert blocks over the model group. ``seq_shard``
+routes SIM's soft search through ``parallel/longseq.py`` and
+``pp_microbatches`` AutoInt's block stack through ``parallel/pipeline.py``,
+as the reference's flags do.
 """
 
 from __future__ import annotations
@@ -23,9 +21,8 @@ from typing import Optional
 from .mesh import MODEL_AXIS
 
 _state = threading.local()
-
-ITEM_8B = ("the sequence-sharded search (seq_shard) and the pipeline "
-           "(pp_microbatches) come with ROADMAP.md Queue 1 item 8b")
+_DEFAULTS = {"mesh": None, "mode": "psum", "compress": None, "capacity": None,
+             "seq_shard": False, "pp_microbatches": 0}
 
 
 def active_mesh():
@@ -49,9 +46,16 @@ def exchange_capacity() -> Optional[int]:
     return getattr(_state, "capacity", None)
 
 
-def refuse_item_8b(seq_shard: bool = False, pp_microbatches: int = 0) -> None:
-    if seq_shard or pp_microbatches:
-        raise NotImplementedError(ITEM_8B)
+def seq_shard_active() -> bool:
+    """True when the long streams' key axes are to be sharded over
+    ``model`` (SIM's soft search, ``parallel/longseq.py``)."""
+    return bool(getattr(_state, "seq_shard", False))
+
+
+def pp_microbatches() -> int:
+    """> 0 when deep block stacks are to be pipelined over ``model`` with
+    this many microbatches (AutoInt, ``parallel/pipeline.py``)."""
+    return int(getattr(_state, "pp_microbatches", 0))
 
 
 @contextlib.contextmanager
@@ -64,15 +68,17 @@ def sharded_embeddings(mesh, mode: str = "psum",
     all-to-all), see ``parallel/embedding.py``. ``compress='bf16'`` ships
     the exchanged rows in bfloat16. ``capacity`` bounds the unique ids of an
     a2a bucket (None: the lossless worst case; ``planner.plan_capacity``
-    derives one from frequencies)."""
-    refuse_item_8b(seq_shard, pp_microbatches)
+    derives one from frequencies). ``seq_shard=True`` shards the long
+    streams' key axes over ``model``; ``pp_microbatches`` > 0 pipelines deep
+    block stacks over ``model`` with that many microbatches."""
     if mode not in ("psum", "a2a"):
         raise ValueError(f"unknown exchange mode {mode!r}")
-    prev = (getattr(_state, "mesh", None), getattr(_state, "mode", "psum"),
-            getattr(_state, "compress", None), getattr(_state, "capacity", None))
+    prev = {k: getattr(_state, k, v) for k, v in _DEFAULTS.items()}
     _state.mesh, _state.mode = mesh, mode
     _state.compress, _state.capacity = compress, capacity
+    _state.seq_shard, _state.pp_microbatches = seq_shard, pp_microbatches
     try:
         yield
     finally:
-        _state.mesh, _state.mode, _state.compress, _state.capacity = prev
+        for k, v in prev.items():
+            setattr(_state, k, v)

@@ -27,6 +27,9 @@ over the rank's table block:
    ``all_to_all`` back to the owners and ``index_add`` into their blocks.
    The capacity defaults to S, the lossless worst case; unique ids past it
    read as zero rows and get no gradient (``overflow_count`` counts them).
+   ``a2a_fetch`` is that exchange alone, with no closing gather and no
+   gradient: the sequence-sharded search (``longseq.py``) fetches the rows
+   of its block of the stream with it.
 
 ``compress='bf16'`` ships the exchanged rows (and their cotangents) in
 bfloat16; the ids stay integers. Under psum each row has one non-zero
@@ -116,31 +119,52 @@ def _slice_of(flat: torch.Tensor, m: int, j: int, sentinel: int) -> torch.Tensor
     return torch.cat([flat, pad])[j * s:(j + 1) * s]
 
 
+def _fetch(shard, mine, j: int, m: int, group, cap: int, compress):
+    """The owner-routed exchange for this rank's id slice ``mine`` (S,):
+    sort and dedup it, ship each unique id to its owner, gather, ship the
+    rows back. Returns (the (S, W) rows of ``mine`` in its order, what the
+    backward needs). Ids ≥ r·m read as zero rows, as do unique ids past
+    ``cap`` in their owner's bucket."""
+    r, w = shard.shape
+    sentinel = r * m
+    order, s_ids, s_owner, pos, _ = _bucket(mine, r, m)
+    live = (s_owner < m) & (pos < cap)
+    send = mine.new_full((m + 1, cap), sentinel)
+    # duplicates write the same id to the same slot
+    send[s_owner[live], pos[live]] = s_ids[live]
+    req = comm.all_to_all(send[:m], group)                    # (m, cap)
+    local = req - j * r
+    ok = (local >= 0) & (local < r)
+    safe = local.clamp(0, r - 1).reshape(-1)
+    rows = torch.where(ok[..., None], shard.index_select(0, safe).reshape(m, cap, w), 0.0)
+    back = comm.all_to_all(_wire(rows, compress), group).to(shard.dtype)
+    got = torch.where(live[:, None],
+                      back[s_owner.clamp(max=m - 1), pos.clamp(0, cap - 1)], 0.0)
+    my_rows = torch.empty_like(got)
+    my_rows[order] = got
+    return my_rows, (order, s_owner, pos, live, safe, ok)
+
+
+@torch.no_grad()
+def a2a_fetch(shard: torch.Tensor, mine: torch.Tensor, j: int, m: int, group,
+              capacity: int, compress: Optional[str] = None) -> torch.Tensor:
+    """The (S, W) rows of this rank's id slice ``mine`` (S,) through the
+    owner-routed exchange over the model group (``j`` this rank's index in
+    it, ``m`` its size), with no closing gather and no gradient: the
+    counterpart of the reference's ``_a2a_fetch``, the core that the a2a
+    lookup and the sequence-sharded search share."""
+    return _fetch(shard, mine.long(), j, m, group, capacity, compress)[0]
+
+
 class _A2ALookup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, shard, flat, j, m, group, capacity, compress):
         r, w = shard.shape
         n = flat.shape[0]
-        sentinel = r * m
-        mine = _slice_of(flat, m, j, sentinel)
-        s = mine.shape[0]
-        cap = capacity or s
-        order, s_ids, s_owner, pos, _ = _bucket(mine, r, m)
-        live = (s_owner < m) & (pos < cap)
-        send = flat.new_full((m + 1, cap), sentinel)
-        # duplicates write the same id to the same slot
-        send[s_owner[live], pos[live]] = s_ids[live]
-        req = comm.all_to_all(send[:m], group)                    # (m, cap)
-        local = req - j * r
-        ok = (local >= 0) & (local < r)
-        safe = local.clamp(0, r - 1).reshape(-1)
-        rows = torch.where(ok[..., None], shard.index_select(0, safe).reshape(m, cap, w), 0.0)
-        back = comm.all_to_all(_wire(rows, compress), group).to(shard.dtype)
-        got = torch.where(live[:, None],
-                          back[s_owner.clamp(max=m - 1), pos.clamp(0, cap - 1)], 0.0)
-        my_rows = torch.empty_like(got)
-        my_rows[order] = got
-        ctx.save_for_backward(order, s_owner, pos, live, safe, ok)
+        mine = _slice_of(flat, m, j, r * m)
+        cap = capacity or mine.shape[0]
+        my_rows, saved = _fetch(shard, mine, j, m, group, cap, compress)
+        ctx.save_for_backward(*saved)
         ctx.dims = (r, w, n, m, j, cap)
         ctx.group, ctx.compress = group, compress
         return comm.all_gather_tensor(my_rows, group)[:n]

@@ -42,7 +42,7 @@ from ..train.loop import TrainState
 from ..train.metrics import (bce_with_logits, init_metrics, metrics_summary,
                              update_metrics)
 from . import comm
-from .context import refuse_item_8b, sharded_embeddings
+from .context import sharded_embeddings
 from .embedding import ShardedLookup, pad_table_for_shards
 from .mesh import MODEL_AXIS, Mesh
 from .multihost import global_metrics
@@ -222,8 +222,13 @@ def make_sharded_train_step(model: nn.Module, optimizer, mesh: Mesh,
     sharded model). ``loss`` and ``bce`` are the global batch's;
     ``logits``, ``label`` and ``weight`` this rank's. With a finite a2a
     ``capacity`` on a one-width schema the output carries ``a2a_overflow``,
-    the global count of unique ids dropped this step."""
-    refuse_item_8b(seq_shard, pp_microbatches)
+    the global count of unique ids dropped this step. ``seq_shard=True``
+    shards the long streams' key axes over ``model`` (SIM's soft search);
+    ``pp_microbatches`` > 0 pipelines AutoInt's block stack over ``model``.
+    The parameters stay replicated over the model group: a pipelined rank
+    reads only its stage's blocks, and ``parallel/pipeline.py`` sums the
+    stage gradients over the group inside the backward, so each rank holds
+    them all before ``sync_grads``."""
     if has_int8_tables(model):
         raise ValueError("a model with int8 serving tables cannot train")
     fs = model.feature_set
@@ -236,7 +241,8 @@ def make_sharded_train_step(model: nn.Module, optimizer, mesh: Mesh,
         batch = as_tensors(batch, dev)
         optimizer.zero_grad(set_to_none=True)
         with sharded_embeddings(mesh, mode=exchange, compress=compress,
-                                capacity=capacity):
+                                capacity=capacity, seq_shard=seq_shard,
+                                pp_microbatches=pp_microbatches):
             out = model(batch, train=True)
             total, bce = global_loss(out, batch, mesh)
             total.backward()
@@ -259,13 +265,13 @@ def make_sharded_eval_step(model: nn.Module, mesh: Mesh, exchange: str = "psum",
     """``eval_step(metrics, batch) -> (metrics, logits)`` on this rank's
     rows; the metrics stay this rank's until ``multihost.global_metrics``
     sums them over the data group."""
-    refuse_item_8b(seq_shard)
     dev = mesh.device
 
     @torch.no_grad()
     def eval_step(metrics, batch):
         batch = as_tensors(batch, dev)
-        with sharded_embeddings(mesh, mode=exchange, compress=compress):
+        with sharded_embeddings(mesh, mode=exchange, compress=compress,
+                                seq_shard=seq_shard):
             logits, _, _ = model(batch, train=False)
         return update_metrics(metrics, logits, batch["label"],
                               batch.get("weight")), logits
@@ -275,12 +281,12 @@ def make_sharded_eval_step(model: nn.Module, mesh: Mesh, exchange: str = "psum",
 
 def evaluate_sharded(model: nn.Module, mesh: Mesh, data: Dict[str, Any],
                      batch_size: int, exchange: str = "psum",
-                     compress=None) -> Dict[str, float]:
+                     compress=None, seq_shard: bool = False) -> Dict[str, float]:
     """Streaming AUC, logloss and count over ``data`` (every rank passes the
     whole dataset and scores its rows of each batch), merged over the data
     group."""
     from ..train.loop import iter_batches
-    step = make_sharded_eval_step(model, mesh, exchange, compress)
+    step = make_sharded_eval_step(model, mesh, exchange, compress, seq_shard)
     em = init_metrics(device=mesh.device)
     for b in iter_batches(data, batch_size):
         em, _ = step(em, shard_batch(b, mesh))

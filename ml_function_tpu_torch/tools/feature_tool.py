@@ -9,10 +9,10 @@ Implemented set (reference cites):
 - rank-2/3 categorical cross features (:277-309)
 - count / target-stat / group-agg features (:311-375)
 - memory downcasting (:396-430)
-- user→item-sequence edgelists for graph pretraining (:509-540); the
-  DeepWalk item embeddings (:556-604) and the behavior-seq word2vec
-  aggregates (:782-856) need graph pretraining, which the port brings with
-  ROADMAP.md Queue 1 item 9, and raise until then
+- user→item-sequence edgelists for graph pretraining (:509-540), DeepWalk
+  item embeddings (:556-604) and behavior-seq word2vec aggregates
+  (:782-856), through the port's ``embedding_pretrain`` (its trainers on
+  ``device``, default the card)
 - EDA: CTR-vs-feature tables (:110-235 — returns DataFrames; plotting left
   to the caller's notebook, matplotlib optional)
 """
@@ -143,10 +143,6 @@ def ctr_table(df, feature_col: str, label_col: str = "label",
 # graph/embedding bridges (reference :509-604, :643-681, :782-856)
 # ---------------------------------------------------------------------------
 
-_GRAPH = ("graph-embedding pretraining (DeepWalk, word2vec) comes to the port "
-          "with ROADMAP.md Queue 1 item 9")
-
-
 def user_item_edgelist(df, user_col: str, item_col: str,
                        time_col: Optional[str] = None
                        ) -> List[Tuple[str, str]]:
@@ -165,14 +161,51 @@ def item_embeddings_from_sequences(df, user_col: str, item_col: str,
                                    time_col: Optional[str] = None,
                                    dim: int = 32, num_walks: int = 40,
                                    walk_length: int = 8,
-                                   seed: int = 0) -> Dict[str, np.ndarray]:
+                                   seed: int = 0, device=None) -> Dict[str, np.ndarray]:
     """DeepWalk item embeddings from click sequences (reference
-    generator_item_embedding, :556-604)."""
-    raise NotImplementedError(_GRAPH)
+    generator_item_embedding, :556-604 — there an mp.Pool of per-slice jobs;
+    the vectorized walker does a slice in one call)."""
+    from ..embedding_pretrain import DeepWalk, from_edges
+
+    edges = [(s, d, 1.0) for s, d in
+             user_item_edgelist(df, user_col, item_col, time_col)]
+    if not edges:
+        return {}
+    g = from_edges(edges)
+    return DeepWalk(g, num_walks=num_walks, walk_length=walk_length,
+                    dim=dim, seed=seed, device=device).transform()
 
 
 def seq_embedding_aggregates(df, seq_col: str, dim: int = 16, window: int = 3,
-                             seed: int = 0, sep: str = "|") -> "pd.DataFrame":
-    """word2vec over behavior strings → per-row mean/max pooled vectors
-    (reference :782-856)."""
-    raise NotImplementedError(_GRAPH)
+                             seed: int = 0, sep: str = "|", device=None) -> "pd.DataFrame":
+    """w2v over behavior strings → per-row mean/max pooled vectors (reference
+    :782-856, gensim there; the port's word2vec here)."""
+    from ..embedding_pretrain.walks import walks_to_skipgram_pairs
+    from ..embedding_pretrain.word2vec import Word2VecConfig, train_word2vec
+
+    seqs = [str(s).split(sep) if not (isinstance(s, float) and np.isnan(s))
+            else [] for s in df[seq_col]]
+    vocab: Dict[str, int] = {}
+    for s in seqs:
+        for tok in s:
+            if tok and tok not in vocab:
+                vocab[tok] = len(vocab)
+    if not vocab:
+        return pd.DataFrame(index=df.index)
+    max_len = max(len(s) for s in seqs)
+    walks = np.zeros((len(seqs), max(max_len, 2)), np.int32)
+    for i, s in enumerate(seqs):
+        for j, tok in enumerate(s):
+            walks[i, j] = vocab[tok]
+    pairs = walks_to_skipgram_pairs(walks, window=window, seed=seed)
+    emb = train_word2vec(pairs, len(vocab),
+                         Word2VecConfig(dim=dim, seed=seed), device=device)
+    out = np.zeros((len(seqs), 2 * dim), np.float32)
+    for i, s in enumerate(seqs):
+        if s:
+            vecs = emb[[vocab[t] for t in s if t in vocab]]
+            out[i, :dim] = vecs.mean(0)
+            out[i, dim:] = vecs.max(0)
+    cols = ([f"{seq_col}_w2v_mean_{i}" for i in range(dim)]
+            + [f"{seq_col}_w2v_max_{i}" for i in range(dim)])
+    return pd.DataFrame(out, columns=cols, index=df.index)

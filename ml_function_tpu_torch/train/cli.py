@@ -15,7 +15,8 @@ periodic eval, the early stop and the best-checkpoint keep of
 
 ``--device`` is the port's own flag (default: the card, one a rank, with
 NCCL; ``cpu`` runs on gloo). ``mesh.seq_shard`` and ``mesh.pp_microbatches``
-raise ``NotImplementedError``: they come with ``ROADMAP.md`` Queue 1 item 8b.
+reach the sharded train step (and ``seq_shard`` the eval), as in the
+reference; the sparse-row path takes neither, as there.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import torch.distributed as dist
 from ..features.synthetic import make_behavior_data, make_criteo_like
 from ..models import get_model
 from ..parallel import comm
-from ..parallel.context import refuse_item_8b
 from ..parallel.mesh import MODEL_AXIS, make_mesh
 from ..parallel.multihost import global_metrics, init_multihost
 from ..parallel.train import (create_sharded_state, evaluate_sharded,
@@ -132,7 +132,6 @@ def run(cfg: Config, device=None,
     periodic eval, ``stopped_early``, ``best_step``, ``best_<monitor>``),
     printed by rank 0. ``on_step(step, out)`` sees each train step's output
     (its ``loss`` is the global batch's)."""
-    refuse_item_8b(cfg.mesh.seq_shard, cfg.mesh.pp_microbatches)
     init_multihost(device=device)
     if cfg.train.debug_nans:
         enable_nan_checks(True)
@@ -209,11 +208,13 @@ def run(cfg: Config, device=None,
             ts.model, ts.optimizer, mesh, exchange=cfg.mesh.exchange,
             compress=compress,
             capacity=(resolve_capacity(cfg.mesh.capacity, "a2a")
-                      if cfg.mesh.exchange == "a2a" else None))
+                      if cfg.mesh.exchange == "a2a" else None),
+            seq_shard=cfg.mesh.seq_shard, pp_microbatches=cfg.mesh.pp_microbatches)
 
     def eval_now():
         return evaluate_sharded(ts.model, mesh, test_data, cfg.train.batch_size,
-                                exchange=cfg.mesh.exchange, compress=compress)
+                                exchange=cfg.mesh.exchange, compress=compress,
+                                seq_shard=cfg.mesh.seq_shard)
 
     # under a process group (torchrun, or a FileStore of one rank) every rank
     # writes its blocks: the sharded format, whatever the world size

@@ -4,9 +4,8 @@ A copy of ``ml_function_tpu/train/config.py``: the reference has no config
 system (hyperparameters are Python kwargs, ``models.py:44-45``); here a
 dataclass tree (model / data / mesh / train) with dotted-path overrides
 (``apply_overrides``), serialized into a checkpoint's ``extra`` for
-reproducibility. ``MeshConfig`` is kept for the CLI, which comes with
-parallelism (ROADMAP.md Queue 1 item 8); its fields keep the reference's
-names.
+reproducibility. ``MeshConfig`` is the CLI's mesh (``train/cli.py``); its
+fields keep the reference's names.
 """
 
 from __future__ import annotations

@@ -220,9 +220,10 @@ def test_a_truncated_npz_is_unreadable_to_both_packages(tmp_path):
 
 def test_sharded_format_raises_naming_item_8(tmp_path):
     """Since item 8a the sharded format is written and read (here one rank's
-    unsharded state round-trips through it bit for bit); what item 8 still
-    lacks, item 8b's sequence-sharded search and pipeline, raises naming
-    it; and a manifest that claims shards its directory lacks reads as
+    unsharded state round-trips through it bit for bit); since item 8b the
+    sequence-sharded search and pipeline flags are accepted, and at a model
+    group of 1 the restored model scores with the unflagged bits under
+    them; and a manifest that claims shards its directory lacks reads as
     torn."""
     from ml_function_tpu_torch.parallel.context import sharded_embeddings
     from ml_function_tpu_torch.parallel.mesh import make_mesh
@@ -238,10 +239,12 @@ def test_sharded_format_raises_naming_item_8(tmp_path):
     ts2, _ = ckpt.restore_checkpoint(
         path, tloop.TrainState(model2, toptim.make_optimizer("adam").init(model2), 0))
     _assert_same(_snapshot(ts2), want)
-    for flag in ({"seq_shard": True}, {"pp_microbatches": 2}):
-        with pytest.raises(NotImplementedError, match="item 8"):
+    batch = _batches(data, 1)[0]
+    with torch.no_grad():
+        want_logits = model2(batch)[0]
+        for flag in ({"seq_shard": True}, {"pp_microbatches": 2}):
             with sharded_embeddings(make_mesh(device="cpu"), **flag):
-                pass
+                assert torch.equal(model2(batch)[0], want_logits)
     path = ckpt.save_checkpoint(str(tmp_path / "b"), ts)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)

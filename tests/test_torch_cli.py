@@ -14,7 +14,8 @@ two meshes sum the global batch's gradients in another order, and here the
 JAX CLI's mesh spans the 8 virtual devices, the port's the ranks it has).
 A resumed run is held to the uninterrupted one: the same eval AUC and
 logloss within 1e-6 (one rank's sums against another's order), since every
-step after the checkpoint repeats the uninterrupted run's.
+step after the checkpoint repeats the uninterrupted run's; a run with the
+sequence-sharded search or the pipeline flag, to the same run without it.
 """
 
 import json
@@ -53,6 +54,16 @@ FM = ["--config.model.name=fm", "--config.data.n_rows=4096",
       "--config.mesh.model=2"]
 AUTO_CAPACITY = FM + ["--config.mesh.exchange=a2a", "--config.mesh.capacity=auto"]
 FM_TWO_EPOCHS = FM + ["--config.train.epochs=2"]
+SMALL = ["--config.data.n_rows=1024", "--config.train.batch_size=256",
+         "--config.train.learning_rate=0.01", "--config.train.log_every=0",
+         "--config.mesh.model=2"]
+# the reference's sequence-sharded search (SIM over the behavior data, its
+# 8-long streams split over the model axis) and pipeline (AutoInt's 2 blocks
+# as 2 stages)
+FLAG_RUNS = {"--config.mesh.seq_shard=true": ["--config.model.name=sim",
+                                              "--config.data.seq_len=8"] + SMALL,
+             "--config.mesh.pp_microbatches=2": ["--config.model.name=autoint",
+                                                 "--config.data.vocab_size=50"] + SMALL}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -137,6 +148,10 @@ def ranks(tmp_path_factory):
             ("resumed", FM_TWO_EPOCHS + cpu + [f"--config.train.checkpoint_dir={ck}"],
              fm_init),
             ("uninterrupted", FM_TWO_EPOCHS + cpu, fm_init)]
+    # each flag's run and the same run without it, from the CLI's own seeded
+    # state
+    for flag, argv in FLAG_RUNS.items():
+        runs += [(flag, argv + [flag] + cpu, None), (f"{flag} unflagged", argv + cpu, None)]
     with open(os.path.join(io_dir, "inputs.pkl"), "wb") as f:
         pickle.dump({"runs": runs}, f)
     spawn(worker.cli_cases, RANKS, (io_dir,), store_dir=io_dir)
@@ -251,8 +266,20 @@ def test_cli_checkpoint_rejects_layout_mismatch(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--config.mesh.seq_shard=true",
                                   "--config.mesh.pp_microbatches=2"])
-def test_cli_seq_shard_and_pipeline_flags(flag):
-    """The reference's sequence-sharded search and pipeline flags name the
-    item that brings them."""
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        cli.main(SYNTH + ["--config.mesh.model=2", flag, "--device=cpu"])
+def test_cli_seq_shard_and_pipeline_flags(ranks, flag):
+    """The reference's sequence-sharded search and pipeline flags reach the
+    sharded step on a (2, 2) mesh (SIM's search split over the model axis,
+    AutoInt's blocks as two stages): every rank reports the same global
+    result, and the run ends where the same run without the flag ends (the
+    flag changes the route, not the result: the same steps and eval rows,
+    AUC and logloss within 1e-5). The routes' steps are held to the JAX
+    package's in ``test_torch_seq_parallel.py`` and ``test_torch_gpipe.py``."""
+    out, _, _ = ranks
+    res, plain = out[0][flag], out[0][f"{flag} unflagged"]
+    for k in ("train", "eval", "steps"):
+        assert all(res[k] == out[r][flag][k] for r in range(1, RANKS))
+    assert res["steps"] == plain["steps"] > 0
+    assert res["eval"]["count"] == plain["eval"]["count"] > 0
+    for k in ("auc", "logloss"):
+        np.testing.assert_allclose(res["eval"][k], plain["eval"][k], rtol=0, atol=1e-5)
+    assert np.isfinite(res["train"]["logloss"])

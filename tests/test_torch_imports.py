@@ -67,6 +67,17 @@ def test_no_source_names_jax(path):
         assert not any(_forbidden(n) for n in names), (path, names)
 
 
+def test_sources_checked_cover_the_last_modules():
+    """The sources that ``test_no_source_names_jax`` reads include the
+    sequence-parallel and pipeline modules and graph pretraining."""
+    names = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    want = {f"parallel/{m}.py" for m in ("comm", "longseq", "seq_parallel", "pipeline")}
+    want |= {f"embedding_pretrain/{m}.py" for m in (
+        "__init__", "alias", "api", "evaluate", "graph", "line", "native_walks", "sdne",
+        "walks", "word2vec")}
+    assert want <= names, sorted(want - names)
+
+
 def test_cpu_forward_launches_no_kernel():
     fs, data = make_criteo_like(n_rows=256, n_dense=2, n_sparse=4,
                                 vocab_size=20, embed_dim=4)

@@ -224,23 +224,23 @@ def test_fused_embedding_without_a_table():
 
 
 def test_unported_routes_raise():
-    """The sharding context's sequence-sharded search and pipeline raise,
-    naming their roadmap item (8b); row-sharded serving (item 8a) and the
-    routes that came with the store (a mixed-width store, the cold-start
-    hook, the RowTape) run: ``ShardedScorer`` on one rank gives
-    ``Scorer``'s bits."""
+    """Every route of the reference now runs: the sharding context's
+    sequence-sharded search and pipeline flags (item 8b) are accepted, and
+    at a model group of 1 they leave the scores' bits as they are;
+    row-sharded serving (item 8a) and the routes that came with the store
+    (a mixed-width store, the cold-start hook, the RowTape) run:
+    ``ShardedScorer`` on one rank gives ``Scorer``'s bits."""
     from ml_function_tpu_torch.parallel.context import sharded_embeddings
     from ml_function_tpu_torch.parallel.mesh import make_mesh
     from ml_function_tpu_torch.serving import Scorer
     fs = criteo_feature_set([5, 5], n_dense=1, embed_dim=4)
     m = get_model("deepfm", fs, device="cpu", hidden=(4,))
-    for flag in ({"seq_shard": True}, {"pp_microbatches": 2}):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            with sharded_embeddings(make_mesh(device="cpu"), **flag):
-                pass
     rows = {"dense": np.zeros((5, 1), np.float32),
             "sparse": np.tile(np.arange(5, dtype=np.int32)[:, None], (1, 2))}
     want = Scorer(m, 4).predict_proba(rows)
+    for flag in ({"seq_shard": True}, {"pp_microbatches": 2}):
+        with sharded_embeddings(make_mesh(device="cpu"), **flag):
+            np.testing.assert_array_equal(Scorer(m, 4).predict_proba(rows), want)
     np.testing.assert_array_equal(
         ShardedScorer(m, make_mesh(device="cpu"), batch_size=4).predict_proba(rows), want)
     mixed = FeatureSet(sparse=(SparseSpec("a", 5, dim=4),

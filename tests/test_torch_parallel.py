@@ -49,7 +49,6 @@ from ml_function_tpu.train.metrics import metrics_summary as jax_summary
 from ml_function_tpu_torch.bridge import params_to_numpy
 from ml_function_tpu_torch.features.synthetic import make_criteo_like
 from ml_function_tpu_torch.models import get_model
-from ml_function_tpu_torch.parallel.context import sharded_embeddings
 from ml_function_tpu_torch.parallel.launch import spawn
 from ml_function_tpu_torch.parallel.mesh import Mesh, make_mesh
 from ml_function_tpu_torch.parallel.train import param_spec_tree
@@ -428,10 +427,20 @@ def test_sharded_scorer_and_mesh_refusals():
         ShardedScorer(model, mesh, batch_size=33)
     with pytest.raises(ValueError, match="mesh 2x1 != 1"):
         make_mesh(2, 1, device="cpu")
-    for flag in ({"seq_shard": True}, {"pp_microbatches": 2}):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            with sharded_embeddings(make_mesh(device="cpu"), **flag):
-                pass
+    # the sequence-sharded search and pipeline flags are accepted, and at a
+    # model group of 1 the sharded step gives the unflagged step's bits
+    from ml_function_tpu_torch.parallel.train import create_sharded_state, make_sharded_train_step
+    _, data = make_criteo_like(n_rows=32, n_sparse=3, vocab_size=7, embed_dim=4)
+    one = make_mesh(device="cpu")
+    got = []
+    for flag in ({}, {"seq_shard": True}, {"pp_microbatches": 2}):
+        m = get_model("autoint", fs, device="cpu", generator=torch.Generator().manual_seed(0))
+        ts = create_sharded_state(m, make_optimizer("adam", 1e-2), one)
+        out = make_sharded_train_step(ts.model, ts.optimizer, one, **flag)(data)
+        got.append((out["loss"], [p.detach().clone() for p in ts.model.parameters()]))
+    for loss, params in got[1:]:
+        assert torch.equal(loss, got[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(params, got[0][1]))
 
 
 def test_param_spec_tree_marks_tables():

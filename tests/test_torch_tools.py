@@ -1,8 +1,9 @@
 """The port's host-side tools against the JAX package's, on the CPU: eda,
 the GBDT harness, TF-IDF stacking and the non-graph half of feature_tool
 give the same outputs on seeded frames; feature_tool's graph half
-(DeepWalk, word2vec) raises, naming the roadmap item that brings graph
-pretraining."""
+(DeepWalk, word2vec, through the port's ``embedding_pretrain``) gives the
+JAX package's items, columns and index, its vectors trained from the
+port's own draws."""
 
 import numpy as np
 import pytest
@@ -78,13 +79,37 @@ def test_feature_tool_frames(df, tmp_path):
 
 
 def test_feature_tool_graph_half_raises(df):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tft.item_embeddings_from_sequences(df, "user", "item", "ts")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tft.seq_embedding_aggregates(pd.DataFrame({"s": ["a|b"]}), "s")
+    """The graph half runs (it raised before graph pretraining came to the
+    port): the DeepWalk item embeddings cover the JAX package's items at
+    the asked width, and the word2vec aggregates of a frame with an empty
+    row have its columns and index; the trainers default to the card."""
+    kw = dict(dim=8, num_walks=4, walk_length=6)
+    got = tft.item_embeddings_from_sequences(df, "user", "item", "ts", device="cpu", **kw)
+    want = jft.item_embeddings_from_sequences(df, "user", "item", "ts", **kw)
+    assert sorted(got) == sorted(want)
+    assert all(v.shape == (8,) and np.isfinite(v).all() for v in got.values())
+    seqs = pd.DataFrame({"s": ["a|b", np.nan, "b|c|a", "c"]}, index=[3, 5, 7, 9])
+    agg = tft.seq_embedding_aggregates(seqs, "s", device="cpu")
+    ref = jft.seq_embedding_aggregates(seqs, "s")
+    assert list(agg.columns) == list(ref.columns) and agg.index.equals(ref.index)
+    assert (agg.loc[5] == 0).all() and np.isfinite(agg.to_numpy()).all()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tft.seq_embedding_aggregates(seqs, "s")
 
 
-def test_gbdt(tmp_path):
+@pytest.fixture
+def one_thread():
+    """sklearn's OpenMP pool at one thread: at its default (a thread a core)
+    the histogram GBDT spins its threads against the other test workers'
+    (on 8 cores under 6 xdist workers this test took 477–572 s, against
+    under a second alone at one thread)."""
+    from threadpoolctl import threadpool_limits
+    with threadpool_limits(1):
+        yield
+
+
+def test_gbdt(tmp_path, one_thread):
     rng = np.random.default_rng(1)
     n = 400
     x = rng.normal(size=(n, 4))

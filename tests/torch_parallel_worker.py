@@ -62,9 +62,23 @@ def bn_model(fs, seed=0):
                            torch.Generator().manual_seed(seed))
 
 
+def sim_feature_set(n_items: int, L: int):
+    """SIM's schema of the sequence-sharded cases: a candidate item, a short
+    history of 8 and a long stream of L, one vocab, width 8."""
+    from ml_function_tpu_torch.features.schema import FeatureSet, SeqSpec, SparseSpec
+    iv = n_items + 1
+    return FeatureSet(
+        sparse=(SparseSpec("item", iv, vocab_name="item", dim=8),),
+        seq=(SeqSpec("hist_item", iv, 8, vocab_name="item", dim=8),
+             SeqSpec("hist_long", iv, L, vocab_name="item", dim=8)))
+
+
 def build(case):
     """(fs, data, model) of a step case; the model bridged from the case's
     parameters when it carries them."""
+    if case["data"] == "sim_feature_set":
+        fs, data = sim_feature_set(**case["data_kw"]), None
+        return fs, data, get_model(case["model"], fs, device="cpu", **case.get("hp", {}))
     fs, data = make_data(case["data"], case["data_kw"])
     if case["model"] == "bn_mlp":
         model = bn_model(fs)
@@ -341,4 +355,114 @@ def cli_cases(rank, io_dir):
             out[name] = cli.main(argv)
         finally:
             cli.create_sharded_state, sparse.create_sparse_sharded_state = real
+    save_results(io_dir, rank, out)
+
+
+# ---------------------------------------------------------------------------
+# test_torch_seq_parallel.py
+
+
+def attention_case(case, mesh):
+    """Ring or dist attention over the model group: the output and the
+    gradients of sum(sin(out)) (dk and dv summed over the group, each rank
+    holding its block's)."""
+    from ml_function_tpu_torch.parallel.seq_parallel import make_seq_parallel_attention
+    q, k, v = (torch.tensor(case[n]).requires_grad_() for n in ("q", "k", "v"))
+    out = make_seq_parallel_attention(mesh, mode=case["mode"])(q, k, v,
+                                                               torch.tensor(case["mask"]))
+    out.sin().sum().backward()
+    return {"out": out.detach().numpy(), "dq": q.grad.numpy(),
+            "dk": comm.all_reduce_(k.grad.clone(), mesh.model_group).numpy(),
+            "dv": comm.all_reduce_(v.grad.clone(), mesh.model_group).numpy()}
+
+
+def search_case(case, mesh):
+    """The sequence-sharded soft search on this rank's rows, and the
+    unsharded soft search's choice (the whole table, ``top_k_indices``) on
+    the same rows."""
+    from ml_function_tpu_torch.models.longseq import top_k_indices
+    from ml_function_tpu_torch.parallel.longseq import seq_sharded_soft_search
+    fs = sim_feature_set(**case["data_kw"])
+    table = torch.tensor(case["table"])
+    b = len(case["ids"]) // mesh.data
+    rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+    ids = torch.tensor(case["ids"][rows])
+    cand = torch.tensor(case["cand"][rows])
+    r = rows_per_shard(table.shape[0], mesh.model)
+    block = pad_table_for_shards(table, mesh.model)[mesh.model_index * r:
+                                                    (mesh.model_index + 1) * r]
+    top, red = seq_sharded_soft_search(mesh, fs, ("hist_long",), case["k"], block,
+                                       {"hist_long": ids}, cand,
+                                       capacity=case.get("capacity"))
+    mask = ids != 0
+    gids = ids.long() + fs.seq_offset("hist_long")
+    full = table[gids] * mask[..., None]
+    scores = torch.where(mask, torch.einsum("bld,bd->bl", full, cand), -torch.inf)
+    want = top_k_indices(scores, case["k"])
+    return {"top": comm.all_gather_tensor(top, mesh.data_group).numpy(),
+            "red": comm.all_gather_tensor(red, mesh.data_group).numpy(),
+            "unsharded": comm.all_gather_tensor(want, mesh.data_group).numpy(),
+            "unsharded_mask": comm.all_gather_tensor(torch.gather(mask, 1, want),
+                                                     mesh.data_group).numpy()}
+
+
+def flagged_step_case(case, mesh):
+    """One sharded step with the case's flags from the bridged parameters:
+    the loss, this data row's logits (gathered over the data group) and
+    every parameter after it."""
+    fs, data, model = build(case)
+    ts = create_sharded_state(model, optimizer(case), mesh, init_params=case["params"])
+    step = make_sharded_train_step(ts.model, ts.optimizer, mesh,
+                                   seq_shard=case.get("seq_shard", False),
+                                   pp_microbatches=case.get("pp_microbatches", 0))
+    out = step(shard_batch(case["batch"], mesh))
+    return {"loss": float(out["loss"]),
+            "logits": comm.all_gather_tensor(out["logits"], mesh.data_group).numpy(),
+            "params": sharded_params_to_numpy(ts.model, ts.layout, mesh)}
+
+
+def seq_parallel_cases(rank, io_dir):
+    os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = "1"
+    inputs = load_inputs(io_dir)
+    meshes = {(2, 2): make_mesh(2, 2, device="cpu"), (1, 4): make_mesh(1, 4, device="cpu")}
+    out = {}
+    for kind, fn in (("attention", attention_case), ("search", search_case),
+                     ("steps", flagged_step_case)):
+        out[kind] = {name: fn(case, meshes[case["mesh"]])
+                     for name, case in inputs[kind].items()}
+    save_results(io_dir, rank, out)
+
+
+# ---------------------------------------------------------------------------
+# test_torch_gpipe.py
+
+
+def _stage_fn(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def pipeline_case(case, mesh):
+    """``make_pipeline`` on this rank's rows: the output (gathered over the
+    data group) and the gradient of mean(y²) over the global batch for each
+    stacked leaf."""
+    from ml_function_tpu_torch.parallel.pipeline import make_pipeline
+    params = {k: torch.tensor(v).requires_grad_() for k, v in case["params"].items()}
+    x = torch.tensor(case["x"])
+    b = x.shape[0] // mesh.data
+    mine = x[mesh.data_index * b:(mesh.data_index + 1) * b]
+    y = make_pipeline(mesh, _stage_fn, case["m"])(params, mine)
+    (y.square().sum() / y.numel() / mesh.data).backward()
+    return {"y": comm.all_gather_tensor(y.detach(), mesh.data_group).numpy(),
+            "grads": {k: comm.all_reduce_(p.grad.clone(), mesh.data_group).numpy()
+                      for k, p in params.items()}}
+
+
+def gpipe_cases(rank, io_dir):
+    os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = "1"
+    inputs = load_inputs(io_dir)
+    meshes = {(2, 2): make_mesh(2, 2, device="cpu"), (1, 4): make_mesh(1, 4, device="cpu")}
+    out = {}
+    for kind, fn in (("pipelines", pipeline_case), ("steps", flagged_step_case)):
+        out[kind] = {name: fn(case, meshes[case["mesh"]])
+                     for name, case in inputs[kind].items()}
     save_results(io_dir, rank, out)
