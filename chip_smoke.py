@@ -274,12 +274,33 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     community-separation bars (0.3, 0.2); 20 word2vec steps from the same
     tables and draws on the card and on the CPU within 1e-4; each trainer's
     step time by events, beside the card's name and power limit;
-26. one ``{"kernels": [...]}`` line (each kernel with its instances and the
+26. the chained train step: ``fit(steps_per_call=8)`` on xDeepFM and
+    AutoInt (the field-attention flag) at phase 4's Criteo width, DIEN on
+    its kernel route with the merge-scatter flag at phase 10's headline
+    shape (one group's rows drawn and repeated) and SIM's flash ESU at
+    phase 13's shape. Parity, under ``torch.use_deterministic_algorithms``:
+    a chained ``fit`` from the same weights as two unchained ones over 4
+    groups of 8 batches and a padded tail batch, Adam: one CUDA graph
+    replay a group after the first (the eager one), every kernel's
+    launches those of the unchained runs, a replay's those of 8 unchained
+    steps, and the train metrics and every parameter the unchained fits'
+    bits. Rates, in the default mode, over 10 groups and the tail: fit's
+    host-clock examples/s, two unchained fits (their mean) and a chained
+    one, whose train logloss and AUC lie within four times the larger of
+    the unchained pair's gap and a calibration run's largest; then the
+    captured graph's kernel nodes (each kernel's device functions in it the
+    count a replay adds to its counter times the functions a launch runs in
+    the same 8 steps one at a time), the profiler over replays of a chained
+    step (each kernel seen running inside them; each kernel's device time a
+    step there and one step at a time) and over the same 8 steps one at a
+    time, the card's busy share of both, a group's host time (its rows, the chained call, the wait; the
+    replay's launch alone) and a replay's device time by events, beside
+    the card's name and power limit;
+27. one ``{"kernels": [...]}`` line (each kernel with its instances and the
     shapes each took; a kernel's ``launches`` are those of the newest path
-    that runs it, phase 24's pipeline for the field-attention kernels,
-    phase 23's for the CIN kernels and phase 22's for the (AU)GRU and
-    merge-scatter ones), then ``{"ok": true, "device": ...}`` last. The
-    run's wall time is printed before them.
+    that runs it whose counts its wrapper made, phase 26's last unchained
+    rate fits), then ``{"ok": true, "device":
+    ...}`` last. The run's wall time is printed before them.
 
 Numerics: TF32 is off for matmuls and cuDNN, so every f32 product outside
 the kernels is a full f32 product. Imports nothing of JAX.
@@ -372,6 +393,17 @@ FLASH_EDGES = ((3, 2, 1000, 777, 16, True), (2, 2, 600, 900, 64, False),
                (4, 2, 1, 2000, 8, False), (2, 1, 17, 5, 8, True),
                (1, 2, 33, 7, 16, False), (2, 2, 16, 16, 8, True))
 SIM_AUC_BAR = 0.64         # tests/test_models_longseq.py:225
+# The depth of the (AU)GRU plain versions' times, each call tens to
+# hundreds of ms (64 steps of small ops): phase 8's at the path's shapes
+# 3 samples of 1 call after 1 (5 of 2 after 3 until phase 26 came, with
+# cuDNN's yardstick at 25 of 10, now 5 of 2), F6's wide ones 1 of 1 after 1
+# (2 of 1 after 1 until then)
+PLAIN_GRU_DEPTH = dict(reps=3, inner=1, warmup=1)
+# The depth of phase 3's times (CIN's and K3's kernels, plain versions and
+# library calls at each shape) and of K1's at each case: 10 samples of 5
+# calls (event_ms's 25 of 10 until the chained step's phase came)
+KERNEL_RATES_DEPTH = dict(reps=10, inner=5)
+PLAIN_WIDE_GRU_DEPTH = dict(reps=1, inner=1, warmup=1)
 
 
 T_START = time.perf_counter()
@@ -458,11 +490,13 @@ def check_cin_kernel(cin_mod) -> dict:
             "shape": {"D": d, "B": b, "H": h, "F": f, "O": o}, "path": True,
             "max_abs_err": err, "atol": atol, "shrink": shrink,
             "launch_ms": launch_ms(lambda: cin_mod.cin_layer_t(xk, x0, w1)),
-            "ms": event_ms(lambda: cin_mod.cin_layer_t(xk, x0, w1)),
-            "plain_ms": event_ms(lambda: cin_mod.cin_layer_t_reference(xk, x0, w1)),
+            "ms": event_ms(lambda: cin_mod.cin_layer_t(xk, x0, w1), **KERNEL_RATES_DEPTH),
+            "plain_ms": event_ms(lambda: cin_mod.cin_layer_t_reference(xk, x0, w1),
+                                 **KERNEL_RATES_DEPTH),
             # two calls: a bf16 GEMM and the F-reduce; no one call computes a CIN layer
             "library_ms": event_ms(lambda: torch.einsum(
-                "dbfo,dbf->dbo", torch.matmul(xk_b, w1_b).view(d, b, f, o), x0_b)),
+                "dbfo,dbf->dbo", torch.matmul(xk_b, w1_b).view(d, b, f, o), x0_b),
+                **KERNEL_RATES_DEPTH),
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
     for s in shapes:
@@ -527,10 +561,12 @@ def check_cin_bwd_kernel(cin_mod) -> dict:
             "max_abs_err": max(e for e, _ in errs),
             "max_abs_err_dxk_dx0_dw": [e for e, _ in errs],
             "atol_dxk_dx0_dw": [a for _, a in errs],
-            "ms": event_ms(lambda: cin_mod.cin_layer_t_backward(xk, x0, w1, dy)),
+            "ms": event_ms(lambda: cin_mod.cin_layer_t_backward(xk, x0, w1, dy),
+                           **KERNEL_RATES_DEPTH),
             "plain_ms": event_ms(
-                lambda: cin_mod.cin_layer_t_backward_reference(xk, x0, w1, dy)),
-            "library_ms": event_ms(library),
+                lambda: cin_mod.cin_layer_t_backward_reference(xk, x0, w1, dy),
+                **KERNEL_RATES_DEPTH),
+            "library_ms": event_ms(library, **KERNEL_RATES_DEPTH),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "launch_ms": launch_ms(lambda: cin_mod.cin_layer_t_backward(xk, x0, w1, dy)),
         })
@@ -635,7 +671,7 @@ def check_field_attn_kernels(fa_mod) -> list:
                              block_o[1], v[1].mean(dim=0, keepdim=True).expand(lq, -1, -1))
             if timed:
                 block["ms"] = event_ms(lambda: fa_mod.field_attention_forward(
-                    q, k, v, bias, scale, instance="field_attn_fwd"))
+                    q, k, v, bias, scale, instance="field_attn_fwd"), **KERNEL_RATES_DEPTH)
                 block["device_ms"] = launch_ms(lambda: fa_mod.field_attention_forward(
                     q, k, v, bias, scale, instance="field_attn_fwd"))
 
@@ -645,20 +681,23 @@ def check_field_attn_kernels(fa_mod) -> list:
             qt, kt, vt, attn_mask=mask4, scale=scale)
         with torch.no_grad():
             sdpa_err = (sdpa().transpose(1, 2) - got).abs().max().item()
-            sdpa_fwd_ms = event_ms(sdpa)
+            sdpa_fwd_ms = event_ms(sdpa, **KERNEL_RATES_DEPTH)
         do_t = do.transpose(1, 2)
-        sdpa_both_ms = event_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), do_t))
+        sdpa_both_ms = event_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), do_t),
+                                **KERNEL_RATES_DEPTH)
         common = {"shape": {"B": b, "Lq": lq, "Lk": lk, "H": h, "Dh": dh},
                   "masked": masked}
         fb, fby = fa_bound(b, lq, lk, h, dh)
         fwd_shapes.append({
             **common, "instance": instance, "max_abs_err": err, "atol": atol,
-            "ms": event_ms(lambda: fa_mod.field_attention(q, k, v, bias, scale)),
+            "ms": event_ms(lambda: fa_mod.field_attention(q, k, v, bias, scale),
+                           **KERNEL_RATES_DEPTH),
             "device_ms": (launch_ms(lambda: fa_mod.field_attention(q, k, v, bias, scale))
                           if timed else None),
             "block_instance": block,
             "plain_ms": event_ms(
-                lambda: fa_mod.field_attention_reference(q, k, v, bias, scale)),
+                lambda: fa_mod.field_attention_reference(q, k, v, bias, scale),
+                **KERNEL_RATES_DEPTH),
             "library_ms": sdpa_fwd_ms, "library_max_abs_diff": sdpa_err,
             "bound_ms": fb, "bound_by": fby})
         bb, bby = fa_bound(b, lq, lk, h, dh, backward=True)
@@ -668,11 +707,11 @@ def check_field_attn_kernels(fa_mod) -> list:
             "max_abs_err_dq_dk_dv": [e for e, _ in errs],
             "atol_dq_dk_dv": [a for _, a in errs],
             "ms": event_ms(lambda: fa_mod.field_attention_backward(
-                q, k, v, bias, do, scale)),
+                q, k, v, bias, do, scale), **KERNEL_RATES_DEPTH),
             "device_ms": (launch_ms(lambda: fa_mod.field_attention_backward(
                 q, k, v, bias, do, scale)) if shape in FA_SEQ else None),
             "plain_ms": event_ms(lambda: fa_mod.field_attention_backward_reference(
-                q, k, v, bias, do, scale)),
+                q, k, v, bias, do, scale), **KERNEL_RATES_DEPTH),
             "library_ms": sdpa_both_ms - sdpa_fwd_ms,
             "bound_ms": bb, "bound_by": bby})
     for s in fwd_shapes:
@@ -776,9 +815,9 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
             rnn = torch.nn.GRU(3 * h, h, batch_first=True).cuda()
             x_in = xw.clone().requires_grad_()
             with torch.no_grad():
-                lib_fwd_ms = event_ms(lambda: rnn(x_in))
+                lib_fwd_ms = event_ms(lambda: rnn(x_in), reps=5, inner=2)
             lib_both_ms = event_ms(lambda: torch.autograd.grad(
-                rnn(x_in)[0], (x_in, *rnn.parameters()), dseq))
+                rnn(x_in)[0], (x_in, *rnn.parameters()), dseq), reps=5, inner=2)
             lib_bwd_ms = lib_both_ms - lib_fwd_ms
         for gate, a in (("att", att), ("ones", torch.ones_like(att))):
             args = (xw, wh, mask, a, h0)
@@ -822,7 +861,7 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
                 "device_ms": launch_ms(lambda: gru_mod.gru_sequence(*args)) if timed else None,
                 "block_instance": block,
                 "plain_ms": (event_ms(lambda: gru_mod.gru_sequence_reference(*args),
-                                      reps=5, inner=2) if timed else None),
+                                      **PLAIN_GRU_DEPTH) if timed else None),
                 "library_ms": lib_fwd_ms, "bound_ms": fb, "bound_by": fby})
             bwd_shapes.append({
                 **common, "max_abs_err": max(e for e, _ in errs),
@@ -834,7 +873,7 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
                 "device_ms": (launch_ms(lambda: gru_mod.gru_sequence_backward(
                     *args, seq, dseq)) if timed else None),
                 "plain_ms": (event_ms(lambda: gru_mod.gru_sequence_backward_reference(
-                    *args, seq, dseq), reps=5, inner=2) if timed else None),
+                    *args, seq, dseq), **PLAIN_GRU_DEPTH) if timed else None),
                 "library_ms": lib_bwd_ms, "bound_ms": bb, "bound_by": bby})
     for s in fwd_shapes:
         print(f"gru_fwd {s['shape']} {s['case']} {s['gate']} ({s['instance']}): "
@@ -878,11 +917,14 @@ def _ms_times(eg_mod, ids, ct, s_ids, order, v: int) -> dict:
 
     d = ct.shape[1]
     return dict(
-        ms=event_ms(lambda: eg_mod.merge_scatter(s_ids, order, ct, v)),
-        sort_ms=event_ms(lambda: eg_mod._sort(ids)),
-        whole_backward_ms=event_ms(lambda: eg_mod.dense_grad_from_updates(ids, ct, v)),
-        plain_ms=event_ms(lambda: eg_mod.merge_scatter_reference(s_ids, order, ct, v)),
-        library_ms=event_ms(lambda: torch.zeros(v, d, device="cuda").index_add_(0, ids, ct)),
+        ms=event_ms(lambda: eg_mod.merge_scatter(s_ids, order, ct, v), **KERNEL_RATES_DEPTH),
+        sort_ms=event_ms(lambda: eg_mod._sort(ids), **KERNEL_RATES_DEPTH),
+        whole_backward_ms=event_ms(lambda: eg_mod.dense_grad_from_updates(ids, ct, v),
+                                   **KERNEL_RATES_DEPTH),
+        plain_ms=event_ms(lambda: eg_mod.merge_scatter_reference(s_ids, order, ct, v),
+                          **KERNEL_RATES_DEPTH),
+        library_ms=event_ms(lambda: torch.zeros(v, d, device="cuda").index_add_(0, ids, ct),
+                            **KERNEL_RATES_DEPTH),
         # the same two by the profiler: the card's own time, without the
         # host's, which the events above see at these sizes
         whole_backward_device_ms=sum(launch_ms(
@@ -1056,9 +1098,11 @@ def swapped(module, attr: str, plain):
         setattr(module, attr, real)
 
 
-def _rows(data: dict, n: int) -> dict:
-    """The first n rows of a dataset, ``seq`` included."""
-    return {k: _rows(v, n) if isinstance(v, dict) else v[:n] for k, v in data.items()}
+def _rows(data: dict, n) -> dict:
+    """The first n rows of a dataset (or the rows of an index array),
+    ``seq`` included."""
+    take = slice(n) if isinstance(n, int) else n
+    return {k: _rows(v, n) if isinstance(v, dict) else v[take] for k, v in data.items()}
 
 
 def expect(**counts) -> dict:
@@ -2063,7 +2107,7 @@ def check_wide_gru(gru_mod) -> tuple:
                 "ms": event_ms(lambda: gru_mod.gru_sequence(*args), reps=5, inner=2)
                 if timed else None,
                 "plain_ms": event_ms(lambda: gru_mod.gru_sequence_reference(*args),
-                                     reps=2, inner=1, warmup=1) if timed else None,
+                                     **PLAIN_WIDE_GRU_DEPTH) if timed else None,
                 "library_ms": lib_f, "bound_ms": fb, "bound_by": fby})
             bwd.append({
                 **common, "instance": bi, "max_abs_err": max(e for e, _ in errs),
@@ -2073,7 +2117,7 @@ def check_wide_gru(gru_mod) -> tuple:
                 "ms": event_ms(lambda: gru_mod.gru_sequence_backward(*args, seq, dseq),
                                reps=5, inner=2) if timed else None,
                 "plain_ms": event_ms(lambda: gru_mod.gru_sequence_backward_reference(
-                    *args, seq, dseq), reps=2, inner=1, warmup=1) if timed else None,
+                    *args, seq, dseq), **PLAIN_WIDE_GRU_DEPTH) if timed else None,
                 "library_ms": lib_b, "bound_ms": bb, "bound_by": bby})
     for s in fwd:
         print(f"gru_fwd F6 {s['shape']} {s['gate']} ({s['instance']}): the plain version's "
@@ -4449,6 +4493,372 @@ def graph_phase(drive, launches_by_path, smi: str) -> None:
         fail(f"graph pretraining: separation {sep}, word2vec card against CPU {gap}")
 
 
+# The chained train step (phase 26): fit(steps_per_call=K) on the four
+# paths of the slice, each from the same weights as two unchained fits.
+# K 8 (a graph of DIEN's 8 steps is 61 ms of device time). The parity fits
+# take 4 full groups and a padded tail batch, the rate fits 10 and the tail:
+# an eager group, a captured one (replayed), eight replays in fit's timer,
+# and one single step. DIEN's rows are one group's drawn and repeated
+# (drawing them all took 25 s)
+CHAIN_K = 8
+CHAIN_GROUPS = 10
+CHAIN_PARITY_GROUPS = 4
+# The parity fits run under torch.use_deterministic_algorithms, where the
+# embedding gradient's index_add_ sums in a fixed order: a replay runs the
+# same kernels with the same arguments as the eager steps, so the chained
+# fit must give the unchained fits' bits. In the default mode index_add_'s
+# atomics reorder its sums from run to run, so the rate fits, in that mode,
+# hold the train logloss and AUC: CHAIN_DEFAULT_FITS unchained fits, then
+# the chained one, whose metrics must lie within CHAIN_DEFAULT_FACTOR times
+# the larger of the unchained fits' largest pair gap in this run and
+# CHAIN_PAIR_GAP, the largest such gap of a calibration run (6 unchained
+# fits a path, 15 pairs, on an H100; PERF.md, the chained train step): DIEN's
+# index_add_ moves its logloss by up to 4.3e-5 and its AUC by 1.4e-4;
+# xDeepFM's metrics moved by one f32 step (2^-24 at these values), and
+# AutoInt's, whose parameters moved by 2.8e-8 of a tensor's largest, are
+# given that step too; SIM's fits were bitwise alike, so its bar is bitwise
+# while its unchained fits agree. The parameters' gaps are printed beside
+# the metrics
+F32_STEP = 2.0 ** -24      # one f32 step of a value in [0.5, 1)
+CHAIN_DEFAULT_FITS = 2
+CHAIN_DEFAULT_FACTOR = 4.0
+CHAIN_PAIR_GAP = {"xdeepfm": {"logloss": F32_STEP, "auc": F32_STEP},
+                  "autoint": {"logloss": F32_STEP, "auc": F32_STEP},
+                  "dien": {"logloss": 4.292e-5, "auc": 1.373e-4},
+                  "sim_flash": {"logloss": 0.0, "auc": 0.0}}
+# paths whose counts a graph replay moved (``ops/kernels/launches.py``), not
+# the wrappers: phase 26's chained fits; the result line takes no count
+# from them
+REPLAYED_PATHS = set()
+# path → (kernels a train step launches, and how many of each)
+CHAINED_PATHS = {
+    "xdeepfm": {"cin_fwd": 2, "cin_bwd": 2},
+    "autoint": {"field_attn_fwd": 2, "field_attn_bwd": 2},
+    "dien": {"gru_fwd": 2, "gru_bwd": 2, "merge_scatter": 2},
+    "sim_flash": {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1, "gru_fwd": 2,
+                  "gru_bwd": 2, "merge_scatter": 3},
+}
+# each kernel's device functions, as the profiler names them (demangled)
+# and as a graph's description does (mangled: a length before the name)
+_NAME = r"(?<![A-Za-z_])"
+KERNEL_FUNCTIONS = {
+    "cin_fwd": _NAME + r"cin_fwd(_wide)?_kernel", "cin_bwd": _NAME + r"cin_bwd_(rows|dw)",
+    "field_attn_fwd": _NAME + "field_attn_fwd", "field_attn_bwd": _NAME + "field_attn_bwd",
+    "gru_fwd": _NAME + "gru_fwd", "gru_bwd": _NAME + "gru_bwd",
+    "merge_scatter": _NAME + "chunk_kernel", "flash_fwd": _NAME + "flash_fwd_kernel",
+    "flash_bwd_dq": _NAME + "flash_bwd_dq_kernel",
+    "flash_bwd_dkv": _NAME + "flash_bwd_dkv_kernel"}
+
+
+_CUDA_GRAPH = torch.cuda.CUDAGraph    # the class, whatever a block swaps in
+
+
+def kept_graph():
+    """A CUDA graph that keeps its captured description for ``debug_dump``."""
+    graph = _CUDA_GRAPH(keep_graph=True)
+    graph.enable_debug_mode()
+    return graph
+
+
+def graph_kernels(graph) -> list:
+    """The description (``cudaGraphDebugDotPrint``) of each kernel node of a
+    graph made by ``kept_graph``: every kernel a replay launches, once."""
+    from ml_function_tpu_torch.ops.kernels import _build
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        if not os.path.exists(path):
+            fail("a kept CUDA graph wrote no description (debug_dump)")
+        with open(path) as f:
+            text = f.read()
+    nodes = [r for r in re.split(r'\n(?=\s*"graph_)', text) if "KERNEL" in r]
+    if not nodes:
+        fail(f"a CUDA graph's description holds no kernel node: {text[:400]!r}")
+    return nodes
+
+
+def chained_model(path: str):
+    """(model, data, batch size, route) of one chained path at full width:
+    xDeepFM and AutoInt at the Criteo width of phases 4-7, DIEN at the
+    headline shape of phase 10 and SIM at the flash-ESU shape of phase 13;
+    ``route`` is the block inside which it runs on its kernels."""
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.features.synthetic import make_behavior_data, make_criteo_like
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.tools.profile_scoring import SIM_SHAPES, sim_batch
+
+    gen = torch.Generator().manual_seed(0)
+    if path == "sim_flash":
+        b, hp = SIM_SHAPES["flash"]
+        fs, data = sim_batch(CHAIN_GROUPS * CHAIN_K * b + b // 2)
+        model = get_model("sim", fs, generator=gen, hidden=(200, 80), **hp)
+        return model, data, b, lambda: dien_route(model.dien, kernel=True)
+    n_rows = CHAIN_GROUPS * CHAIN_K * BATCH + BATCH // 2
+    if path == "dien":
+        fs, data = make_behavior_data(n_rows=CHAIN_K * BATCH, **DIEN_DATA)
+        data = _rows(data, np.arange(n_rows) % (CHAIN_K * BATCH))
+        model = get_model("dien", fs, generator=gen)
+        return model, data, BATCH, lambda: dien_route(model, kernel=True)
+    fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+    _, data = make_criteo_like(n_rows=n_rows, vocab_size=100_000, seed=0)
+    hp = ({"cin_hidden": (128, 128), "hidden": (256, 128)} if path == "xdeepfm"
+          else {"n_layers": 2, "num_heads": 2, "head_dim": 16})
+    model = get_model(path, fs, generator=gen, **hp)
+    return model, data, BATCH, contextlib.nullcontext
+
+
+def chained_fit(path: str, tag: str, model, data, b: int, route, drive, launches_by_path,
+                **fit_kw):
+    """``fit`` over ``data`` (one epoch at batch ``b``, seed 0) on the path's
+    route as path ``{path}_{tag}``: its result, its parameters and the
+    device's time of each graph replay it made and of the gap after each
+    but the last (CUDA events around every replay); fails unless each
+    kernel launched its count a step and a chained fit replayed one graph a
+    group after the first."""
+    from ml_function_tpu_torch.train.loop import fit
+
+    marks = []
+    real_replay = torch.cuda.CUDAGraph.replay
+
+    def timed(graph):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        real_replay(graph)
+        end.record()
+        marks.append((start, end))
+
+    with route(), swapped(torch.cuda.CUDAGraph, "replay", timed):
+        _, res = drive(f"{path}_{tag}", lambda: fit(model, data, epochs=1, batch_size=b,
+                                                    seed=0, **fit_kw))
+    torch.cuda.synchronize()
+    steps = -(-len(data["label"]) // b)
+    want = expect(**{k: n * steps for k, n in CHAINED_PATHS[path].items()})
+    if res.steps != steps or launches_by_path[f"{path}_{tag}"] != want:
+        fail(f"{path} {tag} fit took {res.steps} steps and launched "
+             f"{launches_by_path[f'{path}_{tag}']}; expected {steps} and {want}")
+    groups = steps // fit_kw["steps_per_call"]
+    if marks:
+        REPLAYED_PATHS.add(f"{path}_{tag}")
+    if fit_kw["steps_per_call"] > 1 and len(marks) != groups - 1:
+        fail(f"{path} {tag} fit replayed {len(marks)} graphs for {groups} groups; "
+             f"expected one a group after the first")
+    timeline = ([s.elapsed_time(e) for s, e in marks],
+                [marks[i][1].elapsed_time(marks[i + 1][0]) for i in range(len(marks) - 1)])
+    return res, [p.detach().clone() for p in model.parameters()], timeline
+
+
+def chained_path(path: str, drive, launches_by_path, smi: str) -> dict:
+    """One path of phase 26. Parity: two unchained fits and a chained one
+    from the same weights over CHAIN_PARITY_GROUPS groups and a tail batch,
+    with Adam, under ``torch.use_deterministic_algorithms``: one graph
+    replay a full group after the first, the same launches, and the same
+    bits in the train metrics and every parameter. Rates, in the default
+    mode: fit's examples/s over CHAIN_GROUPS groups, CHAIN_DEFAULT_FITS
+    unchained fits (their median) and a chained one, whose train logloss and
+    AUC must lie within the unchained fits' bar (CHAIN_PAIR_GAP); then the
+    captured graph's kernel nodes (each kernel's device functions in it
+    must be the count a replay adds to its counter times the functions a
+    launch runs in the same 8 steps one at a time, by the profiler); the
+    profiler over replays of a chained step and over the same steps one at
+    a time (each kernel seen in both; each kernel's device time a step in
+    both; the card's busy share of both) and a group's host time: its rows, the chained call
+    (staging and the replay's launch), the wait. Returns the rates."""
+    from ml_function_tpu_torch.models.base import as_tensors
+    from ml_function_tpu_torch.ops.kernels import launches
+    from ml_function_tpu_torch.tools.timing import event_ms, profile_device
+    from ml_function_tpu_torch.train.loop import (iter_batches, iter_groups,
+                                                  make_chained_train_step, make_train_step,
+                                                  stack_batches)
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    t = time.perf_counter()
+    model, data, b, route = chained_model(path)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    per_step = CHAINED_PATHS[path]
+    parity = _rows(data, CHAIN_PARITY_GROUPS * CHAIN_K * b + b // 2)
+    runs = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for tag, spc in (("a", 1), ("b", 1), ("chained", CHAIN_K)):
+            model.load_state_dict(init)
+            runs[tag] = chained_fit(path, f"parity_{tag}", model, parity, b, route, drive,
+                                    launches_by_path, learning_rate=1e-3, steps_per_call=spc)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (ra, pa, _), (rb, pb, _), (rc, pc, _) = runs["a"], runs["b"], runs["chained"]
+    for what, x, y in (("the unchained pair", (rb, pb), (ra, pa)),
+                       ("the chained fit", (rc, pc), (ra, pa))):
+        same = x[0].train_metrics == y[0].train_metrics and all(
+            torch.equal(p, q) for p, q in zip(x[1], y[1]))
+        if not same:
+            gap = max(float((p - q).abs().max()) for p, q in zip(x[1], y[1]))
+            fail(f"{path}: {what} under deterministic algorithms is not the unchained "
+                 f"fit's bits: train {x[0].train_metrics} against {y[0].train_metrics}, "
+                 f"largest parameter gap {gap}")
+    print(f"{path} chained fit against the unchained under deterministic algorithms "
+          f"({CHAIN_PARITY_GROUPS} groups and a tail, Adam): the same bits in the train "
+          f"metrics {rc.train_metrics} and every parameter")
+    # the rate fits, in the default mode: CHAIN_DEFAULT_FITS unchained, then
+    # the chained one
+    fits = [(f"rate_unchained_{i}", 1) for i in range(CHAIN_DEFAULT_FITS)]
+    res, params, rates_u = {}, {}, []
+    for tag, spc in fits + [("rate_chained", CHAIN_K)]:
+        model.load_state_dict(init)
+        res[tag], params[tag], timeline = chained_fit(
+            path, tag, model, data, b, route, drive, launches_by_path,
+            learning_rate=1e-3, steps_per_call=spc)
+        if spc == 1:
+            rates_u.append(res[tag].examples_per_sec)
+    rates = {"chained": res["rate_chained"].examples_per_sec,
+             "unchained": statistics.median(rates_u)}
+    replay_dev, replay_gaps = timeline
+    unchained = [tag for tag, _ in fits]
+    pairs = [(x, y) for i, x in enumerate(unchained) for y in unchained[i + 1:]]
+
+    def drift(x, y):    # parameters: the largest gap over a tensor's largest
+        return max(float((p - q).abs().max() / q.abs().max().clamp_min(1e-30))
+                   for p, q in zip(params[x], params[y]))
+
+    readings = {}
+    for m in ("logloss", "auc"):
+        got = {tag: res[tag].train_metrics[m] for tag in unchained + ["rate_chained"]}
+        pair = max(abs(got[x] - got[y]) for x, y in pairs)
+        gap = max(abs(got["rate_chained"] - got[x]) for x in unchained)
+        bar = CHAIN_DEFAULT_FACTOR * max(pair, CHAIN_PAIR_GAP[path][m])
+        readings[m] = {"values": got, "pair_gap": pair, "chained_gap": gap, "bar": bar}
+        print(f"{path} rate fits in the default mode (Adam, {CHAIN_GROUPS} groups and a "
+              f"tail): train {m} {got}; the unchained fits' largest pair gap {pair:.3e}, "
+              f"the chained fit's largest gap to them {gap:.3e}, bar {bar:.3e}")
+        if gap > bar:
+            fail(f"{path}: the chained fit's train {m} ends {gap:.3e} from the unchained "
+                 f"fits', past {CHAIN_DEFAULT_FACTOR} x max({pair:.3e}, "
+                 f"{CHAIN_PAIR_GAP[path][m]:.3e})")
+    drift_c = max(drift("rate_chained", x) for x in unchained)
+    drift_u = max(drift(x, y) for x, y in pairs)
+    print(f"{path} rate fits' parameters: the chained fit's end within {drift_c:.3e} of a "
+          f"tensor's largest of the unchained fits', the unchained fits' within "
+          f"{drift_u:.3e} of each other; the chained fit's replays "
+          f"{[round(x, 3) for x in replay_dev]} ms on the card, the card idle "
+          f"{[round(x, 3) for x in replay_gaps]} ms between them")
+
+    # the profiler over replays, and over the same steps one at a time
+    model.load_state_dict(init)
+    batches = list(iter_batches(data, b))[:2 * CHAIN_K]
+    groups = [stack_batches(batches[i:i + CHAIN_K]) for i in (0, CHAIN_K)]
+    with route():
+        chained = make_chained_train_step(model, make_optimizer("adam", 1e-3).init(model),
+                                          CHAIN_K)
+        chained(groups[0])
+        with swapped(torch.cuda, "CUDAGraph", kept_graph):
+            chained(groups[1])
+        nodes = graph_kernels(chained.graph)
+        per_replay = {attr[:-len("_launches")]: n for (_, attr, name), n
+                      in chained.launches.items() if name is None}
+        if per_replay != {k: n * CHAIN_K for k, n in per_step.items()}:
+            fail(f"{path}: a replay launches {per_replay}; expected {CHAIN_K} x {per_step}")
+        one = make_train_step(model, make_optimizer("adam", 1e-3).init(model))
+        on_card = [as_tensors(x, torch.device("cuda")) for x in batches[:CHAIN_K]]
+
+        def ran(seen, k):    # a kernel's device functions in a trace
+            return sum(n for f, n in seen.items() if re.search(KERNEL_FUNCTIONS[k], f))
+
+        # What a replay launches, counted exactly: each kernel node of the
+        # captured graph, from its description. A wrapper's launch runs one
+        # or more device functions (CIN's backward two: its rows and dW
+        # functions), read from the profiler over the 8 steps one at a time,
+        # whose wrappers count the warm call and the profiled one; the
+        # graph must hold that many for each launch the replay adds to the
+        # counters. The profiler must also see each kernel run inside two
+        # replays, never more often than the graph holds it: a trace has
+        # missed a record or two of a kernel after the earlier phases (2 of
+        # cin_fwd's 16 in the 8 steps in one run), so its counts are printed
+        # and not held to equality
+        functions = {k: sum(1 for node in nodes if re.search(KERNEL_FUNCTIONS[k], node))
+                     for k in per_step}
+        before = launches.snapshot()
+        by_kernel_1, busy_1, window_1, seen_1 = profile_device(
+            lambda: [one(x) for x in on_card], 1, counts=True)
+        wrapped = {attr[:-len("_launches")]: n / 2 for (_, attr, name), n
+                   in launches.since(before).items() if name is None}
+        by_kernel, busy, window, seen = profile_device(lambda: chained(groups[1]), 2,
+                                                       counts=True)
+        device_launches = {}
+        for k in per_step:
+            d = {"steps": ran(seen_1, k), "wrapper": wrapped.get(k, 0),
+                 "graph": functions[k], "replay": ran(seen, k) / 2}
+            d["each"] = round(d["steps"] / d["wrapper"]) if d["wrapper"] else 0
+            device_launches[k] = d
+            if (d["each"] < 1 or d["graph"] != per_replay[k] * d["each"]
+                    or not 0 < d["steps"] <= d["wrapper"] * d["each"]
+                    or not 0 < d["replay"] <= d["graph"]):
+                fail(f"{path}: {k}'s {d['wrapper']:g} wrapper launches in {CHAIN_K} steps "
+                     f"one at a time ran {d['steps']} device functions (the profiler); "
+                     f"the captured graph holds {d['graph']} for the {per_replay[k]} "
+                     f"launches a replay adds to its counter, and a replay ran "
+                     f"{d['replay']:g} (the profiler)")
+        print(f"{path} launches a replay: " + ", ".join(
+            f"{k} {d['graph']} device functions in the graph for {per_replay[k]} launches "
+            f"({d['each']} a launch; the profiler saw {d['replay']:g} a replay, and "
+            f"{d['steps']} in {CHAIN_K} steps one at a time through {d['wrapper']:g} "
+            f"wrapper launches)" for k, d in device_launches.items()))
+        # each kernel's device ms a step, inside a replay and one step at a time
+        kernel_ms = {k: [sum(ms for n, ms in got.items() if re.search(KERNEL_FUNCTIONS[k], n))
+                         / CHAIN_K for got in (by_kernel, by_kernel_1)] for k in per_step}
+        print(f"{path} each kernel's device ms a step (the profiler), inside a replay and "
+              f"one step at a time: " + ", ".join(f"{k} {a:.4f} and {b:.4f}"
+                                                  for k, (a, b) in kernel_ms.items()))
+        # where a group's host time goes, as fit spends it (without its
+        # prefetch thread): the group's rows (iter_groups), the chained call
+        # (the staging copies and the replay's launch), the wait for the
+        # card; and a replay's launch alone
+        it = iter_groups(data, b, CHAIN_K, shuffle=True, seed=1)
+        host, launch = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, group = next(it)
+            t1 = time.perf_counter()
+            chained(group)
+            t2 = time.perf_counter()
+            torch.cuda.synchronize()
+            host.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
+            t0 = time.perf_counter()
+            chained.graph.replay()
+            launch.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        replay_ms = event_ms(chained.graph.replay, reps=3, inner=1, warmup=1)
+    host_ms = [1e3 * statistics.median(h[i] for h in host) for i in range(3)]
+    launch_host_ms = 1e3 * statistics.median(launch)
+    print(f"{path} a group's host time (median of 3, ms): its rows {host_ms[0]:.3f}, the "
+          f"chained call {host_ms[1]:.3f} (of it the replay's launch {launch_host_ms:.3f}), "
+          f"then the card {host_ms[2]:.3f}; a replay alone by events {replay_ms:.3f} ms "
+          f"({replay_ms / CHAIN_K:.3f} ms a step)")
+    del chained, one
+    out = {"chained": rates["chained"], "unchained": rates["unchained"],
+           "busy_chained": busy / window, "busy_unchained": busy_1 / window_1,
+           "ms_chained": window / CHAIN_K, "ms_unchained": window_1 / CHAIN_K,
+           "replay_ms_a_step": replay_ms / CHAIN_K, "host_ms_a_group": host_ms,
+           "launch_ms": launch_host_ms, "replays_ms": replay_dev, "replay_gaps_ms": replay_gaps,
+           "default_mode": readings, "drift_chained": drift_c, "drift_unchained": drift_u,
+           "kernel_ms_a_step": kernel_ms, "device_launches_a_replay": device_launches}
+    print(f"{path} chained fit (K {CHAIN_K}, B {b}, Adam, {CHAIN_GROUPS} groups), {smi}: "
+          f"{rates['chained']:.1f} examples/s chained against {rates['unchained']:.1f} "
+          f"unchained (fit's host clock); profiled, a group's "
+          f"replay keeps the card busy {busy:.3f} ms of a {window:.3f} ms window "
+          f"({100 * busy / window:.1f}%), the same {CHAIN_K} steps one at a time "
+          f"{busy_1:.3f} ms of {window_1:.3f} ms ({100 * busy_1 / window_1:.1f}%); "
+          f"kernels inside the replay: {sorted(per_step)}; {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def chained_phase(drive, launches_by_path, smi: str) -> None:
+    """Phase 26: the chained train step on xDeepFM, AutoInt, DIEN and SIM's
+    flash ESU at full width (``chained_path``)."""
+    rates = {path: chained_path(path, drive, launches_by_path, smi)
+             for path in CHAINED_PATHS}
+    print("chained fit rates: " + json.dumps(rates))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -4641,14 +5051,19 @@ def main() -> int:
 
     item_8b_phase(drive, launches_by_path, smi, then=phase_25)
     lap("phases 24-25")
+    # 26. the chained train step: fit(steps_per_call=8) as one CUDA graph
+    # replay a group on xDeepFM, AutoInt, DIEN and SIM's flash ESU
+    chained_phase(drive, launches_by_path, smi)
+    lap("phase 26")
 
-    # 26. result lines: each kernel's launches are those of the newest path
-    # that runs it (phase 24's for the field-attention kernels, phase 23's
-    # for the CIN kernels, phase 22's for the (AU)GRU and merge-scatter
-    # ones); every path's own counts ride along,
+    # 27. result lines: each kernel's launches are those of the newest path
+    # that runs it whose counts its wrapper made (phase 26's last unchained
+    # rate fits; the chained fits' counts, which their replays added and the
+    # profiler checked, ride along with every path's own),
     # and each instance (C function) with the shapes it took here
     for k in kernels:
-        runs = [p for p, c in launches_by_path.items() if c[k["name"]]]
+        runs = [p for p, c in launches_by_path.items()
+                if c[k["name"]] and p not in REPLAYED_PATHS]
         k["launches"] = launches_by_path[runs[-1]][k["name"]]
         k["launches_path"] = runs[-1]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in launches_by_path.items()}

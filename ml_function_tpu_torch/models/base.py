@@ -40,7 +40,7 @@ def as_tensors(batch: Mapping[str, Any], device: torch.device) -> Dict[str, Any]
 
 class Model(nn.Module):
     def __init__(self, name: str, feature_set: FeatureSet,
-                 parts: Mapping[str, Union[nn.Module, nn.Parameter]],
+                 parts: Mapping[str, Union[nn.Module, nn.Parameter, torch.Tensor]],
                  fwd: FwdFn, inits: Optional[Mapping[str, Init]] = None):
         super().__init__()
         self.name = name
@@ -49,6 +49,8 @@ class Model(nn.Module):
         for key, part in parts.items():
             if isinstance(part, nn.Parameter):
                 self.register_parameter(key, part)
+            elif isinstance(part, torch.Tensor):   # a constant the steps read
+                self.register_buffer(key, part, persistent=False)
             else:
                 self.add_module(key, part)
         self._fwd = fwd
@@ -99,7 +101,7 @@ def embed_inputs(fe: FusedEmbedding, batch: Mapping[str, Any],
     else:
         emb = fe.sparse(batch["sparse"])
     for name, vec in (batch.get("emb_override") or {}).items():
-        col = torch.tensor([fe.feature_set.sparse_index(name)], device=emb.device)
+        col = emb.new_full((1,), fe.feature_set.sparse_index(name), dtype=torch.long)
         emb = emb.index_copy(1, col, vec[:, None, :].to(emb.dtype))
     out["emb"] = emb
     out["l2"] = fe.l2_from_sparse(emb) if l2 else emb.new_zeros(())

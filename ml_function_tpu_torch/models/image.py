@@ -21,7 +21,7 @@ from ..ops.attention import TargetAttention
 from ..ops.core import MLP
 from ..ops.embedding import FusedEmbedding
 from .base import Model, behavior_inputs, stateless
-from .sequence import _beh_dims, _tower_input
+from .sequence import _beh_dims, _other_fields, _tower_input
 
 
 def DICM(fs: FeatureSet,
@@ -42,6 +42,8 @@ def DICM(fs: FeatureSet,
              "mlp": MLP(kd * 2 + emb_img * 2 + n_other * d + len(fs.dense), hidden,
                         activation="dice", norm="layer", out_dim=1)}
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         cand, beh, mask, l2, emb = behavior_inputs(m.embedding, batch, candidate,
                                                    behavior)
@@ -52,7 +54,7 @@ def DICM(fs: FeatureSet,
             b, L + 1, emb_img)
         ad_e, hist_e = projected[:, 0], projected[:, 1:] * mask[..., None]
         lead = (cand, m.id_attn(cand, beh, mask), ad_e, m.img_attn(ad_e, hist_e, mask))
-        h = _tower_input(fs, batch, lead, emb, candidate)
+        h = _tower_input(m, batch, lead, emb)
         return m.mlp(h, train)[:, 0], {"emb_l2": l2}
 
     return stateless("DICM", fs, parts, fwd)

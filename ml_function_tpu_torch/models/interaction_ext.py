@@ -181,12 +181,15 @@ def FLEN(fs: FeatureSet,
              "mlp": MLP(f * d + nd, hidden, activation="relu"),
              "head": Dense(hidden[-1] + d + n_pairs * d, 1),
              "bias": _bias(), **_maybe_dense_linear(fs)}
+    for i, g in enumerate(idx_groups):      # each group's fields, a buffer
+        parts[f"group{i}"] = torch.tensor(g, dtype=torch.long)
 
     def fwd(m, batch, train):
         inp = embed_inputs(m.embedding, batch)
         e = inp["emb"]
-        sums = [e[:, g].sum(dim=1) for g in idx_groups]            # (B, D) each
-        sqs = [e[:, g].square().sum(dim=1) for g in idx_groups]
+        members = [e.index_select(1, getattr(m, f"group{i}")) for i in range(n_groups)]
+        sums = [x.sum(dim=1) for x in members]                     # (B, D) each
+        sqs = [x.square().sum(dim=1) for x in members]
         fm_vec = 0.5 * sum(s.square() - q for s, q in zip(sums, sqs))
         mf = [sums[i] * sums[j] for i in range(n_groups) for j in range(i + 1, n_groups)]
         deep = m.mlp(flatten_concat([e] + ([inp["dense"]] if nd else [])), train)

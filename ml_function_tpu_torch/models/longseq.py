@@ -42,7 +42,7 @@ from ..ops.core import MLP, Dense
 from ..ops.embedding import FusedEmbedding, active_row_tape
 from ..ops.recurrent import GRU
 from .base import Model, behavior_inputs, stateless
-from .sequence import DIEN, _beh_dims, _tower_input
+from .sequence import DIEN, _beh_dims, _other_fields, _tower_input
 
 
 def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
@@ -139,6 +139,8 @@ def SIM(fs: FeatureSet,
             l2 = l2 + fe.l2_from_seq(n, e)
         return cand, torch.cat(reduced, dim=-1), red_mask, l2, emb
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         fe = m.dien.embedding
         if search == "soft" and active_row_tape() is None:
@@ -163,7 +165,7 @@ def SIM(fs: FeatureSet,
         s_cand, s_beh, s_mask, l2_short, _ = behavior_inputs(fe, batch, candidate,
                                                              behavior)
         short_term, aux = m.dien.interest(s_cand, s_beh, s_mask)
-        h = _tower_input(fs, batch, (cand, long_term, short_term), emb, candidate)
+        h = _tower_input(m, batch, (cand, long_term, short_term), emb)
         # both lookups count the sparse fields' l2: subtract one
         l2 = l2_long + l2_short - fe.l2_from_sparse(emb)
         return m.mlp(h, train)[:, 0], {"aux_loss": aux_weight * aux, "emb_l2": l2}
@@ -196,6 +198,8 @@ def DTS(fs: FeatureSet,
     inits = {"z0": lambda g: normal_init((z_dim,), g, stddev=0.05)}
     tkey = behavior[0] + "_time"
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         cand, beh, mask, l2, emb = behavior_inputs(m.embedding, batch, candidate,
                                                    behavior)
@@ -215,7 +219,7 @@ def DTS(fs: FeatureSet,
         ll = (F.logsigmoid((pred * target).sum(dim=-1))
               + F.logsigmoid(-(pred * neg).sum(dim=-1)))
         guide = -(ll * valid).sum() / torch.clamp_min(valid.sum(), 1.0)
-        h = _tower_input(fs, batch, (cand, m.attn(cand, decoded, mask)), emb, candidate)
+        h = _tower_input(m, batch, (cand, m.attn(cand, decoded, mask)), emb)
         return m.mlp(h, train)[:, 0], {"guide_loss": guide_weight * guide, "emb_l2": l2}
 
     return stateless("DTS", fs, parts, fwd, inits)
@@ -266,6 +270,8 @@ def MIMN(fs: FeatureSet,
     inits = {"mem0": lambda g: normal_init((M, kd), g, stddev=0.05),
              "ch0": lambda g: normal_init((channels, kd), g, stddev=0.05)}
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         cand, beh, mask, l2, emb = behavior_inputs(m.embedding, batch, candidate,
                                                    behavior)
@@ -301,7 +307,7 @@ def MIMN(fs: FeatureSet,
         reg = (wnorm - 1.0 / M).square().sum(dim=-1).mean()
         mem_read = m.attn_mem(cand, mem, mask.new_ones((b, M)))
         ch_read = m.attn_ch(cand, ch, mask.new_ones((b, channels)))
-        x = _tower_input(fs, batch, (cand, mem_read, ch_read, h), emb, candidate)
+        x = _tower_input(m, batch, (cand, mem_read, ch_read, h), emb)
         return m.mlp(x, train)[:, 0], {"util_reg": reg_weight * reg, "emb_l2": l2}
 
     return stateless("MIMN", fs, parts, fwd, inits)
@@ -332,6 +338,8 @@ def HPMN(fs: FeatureSet,
                         activation="prelu", norm="layer", out_dim=1)}
     inits = {"m0": lambda g: normal_init((layers, H), g, stddev=0.05)}
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         cand, beh, mask, l2, emb = behavior_inputs(m.embedding, batch, candidate,
                                                    behavior)
@@ -356,7 +364,7 @@ def HPMN(fs: FeatureSet,
         off = cov * (1.0 - torch.eye(layers, device=mem.device))
         cov_reg = off.square().sum(dim=(1, 2)).mean()
         read = m.attn(cand, mem, mask.new_ones((b, layers)))
-        x = _tower_input(fs, batch, (cand, read), emb, candidate)
+        x = _tower_input(m, batch, (cand, read), emb)
         return m.mlp(x, train)[:, 0], {"cov_reg": cov_weight * cov_reg, "emb_l2": l2}
 
     return stateless("HPMN", fs, parts, fwd, inits)

@@ -105,7 +105,7 @@ def ESMM(fs: FeatureSet, hidden: Tuple[int, ...] = (128, 64),
         l_ctr = m.ctr(h, train)[:, 0]
         l_cvr = m.cvr(h, train)[:, 0]
         ls = F.logsigmoid(l_ctr) + F.logsigmoid(l_cvr)
-        ls = torch.minimum(ls, ls.new_tensor(-1e-7))  # pCTCVR < 1 under bf16 towers
+        ls = torch.minimum(ls, ls.new_full((), -1e-7))  # pCTCVR < 1 under bf16 towers
         logit = ls - torch.log(-torch.expm1(ls))
         aux = {"emb_l2": l2}
         if "click" in batch:
@@ -215,6 +215,7 @@ def PLE(fs: FeatureSet, n_task_experts: int = 2, n_shared_experts: int = 2,
     for t in range(n_tasks):
         parts[f"tower{t}"] = MLP(expert_dim, tower_hidden, activation="relu",
                                  out_dim=1)
+        parts[f"own{t}"] = torch.tensor(own[t], dtype=torch.long)   # its experts
 
     def fwd(m, batch, train):
         h, l2 = _shared_input(m, batch, nd)
@@ -225,7 +226,8 @@ def PLE(fs: FeatureSet, n_task_experts: int = 2, n_shared_experts: int = 2,
             new = []
             for t in range(n_tasks):
                 g = torch.softmax(streams[t] @ layer.gate_w[t] + layer.gate_b[t], dim=-1)
-                new.append(torch.einsum("be,beo->bo", g, out[:, own[t], :]))
+                new.append(torch.einsum("be,beo->bo", g,
+                                        out.index_select(1, getattr(m, f"own{t}"))))
             if li < n_layers - 1:
                 gs = torch.softmax(streams[n_tasks] @ layer.shared_gate_w
                                    + layer.shared_gate_b, dim=-1)

@@ -38,14 +38,13 @@ from ..ops.recurrent import AUGRU, GRU, BiLSTM
 from .base import Model, as_tensors, behavior_inputs, stateless
 
 
-def _other_sparse(fs: FeatureSet, emb: torch.Tensor,
-                  candidate: Sequence[str]) -> Optional[torch.Tensor]:
-    """Flat rows of the sparse fields that are not candidates, or None."""
+def _other_fields(fs: FeatureSet, candidate: Sequence[str]) -> torch.Tensor:
+    """The positions of the sparse fields that are not candidates, a model's
+    ``other_fields`` buffer (a step that copied them from the host could
+    not be captured into a CUDA graph)."""
     cand_idx = {fs.sparse_index(n) for n in candidate}
-    rest = [i for i in range(len(fs.sparse)) if i not in cand_idx]
-    if not rest:
-        return None
-    return emb[:, rest, :].reshape(emb.shape[0], -1)
+    return torch.tensor([i for i in range(len(fs.sparse)) if i not in cand_idx],
+                        dtype=torch.long)
 
 
 def _beh_dims(fs: FeatureSet, candidate):
@@ -54,12 +53,11 @@ def _beh_dims(fs: FeatureSet, candidate):
     return d, len(candidate) * d, len(fs.sparse) - len(candidate)
 
 
-def _tower_input(fs: FeatureSet, batch, lead, emb, candidate):
-    """[lead…, other sparse rows, dense] → (B, ·)."""
+def _tower_input(m, batch, lead, emb):
+    """[lead…, flat rows of the other sparse fields, dense] → (B, ·)."""
     parts = list(lead)
-    other = _other_sparse(fs, emb, candidate)
-    if other is not None:
-        parts.append(other)
+    if m.other_fields.numel():
+        parts.append(emb.index_select(1, m.other_fields).reshape(emb.shape[0], -1))
     if batch.get("dense") is not None and batch["dense"].shape[-1] > 0:
         parts.append(batch["dense"])
     return torch.cat(parts, dim=-1)
@@ -80,11 +78,13 @@ def DIN(fs: FeatureSet,
              "mlp": MLP(in_dim, hidden, activation=activation, norm="layer",
                         out_dim=1)}
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         cand, beh, mask, l2, emb = behavior_inputs(m.embedding, batch,
                                                    candidate, behavior)
         pooled = (masked_sum_pool(beh, mask), m.attn(cand, beh, mask))
-        h = _tower_input(fs, batch, (cand, *pooled), emb, candidate)
+        h = _tower_input(m, batch, (cand, *pooled), emb)
         return m.mlp(h, train)[:, 0], {"emb_l2": l2}
 
     return stateless("DIN", fs, parts, fwd)
@@ -139,11 +139,13 @@ def DIEN(fs: FeatureSet,
             _, final = m.gru2(states, mask, att_scores=scores)
         return final, aux
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         cand, beh, mask, l2, emb = behavior_inputs(m.embedding, batch,
                                                    candidate, behavior)
         final, aux = interest(m, cand, beh, mask)
-        h = _tower_input(fs, batch, (cand, final), emb, candidate)
+        h = _tower_input(m, batch, (cand, final), emb)
         return m.mlp(h, train)[:, 0], {"aux_loss": aux_weight * aux, "emb_l2": l2}
 
     model = stateless("DIEN", fs, parts, fwd)
@@ -170,16 +172,25 @@ def BST(fs: FeatureSet,
         parts[f"block{i}"] = TransformerBlock(kd, num_heads, ffn_hidden=(4 * kd,),
                                               attention=attention)
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+    # the encodings of the spec's longest history and the candidate, kept on
+    # the model's device (a step that copied them from the host could not be
+    # captured); a shorter history takes their first rows
+    parts["positions"] = sincos_position_encoding(fs.seq_spec(behavior[0]).max_len + 1, kd)
+
     def fwd(m, batch, train):
         cand, beh, mask, l2, emb = behavior_inputs(m.embedding, batch,
                                                    candidate, behavior)
         seq = torch.cat([beh, cand[:, None, :]], dim=1)             # (B, L+1, kd)
         full_mask = torch.cat([mask, mask.new_ones((mask.shape[0], 1))], dim=1)
-        seq = seq + sincos_position_encoding(seq.shape[1], kd).to(seq.device)[None]
+        if seq.shape[1] > m.positions.shape[0]:
+            raise ValueError(f"BST: a history of {seq.shape[1] - 1} past the spec's "
+                             f"max_len {m.positions.shape[0] - 1}")
+        seq = seq + m.positions[:seq.shape[1]][None]
         for i in range(n_blocks):
             seq = getattr(m, f"block{i}")(seq, mask=full_mask)
         pooled = masked_mean_pool(seq, full_mask)
-        h = _tower_input(fs, batch, (pooled,), emb, candidate)
+        h = _tower_input(m, batch, (pooled,), emb)
         return m.mlp(h, train)[:, 0], {"emb_l2": l2}
 
     return stateless("BST", fs, parts, fwd)
@@ -218,6 +229,8 @@ def DSIN(fs: FeatureSet,
     if 2 * H != kd:
         parts["align"] = Dense(kd, 2 * H)
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         cand, beh, mask, l2, emb = behavior_inputs(m.embedding, batch,
                                                    candidate, behavior)
@@ -233,7 +246,7 @@ def DSIN(fs: FeatureSet,
         cand_l = cand if 2 * H == kd else m.align(cand)
         pooled_i = m.attn_i(cand, interests, sess_valid)
         pooled_l = m.attn_l(cand_l, lstm_out, sess_valid)
-        h = _tower_input(fs, batch, (cand, pooled_i, pooled_l), emb, candidate)
+        h = _tower_input(m, batch, (cand, pooled_i, pooled_l), emb)
         return m.mlp(h, train)[:, 0], {"emb_l2": l2}
 
     return stateless("DSIN", fs, parts, fwd)
@@ -301,6 +314,8 @@ def DSTN(fs: FeatureSet,
     for i in range(len(aux_sets)):
         parts[f"attn{i}"] = TargetAttention(kd, (36, 1), activation="sigmoid")
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         pools, l2_total = [], None
         for i, names in enumerate(aux_sets):
@@ -310,7 +325,7 @@ def DSTN(fs: FeatureSet,
                       masked_sum_pool(beh, mask)]
             l2_total = (l2 if l2_total is None
                         else l2_total + l2 - m.embedding.l2_from_sparse(emb))
-        h = _tower_input(fs, batch, (cand, *pools), emb, candidate)
+        h = _tower_input(m, batch, (cand, *pools), emb)
         return m.mlp(h, train)[:, 0], {"emb_l2": l2_total}
 
     return stateless("DSTN", fs, parts, fwd)
@@ -347,6 +362,8 @@ def DMIN(fs: FeatureSet,
         parts[f"attn{k}"] = TargetAttention(kd, (36, 1), activation="sigmoid")
     inits = {"pos": lambda g: normal_init((L, kd), g, stddev=0.02)}
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         cand, beh, mask, l2, emb = behavior_inputs(m.embedding, batch,
                                                    candidate, behavior)
@@ -362,7 +379,7 @@ def DMIN(fs: FeatureSet,
         heads = torch.einsum("bhqk,bkhd->bhqd", torch.softmax(logits, dim=-1), v)
         heads = heads + z[:, None, :, :] + m.pos[None, None]           # (B, K, L, kd)
         interests = [getattr(m, f"attn{k}")(cand, heads[:, k], mask) for k in range(K)]
-        h = _tower_input(fs, batch, (cand, *interests), emb, candidate)
+        h = _tower_input(m, batch, (cand, *interests), emb)
         return m.mlp(h, train)[:, 0], {"aux_loss": aux_weight * aux, "emb_l2": l2}
 
     return stateless("DMIN", fs, parts, fwd, inits)
@@ -419,13 +436,15 @@ def MIND(fs: FeatureSet,
                 logits_b = logits_b + (agree.detach() if detach else agree)
         return v
 
+    parts["other_fields"] = _other_fields(fs, candidate)
+
     def fwd(m, batch, train):
         cand, beh, mask, l2, emb = behavior_inputs(m.embedding, batch,
                                                    candidate, behavior)
         v = route(m, beh, mask, detach=True)
         att = torch.softmax(label_pow * torch.einsum("bkd,bd->bk", v, cand), dim=-1)
         read = torch.einsum("bk,bkd->bd", att, v)
-        h = _tower_input(fs, batch, (cand, read), emb, candidate)
+        h = _tower_input(m, batch, (cand, read), emb)
         return m.mlp(h, train)[:, 0], {"emb_l2": l2}
 
     def interests(m, batch):

@@ -267,6 +267,12 @@ class FusedEmbedding(nn.Module):
         if not self._narrow_sparse:
             self.register_buffer("_offsets", torch.as_tensor(
                 fs.sparse_offsets(), dtype=torch.int64), persistent=False)
+        else:   # each width group's fields and offsets, on the tables' device
+            for d, (cols, offs) in self._width_offsets().items():
+                self.register_buffer(f"_cols_w{d}", torch.as_tensor(
+                    cols, dtype=torch.int64), persistent=False)
+                self.register_buffer(f"_offsets_w{d}", torch.as_tensor(
+                    offs, dtype=torch.int64), persistent=False)
         self.register_buffer("_l2_coef", torch.tensor(
             [s.emb_l2 for s in fs.sparse], dtype=torch.float32), persistent=False)
 
@@ -332,6 +338,17 @@ class FusedEmbedding(nn.Module):
             return tape.gather(key, gids, width)
         return gather_rows(getattr(self, key), gids)
 
+    def _width_offsets(self):
+        """Width → (its sparse fields, their offsets in that width's table)."""
+        fs, d0 = self.feature_set, self.dim
+        out = {}
+        for d in sorted(fs.width_groups):
+            cols = [i for i, s in enumerate(fs.sparse) if s.dim == d]
+            if cols:
+                offs = fs.vocab_offsets if d == d0 else fs.aux_vocab_offsets(d)
+                out[d] = (cols, [offs[fs.sparse[i].vocab] for i in cols])
+        return out
+
     def _sparse_mixed(self, ids: torch.Tensor, want_cross: bool,
                       want_linear: bool):
         """Each width group from its own table (narrow ones aligned to D),
@@ -341,17 +358,10 @@ class FusedEmbedding(nn.Module):
         n = len(fs.sparse)
         cross_cols: list = [None] * n
         lin_cols: list = [None] * n
-        for d in sorted(fs.width_groups):
-            cols = [i for i, s in enumerate(fs.sparse) if s.dim == d]
-            if not cols:
-                continue
-            if d == d0:
-                offs, tkey, lkey = fs.vocab_offsets, "table", "linear"
-            else:
-                offs, tkey, lkey = fs.aux_vocab_offsets(d), f"table{d}", f"linear{d}"
-            off = torch.as_tensor([offs[fs.sparse[i].vocab] for i in cols],
-                                  device=ids.device)
-            gids = ids[:, cols].long() + off[None, :]
+        for d, (cols, _) in self._width_offsets().items():
+            tkey, lkey = ("table", "linear") if d == d0 else (f"table{d}", f"linear{d}")
+            gids = (ids.index_select(1, getattr(self, f"_cols_w{d}")).long()
+                    + getattr(self, f"_offsets_w{d}")[None, :])
             if d == d0 and self.qpl is not None:
                 cr, ln = _dequant_fused(self.qpl, gids.reshape(-1))
                 cr, ln = cr.reshape(*gids.shape, d0), ln.reshape(gids.shape)

@@ -47,12 +47,13 @@ def _kernel_intervals(prof):
     return out
 
 
-def profile_device(fn: Callable[[], object], n: int):
+def profile_device(fn: Callable[[], object], n: int, counts: bool = False):
     """``n`` calls of ``fn`` under ``torch.profiler``: (device ms by kernel
-    name a call, busiest first; device busy ms a call; window ms a call).
-    It traces the card's activity alone: tracing the host's operators too
-    stretches the window of a step that launches many small kernels, and
-    takes seconds more to read back."""
+    name a call, busiest first; device busy ms a call; window ms a call),
+    and with ``counts`` a fourth item, each kernel name's launches over the
+    ``n`` calls. It traces the card's activity alone: tracing the host's
+    operators too stretches the window of a step that launches many small
+    kernels, and takes seconds more to read back."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -73,5 +74,11 @@ def profile_device(fn: Callable[[], object], n: int):
         elif e > hi:
             busy += e - hi
             hi = e
-    return (dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
-            busy / 1e3 / n, wall * 1e3 / n)
+    out = (dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+           busy / 1e3 / n, wall * 1e3 / n)
+    if counts:
+        seen = defaultdict(int)
+        for name, _, _ in intervals:
+            seen[name] += 1
+        out += (dict(seen),)
+    return out

@@ -78,7 +78,7 @@ from ..parallel import comm
 from ..parallel.multihost import process_count as _world
 from ..parallel.multihost import process_index as _rank
 from .loop import TrainState
-from .optimizers import OptaxRule, Partitioned
+from .optimizers import OptaxRule, Partitioned, set_learning_rate
 
 # what a torn or truncated checkpoint raises on reading: a missing file, a
 # zip without its central directory, a short member, a bad manifest
@@ -121,7 +121,7 @@ def _opt_arrays(model, optimizer, root: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for prefix, rule in _parts(optimizer):
         prefix = root + prefix
-        out[f"opt_state/{prefix}count"] = np.asarray(rule.count, np.int64)
+        out[f"opt_state/{prefix}count"] = np.asarray(int(rule.count), np.int64)
         if rule.injected:
             out[f"opt_state/{prefix}hyperparams/learning_rate"] = np.asarray(
                 rule.param_groups[0]["lr"], np.float32)
@@ -491,12 +491,11 @@ def _fill_optimizer(model, optimizer, get) -> None:
         if count is None:
             raise KeyError(f"checkpoint has no update count for "
                            f"'{prefix or 'the optimizer'}'")
-        rule.count = int(count)
+        rule.count.fill_(int(count))
         if rule.injected:
             lr = get("lr", prefix, None, None)
             if lr is not None:
-                for group in rule.param_groups:
-                    group["lr"] = float(lr)
+                set_learning_rate(rule, float(lr))
         for path, p in _rule_params(rule, names):
             fresh = rule._init(p)
             for k, like in fresh.items():
@@ -510,8 +509,15 @@ def _fill_optimizer(model, optimizer, get) -> None:
                                      f"{tuple(like.shape)}")
                 fresh[k] = torch.tensor(arr, dtype=like.dtype,
                                         device=like.device)
-            rule.state[p].clear()
-            rule.state[p].update(fresh)
+            # into the tensors a step already made, where there are any: a
+            # captured step keeps reading them
+            state = rule.state[p]
+            if state.keys() == fresh.keys():
+                for k, v in fresh.items():
+                    state[k].copy_(v)
+            else:
+                state.clear()
+                state.update(fresh)
 
 
 def restore_checkpoint(path: str, ts_template) -> Tuple[Any, Dict[str, Any]]:

@@ -12,13 +12,20 @@ parameters in the model, the optimizer state in a bound optimizer
 forward, ``backward()`` and the optimizer's update, on the model's device.
 The model is never moved: batches go to its device, as ``Model.forward``
 does.
+
+Where the reference scans K steps over a stacked group inside one jit
+(``make_chained_train_step``), the port captures K steps into one CUDA graph
+and replays it once a group (``ChainedTrainStep``); on the CPU the same K
+steps run one after another.
 """
 
 from __future__ import annotations
 
+import os
 import time
+import traceback
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,9 +33,11 @@ import torch
 from ..bridge import params_from_numpy, state_from_numpy
 from ..models.base import as_tensors
 from ..ops.embedding import has_int8_tables
+from ..ops.kernels import launches
 from .control import EarlyStopping, History, MetricMonitor, ReduceLROnPlateau
-from .metrics import (bce_with_logits, calibration, gauc, init_metrics,
-                      metrics_summary, update_metrics)
+from .metrics import (MetricState, bce_with_logits, calibration, gauc,
+                      init_metrics, metrics_summary, update_metrics,
+                      update_metrics_)
 from .optimizers import OptimizerSpec, make_optimizer, set_learning_rate
 
 
@@ -89,6 +98,196 @@ def make_train_step(model, optimizer):
     return train_step
 
 
+def stack_batches(batches) -> Dict[str, Any]:
+    """K same-shape batch dicts (``seq`` a nested dict) → one (K, …)-stacked
+    group of numpy arrays, the reference's ``stack_batches``."""
+    return {k: stack_batches([b[k] for b in batches]) if isinstance(v, Mapping)
+            else np.stack([np.asarray(b[k]) for b in batches])
+            for k, v in batches[0].items()}
+
+
+def _index(group: Mapping[str, Any], i: int) -> Dict[str, Any]:
+    return {k: _index(v, i) if isinstance(v, Mapping) else v[i]
+            for k, v in group.items()}
+
+
+def _shapes(group: Mapping[str, Any]) -> Dict[str, Any]:
+    return {k: _shapes(v) if isinstance(v, Mapping) else (tuple(v.shape), v.dtype)
+            for k, v in group.items()}
+
+
+def _copy(dst: Dict[str, Any], src: Mapping[str, Any], non_blocking: bool) -> None:
+    for k, buf in dst.items():
+        if isinstance(buf, dict):
+            _copy(buf, src[k], non_blocking)
+        else:
+            buf.copy_(src[k], non_blocking=non_blocking)
+
+
+class ChainedTrainStep:
+    """K train steps a call over a (K, B, …) group (``stack_batches``), the
+    reference's ``make_chained_train_step``: ``step(group) -> {"loss": (K,),
+    "logits": (K, B), "label": (K, B), "weight": (K, B) or None}``, each step
+    the single step of ``make_train_step`` (the same code, so the two round
+    alike), its outputs folded into ``metrics`` in place when given.
+
+    On the card the group is first copied into fixed device buffers
+    (``_stage``), then:
+    the first group runs as eager steps on a side stream (real steps, which
+    build and load the kernels, set their attributes and make cuBLAS's and
+    autograd's state); the second is captured as K steps into one CUDA graph
+    (gradients set to None first, so that the backward allocates them from
+    the graph's pool), which is then replayed; every later group is one copy
+    into the buffers and one replay. The optimizer keeps its count, its
+    schedule's LR and its state on the device and updates them in place, and
+    the metric fold adds into fixed buffers, so a replay reads and writes
+    what the steps did. A capture that fails raises, naming the line that
+    broke it; it never falls back to eager steps. The kernels' launch
+    counters (``ops/kernels/launches.py``) move by the capture's count at
+    every replay and not at the capture. On the CPU the K steps run one after
+    another: the plain version of the graph.
+    """
+
+    def __init__(self, model, optimizer, chain: int,
+                 metrics: Optional[MetricState] = None):
+        if chain < 1:
+            raise ValueError(f"a chain of {chain} steps")
+        self.chain = chain
+        self.metrics = metrics
+        self.device = _device(model)
+        self.step_one = make_train_step(model, optimizer)
+        self.optimizer = optimizer
+        self.groups = 0        # full groups taken
+        self.graph = None
+        self.launches: launches.Counts = {}   # the kernels a replay launches
+        self._inputs = self._outputs = self._layout = self._pinned = self._copied = None
+        # the side stream of the eager group and the capture
+        self._stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                        else None)
+
+    def _run(self, group: Mapping[str, Any], write) -> None:
+        for i in range(self.chain):
+            batch = _index(group, i)
+            out = self.step_one(batch)
+            if self.metrics is not None:
+                update_metrics_(self.metrics, out["logits"], out["label"],
+                                batch.get("weight"))
+            write(i, out)
+
+    def __call__(self, group: Mapping[str, Any]) -> Dict[str, Any]:
+        if len(group["label"]) != self.chain:
+            raise ValueError(f"a group of {len(group['label'])} batches for a "
+                             f"chain of {self.chain}")
+        if self.device.type != "cuda":
+            group = as_tensors(group, self.device)
+            outs: List[Dict[str, torch.Tensor]] = []
+            self._run(group, lambda i, out: outs.append(out))
+            self.groups += 1
+            return {"loss": torch.stack([o["loss"] for o in outs]),
+                    "logits": torch.stack([o["logits"] for o in outs]),
+                    "label": group["label"], "weight": group.get("weight")}
+        self._stage(group)
+        if self.groups == 0:
+            self._eager()
+        else:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            launches.add(self.launches)
+        self.groups += 1
+        out = {k: v.clone() for k, v in self._outputs.items()}
+        weight = self._inputs.get("weight")
+        return {**out, "label": self._inputs["label"].clone(),
+                "weight": None if weight is None else weight.clone()}
+
+    def _stage(self, group: Mapping[str, Any]) -> None:
+        """The group into the fixed device buffers through one of two pinned
+        host copies, taken in turn: a host copy into it (once its last copy
+        to the card has run), then one non-blocking copy a field to the
+        card (a copy from pageable memory makes the host wait, and pinning
+        a fresh copy each group allocates)."""
+        host = as_tensors(group, torch.device("cpu"))
+        if self._inputs is None:
+            self._layout = _shapes(host)
+            self._inputs = _like(host, self.device)
+            self._pinned = [_like(host, torch.device("cpu"), pin=True) for _ in range(2)]
+            self._copied = [None, None]
+        elif _shapes(host) != self._layout:
+            raise ValueError("a chained step takes groups of one shape and type")
+        turn = self.groups % 2
+        if self._copied[turn] is not None:
+            self._copied[turn].synchronize()
+        _copy(self._pinned[turn], host, non_blocking=False)
+        _copy(self._inputs, self._pinned[turn], non_blocking=True)
+        self._copied[turn] = torch.cuda.Event()
+        self._copied[turn].record()
+
+    def _write(self, i: int, out: Dict[str, torch.Tensor]) -> None:
+        if self._outputs is None:
+            self._outputs = {k: out[k].new_empty((self.chain, *out[k].shape))
+                             for k in ("loss", "logits")}
+        self._outputs["loss"][i].copy_(out["loss"])
+        self._outputs["logits"][i].copy_(out["logits"])
+
+    def _eager(self) -> None:
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            self._run(self._inputs, self._write)
+        cur.wait_stream(self._stream)
+
+    def _capture(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        before = launches.snapshot()
+        graph = torch.cuda.CUDAGraph()
+        failed = None
+        with torch.cuda.stream(self._stream):
+            graph.capture_begin(capture_error_mode="global")
+            try:
+                self._run(self._inputs, self._write)
+            except Exception as err:     # re-raised below, once capture has ended
+                failed = err
+            try:
+                graph.capture_end()
+            except RuntimeError as err:
+                failed = failed or err
+        # the capture ran nothing: its launches count at each replay
+        self.launches = launches.since(before)
+        launches.add(self.launches, -1)
+        if failed is not None:
+            raise RuntimeError(f"chained train step: capturing {self.chain} steps "
+                               f"into a CUDA graph failed at {_culprit(failed)}: "
+                               f"{failed}") from failed
+        self.graph = graph
+
+
+def _like(group: Dict[str, Any], device, pin: bool = False) -> Dict[str, Any]:
+    return {k: _like(v, device, pin) if isinstance(v, dict)
+            else torch.empty(v.shape, dtype=v.dtype, device=device, pin_memory=pin)
+            for k, v in group.items()}
+
+
+def _culprit(err: BaseException) -> str:
+    """The innermost line outside PyTorch that the error came through."""
+    torch_dir = os.path.dirname(torch.__file__)
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if not f.filename.startswith(torch_dir)]
+    if not frames:
+        return "an operation of the step"
+    f = frames[-1]
+    return f"{f.filename}:{f.lineno} ({f.line})"
+
+
+def make_chained_train_step(model, optimizer, chain: int,
+                            metrics: Optional[MetricState] = None
+                            ) -> ChainedTrainStep:
+    """K = ``chain`` train steps a call over a stacked group; see
+    ``ChainedTrainStep``."""
+    return ChainedTrainStep(model, optimizer, chain, metrics)
+
+
 def make_eval_step(model):
     """``eval_step(metrics, batch) -> (metrics, logits)`` without gradients."""
     dev = _device(model)
@@ -132,6 +331,35 @@ def prefetch(iterator: Iterator, size: int = 2) -> Iterator:
         yield item
 
 
+def _batch_rows(n: int, batch_size: int, shuffle: bool, seed: int,
+                drop_last: bool = False, pad_last: bool = True):
+    """Each batch's row indices and its count of real rows: the tail padded
+    with row 0 to ``batch_size``, or dropped."""
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    for start in range(0, n, batch_size):
+        sl = idx[start:start + batch_size]
+        actual = len(sl)
+        if actual < batch_size:
+            if drop_last or not pad_last:
+                return
+            sl = np.concatenate([sl, np.zeros(batch_size - actual, np.int64)])
+        yield sl, actual
+
+
+def _take(data: Dict[str, Any], rows: np.ndarray, shape) -> Dict[str, Any]:
+    """``data``'s rows, each field reshaped to ``shape`` + its row's shape."""
+    return {k: _take(v, rows, shape) if k == "seq"
+            else v[rows].reshape(*shape, *v.shape[1:]) for k, v in data.items()}
+
+
+def _weight(actual: int, batch_size: int) -> np.ndarray:
+    w = np.zeros(batch_size, np.float32)
+    w[:actual] = 1.0
+    return w
+
+
 def iter_batches(data: Dict[str, Any], batch_size: int, *, shuffle: bool = False,
                  seed: int = 0, drop_last: bool = False,
                  pad_last: bool = True) -> Iterator[Dict[str, Any]]:
@@ -141,28 +369,26 @@ def iter_batches(data: Dict[str, Any], batch_size: int, *, shuffle: bool = False
     The tail batch is padded to ``batch_size`` with copies of row 0 and a
     ``weight`` vector marks the real rows (every batch carries ``weight``).
     """
-    n = len(data["label"])
-    idx = np.arange(n)
-    if shuffle:
-        np.random.default_rng(seed).shuffle(idx)
+    for sl, actual in _batch_rows(len(data["label"]), batch_size, shuffle, seed,
+                                  drop_last, pad_last):
+        yield {**_take(data, sl, (batch_size,)), "weight": _weight(actual, batch_size)}
 
-    for start in range(0, n, batch_size):
-        sl = idx[start:start + batch_size]
-        actual = len(sl)
-        if actual < batch_size:
-            if drop_last or not pad_last:
-                return
-            sl = np.concatenate([sl, np.zeros(batch_size - actual, np.int64)])
-        batch = {}
-        for k, v in data.items():
-            if k == "seq":
-                batch["seq"] = {name: a[sl] for name, a in v.items()}
-            else:
-                batch[k] = v[sl]
-        w = np.zeros(batch_size, np.float32)
-        w[:actual] = 1.0
-        batch["weight"] = w
-        yield batch
+
+def iter_groups(data: Dict[str, Any], batch_size: int, k: int, *,
+                shuffle: bool = False, seed: int = 0) -> Iterator[Tuple[str, Dict[str, Any]]]:
+    """``iter_batches``' batches, ``k`` at a time: ``("group", g)`` with ``g``
+    the ``stack_batches`` of each run of ``k`` of them, gathered with one
+    indexing a field, then ``("batch", b)`` for each batch past the last
+    full run."""
+    rows = list(_batch_rows(len(data["label"]), batch_size, shuffle, seed))
+    full = len(rows) // k * k
+    for g in range(0, full, k):
+        run = rows[g:g + k]
+        yield "group", {**_take(data, np.concatenate([sl for sl, _ in run]), (k, batch_size)),
+                        "weight": np.stack([_weight(a, batch_size) for _, a in run])}
+    for sl, actual in rows[full:]:
+        yield "batch", {**_take(data, sl, (batch_size,)),
+                        "weight": _weight(actual, batch_size)}
 
 
 def train_test_split(data: Dict[str, Any], test_frac: float = 0.2,
@@ -242,10 +468,15 @@ def fit(model, data: Dict[str, Any], *, epochs: int = 1,
       of arrays by key path (``bridge.params_from_numpy`` and
       ``state_from_numpy``; the JAX package's parameters and BatchNorm
       state after ``np.asarray``), with a fresh optimizer;
-    - ``steps_per_call`` runs the same single steps in order (the reference
-      chains them to amortise the TPU's dispatch), so the result equals the
-      unchained run; the examples/s timer then leaves out the first group;
-    - examples/s leaves out the first step, which builds the kernels;
+    - ``steps_per_call=K`` > 1 trains each full group of K batches through
+      one ``ChainedTrainStep`` (``_fit_chained``, the reference's chained
+      branch): on the card one CUDA graph replay a group, after an eager
+      first group and the capture of the second; the same K steps one
+      after another on the CPU. The result equals the unchained run's. A
+      partial tail group takes single steps, so no data is dropped.
+      Examples/s leaves out the eager and capture groups;
+    - otherwise examples/s leaves out the first step, which builds the
+      kernels;
     - eval-driven control: ``eval_every`` steps between evals over
       ``eval_data`` (once per epoch when ``patience``/``plateau`` are set),
       early stopping after ``patience`` evals without a ``min_delta`` gain
@@ -278,6 +509,11 @@ def fit(model, data: Dict[str, Any], *, epochs: int = 1,
             "(make_optimizer(..., inject_lr=True)) so the host can retune "
             "the LR")
     dev = _device(model)
+    metrics = init_metrics(device=dev)
+    if steps_per_call > 1:
+        return _fit_chained(model, data, opt, metrics, epochs=epochs,
+                            batch_size=batch_size, eval_data=eval_data,
+                            seed=seed, steps_per_call=steps_per_call)
     train_step = make_train_step(model, opt)
 
     stopper = history = reducer = best_tracker = None
@@ -296,8 +532,6 @@ def fit(model, data: Dict[str, Any], *, epochs: int = 1,
         if restore_best is None:
             restore_best = True
 
-    metrics = init_metrics(device=dev)
-    warm = max(1, steps_per_call)   # steps the timer leaves out
     steps = 0
     n_examples = 0
     t0 = None
@@ -306,13 +540,13 @@ def fit(model, data: Dict[str, Any], *, epochs: int = 1,
         for batch in prefetch(iter_batches(data, batch_size, shuffle=True,
                                            seed=seed + epoch)):
             out = train_step(batch)
-            metrics = update_metrics(metrics, out["logits"], out["label"],
-                                     torch.as_tensor(batch["weight"], device=dev))
+            update_metrics_(metrics, out["logits"], out["label"],
+                            torch.as_tensor(batch["weight"], device=dev))
             steps += 1
-            if steps == warm:
+            if steps == 1:
                 _sync(dev)
-                t0 = time.perf_counter()
-            elif steps > warm:
+                t0 = time.perf_counter()     # leave out the kernels' build
+            else:
                 n_examples += batch_size
             if log_every and steps % log_every == 0 and verbose:
                 print(f"step {steps} loss {float(out['loss']):.4f}")
@@ -352,3 +586,44 @@ def fit(model, data: Dict[str, Any], *, epochs: int = 1,
         examples_per_sec=eps, history=history,
         best_step=best_tracker.best_step if best_tracker else -1,
         stopped_early=stopped)
+
+
+def _fit_chained(model, data, opt, metrics, *, epochs, batch_size, eval_data,
+                 seed, steps_per_call) -> Tuple[TrainState, FitResult]:
+    """``fit``'s chained branch: each epoch's full groups of
+    ``steps_per_call`` batches through one ``ChainedTrainStep`` (the metric
+    fold inside it), the partial tail group through single steps, as the
+    reference's ``_fit_chained``, the groups gathered whole
+    (``iter_groups``). The timer starts after the second group, which the
+    card captures (the first runs eagerly)."""
+    dev = _device(model)
+    chained = make_chained_train_step(model, opt, steps_per_call, metrics)
+    train_one = chained.step_one
+    steps, n_examples, t0 = 0, 0, None
+    for epoch in range(epochs):
+        for kind, item in prefetch(iter_groups(data, batch_size, steps_per_call,
+                                               shuffle=True, seed=seed + epoch)):
+            if kind == "group":
+                chained(item)
+                steps += steps_per_call
+                if chained.groups == 2:
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                elif t0 is not None:
+                    n_examples += batch_size * steps_per_call
+                continue
+            batch = item          # the partial tail group: single steps
+            out = train_one(batch)
+            update_metrics_(metrics, out["logits"], out["label"],
+                            torch.as_tensor(batch["weight"], device=dev))
+            steps += 1
+            if t0 is not None:
+                n_examples += batch_size
+    _sync(dev)
+    dt = (time.perf_counter() - t0) if t0 else float("inf")
+    ev = {}
+    if eval_data is not None:
+        ev = evaluate(model, eval_data, batch_size=batch_size)
+    return TrainState(model, opt, steps), FitResult(
+        train_metrics=metrics_summary(metrics), eval_metrics=ev, steps=steps,
+        examples_per_sec=n_examples / dt if dt > 0 else 0.0)

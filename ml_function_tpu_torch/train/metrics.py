@@ -36,21 +36,43 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
             + torch.log1p(torch.exp(-pos)))
 
 
-def update_metrics(state: MetricState, logits: torch.Tensor,
-                   labels: torch.Tensor,
-                   weights: Optional[torch.Tensor] = None) -> MetricState:
+def _batch_terms(state: MetricState, logits: torch.Tensor, labels: torch.Tensor,
+                 weights: Optional[torch.Tensor]):
+    """One batch's (bins, positive weights, negative weights, loss sum,
+    count) for ``state``'s histograms."""
     logits = logits.detach()
     labels = torch.as_tensor(labels, device=logits.device)
     n_bins = state["pos_hist"].shape[0]
     bins = torch.clamp((torch.sigmoid(logits) * n_bins).long(), 0, n_bins - 1)
     w = (torch.ones_like(labels) if weights is None
          else torch.as_tensor(weights, device=logits.device))
-    return {
-        "pos_hist": state["pos_hist"].index_add(0, bins, labels * w),
-        "neg_hist": state["neg_hist"].index_add(0, bins, (1.0 - labels) * w),
-        "loss_sum": state["loss_sum"] + (bce_with_logits(logits, labels) * w).sum(),
-        "count": state["count"] + w.sum(),
-    }
+    return (bins, labels * w, (1.0 - labels) * w,
+            (bce_with_logits(logits, labels) * w).sum(), w.sum())
+
+
+def update_metrics_(state: MetricState, logits: torch.Tensor,
+                    labels: torch.Tensor,
+                    weights: Optional[torch.Tensor] = None) -> MetricState:
+    """Fold one batch into ``state`` in place and return it: its four
+    tensors keep their storage, so a CUDA graph that replays the fold adds
+    into the same buffers (the reference's ``update_stacked`` folds a
+    chained group's (K, B) outputs the same way, one batch after another)."""
+    bins, pos, neg, loss, count = _batch_terms(state, logits, labels, weights)
+    state["pos_hist"].index_add_(0, bins, pos)
+    state["neg_hist"].index_add_(0, bins, neg)
+    state["loss_sum"].add_(loss)
+    state["count"].add_(count)
+    return state
+
+
+def update_metrics(state: MetricState, logits: torch.Tensor,
+                   labels: torch.Tensor,
+                   weights: Optional[torch.Tensor] = None) -> MetricState:
+    """``update_metrics_``'s fold into new tensors (the same sums)."""
+    bins, pos, neg, loss, count = _batch_terms(state, logits, labels, weights)
+    return {"pos_hist": state["pos_hist"].index_add(0, bins, pos),
+            "neg_hist": state["neg_hist"].index_add(0, bins, neg),
+            "loss_sum": state["loss_sum"] + loss, "count": state["count"] + count}
 
 
 def compute_auc(state: MetricState) -> torch.Tensor:

@@ -11,6 +11,13 @@ train the same in both packages.
 to a model's parameters, on their device. Every rule keeps optax's single
 update count and treats a parameter without a gradient as one with a zero
 gradient, as a JAX gradient tree would carry it.
+
+A step reads nothing from the host that changes between steps, so a CUDA
+graph can replay it (``train/loop.py``'s chained step): the count is an
+int32 scalar on the parameters' device, as optax's ``count``; the learning
+rate of a schedule, an injected learning rate and Adam's bias corrections
+are f32 scalars computed there from it, with optax's arithmetic; and every
+state tensor is updated in place.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
-Schedule = Callable[[int], float]
+Schedule = Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]
 LearningRate = Union[float, Schedule]
 NamedParams = List[Tuple[str, nn.Parameter]]
 
@@ -30,33 +37,50 @@ NamedParams = List[Tuple[str, nn.Parameter]]
 class OptaxRule(torch.optim.Optimizer):
     """One optax update rule over a list of parameters. ``lr`` is a float or
     a schedule of the update count (0 for the first update). Subclasses give
-    ``_init(p)`` (the per-parameter state) and ``_update(g, p, state, lr,
-    group)`` (the update that ``optax.apply_updates`` adds to ``p``)."""
+    ``_init(p)`` (the per-parameter state), ``_scalars(lr, group)`` (what
+    every parameter's update of one step shares) and ``_update(g, p, state,
+    scalars, group)`` (the update that ``optax.apply_updates`` adds to
+    ``p``, with the state updated in place)."""
 
     def __init__(self, params, lr: LearningRate, injected: bool = False,
                  **defaults):
         super().__init__(params, dict(lr=lr, **defaults))
-        self.count = 0            # updates applied so far
+        dev = self.param_groups[0]["params"][0].device
+        # updates applied so far, optax's int32 count, on the device
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.injected = injected  # the host may set the LR between steps
+        # the injected LR as the step reads it (set by set_learning_rate)
+        self.lr_tensor = (torch.full((), float(lr), dtype=torch.float32, device=dev)
+                          if injected else None)
 
     def _init(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {}
 
-    def _update(self, g, p, state, lr: float, group) -> torch.Tensor:
+    def _learning_rate(self, group) -> Union[float, torch.Tensor]:
+        """This step's LR: a schedule's f32 value at the count (on the
+        device), the injected f32 LR, or the constant float."""
+        lr = group["lr"]
+        if callable(lr):
+            return lr(self.count)
+        return self.lr_tensor if self.injected else lr
+
+    def _scalars(self, lr, group):
+        return -lr                # optax's scale_by_learning_rate
+
+    def _update(self, g, p, state, scalars, group) -> torch.Tensor:
         raise NotImplementedError
 
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
-            lr = group["lr"]
-            lr = float(lr(self.count)) if callable(lr) else float(lr)
+            scalars = self._scalars(self._learning_rate(group), group)
             for p in group["params"]:
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 state = self.state[p]
                 if not state:
                     state.update(self._init(p))
-                p.add_(self._update(g, p, state, lr, group))
-        self.count += 1
+                p.add_(self._update(g, p, state, scalars, group))
+        self.count.add_(1)
 
 
 class Adam(OptaxRule):
@@ -71,23 +95,29 @@ class Adam(OptaxRule):
     def _init(self, p):
         return {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)}
 
-    def _update(self, g, p, state, lr, group):
+    def _scalars(self, lr, group):
+        # optax's bias corrections 1 − b**k at k = count + 1, in f32 on the
+        # device (optax.tree.bias_correction)
+        k = self.count + 1
+        return (-lr, 1 - torch.pow(group["b1"], k), 1 - torch.pow(group["b2"], k))
+
+    def _update(self, g, p, state, scalars, group):
         # optax's expression, one rounding an operation as there, in place
         # on mu, nu and two scratch tensors: a table's update allocates two
         # table-sized temporaries instead of a dozen
+        neg_lr, bc1, bc2 = scalars
         b1, b2 = group["b1"], group["b2"]
         mu, nu = state["mu"], state["nu"]
         t = torch.mul(g, 1 - b1)
         mu.mul_(b1).add_(t)                                 # (1 − b1)·g + b1·mu
         torch.mul(g, g, out=t).mul_(1 - b2)
         nu.mul_(b2).add_(t)                                 # (1 − b2)·g² + b2·nu
-        k = self.count + 1
-        u = torch.div(mu, 1 - b1 ** k)
-        torch.div(nu, 1 - b2 ** k, out=t).add_(group["eps_root"]).sqrt_().add_(group["eps"])
+        u = torch.div(mu, bc1)
+        torch.div(nu, bc2, out=t).add_(group["eps_root"]).sqrt_().add_(group["eps"])
         u.div_(t)
         if group["weight_decay"]:
             u.add_(torch.mul(p, group["weight_decay"], out=t))
-        return u.mul_(-lr)
+        return u.mul_(neg_lr)
 
 
 class Adagrad(OptaxRule):
@@ -103,11 +133,12 @@ class Adagrad(OptaxRule):
         return {"sum_of_squares": torch.full_like(
             p, self.defaults["initial_accumulator_value"])}
 
-    def _update(self, g, p, state, lr, group):
-        sos = state["sum_of_squares"] = g * g + state["sum_of_squares"]
+    def _update(self, g, p, state, neg_lr, group):
+        sos = state["sum_of_squares"]
+        sos.add_(g * g)                                     # g² + sos
         inv = torch.where(sos > 0, torch.rsqrt(sos + group["eps"]),
                           torch.zeros_like(sos))
-        return (inv * g) * -lr
+        return (inv * g) * neg_lr
 
 
 class SGD(OptaxRule):
@@ -121,12 +152,13 @@ class SGD(OptaxRule):
     def _init(self, p):
         return {"trace": torch.zeros_like(p)} if self.defaults["momentum"] else {}
 
-    def _update(self, g, p, state, lr, group):
+    def _update(self, g, p, state, neg_lr, group):
         m = group["momentum"]
         if m:
-            t = state["trace"] = g + m * state["trace"]
+            t = state["trace"]
+            t.mul_(m).add_(g)                               # g + m·trace
             g = g + m * t if group["nesterov"] else t
-        return g * -lr
+        return g * neg_lr
 
 
 class FTRL(OptaxRule):
@@ -144,16 +176,19 @@ class FTRL(OptaxRule):
     def _init(self, p):
         return {"z": torch.zeros_like(p), "n": torch.zeros_like(p)}
 
+    def _scalars(self, lr, group):
+        return lr
+
     def _update(self, g, p, state, lr, group):
         z, n = state["z"], state["n"]
         n_new = n + g * g
         sigma = (torch.sqrt(n_new) - torch.sqrt(n)) / lr
-        z_new = z + g - sigma * p
+        z.add_(g).sub_(sigma * p)                           # z + g − σ·w
         denom = (group["beta"] + torch.sqrt(n_new)) / lr + group["lambda2"]
         l1 = group["lambda1"]
-        w_new = torch.where(z_new.abs() <= l1, torch.zeros_like(p),
-                            -(z_new - torch.sign(z_new) * l1) / denom)
-        state["z"], state["n"] = z_new, n_new
+        w_new = torch.where(z.abs() <= l1, torch.zeros_like(p),
+                            -(z - torch.sign(z) * l1) / denom)
+        n.copy_(n_new)
         return w_new - p
 
 
@@ -191,7 +226,11 @@ def _named(model) -> NamedParams:
 
 
 # ---------------------------------------------------------------------------
-# Learning-rate schedules (optax's formulas)
+# Learning-rate schedules (optax's formulas, in f32 on the count's device)
+
+
+def _count(count) -> torch.Tensor:
+    return torch.as_tensor(count)
 
 
 def _cosine(init_value: float, decay_steps: int, alpha: float) -> Schedule:
@@ -200,8 +239,8 @@ def _cosine(init_value: float, decay_steps: int, alpha: float) -> Schedule:
                          f"decay_steps, got decay_steps={decay_steps!r}.")
 
     def schedule(count):
-        c = min(float(count), float(decay_steps))
-        cosine_decay = 0.5 * (1 + math.cos(math.pi * c / decay_steps))
+        c = torch.clamp_max(_count(count).float(), float(decay_steps))
+        cosine_decay = 0.5 * (1 + torch.cos(math.pi * c / decay_steps))
         return init_value * ((1 - alpha) * cosine_decay + alpha)
     return schedule
 
@@ -212,9 +251,10 @@ def _exponential(init_value: float, transition_steps: int,
         return lambda count: init_value
 
     def schedule(count):
-        if count <= 0:
-            return init_value
-        return init_value * decay_rate ** (count / transition_steps)
+        count = _count(count)
+        p = count / transition_steps
+        return torch.where(count <= 0, init_value,
+                           init_value * torch.pow(decay_rate, p))
     return schedule
 
 
@@ -223,14 +263,17 @@ def _warmup_cosine(init_value: float, peak_value: float, warmup_steps: int,
     alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
     cosine = _cosine(peak_value, decay_steps - warmup_steps, alpha)
 
-    def warmup(count):
+    def warmup(count):        # optax's linear_schedule
         if warmup_steps <= 0:
             return init_value
-        frac = 1 - min(max(count, 0), warmup_steps) / warmup_steps
+        frac = 1 - torch.clamp(count, 0, warmup_steps) / warmup_steps
         return (init_value - peak_value) * frac + peak_value
 
-    return lambda count: (warmup(count) if count < warmup_steps
-                          else cosine(count - warmup_steps))
+    def schedule(count):      # optax's join_schedules
+        count = _count(count)
+        return torch.where(count < warmup_steps, warmup(count),
+                           cosine(count - warmup_steps))
+    return schedule
 
 
 def make_lr_schedule(name: str, base_lr: float, *, decay_steps: int = 10_000,
@@ -276,11 +319,13 @@ def make_optimizer(name: str = "adam", learning_rate: float = 1e-3,
 
 def set_learning_rate(optimizer, lr: float):
     """Set the LR of an optimizer built with ``inject_lr=True``, in place,
-    between steps; returns the optimizer."""
+    between steps (the host's float and the f32 scalar its steps read on
+    the device); returns the optimizer."""
     if not getattr(optimizer, "injected", False):
         raise ValueError("optimizer was not built with inject_lr=True")
     for group in optimizer.param_groups:
         group["lr"] = float(lr)
+    optimizer.lr_tensor.fill_(float(lr))
     return optimizer
 
 

@@ -941,3 +941,139 @@ def test_checkpoint_round_trip_on_the_card(card, tmp_path):
     assert sorted(have) == sorted(want)
     for k in want:
         assert have[k].tobytes() == want[k].tobytes(), k
+
+
+# ---------------------------------------------------------------------------
+# the chained train step: every registry model's K steps in one CUDA graph
+
+CHAIN = 4
+# label → (registry name, data, hyperparameters, batch). Small widths; the
+# int8 tables and the sparse-row path's RowTape are left out: make_train_step
+# refuses to train the first, and the second is not a train step of a model
+CHAINED_MODELS = {
+    **{n: (n, "criteo", {}, 256) for n in (
+        "lr", "fm", "fnn", "ffm", "fwfm", "pnn", "deepcross", "wide_deep", "deepfm",
+        "dcn", "nfm", "xdeepfm", "afm", "autoint", "fibinet", "dlrm", "ccpm", "fgcnn",
+        "flen", "onn", "oenn", "fat_deepffm", "fignn", "mlr")},
+    "dcn_v2": ("dcn", "criteo", {"version": 2}, 256),
+    **{n: (n, "cvr", {}, 256) for n in ("esmm", "mmoe", "ple")},
+    **{n: (n, "behavior", {}, 64) for n in (
+        "din", "dien", "bst", "seqfm", "dstn", "dmin", "mind", "dts", "mimn", "hpmn",
+        "dssm", "deepmcp")},
+    "dsin": ("dsin", "behavior", {"session_shape": (2, 4)}, 64),
+    "sim": ("sim", "sim", {"search": "hard", "long_behavior": ("hist_long",)}, 16),
+    "dicm": ("dicm", "image", {}, 64),
+}
+# The parity runs take torch.use_deterministic_algorithms, where the
+# embedding gradient's index_add_ sums in a fixed order: a replay runs the
+# same kernels with the same arguments as the eager steps, so the chained
+# run must give the single steps' bits. In the default mode index_add_'s
+# atomics reorder its sums from run to run, and a replay's timing reorders
+# them otherwise than two eager runs do, so the default mode's chained run
+# is held to its capture and its launches.
+
+
+def _chain_data(kind: str, n_rows: int):
+    from ml_function_tpu_torch.features import synthetic
+    from ml_function_tpu_torch.features.schema import SeqSpec
+    if kind == "criteo":
+        return make_criteo_like(n_rows=n_rows, n_dense=4, n_sparse=6, vocab_size=50,
+                                embed_dim=8, seed=1)
+    if kind == "cvr":
+        return synthetic.make_cvr_data(n_rows=n_rows, seed=1)
+    if kind == "image":
+        return synthetic.make_image_ctr_data(n_rows=n_rows, img_dim=64, seed=1)
+    fs, data = synthetic.make_behavior_data(n_rows=n_rows, n_items=30, n_cates=6,
+                                            seq_len=8, embed_dim=8, seed=1)
+    if kind == "sim":   # a 600-id stream: hard search's ESU takes the flash kernels
+        fs = fs.replace(seq=fs.seq + (SeqSpec("hist_long", 31, 600, vocab_name="item",
+                                              dim=8),))
+        rng = np.random.default_rng(2)
+        lens = rng.integers(300, 601, n_rows)
+        data["seq"]["hist_long"] = (rng.integers(1, 31, (n_rows, 600))
+                                    * (np.arange(600)[None, :] < lens[:, None])
+                                    ).astype(np.int32)
+    return fs, data
+
+
+def _chain_model(card, name, fs, hp):
+    m = get_model(name, fs, device=card, generator=torch.Generator().manual_seed(0), **hp)
+    core = m.dien if name == "sim" else m
+    if name in ("dien", "sim"):
+        core.gru1.kernel = core.gru2.kernel = "pallas"
+    return m
+
+
+@pytest.mark.parametrize("label", sorted(CHAINED_MODELS))
+def test_chained_step_is_one_graph_that_matches_the_single_steps(card, label, monkeypatch):
+    """Three groups of 4 steps through the chained step (eager, captured and
+    replayed, replayed) against the same 12 single steps, from the same
+    weights, SGD with momentum. Under deterministic algorithms: two single
+    runs and the chained run give the same bits in every loss and
+    parameter. In the default mode the chained run is captured too. Both
+    modes: one graph, and the single steps' kernel launches. The
+    field-attention and merge-scatter flags are on, DIEN and SIM on the
+    (AU)GRU kernels."""
+    from ml_function_tpu_torch.ops import embedding
+    from ml_function_tpu_torch.ops.kernels import launches
+    from ml_function_tpu_torch.train.loop import (iter_batches, make_chained_train_step,
+                                                  stack_batches)
+    monkeypatch.setenv("ML_FUNCTION_TPU_FIELD_ATTN", "1")
+    monkeypatch.setattr(embedding, "_USE_MERGE_SCATTER", True)
+    name, kind, hp, batch = CHAINED_MODELS[label]
+    fs, data = _chain_data(kind, 3 * CHAIN * batch)
+    batches = list(iter_batches(data, batch))
+
+    def run(chained: bool, deterministic: bool):
+        model = _chain_model(card, name, fs, hp)
+        opt = make_optimizer("sgd", 0.01, momentum=0.9).init(model)
+        before = launches.snapshot()
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            if chained:
+                step = make_chained_train_step(model, opt, CHAIN)
+                losses = torch.cat([step(stack_batches(batches[i:i + CHAIN]))["loss"]
+                                    for i in range(0, len(batches), CHAIN)])
+                assert step.graph is not None and step.groups == 3
+                # a replay launches what 4 single steps launch
+                assert {k: 3 * n for k, n in step.launches.items()} == launches.since(before)
+            else:
+                step = make_train_step(model, opt)
+                losses = torch.stack([step(b)["loss"] for b in batches])
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert torch.isfinite(losses).all()
+        return losses, [p.detach().clone() for p in model.parameters()], launches.since(before)
+
+    a, b, c = run(False, True), run(False, True), run(True, True)
+    for other in (b, c):
+        assert other[2] == a[2], (other[2], a[2])
+        assert torch.equal(other[0], a[0]), (other[0], a[0])
+        assert all(torch.equal(p, q) for p, q in zip(other[1], a[1]))
+    assert run(True, False)[2] == a[2]
+
+
+def test_a_capture_that_fails_names_its_line(card):
+    """A step that reads a value back to the host cannot be captured: the
+    chained step raises at its second group, naming the line."""
+    from ml_function_tpu_torch.train.loop import make_chained_train_step
+
+    class Syncing(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(4, device=card))
+
+        def forward(self, batch, train=False):
+            logits = batch["dense"] @ self.w
+            if float(logits.sum()) > 1e30:     # a host read on the step's path
+                logits = logits * 0
+            return logits, {}, {}
+
+    model = Syncing()
+    step = make_chained_train_step(model, make_optimizer("sgd", 0.1).init(model), 2)
+    group = {"dense": np.ones((2, 8, 4), np.float32), "label": np.ones((2, 8), np.float32)}
+    step(group)
+    with pytest.raises(RuntimeError, match=r"test_torch_cuda\.py:\d+ \(if float"):
+        step(group)
+    assert step.graph is None

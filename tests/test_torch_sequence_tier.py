@@ -328,6 +328,28 @@ def test_dsin_session_shape_must_cover_the_history():
         get_model("dsin", fs, device="cpu", session_shape=(3, 4))
 
 
+def test_bst_takes_a_shorter_history_as_jax_does(jax_side):
+    """BST's position encodings are a buffer of the spec's length + 1: a
+    history cut to 5 of its 8 positions takes the first 6 rows and scores
+    as the reference, which computes them at the batch's length (f32
+    matmuls, the parity test's 1e-5); a history past the spec's raises."""
+    side = jax_side["bst", True, False]
+    jfs, jdata = _jax_batch()
+    _, tdata = _port_batch()
+    cut = lambda d: {**d, "seq": {k: v[:, :5] for k, v in d["seq"].items()}}
+    with _env(True, False):
+        jm = jax_get_model("bst", jfs, **MODELS["bst"])
+        want, _, _ = jm.apply(side["params"], {}, cut(jdata))
+        tm = _port_model("bst", side["params"])
+        with torch.no_grad():
+            got, _, _ = tm(tloop.to_device(cut(tdata), "cpu"))
+            _close(got, want, 1e-5)
+            longer = {**tdata, "seq": {k: np.concatenate([v, v], 1)
+                                       for k, v in tdata["seq"].items()}}
+            with pytest.raises(ValueError, match="past the spec's max_len 8"):
+                tm(tloop.to_device(longer, "cpu"))
+
+
 # ---- ops ------------------------------------------------------------------
 
 

@@ -246,16 +246,18 @@ def test_optimizer_matches_optax_after_three_steps(name, kw):
 def test_adam_in_place_update_is_optax_expression_bitwise(weight_decay):
     """Adam's update runs in place on its moments and two scratch tensors;
     it gives the bits of optax's expression written out, one rounding an
-    operation, over three steps."""
+    operation, over three steps. The bias corrections are optax's too:
+    1 − b**count in f32, the count an int32 tensor."""
     gen = torch.Generator().manual_seed(0)
     p0 = torch.randn(64, 8, generator=gen)
     grads = [torch.randn(64, 8, generator=gen) for _ in range(3)]
     b1, b2, eps, lr = 0.9, 0.999, 1e-8, 0.05
     want, mu, nu = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
     for k, g in enumerate(grads, start=1):
+        count = torch.tensor(k, dtype=torch.int32)
         mu = (1 - b1) * g + b1 * mu
         nu = (1 - b2) * (g * g) + b2 * nu
-        u = (mu / (1 - b1 ** k)) / (torch.sqrt(nu / (1 - b2 ** k) + 0.0) + eps)
+        u = (mu / (1 - b1 ** count)) / (torch.sqrt(nu / (1 - b2 ** count) + 0.0) + eps)
         if weight_decay:
             u = u + weight_decay * want
         want = want + u * -lr
