@@ -19,16 +19,20 @@ Phases, each of which stops the run with a non-zero exit if it fails:
    of its four launches timed by the profiler),
    and the field-attention forward and backward (the backward twice, the
    same bits, and each shape's instance named; where the forward takes its
-   warp instance, its block instance is held beside it, and both are timed
-   at AutoInt's shape by events and on the device), also at the two edges
-   of their gate, at AutoInt's L with Dh 13 and a ragged B, and at SIM's
-   top-8 ESU, with a random key mask and one batch row whose keys are all
-   masked (uniform weights over all keys), and at the sequence tier's two
-   shapes, every key valid: DSIN's sessions (B 16,384, L 8, H 2, Dh 8; the
-   warp instances, the forward's block instance timed beside) and DMIN's
-   refiner (B 4096, L 64, H 2, Dh 8; the block instances), and at FiGNN's
-   field attention (B 4096 and 16,384, L 26, H 2, Dh 4; the warp
-   instances), each direction also timed on the device;
+   warp or L-64 instance, its block instance is held beside it, and both
+   are timed at AutoInt's shape by events and on the device; so is the
+   backward's block instance beside the L-64 one; whether the forward has
+   the plain version's bits is printed at every shape and must hold at
+   DMIN's), also at the two edges of their gate, at AutoInt's L with Dh 13
+   and a ragged B, at SIM's top-8 ESU and at (B 1001, Lq 64, Lk 48) on the
+   L-64 instances, with a random key mask and one batch row whose keys are
+   all masked (uniform weights over all keys), and at the sequence tier's
+   two shapes, every key valid: DSIN's sessions (B 16,384, L 8, H 2, Dh 8;
+   the warp instances, the forward's block instance timed beside) and
+   DMIN's refiner (B 4096, L 64, H 2, Dh 8; the L-64 instances, the block
+   ones timed beside), and at FiGNN's field attention (B 4096 and 16,384,
+   L 26, H 2, Dh 4; the warp instances), each direction also timed on the
+   device;
 4. serving: full-width xDeepFM on the Criteo schema (26 fields of 100k ids,
    dim 8, CIN (128, 128), MLP (256, 128)) with seeded random weights,
    exported and scored through ``load_scorer`` → ``Scorer.predict_proba`` on
@@ -339,13 +343,15 @@ KERNELS = ("cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd", "gru_fwd",
 # AutoInt's attention at Criteo width: 26 fields + the dense pseudo-field,
 # 2 heads of 16; then the gate's two edges (lq·lk = 4096, Dh 64; Lk 4096)
 FA_MAIN = (BATCH, 27, 27, 2, 16)
-# the gate's two edges (the backward's block instance), then the warp
-# instance's 4-byte copies at AutoInt's L with a ragged B, and SIM's top-8 ESU
+# the gate's two edges (the block instances), then the warp instance's
+# 4-byte copies at AutoInt's L with a ragged B, SIM's top-8 ESU, and the
+# L-64 instances with Lq ≠ Lk and a B not a multiple of their 2 batch rows
+# a block
 FA_EDGES = ((512, 64, 64, 2, 64), (300, 1, 4096, 2, 8), (1001, 27, 27, 2, 13),
-            (129, 8, 8, 2, 4))
+            (129, 8, 8, 2, 4), (1001, 64, 48, 2, 8))
 # the sequence tier's attention under the flag (phase 19): DSIN's sessions at
 # the board's row (B 2048 · 8 sessions of 8, 2 heads of 8; the warp
-# instances) and DMIN's refiner at L 64 (exactly 4096 scores; the block
+# instances) and DMIN's refiner at L 64 (exactly 4096 scores; the L-64
 # instances); every key valid, as in the board's histories
 # FiGNN's field attention at the board's width (phase 18: 26 fields, dim 8,
 # 2 heads of 4, no mask; the warp instances) at its scoring and its
@@ -622,9 +628,13 @@ def _fa_inputs(gen, b, lq, lk, h, dh, masked):
 
 def check_field_attn_kernels(fa_mod) -> list:
     """field_attention and field_attention_backward against their plain
-    versions at AutoInt's shape and the gate's two edges, with times. The
-    library yardstick is ``scaled_dot_product_attention`` in f32 with the
-    bias as its mask: its forward, and its forward plus backward through
+    versions at AutoInt's shape, the gate's edges and the sequence tier's
+    shapes, with times, and whether the forward has the plain version's
+    bits (it must at DMIN's shape, ``FA_SEQ[1]``). Where the wrapper picks
+    another instance than the block one, the block instance is held and
+    timed beside it (the backward's beside the L-64 instance). The library
+    yardstick is ``scaled_dot_product_attention`` in f32 with the bias as
+    its mask: its forward, and its forward plus backward through
     ``torch.autograd.grad`` less the forward."""
     import torch.nn.functional as F
 
@@ -641,8 +651,12 @@ def check_field_attn_kernels(fa_mod) -> list:
         grads = fa_mod.field_attention_backward(q, k, v, bias, do, scale)
         torch.cuda.synchronize()
         where = f"(B={b}, Lq={lq}, Lk={lk}, H={h}, Dh={dh})"
-        err, atol = _check_close(f"field_attn_fwd at {where}", got,
-                                 fa_mod.field_attention_reference(q, k, v, bias, scale))
+        ref = fa_mod.field_attention_reference(q, k, v, bias, scale)
+        err, atol = _check_close(f"field_attn_fwd at {where}", got, ref)
+        plain_bits = torch.equal(got, ref)
+        if shape == FA_SEQ[1] and not plain_bits:
+            fail(f"field_attn_fwd at DMIN's {where} lacks the plain version's bits "
+                 f"(max |err| {err})")
         if masked:
             _check_close(f"field_attn_fwd's all-masked row at {where}", got[1],
                          v[1].mean(dim=0, keepdim=True).expand(lq, -1, -1))
@@ -656,7 +670,7 @@ def check_field_attn_kernels(fa_mod) -> list:
             fail(f"field_attn_bwd differs between two runs at {where}")
 
         # the forward's block instance (which takes every shape of the
-        # gate) where the wrapper picks the warp one
+        # gate) where the wrapper picks the warp or the L-64 one
         instance = fa_mod.forward_instance(q, k, v, bias)
         block = None
         if instance != "field_attn_fwd":
@@ -675,6 +689,24 @@ def check_field_attn_kernels(fa_mod) -> list:
                 block["device_ms"] = launch_ms(lambda: fa_mod.field_attention_forward(
                     q, k, v, bias, scale, instance="field_attn_fwd"))
 
+        # the backward's block instance where the wrapper picks the L-64 one
+        bwd_instance = fa_mod.backward_instance(q, k, v, bias)
+        bwd_block = None
+        if bwd_instance.endswith("_l64"):
+            block_g = fa_mod.field_attention_backward(q, k, v, bias, do, scale,
+                                                      instance="field_attn_bwd")
+            torch.cuda.synchronize()
+            bwd_block = {"max_abs_err": max(
+                _check_close(f"field_attn_bwd {name} (block instance) at {where}", g, r)[0]
+                for name, g, r in zip(("dq", "dk", "dv"), block_g,
+                                      fa_mod.field_attention_backward_reference(
+                                          q, k, v, bias, do, scale)))}
+            bwd_block["ms"] = event_ms(lambda: fa_mod.field_attention_backward(
+                q, k, v, bias, do, scale, instance="field_attn_bwd"), **KERNEL_RATES_DEPTH)
+            if timed:
+                bwd_block["device_ms"] = launch_ms(lambda: fa_mod.field_attention_backward(
+                    q, k, v, bias, do, scale, instance="field_attn_bwd"))
+
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
         mask4 = bias[:, None, None, :]
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -690,6 +722,7 @@ def check_field_attn_kernels(fa_mod) -> list:
         fb, fby = fa_bound(b, lq, lk, h, dh)
         fwd_shapes.append({
             **common, "instance": instance, "max_abs_err": err, "atol": atol,
+            "plain_bits": plain_bits,
             "ms": event_ms(lambda: fa_mod.field_attention(q, k, v, bias, scale),
                            **KERNEL_RATES_DEPTH),
             "device_ms": (launch_ms(lambda: fa_mod.field_attention(q, k, v, bias, scale))
@@ -702,7 +735,7 @@ def check_field_attn_kernels(fa_mod) -> list:
             "bound_ms": fb, "bound_by": fby})
         bb, bby = fa_bound(b, lq, lk, h, dh, backward=True)
         bwd_shapes.append({
-            **common, "instance": fa_mod.backward_instance(q, k, v, bias),
+            **common, "instance": bwd_instance, "block_instance": bwd_block,
             "max_abs_err": max(e for e, _ in errs),
             "max_abs_err_dq_dk_dv": [e for e, _ in errs],
             "atol_dq_dk_dv": [a for _, a in errs],
@@ -716,7 +749,8 @@ def check_field_attn_kernels(fa_mod) -> list:
             "bound_ms": bb, "bound_by": bby})
     for s in fwd_shapes:
         print(f"field_attn_fwd {s['shape']} masked={s['masked']} ({s['instance']}): "
-              f"max_abs_err {s['max_abs_err']:.3e} (atol {s['atol']:.3e}), kernel "
+              f"max_abs_err {s['max_abs_err']:.3e} (atol {s['atol']:.3e}), the plain "
+              f"version's bits {s['plain_bits']}, kernel "
               f"{s['ms']:.4f} ms (on the device {s['device_ms']}), plain "
               f"{s['plain_ms']:.4f} ms, library (SDPA f32) {s['library_ms']:.4f} ms "
               f"(max |diff| {s['library_max_abs_diff']:.3e}), bound "
@@ -729,7 +763,8 @@ def check_field_attn_kernels(fa_mod) -> list:
               + f"), kernel {s['ms']:.4f} ms (on the device {s['device_ms']}), plain "
               f"{s['plain_ms']:.4f} ms, library "
               f"(SDPA f32 forward+backward less forward) {s['library_ms']:.4f} ms, "
-              f"bound {s['bound_ms']:.4f} ms ({s['bound_by']})")
+              f"bound {s['bound_ms']:.4f} ms ({s['bound_by']}); block instance "
+              f"{s['block_instance']}")
     replaces = "ml_function_tpu/ops/kernels/field_attention.py"
     return [_fa_entry("field_attn_fwd", f"{replaces}:77", fwd_shapes,
                       "torch.nn.functional.scaled_dot_product_attention (f32, "
@@ -1938,12 +1973,14 @@ INTERACTION_DECISION_BAR = {"fgcnn": BF16_PATH_RTOL}
 # the board's 100k ids.
 CPU_CHECK_VOCAB = {"ffm": 10_000, "onn": 10_000, "fat_deepffm": 10_000}
 # the depth of the rates of phases 18 to 21, to keep the run under 600 s:
-# training (``step_rates``), the host clock's median of 2 steps and the
-# events' of 2 samples of 1 step (the earlier phases' 20 and 10 × 5; 8 and
-# 5 × 2 until phase 23 came, 4 and 3 × 2 until phases 24 and 25 came, when a
-# run from a `git archive` took 593.8 s); one forward (``score_rates``), the
-# events' 2 samples of 1 (their 25 × 10)
-BOARD_RATES_DEPTH = dict(host_steps=2, event_reps=(2, 1))
+# training (``step_rates``), the host clock's one step and the events' one
+# sample of 1 step (the earlier phases' 20 and 10 × 5; 8 and 5 × 2 until
+# phase 23 came, 4 and 3 × 2 until phases 24 and 25 came, when a run from a
+# `git archive` took 593.8 s; 2 and 2 × 1 until a run from a `git archive`
+# took 624.9 s on a host whose phases 18 to 21 took 302 s against an
+# earlier run's 247); one forward (``score_rates``), the events' 1 sample
+# of 1 (their 25 × 10)
+BOARD_RATES_DEPTH = dict(host_steps=1, event_reps=(1, 1))
 
 
 def check_wide_cin(cin_mod) -> tuple:
@@ -2716,17 +2753,17 @@ SEQUENCE_MODELS = (
     ("bst_lsh", "bst", {"attention": "lsh"}, BATCH, 0, ()),
     ("sim_lsh", "sim", {"search": "soft", "top_k": 256, "long_behavior": ("hist_long",),
                         "esu_attention": "lsh"}, 512, 0, ("attn.", "dien.attn.")))
-# the models whose two sequence lookups also train 3 steps (5 until phases 24
-# and 25 came) with the merge-scatter flag's attribute set, against the same
-# steps without it
+# the models whose two sequence lookups also train 2 steps (5 until phases 24
+# and 25 came, 3 until the 624.9 s run above) with the merge-scatter flag's
+# attribute set, against the same steps without it
 MERGE_SCATTER_MODELS = ("hpmn", "mimn")
-MERGE_SCATTER_STEPS = 3
+MERGE_SCATTER_STEPS = 2
 # the step loops whose training step's busy share the profiler reads; their
-# steps take hundreds of ms, so their rates take the medians of 2 host-clock
-# steps and of 2 samples of 1 step by events (4 and 3 × 2 until phases 24
-# and 25 came)
+# steps take hundreds of ms, so their rates take one host-clock step and one
+# sample of 1 step by events (4 and 3 × 2 until phases 24 and 25 came, 2
+# and 2 × 1 until the 624.9 s run above)
 PROFILED_MODELS = ("hpmn", "mimn", "dts")
-STEP_LOOP_RATES_DEPTH = dict(host_steps=2, event_reps=(2, 1))
+STEP_LOOP_RATES_DEPTH = dict(host_steps=1, event_reps=(1, 1))
 # MIMN's target attentions over its 4 memory slots and 4 channels read
 # slots that its 64 erase/add writes and channel updates have made nearly
 # equal, so at the board's batch their MLPs' step-1 gradients are rounding
@@ -2782,7 +2819,7 @@ def sequence_phases(drive, launches_by_path, plain_fa) -> None:
     then for the three on K3 the scores and 5 Adam steps against the same
     model with K3's plain versions swapped in (DSIN also on a ragged
     ``make_behavior_data`` batch, whose fully padded sessions reach K3
-    through ``safe_mask``), for HPMN and MIMN 3 Adam steps with the
+    through ``safe_mask``), for HPMN and MIMN 2 Adam steps with the
     merge-scatter flag's attribute set against the same steps without it (2
     merge_scatter launches a step), and the training rates and peak memory
     at each model's batch (``BOARD_RATES_DEPTH``). SIM's batch is the bench's

@@ -1,6 +1,6 @@
 // Pieces shared by the field-attention kernels (field_attn_fwd.cu,
 // field_attn_bwd.cu): first those of the block instances, then those of the
-// warp instances.
+// warp instances, then those of the L-64 instances.
 //
 // Block instances: one block of THREADS threads works on one (batch row b,
 // head h): the rows of q, k, v, dO for that pair are the Dh contiguous floats
@@ -239,6 +239,106 @@ __device__ __forceinline__ void store_row(float* p, const float (&x)[DP], float 
   for (int c = 0; c < DP; c += 4)
     *reinterpret_cast<float4*>(p + c) =
         make_float4(x[c] * scale, x[c + 1] * scale, x[c + 2] * scale, x[c + 3] * scale);
+}
+
+// ---- L-64 instances: one warp a (b, h), up to 64 queries and keys ----
+//
+// The warp instances' blocks and slabs (warp_rows, slabs_in, slab_out), with
+// a lane on a query (or a key) and, past 32, on a second one in a second
+// turn of the same warp. A query's 64 logits stay in the lane's registers
+// (L64 of them, the loops over keys unrolled so that every index is a
+// constant): no (Lq, Lk) matrix in shared memory. The key slabs hold L64
+// rows a batch row, those past lk zero with a bias of -inf, so the loops
+// over keys have no bound to test: a padded key's logit is -inf, its
+// exponential 0, and it adds exact zeros to every sum.
+
+constexpr int L64 = 64;   // queries or keys a warp takes, two turns of 32 lanes
+
+// The shapes the L-64 instances take (the wrappers give them those the
+// warp instances do not: field_attention.py).
+__host__ __device__ inline bool l64_fits(int lq, int lk, int h, int dh) {
+  return lq <= L64 && lk <= L64 && dh <= WARP_MAX_DH && h <= WARP_MAX_H;
+}
+
+// k and v of nb batch rows (from k, v: their first rows) into the padded
+// key slabs ks and vs (L64 rows of slab_stride(h, DP) floats a batch row),
+// rows lk to L64 zero, and the bias into bs (L64 a batch row), -inf past lk.
+template <int DP, bool VEC>
+__device__ __forceinline__ void l64_keys_in(float* ks, float* vs, float* bs,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ v,
+                                            const float* __restrict__ bias, int nb, int lk, int h,
+                                            int dh) {
+  const int s = slab_stride(h, DP);
+  for (int bl = 0; bl < nb; ++bl) {
+    const size_t g = size_t(bl) * lk * h * dh;
+    slabs_in<DP, VEC>(ks + bl * L64 * s, vs + bl * L64 * s, k + g, v + g, 1, lk, h, dh);
+    float* zk = ks + (bl * L64 + lk) * s;
+    float* zv = vs + (bl * L64 + lk) * s;
+    for (int e = threadIdx.x; e < (L64 - lk) * s; e += blockDim.x) zk[e] = zv[e] = 0.f;
+    for (int j = threadIdx.x; j < L64; j += blockDim.x)
+      bs[bl * L64 + j] = j < lk ? bias[size_t(bl) * lk + j] : -CUDART_INF_F;
+  }
+}
+
+// The reverse of l64_keys_in for one padded slab: its first lk rows of each
+// batch row to dst.
+template <int DP, bool VEC>
+__device__ __forceinline__ void l64_keys_out(float* __restrict__ dst, const float* src, int nb,
+                                             int lk, int h, int dh) {
+  const int s = slab_stride(h, DP);
+  for (int bl = 0; bl < nb; ++bl)
+    slab_out<DP, VEC>(dst + size_t(bl) * lk * h * dh, src + bl * L64 * s, 1, lk, h, dh);
+}
+
+// The sum of e[0..L64) (zeros past the row's keys) in torch.softmax's order
+// for 33 to 64 columns, formed in one thread: its warp butterfly starts with
+// lane l holding 0 + e[l] + e[l + 32], then adds pairs 16 lanes apart, then
+// 8, 4, 2, 1. With 32 keys or fewer the zeros leave that order's sums
+// exact, so it is also the order for those.
+__device__ __forceinline__ float softmax_sum64(const float (&e)[L64]) {
+  float t[16];
+#pragma unroll
+  for (int l = 0; l < 16; ++l) t[l] = (e[l] + e[l + 32]) + (e[l + 16] + e[l + 48]);
+#pragma unroll
+  for (int l = 0; l < 8; ++l) t[l] += t[l + 8];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) t[l] += t[l + 4];
+  t[0] += t[2];
+  t[1] += t[3];
+  return t[0] + t[1];
+}
+
+// The lane's query x against the L64 keys of a padded slab (key j's row at
+// kh + j * s, broadcast from shared memory): e[j] = (x . k_j) * scale +
+// bias[j], the FMAs over d in order, then two roundings, as the plain
+// version forms them, then e[j] = expf(e[j] - max). Returns the max.
+template <int DP>
+__device__ __forceinline__ float exps64(float (&e)[L64], const float (&x)[DP], const float* kh,
+                                        int s, const float* bh, float scale) {
+  float m = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < L64; ++j) {
+    float y[DP];
+    load_row<DP>(y, kh + j * s);
+    float d = 0.f;
+#pragma unroll
+    for (int c = 0; c < DP; ++c) d = fmaf(x[c], y[c], d);
+    e[j] = __fadd_rn(__fmul_rn(d, scale), bh[j]);
+    m = fmaxf(m, e[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < L64; ++j) e[j] = expf(e[j] - m);
+  return m;
+}
+
+// e / sum rounded to nearest, as the IEEE division gives it, from r =
+// __frcp_rn(sum) in three operations (Markstein's correction: the quotient
+// e * r, its exact remainder, one FMA), for 2^-64 <= e <= 1 <= sum <= 64,
+// where neither the remainder nor the quotient underflows; and e = 0.
+__device__ __forceinline__ float div_rn(float e, float sum, float r) {
+  const float q = __fmul_rn(e, r);
+  return fmaf(fmaf(-sum, q, e), r, q);
 }
 
 }  // namespace fa

@@ -1,5 +1,5 @@
 // Field-attention backward for Hopper (sm_90a), with a plain C interface for
-// ctypes: two instances of one contract, chosen by the wrapper from the
+// ctypes: three instances of one contract, chosen by the wrapper from the
 // shape (kernels/field_attention.py).
 //
 // Replaces ml_function_tpu/ops/kernels/field_attention.py::_bwd_kernel
@@ -43,6 +43,28 @@
 // q, k and v and copied out by the block with coalesced stores. Nothing
 // depends on another warp between the copies: the serial phases of the
 // block kernel are gone.
+//
+// field_attn_bwd_l64, for the shapes past the warp instance's 32 positions
+// up to 64 queries and keys (Dh <= 16, H <= 8: DMIN's refiner, (B 4096,
+// L 64, H 2, Dh 8)): one warp a (b, h) in the warp instance's blocks and
+// slabs, the key slabs padded to 64 rows as the forward's. At DMIN's shape
+// the work is 2.68 GFLOP (40 us at 67 TFLOP/s) for 118 MB (35 us at 3.35
+// TB/s); the block instance took 24x that, five phases a block behind
+// barriers, two (64, 64) matrices in shared memory and three products each
+// making two loads an FMA. Here no (Lq, Lk) matrix exists, as in the flash
+// kernels' backward: in pass 1 a lane on query i (then i + 32) keeps its
+// 64 logits, then weights, in registers, forms rowsum(a * dA) and dQ_i =
+// scale * sum_j a_ij (dA_ij - rowsum) k_j, and leaves three statistics of
+// the query (max, 1 / sum, rowsum) in shared memory; in pass 2 a lane on
+// key j (then j + 32) recomputes a_ij and dS_ij from q_i, dO_i and those
+// statistics with the same operations (so the same bits as pass 1) and
+// sums dV_j and dK_j over the queries. The weights are e * (1 / sum): the
+// backward is held to the plain version's tolerance, not its bits. A warp
+// waits on no other warp between the block's two barriers (copy-in,
+// copy-out). Registers bound it: pass 1 holds 64 weights and the rows in
+// flight around them, so a thread may take 255 registers and an SM holds
+// two 128-thread blocks at DMIN's shape; under a cap of 128 the compiler
+// spilled kilobytes a thread.
 //
 // field_attn_bwd, for every other shape inside the gate (Lq * Lk <= 4096,
 // Dh <= 64): one block of 128 threads per (b, h). The weights a and the
@@ -208,6 +230,149 @@ __global__ void __launch_bounds__(32 * WARP_MAX_H, 2)
   }
 }
 
+// ---- field_attn_bwd_l64: one warp a (b, h), up to 64 queries and keys ----
+
+// Floats of shared memory: the slabs of q, dO and dQ (Lq rows), the padded
+// slabs of k and v (L64 rows a batch row), the padded bias and each warp's
+// per-query statistics (max, 1 / sum, rowsum(a * dA), one float4 a query).
+size_t l64_smem_floats(int lq, int h, int dp) {
+  const size_t nb = warp_rows(h), s = slab_stride(h, dp);
+  return nb * (3 * lq + 2 * fa::L64) * s + nb * fa::L64 + nb * h * lq * 4;
+}
+
+// Up to 255 registers a thread: pass 1's 64 weights and the rows in flight
+// around them spilled kilobytes under the 128 of two 256-thread blocks.
+template <int DP>
+__global__ void __launch_bounds__(32 * WARP_MAX_H, 1)
+    field_attn_bwd_l64_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ bias,
+                              const float* __restrict__ dout, float* __restrict__ dq,
+                              float* __restrict__ dk, float* __restrict__ dv, float scale,
+                              int nbatch, int lq, int lk, int h, int dh, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int rows = warp_rows(h), s = slab_stride(h, DP);
+  const int b0 = blockIdx.x * rows, nb = min(rows, nbatch - b0);
+  float* qs = smem;                      // (rows, lq) rows of H heads: q
+  float* dos = qs + rows * lq * s;       // dO
+  float* dqs = dos + rows * lq * s;      // dQ
+  float* ks = dqs + rows * lq * s;       // (rows, L64): k, zero past lk, then dK
+  float* vs = ks + rows * fa::L64 * s;   // v, then dV
+  float* bs = vs + rows * fa::L64 * s;   // (rows, L64) bias, -inf past lk
+  float4* stats = reinterpret_cast<float4*>(bs + rows * fa::L64);   // (warps, lq)
+  const size_t qoff = size_t(b0) * lq * h * dh, koff = size_t(b0) * lk * h * dh;
+  if (vec) {
+    slabs_in<DP, true>(qs, dos, q + qoff, dout + qoff, nb, lq, h, dh);
+    fa::l64_keys_in<DP, true>(ks, vs, bs, k + koff, v + koff, bias + size_t(b0) * lk, nb, lk,
+                              h, dh);
+  } else {
+    slabs_in<DP, false>(qs, dos, q + qoff, dout + qoff, nb, lq, h, dh);
+    fa::l64_keys_in<DP, false>(ks, vs, bs, k + koff, v + koff, bias + size_t(b0) * lk, nb, lk,
+                               h, dh);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bl = warp / h, hh = warp % h;
+  if (bl < nb) {
+    const float* qh = qs + bl * lq * s + hh * DP;   // query i at qh + i * s
+    const float* doh = dos + bl * lq * s + hh * DP;
+    float* dqh = dqs + bl * lq * s + hh * DP;
+    float* kh = ks + bl * fa::L64 * s + hh * DP;    // key j at kh + j * s
+    float* vh = vs + bl * fa::L64 * s + hh * DP;
+    const float* bh = bs + bl * fa::L64;
+    float4* st = stats + warp * lq;                 // query i's statistics at st[i]
+
+    // pass 1, lane on query i (then i + 32): its weights a_ij in registers,
+    // rowsum(a * dA) and dQ_i = scale * sum_j a_ij (dA_ij - rowsum) k_j;
+    // the max, 1 / sum and the rowsum to st[i] for pass 2
+#pragma unroll 1
+    for (int i = lane; i < lq; i += 32) {
+      float a[fa::L64];   // the exponentials, then the weights
+      float x[DP], y[DP];
+      load_row<DP>(x, qh + i * s);
+      const float m = fa::exps64<DP>(a, x, kh, s, bh, scale);
+      const float inv = __frcp_rn(fa::softmax_sum64(a));
+#pragma unroll
+      for (int j = 0; j < fa::L64; ++j) a[j] *= inv;
+      load_row<DP>(x, doh + i * s);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < fa::L64; ++j) {
+        load_row<DP>(y, vh + j * s);
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) d = fmaf(x[c], y[c], d);
+        rs = fmaf(a[j], d, rs);
+      }
+      // the loop below reads the rows of v again rather than keep its 64
+      // dA_ij live from the loop above (the compiler would, and spill them)
+      asm volatile("" ::: "memory");
+      float dqa[DP];
+#pragma unroll
+      for (int c = 0; c < DP; ++c) dqa[c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < fa::L64; ++j) {   // dA_ij again, with the same bits
+        load_row<DP>(y, vh + j * s);
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) d = fmaf(x[c], y[c], d);
+        const float ds = a[j] * (d - rs);
+        load_row<DP>(y, kh + j * s);
+#pragma unroll
+        for (int c = 0; c < DP; ++c) dqa[c] = fmaf(ds, y[c], dqa[c]);
+      }
+      store_row<DP>(dqh + i * s, dqa, scale);
+      st[i] = make_float4(m, inv, rs, 0.f);
+    }
+    __syncwarp();
+
+    // pass 2, lane on key j (then j + 32): a_ij and dS_ij recomputed from
+    // q_i, dO_i and st[i] (the same operations as pass 1, so the same bits),
+    // dV_j = sum_i a_ij dO_i and dK_j = scale * sum_i dS_ij q_i
+#pragma unroll 1
+    for (int j = lane; j < lk; j += 32) {
+      float kj[DP], vj[DP], dka[DP], dva[DP];
+      load_row<DP>(kj, kh + j * s);
+      load_row<DP>(vj, vh + j * s);
+      const float bj = bh[j];
+#pragma unroll
+      for (int c = 0; c < DP; ++c) dka[c] = dva[c] = 0.f;
+#pragma unroll 2
+      for (int i = 0; i < lq; ++i) {
+        const float4 sti = st[i];
+        float x[DP], y[DP];
+        load_row<DP>(x, qh + i * s);
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) d = fmaf(x[c], kj[c], d);
+        const float a = expf(__fadd_rn(__fmul_rn(d, scale), bj) - sti.x) * sti.y;
+        load_row<DP>(y, doh + i * s);
+        d = 0.f;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) d = fmaf(y[c], vj[c], d);
+        const float ds = a * (d - sti.z);
+#pragma unroll
+        for (int c = 0; c < DP; ++c) {
+          dva[c] = fmaf(a, y[c], dva[c]);
+          dka[c] = fmaf(ds, x[c], dka[c]);
+        }
+      }
+      store_row<DP>(kh + j * s, dka, scale);   // only this lane reads k_j, v_j in pass 2
+      store_row<DP>(vh + j * s, dva, 1.f);
+    }
+  }
+  __syncthreads();
+  if (vec) {
+    slab_out<DP, true>(dq + qoff, dqs, nb, lq, h, dh);
+    fa::l64_keys_out<DP, true>(dk + koff, ks, nb, lk, h, dh);
+    fa::l64_keys_out<DP, true>(dv + koff, vs, nb, lk, h, dh);
+  } else {
+    slab_out<DP, false>(dq + qoff, dqs, nb, lq, h, dh);
+    fa::l64_keys_out<DP, false>(dk + koff, ks, nb, lk, h, dh);
+    fa::l64_keys_out<DP, false>(dv + koff, vs, nb, lk, h, dh);
+  }
+}
+
 // ---- field_attn_bwd: one block a (b, h) ----
 
 // dS = a * (dA - rowsum(a * dA)) in place of dA, one warp a row.
@@ -304,6 +469,46 @@ int field_attn_bwd_warp(const float* q, const float* k, const float* v, const fl
     field_attn_bwd_warp_kernel<DP><<<grid, block, smem, st>>>(q, k, v, bias, dout, dq, dk,    \
                                                               dv, scale, b, lq, lk, h, dh,    \
                                                               vec);                           \
+  }
+  if (dh <= 8)
+    LAUNCH(8)
+  else
+    LAUNCH(16)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract for Lq, Lk <= 64, Dh <= 16 and H <= 8 (the wrapper
+// gives it those shapes past the warp instance's 32 positions); anything
+// else returns cudaErrorInvalidValue and launches nothing.
+int field_attn_bwd_l64(const float* q, const float* k, const float* v, const float* bias,
+                       const float* dout, float* dq, float* dk, float* dv, float scale, int b,
+                       int lq, int lk, int h, int dh, void* stream) {
+  if (!fa::l64_fits(lq, lk, h, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte loads and stores where every row starts 16-byte aligned
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                          reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+                          reinterpret_cast<uintptr_t>(dv);
+  const bool vec = dh % 4 == 0 && bases % 16 == 0;
+  const int rows = warp_rows(h);
+  const dim3 grid((b + rows - 1) / rows), block(32 * rows * h);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // shared memory up to the largest shape the instance takes, set once
+  const int most = static_cast<int>(l64_smem_floats(fa::L64, WARP_MAX_H, 16) * 4);
+#define LAUNCH(DP)                                                                           \
+  {                                                                                          \
+    static bool ready = false;                                                               \
+    if (!ready) {                                                                            \
+      const cudaError_t e = cudaFuncSetAttribute(                                            \
+          field_attn_bwd_l64_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, most); \
+      if (e != cudaSuccess) return static_cast<int>(e);                                      \
+      ready = true;                                                                          \
+    }                                                                                        \
+    const size_t smem = l64_smem_floats(lq, h, DP) * sizeof(float);                          \
+    field_attn_bwd_l64_kernel<DP><<<grid, block, smem, st>>>(q, k, v, bias, dout, dq, dk,    \
+                                                             dv, scale, b, lq, lk, h, dh,    \
+                                                             vec);                           \
   }
   if (dh <= 8)
     LAUNCH(8)

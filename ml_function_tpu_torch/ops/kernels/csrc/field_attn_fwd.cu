@@ -1,5 +1,5 @@
 // Field-attention forward for Hopper (sm_90a), with a plain C interface for
-// ctypes: two instances of one contract, chosen by the wrapper from the
+// ctypes: three instances of one contract, chosen by the wrapper from the
 // shape (kernels/field_attention.py: forward_instance).
 //
 // Replaces ml_function_tpu/ops/kernels/field_attention.py::_fwd_kernel
@@ -43,6 +43,37 @@
 // instructions a (b, h), some 20 us of issue at six 4-warp blocks an SM;
 // by inference the rest is each block's copy-in, compute and copy-out in
 // turn and the shared-memory pipe serving 8 row broadcasts a key.
+//
+// field_attn_fwd_l64, for the shapes past the warp instance's 32 positions
+// up to 64 queries and keys (Dh <= 16, H <= 8: DMIN's refiner, (B 4096,
+// L 64, H 2, Dh 8), and SIM's ESU at a top k of 33 to 64): the warp
+// instance's blocks and slab copies, one warp a (b, h), a lane on query i
+// and then on query i + 32. At DMIN's shape the work is 4 * B * H * Lq *
+// Lk * Dh = 1.07 GFLOP (16 us at 67 TFLOP/s) for 68 MB in and out (20 us
+// at 3.35 TB/s): memory bounds it, but the block instance, with the whole
+// (64, 64) logit matrix of a (b, h) in shared memory, three phases behind
+// barriers, a division per staged element and v read through L1, took
+// 17x that. Here a query's 64 logits stay in the lane's registers (the
+// loops over keys unrolled to 64, so every index is a constant): no (Lq,
+// Lk) matrix in shared memory, k_j and v_j broadcast from the slabs as
+// 16-byte loads. The key slabs are padded to 64 rows with zeros and a
+// bias of -inf (fa::l64_keys_in), so the unrolled loops test no bound and
+// the compiler interleaves their keys. Each logit is the FMA chain over d
+// in order, times scale, plus the bias (two roundings); then the max,
+// expf(s - max), the sum in torch.softmax's order for 33 to 64 keys (lane
+// l of its butterfly holds 0 + e[l] + e[l + 32], then pairs 16 apart, 8,
+// 4, 2, 1: fa::softmax_sum64, formed in the lane), a = e / sum, and o_i
+// the FMA chain over the keys in order: the plain version's arithmetic, so
+// at DMIN's shape o has its bits. The division is fa::div_rn (three
+// operations from one correctly rounded reciprocal a query, the IEEE
+// quotient's bits in its range) unless the row holds an exponential below
+// 2^-64, which takes the IEEE division. Two block barriers, after the
+// copy-in and before the copy-out; nothing between them waits on another
+// warp. No tensor cores: TF32, even split, would not keep those bits, and
+// the FMAs are not what bounds it. What holds it above its bound is not
+// measured (no hardware counter was read): some 36 instructions a (query,
+// key) pair a lane, 38 M warp instructions at DMIN's shape, would take
+// about 36 us at full issue.
 //
 // field_attn_fwd, for every other shape inside the gate: one block of 128
 // threads per (b, h), reading the projections' (B, L, H, Dh) layout in
@@ -157,6 +188,95 @@ __global__ void __launch_bounds__(32 * fa::WARP_MAX_H, 3)
     fa::slab_out<DP, false>(o + qoff, qs, nb, lq, h, dh);
 }
 
+// ---- field_attn_fwd_l64: one warp a (b, h), up to 64 queries and keys ----
+
+// Floats of shared memory: the slab of q (Lq rows), the padded slabs of k
+// and v (L64 rows a batch row) and the padded bias; no logits.
+size_t l64_smem_floats(int lq, int h, int dp) {
+  const size_t nb = fa::warp_rows(h), s = fa::slab_stride(h, dp);
+  return nb * (lq + 2 * fa::L64) * s + nb * fa::L64;
+}
+
+// acc = sum_j a_j v_j over the L64 keys in order, a_j = e[j] / sum (by
+// fa::div_rn from r = 1 / sum with kFast, else the IEEE division).
+template <int DP, bool kFast>
+__device__ __forceinline__ void apply64(float (&acc)[DP], const float (&e)[fa::L64], float sum,
+                                        float r, const float* vh, int s) {
+#pragma unroll
+  for (int c = 0; c < DP; ++c) acc[c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < fa::L64; ++j) {
+    const float a = kFast ? fa::div_rn(e[j], sum, r) : e[j] / sum;
+    float y[DP];
+    fa::load_row<DP>(y, vh + j * s);
+#pragma unroll
+    for (int c = 0; c < DP; ++c) acc[c] = fmaf(a, y[c], acc[c]);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(32 * fa::WARP_MAX_H, 2)
+    field_attn_fwd_l64_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ bias,
+                              float* __restrict__ o, float scale, int nbatch, int lq, int lk,
+                              int h, int dh, bool vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int rows = fa::warp_rows(h), s = fa::slab_stride(h, DP);
+  const int b0 = blockIdx.x * rows, nb = min(rows, nbatch - b0);
+  float* qs = smem;                      // (rows, lq) rows of H heads: q, then o
+  float* ks = qs + rows * lq * s;        // (rows, L64): k, zero past lk
+  float* vs = ks + rows * fa::L64 * s;   // v
+  float* bs = vs + rows * fa::L64 * s;   // (rows, L64) bias, -inf past lk
+  const size_t qoff = size_t(b0) * lq * h * dh, koff = size_t(b0) * lk * h * dh;
+  if (vec) {
+    fa::slabs_in<DP, true, 1>(qs, nullptr, q + qoff, nullptr, nb, lq, h, dh);
+    fa::l64_keys_in<DP, true>(ks, vs, bs, k + koff, v + koff, bias + size_t(b0) * lk, nb, lk,
+                              h, dh);
+  } else {
+    fa::slabs_in<DP, false, 1>(qs, nullptr, q + qoff, nullptr, nb, lq, h, dh);
+    fa::l64_keys_in<DP, false>(ks, vs, bs, k + koff, v + koff, bias + size_t(b0) * lk, nb, lk,
+                               h, dh);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bl = warp / h, hh = warp % h;
+  if (bl < nb) {
+    const float* kh = ks + bl * fa::L64 * s + hh * DP;   // key j at kh + j * s
+    const float* vh = vs + bl * fa::L64 * s + hh * DP;
+    const float* bh = bs + bl * fa::L64;
+#pragma unroll 1
+    for (int i = lane; i < lq; i += 32) {   // query i, then i + 32
+      float* qi = qs + (bl * lq + i) * s + hh * DP;   // q_i, then o_i
+      float acc[DP];
+      {
+        float e[fa::L64];   // the logits, then their exponentials
+        {
+          float x[DP];
+          fa::load_row<DP>(x, qi);
+          fa::exps64<DP>(e, x, kh, s, bh, scale);
+        }
+        const float sum = fa::softmax_sum64(e);
+        // div_rn's range: the largest e is 1, so 1 <= sum <= 64; an e in
+        // (0, 2^-64) takes the IEEE division for the whole row
+        bool tiny = false;
+#pragma unroll
+        for (int j = 0; j < fa::L64; ++j) tiny |= e[j] > 0.f && e[j] < 0x1p-64f;
+        if (tiny)
+          apply64<DP, false>(acc, e, sum, 0.f, vh, s);
+        else
+          apply64<DP, true>(acc, e, sum, __frcp_rn(sum), vh, s);
+      }
+      fa::store_row<DP>(qi, acc, 1.f);   // only this lane reads q_i
+    }
+  }
+  __syncthreads();
+  if (vec)
+    fa::slab_out<DP, true>(o + qoff, qs, nb, lq, h, dh);
+  else
+    fa::slab_out<DP, false>(o + qoff, qs, nb, lq, h, dh);
+}
+
 // ---- field_attn_fwd: one block a (b, h) ----
 
 __global__ void __launch_bounds__(fa::THREADS)
@@ -227,6 +347,43 @@ int field_attn_fwd_warp(const float* q, const float* k, const float* v, const fl
     const size_t smem = warp_smem_floats(lq, lk, h, DP) * sizeof(float);                      \
     field_attn_fwd_warp_kernel<DP>                                                            \
         <<<grid, block, smem, st>>>(q, k, v, bias, o, scale, b, lq, lk, h, dh, vec);         \
+  }
+  if (dh <= 8)
+    LAUNCH(8)
+  else
+    LAUNCH(16)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract for Lq, Lk <= 64, Dh <= 16 and H <= 8 (the wrapper
+// gives it those shapes past the warp instance's 32 positions); anything
+// else returns cudaErrorInvalidValue and launches nothing.
+int field_attn_fwd_l64(const float* q, const float* k, const float* v, const float* bias,
+                       float* o, float scale, int b, int lq, int lk, int h, int dh,
+                       void* stream) {
+  if (!fa::l64_fits(lq, lk, h, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte loads and stores where every row starts 16-byte aligned
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const bool vec = dh % 4 == 0 && bases % 16 == 0;
+  const int rows = fa::warp_rows(h);
+  const dim3 grid((b + rows - 1) / rows), block(32 * rows * h);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // shared memory up to the largest shape the instance takes, set once
+  const int most = static_cast<int>(l64_smem_floats(fa::L64, fa::WARP_MAX_H, 16) * 4);
+#define LAUNCH(DP)                                                                           \
+  {                                                                                          \
+    static bool ready = false;                                                               \
+    if (!ready) {                                                                            \
+      const cudaError_t e = cudaFuncSetAttribute(                                            \
+          field_attn_fwd_l64_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, most); \
+      if (e != cudaSuccess) return static_cast<int>(e);                                      \
+      ready = true;                                                                          \
+    }                                                                                        \
+    const size_t smem = l64_smem_floats(lq, h, DP) * sizeof(float);                          \
+    field_attn_fwd_l64_kernel<DP>                                                            \
+        <<<grid, block, smem, st>>>(q, k, v, bias, o, scale, b, lq, lk, h, dh, vec);        \
   }
   if (dh <= 8)
     LAUNCH(8)

@@ -4,10 +4,12 @@ plain versions.
 Counterpart of ``ml_function_tpu/ops/kernels/field_attention.py``. The
 kernels (``csrc/field_attn_fwd.cu``, ``csrc/field_attn_bwd.cu``) replace the
 Pallas ``_fwd_kernel`` and ``_bwd_kernel``; the source notes say what bounds
-them on the H100 and how the design answers that. Each direction has two
+them on the H100 and how the design answers that. Each direction has three
 instances of one contract: a warp a (batch row, head) for up to 32 queries
-and keys (AutoInt's fields, SIM's top-k), and a block a (batch row, head)
-for the rest of the gate (``forward_instance``, ``backward_instance``).
+and keys (AutoInt's fields, SIM's top-k), a warp a (batch row, head) with a
+query's logits in registers for up to 64 (DMIN's refiner), and a block a
+(batch row, head) for the rest of the gate (``forward_instance``,
+``backward_instance``).
 Attention over a few positions (AutoInt's feature fields) at a large batch:
 
     o = softmax(q·kᵀ·scale + bias) · v
@@ -41,8 +43,12 @@ NDIMS = {"q": 4, "k": 4, "v": 4, "bias": 2, "do": 4}
 
 # The warp instances take Lq, Lk ≤ 32 (a lane a query, or a key), Dh ≤ 16
 # (a row of q, k or v in a lane's registers) and H ≤ 8 (a block's warps);
+# the L-64 instances the rest up to Lq, Lk ≤ 64 (a lane on a query, then on
+# a second 32 further, its 64 logits in registers) at the same Dh and H;
 # every other shape inside the gate takes the block ones.
 WARP_MAX_L, WARP_MAX_HEAD_DIM, WARP_MAX_HEADS = 32, 16, 8
+L64_MAX_L = 64
+INSTANCES = ("warp", "l64", "block")
 
 # Launches of each CUDA kernel since its count was last set to 0.
 field_attn_fwd_launches = 0
@@ -125,35 +131,45 @@ def _shape(what: str, q, k, v, bias):
     return b, lq, lk, h, dh
 
 
-def _warp_fits(lq: int, lk: int, h: int, dh: int) -> bool:
-    """Whether the warp instances take the shape (``fa::warp_fits`` in
-    ``csrc/field_attn.cuh`` refuses the same shapes)."""
-    return (max(lq, lk) <= WARP_MAX_L and dh <= WARP_MAX_HEAD_DIM
-            and h <= WARP_MAX_HEADS)
+def _instance(lq: int, lk: int, h: int, dh: int) -> str:
+    """Which instance takes the shape: "warp" within ``fa::warp_fits``,
+    "l64" within ``fa::l64_fits`` (``csrc/field_attn.cuh``; each C entry
+    refuses the shapes past its own limits), else "block"."""
+    if dh > WARP_MAX_HEAD_DIM or h > WARP_MAX_HEADS:
+        return "block"
+    longest = max(lq, lk)
+    return "warp" if longest <= WARP_MAX_L else "l64" if longest <= L64_MAX_L else "block"
+
+
+def _c_name(direction: str, kind: str) -> str:
+    """The C function of ``csrc/field_attn_<direction>.cu`` of an instance."""
+    return f"field_attn_{direction}" + ("" if kind == "block" else f"_{kind}")
 
 
 def forward_instance(q, k, v, bias) -> str:
     """The C function of ``csrc/field_attn_fwd.cu`` that takes these inputs'
-    shape: ``field_attn_fwd_warp`` within the warp instance's limits, else
+    shape: ``field_attn_fwd_warp`` within the warp instance's limits,
+    ``field_attn_fwd_l64`` past them up to 64 positions, else
     ``field_attn_fwd``. Raises where ``_shape`` does."""
     _, lq, lk, h, dh = _shape("field_attention", q, k, v, bias)
-    return "field_attn_fwd_warp" if _warp_fits(lq, lk, h, dh) else "field_attn_fwd"
+    return _c_name("fwd", _instance(lq, lk, h, dh))
 
 
 def backward_instance(q, k, v, bias) -> str:
     """The C function of ``csrc/field_attn_bwd.cu`` that takes these inputs'
-    shape: ``field_attn_bwd_warp`` within the warp instance's limits, else
-    ``field_attn_bwd``. Raises where ``_shape`` does."""
+    shape: ``field_attn_bwd_warp``, ``field_attn_bwd_l64`` or
+    ``field_attn_bwd``, by the forward's limits. Raises where ``_shape``
+    does."""
     _, lq, lk, h, dh = _shape("field_attention backward", q, k, v, bias)
-    return "field_attn_bwd_warp" if _warp_fits(lq, lk, h, dh) else "field_attn_bwd"
+    return _c_name("bwd", _instance(lq, lk, h, dh))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu`` with both its C functions bound."""
+    """The library of ``csrc/<name>.cu`` with its three C functions bound."""
     lib = _build.load(name)
     n_ptr = 5 if name == "field_attn_fwd" else 8
-    for fname in (name, f"{name}_warp"):
+    for fname in (_c_name(name[-3:], kind) for kind in INSTANCES):
         fn = getattr(lib, fname)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_float]
                        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -166,14 +182,14 @@ def field_attention_forward(q, k, v, bias, scale: float,
     """The forward kernel (``csrc/field_attn_fwd.cu``) on CUDA tensors: the
     contract of ``field_attention_reference``, through ``instance``
     (default: the one ``forward_instance`` picks; the block instance takes
-    every shape of the gate, the warp instance raises outside its limits).
-    Raises on anything the kernel does not take; never runs the plain
-    version."""
+    every shape of the gate, the warp and L-64 instances raise outside
+    their limits). Raises on anything the kernel does not take; never runs
+    the plain version."""
     global field_attn_fwd_launches
     check_cuda_inputs("field_attention", NDIMS, q=q, k=k, v=v, bias=bias)
     b, lq, lk, h, dh = _shape("field_attention", q, k, v, bias)
     fname = instance or forward_instance(q, k, v, bias)
-    if fname not in ("field_attn_fwd", "field_attn_fwd_warp"):
+    if fname not in [_c_name("fwd", kind) for kind in INSTANCES]:
         raise ValueError(f"field_attention: no forward instance {fname!r}")
     o = torch.empty_like(q)
     if b * h == 0:   # no (b, h) pair: o is empty
@@ -189,16 +205,20 @@ def field_attention_forward(q, k, v, bias, scale: float,
     return o
 
 
-def field_attention_backward(q, k, v, bias, do, scale: float):
-    """The backward kernel (``csrc/field_attn_bwd.cu``, the instance
-    ``backward_instance`` picks) on CUDA tensors: the contract of
-    ``field_attention_backward_reference``. Raises on anything the kernel
-    does not take; never runs the plain version."""
+def field_attention_backward(q, k, v, bias, do, scale: float,
+                             instance: str | None = None):
+    """The backward kernel (``csrc/field_attn_bwd.cu``) on CUDA tensors: the
+    contract of ``field_attention_backward_reference``, through
+    ``instance`` (default: the one ``backward_instance`` picks; as the
+    forward's). Raises on anything the kernel does not take; never runs
+    the plain version."""
     global field_attn_bwd_launches
     name = "field_attention backward"
     check_cuda_inputs(name, NDIMS, q=q, k=k, v=v, bias=bias, do=do)
     b, lq, lk, h, dh = _shape(name, q, k, v, bias)
-    fname = backward_instance(q, k, v, bias)
+    fname = instance or backward_instance(q, k, v, bias)
+    if fname not in [_c_name("bwd", kind) for kind in INSTANCES]:
+        raise ValueError(f"{name}: no backward instance {fname!r}")
     if do.shape != q.shape:
         raise ValueError(f"{name}: do {tuple(do.shape)} is not the shape of "
                          f"q {tuple(q.shape)}")

@@ -6,10 +6,12 @@ two edges, DSIN's sessions (B 16,384, L 8, H 2, Dh 8) and DMIN's refiner
 (B 4096, L 64, H 2, Dh 8), with a random key mask and one batch row whose keys are all
 masked, where the weights are uniform over all Lk keys. Each direction is
 also held to its plain version, and to its own bits on a rerun, at the
-edges of its two instances (L from 1 to 64 either side of the warp
-instances' 32, H 1 to 9, Dh 4 to 64, B not a multiple of a block's batch
-rows), the forward's block instance also at the warp instance's shapes,
-and a CPU test checks which instance each shape takes. The (AU)GRU forward's
+edges of its three instances (L from 1 to 65 either side of the warp
+instances' 32 and the L-64 instances' 64, H 1 to 9, Dh 4 to 64, B not a
+multiple of a block's batch rows), the block instance also at the shapes
+the others take (the backward's at the L-64 ones), the L-64 instances also
+captured into a CUDA graph at DMIN's shape, and a CPU test checks which
+instance each shape takes. The (AU)GRU forward's
 two instances are held to the plain version at the backward's shapes, at
 DIEN's and at H 13 with a ragged B, and must give the same bits as each
 other wherever both take H (H ≤ 16). The (AU)GRU and
@@ -303,7 +305,7 @@ def test_train_step_on_the_card_matches_the_cpu(card):
 
 # (B, Lq, Lk, H, Dh, masked): AutoInt's shape, then the gate's two edges,
 # then DSIN's sessions at the board's row (B 2048 · 8 sessions of 8) and
-# DMIN's refiner at L 64 (exactly 4096 scores: the block instances)
+# DMIN's refiner at L 64 (exactly 4096 scores: the L-64 instances)
 FA_SHAPES = [(4096, 27, 27, 2, 16, False), (512, 64, 64, 2, 64, True),
              (300, 1, 4096, 2, 8, True), (16384, 8, 8, 2, 8, True),
              (4096, 64, 64, 2, 8, True), (4096, 26, 26, 2, 4, False)]
@@ -337,23 +339,28 @@ def test_field_attention_kernels_match_plain_versions(card, b, lq, lk, h, dh, ma
         _close(got[1], v[1].mean(dim=0, keepdim=True).expand(lq, -1, -1))
 
 
-# (B, Lq, Lk, H, Dh, instance): the backward's two instances either side of
-# the warp instance's limits (L 32, Dh 16, H 8), B not a multiple of the
-# warp instance's batch rows a block (4 / H), Dh not a multiple of 4 (its
-# 4-byte copies), SIM's top-8 ESU (Dh 4) and AutoInt's L 27, then DSIN's
-# sessions and DMIN's refiner at their board shapes
+# (B, Lq, Lk, H, Dh, instance): the backward's instances either side of
+# the warp instance's limits (L 32, Dh 16, H 8) and of the L-64 instance's
+# (L 64 at the same Dh and H), B not a multiple of a block's batch rows
+# (4 / H), Dh not a multiple of 4 (4-byte copies), SIM's top-8 ESU (Dh 4)
+# and AutoInt's L 27, Lq ≠ Lk both ways past 32, then DSIN's sessions and
+# DMIN's refiner at their board shapes
 FA_BWD_CASES = [(4097, 27, 27, 2, 16, "warp"), (129, 8, 8, 2, 4, "warp"),
                 (7, 1, 1, 1, 8, "warp"), (9, 8, 8, 4, 8, "warp"),
                 (5, 32, 32, 1, 16, "warp"), (10, 27, 27, 2, 13, "warp"),
                 (6, 8, 32, 4, 8, "warp"), (11, 32, 8, 3, 16, "warp"),
-                (6, 33, 33, 2, 16, "block"), (5, 27, 27, 2, 17, "block"),
-                (3, 64, 64, 4, 64, "block"), (4, 1, 64, 1, 8, "block"),
+                (6, 33, 33, 2, 16, "l64"), (5, 27, 27, 2, 17, "block"),
+                (3, 64, 64, 4, 64, "block"), (4, 1, 64, 1, 8, "l64"),
                 (3, 8, 8, 9, 8, "block"), (16384, 8, 8, 2, 8, "warp"),
-                (4096, 64, 64, 2, 8, "block"), (4096, 26, 26, 2, 4, "warp")]
+                (4096, 64, 64, 2, 8, "l64"), (4096, 26, 26, 2, 4, "warp"),
+                (3, 64, 64, 8, 16, "l64"), (5, 65, 63, 2, 8, "block"),
+                (4, 64, 64, 2, 17, "block"), (3, 40, 40, 9, 8, "block"),
+                (9, 64, 64, 2, 8, "l64"), (5, 33, 64, 3, 16, "l64"),
+                (6, 64, 40, 1, 13, "l64"), (1001, 64, 48, 2, 8, "l64")]
 
 
 def _instance_name(kind, direction="bwd"):
-    return {"warp": f"field_attn_{direction}_warp", "block": f"field_attn_{direction}"}[kind]
+    return f"field_attn_{direction}" + {"warp": "_warp", "l64": "_l64", "block": ""}[kind]
 
 
 @pytest.mark.parametrize("b,lq,lk,h,dh,kind", FA_BWD_CASES)
@@ -368,18 +375,26 @@ def test_field_attention_backward_instance(b, lq, lk, h, dh, kind):
 
 @pytest.mark.parametrize("b,lq,lk,h,dh,kind", FA_BWD_CASES)
 def test_field_attention_backward_matches_plain_version(card, b, lq, lk, h, dh, kind):
-    """Masked keys (key 0 kept) and batch row 1 with every key masked; a
-    rerun gives the same bits."""
+    """The instance the wrapper picks and, past the warp instance's limits,
+    the block instance (which takes every shape of the gate), with masked
+    keys (key 0 kept) and batch row 1 with every key masked (dV_j the mean
+    of dO over the queries); a rerun gives the same bits."""
     q, k, v, bias, do, scale = _fa_inputs(card, b, lq, lk, h, dh, True)
     assert tfa.backward_instance(q, k, v, bias) == _instance_name(kind)
-    before = tfa.field_attn_bwd_launches
-    grads = tfa.field_attention_backward(q, k, v, bias, do, scale)
-    again = tfa.field_attention_backward(q, k, v, bias, do, scale)
-    torch.cuda.synchronize()
-    assert tfa.field_attn_bwd_launches == before + 2
-    for g, w in zip(grads, tfa.field_attention_backward_reference(q, k, v, bias, do, scale)):
-        _close(g, w)
-    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    want = tfa.field_attention_backward_reference(q, k, v, bias, do, scale)
+    names = {tfa.backward_instance(q, k, v, bias)}
+    if kind == "l64":
+        names.add("field_attn_bwd")
+    for name in names:
+        before = tfa.field_attn_bwd_launches
+        grads = tfa.field_attention_backward(q, k, v, bias, do, scale, instance=name)
+        again = tfa.field_attention_backward(q, k, v, bias, do, scale, instance=name)
+        torch.cuda.synchronize()
+        assert tfa.field_attn_bwd_launches == before + 2
+        for g, w in zip(grads, want):
+            _close(g, w)
+        _close(grads[2][1], (do[1].sum(dim=0, keepdim=True) / lk).expand(lk, -1, -1))
+        assert all(torch.equal(x, y) for x, y in zip(grads, again)), name
 
 
 @pytest.mark.parametrize("b,lq,lk,h,dh,kind", FA_BWD_CASES)
@@ -402,6 +417,42 @@ def test_field_attention_forward_instances_match_plain_version(card, b, lq, lk, 
         assert torch.equal(got, again), name
 
 
+def test_field_attention_l64_instances_replay_in_a_cuda_graph(card):
+    """DMIN's refiner (B 4096, L 64, H 2, Dh 8): a forward and a backward on
+    the L-64 instances captured into one CUDA graph (the chained train
+    step's way of running them) and replayed into zeroed outputs give the
+    eager calls' bits; the capture counts 1 + 1 launches."""
+    q, k, v, bias, do, scale = _fa_inputs(card, 4096, 64, 64, 2, 8, True)
+    assert (tfa.forward_instance(q, k, v, bias), tfa.backward_instance(q, k, v, bias)) == (
+        "field_attn_fwd_l64", "field_attn_bwd_l64")
+
+    def both():
+        return (tfa.field_attention_forward(q, k, v, bias, scale),
+                *tfa.field_attention_backward(q, k, v, bias, do, scale))
+
+    eager = both()
+    torch.cuda.synchronize()
+    fwd, bwd = tfa.field_attn_fwd_launches, tfa.field_attn_bwd_launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = both()
+    assert (tfa.field_attn_fwd_launches, tfa.field_attn_bwd_launches) == (fwd + 1, bwd + 1)
+    for x in outs:
+        x.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(outs, eager))
+    _close(outs[0], tfa.field_attention_reference(q, k, v, bias, scale))
+
+
+def test_l64_forward_division_gives_the_ieee_quotient(card):
+    """``fa::div_rn``, the L-64 forward's e / sum, against the IEEE division
+    over 2^30 (e, sum) pairs in its range (``tools/div_rn_check.py``)."""
+    from ml_function_tpu_torch.tools import div_rn_check
+
+    assert div_rn_check.mismatches(log2_pairs=30, seed=2) == 0
+
+
 def test_forward_instances_refuse_what_they_do_not_take(card):
     """A warp instance asked for a shape past its limits launches nothing
     and raises; so does a name that is no instance."""
@@ -413,12 +464,22 @@ def test_forward_instances_refuse_what_they_do_not_take(card):
         tfa.field_attention_forward(q, q, q, bias, 0.25, instance="field_attn_fwd_warp")
     with pytest.raises(ValueError, match="no forward instance"):
         tfa.field_attention_forward(q, q, q, bias, 0.25, instance="field_attn_bwd")
+    wide = torch.zeros(2, 33, 2, 17, device=card)
+    with pytest.raises(RuntimeError, match="field_attn_fwd_l64"):
+        tfa.field_attention_forward(wide, wide, wide, bias, 0.25, instance="field_attn_fwd_l64")
+    bwd = tfa.field_attn_bwd_launches
+    with pytest.raises(RuntimeError, match="field_attn_bwd_l64"):
+        tfa.field_attention_backward(wide, wide, wide, bias, wide, 0.25,
+                                     instance="field_attn_bwd_l64")
+    with pytest.raises(ValueError, match="no backward instance"):
+        tfa.field_attention_backward(q, q, q, bias, q, 0.25, instance="field_attn_fwd")
     with pytest.raises(RuntimeError, match="gru_fwd_warp"):
         tgru.gru_sequence_forward(xw, wh, mask, att, h0, instance="gru_fwd_warp")
     with pytest.raises(ValueError, match="no forward instance"):
         tgru.gru_sequence_forward(xw, wh, mask, att, h0, instance="gru_bwd")
     torch.cuda.synchronize()
     assert (tfa.field_attn_fwd_launches, tgru.gru_fwd_launches) == (fwd, gfwd)
+    assert tfa.field_attn_bwd_launches == bwd
 
 
 def test_field_attention_kernel_refuses_what_it_does_not_take(card):

@@ -203,19 +203,24 @@ def _meta(b, lq, lk, h, dh):
     return q, k, k, torch.empty(b, lk, **meta)
 
 
-# (Lq, Lk, H, Dh, warp): each limit of the warp instances and one past it
-INSTANCE_CASES = [(32, 32, 8, 16, True), (1, 1, 1, 1, True), (27, 27, 2, 16, True),
-                  (33, 32, 2, 16, False), (32, 33, 2, 16, False), (27, 27, 2, 17, False),
-                  (27, 27, 9, 16, False), (64, 64, 2, 64, False), (1, 4096, 2, 8, False)]
+# (Lq, Lk, H, Dh, instance): each limit of the warp instances and one past
+# it, then each limit of the L-64 instances (L 64, Dh 16, H 8) and one past
+# it, and the gate's edges (Dh 64, Lk 4096), which the block ones take
+INSTANCE_CASES = [(32, 32, 8, 16, "warp"), (1, 1, 1, 1, "warp"), (27, 27, 2, 16, "warp"),
+                  (33, 32, 2, 16, "l64"), (32, 33, 2, 16, "l64"), (27, 27, 2, 17, "block"),
+                  (27, 27, 9, 16, "block"), (64, 64, 2, 64, "block"), (1, 4096, 2, 8, "block"),
+                  (64, 64, 8, 16, "l64"), (65, 63, 2, 8, "block"), (1, 65, 2, 8, "block"),
+                  (64, 64, 2, 17, "block"), (40, 40, 9, 8, "block")]
 
 
-@pytest.mark.parametrize("lq,lk,h,dh,warp", INSTANCE_CASES)
-def test_forward_instance_by_shape(lq, lk, h, dh, warp):
+@pytest.mark.parametrize("lq,lk,h,dh,kind", INSTANCE_CASES)
+def test_forward_instance_by_shape(lq, lk, h, dh, kind):
     """On meta tensors (no card, no memory); the backward takes the same
     limits, by the same predicate."""
     args = _meta(3, lq, lk, h, dh)
-    assert tfa.forward_instance(*args) == ("field_attn_fwd_warp" if warp else "field_attn_fwd")
-    assert tfa.backward_instance(*args) == ("field_attn_bwd_warp" if warp else "field_attn_bwd")
+    suffix = {"warp": "_warp", "l64": "_l64", "block": ""}[kind]
+    assert tfa.forward_instance(*args) == "field_attn_fwd" + suffix
+    assert tfa.backward_instance(*args) == "field_attn_bwd" + suffix
 
 
 @pytest.mark.parametrize("lq,lk,dh", [(65, 64, 8), (8, 8, 65)])
