@@ -5,6 +5,9 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --chain-noise N`` instead runs only the
+calibration of phase 26's default-mode bar: ``chain_noise``.)
+
 Phases, each of which stops the run with a non-zero exit if it fails:
 
 1. the card: its name and power limit as nvidia-smi gives them; no CUDA
@@ -142,6 +145,10 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     and gru2: scored through ``load_scorer`` (2 gru_fwd a batch, on
     ``gru_fwd_wide``; within 1e-4 of the plain versions) and 5 Adam steps
     against the plain route (2 + 2 a step), and the rates;
+    (in phases 18 to 21 each model's CPU side, the same weights scored and
+    trained on the CPU, runs in worker processes beside the card's part,
+    ``cpu_checks``; each comparison prints when its CPU side is done, the
+    last ones after phase 22)
 18. the interaction models, DLRM, FiBiNET, LR, FM, FNN, FFM, FwFM, PNN,
     DeepCross, Wide&Deep, DCN (v1 and v2), NFM and AFM, MMoE, ESMM and
     PLE, and CCPM, FGCNN, FLEN, ONN, FAT-DeepFFM, FiGNN, MLR and OENN, at
@@ -300,7 +307,19 @@ Phases, each of which stops the run with a non-zero exit if it fails:
     time, the card's busy share of both, a group's host time (its rows, the chained call, the wait; the
     replay's launch alone) and a replay's device time by events, beside
     the card's name and power limit;
-27. one ``{"kernels": [...]}`` line (each kernel with its instances and the
+27. collective accounting of the sharded step (``utils/hlo_stats.py``) on
+    phase 23's NCCL group of one rank: (a) one recorded step of the CLI's
+    sharded xDeepFM step at phase 23 (c)'s width and batch (2 cin_fwd and
+    2 cin_bwd inside it, every group of one, 0 wire bytes) and DeepFM's,
+    each timed by events; (b) the steps phase 23 (d)'s CPU ranks recorded
+    (their first psum step on the (1, 2) mesh, an a2a step and a (2, 1)
+    psum step after their checkpoint), each kind's bytes held to its
+    formula from the shapes; (c) the floor of one NCCL call, a 4-byte
+    all-reduce at world size 1 (the median of 50 by events); (d) the
+    projected efficiency at 2 cards from (a)'s step time and (b)'s
+    formulas at the card's batch on the NVLink model (data-sheet rate),
+    beside the card's name and power limit;
+28. one ``{"kernels": [...]}`` line (each kernel with its instances and the
     shapes each took; a kernel's ``launches`` are those of the newest path
     that runs it whose counts its wrapper made, phase 26's last unchained
     rate fits), then ``{"ok": true, "device":
@@ -846,7 +865,7 @@ def check_gru_kernels(gru_mod, hist_mask) -> list:
     for b, l, h, what in GRU_SHAPES:
         xw, wh, mask, att, h0, dseq = _gru_inputs(gen, b, l, h, what, hist_mask)
         lib_fwd_ms = lib_bwd_ms = None
-        if what == "path":
+        if what in ("path", "sim"):      # the timed shapes
             rnn = torch.nn.GRU(3 * h, h, batch_first=True).cuda()
             x_in = xw.clone().requires_grad_()
             with torch.no_grad():
@@ -1297,6 +1316,33 @@ def order_witness(model, batch, plain_route, fl_mod) -> None:
           + ", ".join(t for _, t in sorted(parts, reverse=True)[:4]))
 
 
+@contextlib.contextmanager
+def quiet_host():
+    """Within the block every process this script started and that still
+    runs (``cpu_checks``' workers, CPU gloo ranks) is stopped, and it goes
+    on at the block's end, whatever fails: a rate taken inside reads the
+    host as a run with no CPU side beside it does (phases 4 to 17, and
+    every earlier log ``tools/step_times`` pairs with this one)."""
+    import multiprocessing
+    import signal
+
+    stopped = []
+    try:
+        for p in multiprocessing.active_children():
+            try:
+                os.kill(p.pid, signal.SIGSTOP)
+                stopped.append(p.pid)
+            except ProcessLookupError:
+                pass
+        yield
+    finally:
+        for pid in stopped:
+            try:
+                os.kill(pid, signal.SIGCONT)
+            except ProcessLookupError:
+                pass
+
+
 def step_rates(name: str, model, batches, what: str, host_steps: int = 20,
                event_reps: tuple = (10, 5), profile: bool = False) -> None:
     """Training examples/s at the batches' size (median of ``host_steps``
@@ -1304,7 +1350,8 @@ def step_rates(name: str, model, batches, what: str, host_steps: int = 20,
     events, batch on the card: the median of ``event_reps[0]`` samples of
     ``event_reps[1]`` steps each) and peak memory; with ``profile``, the
     card's busy time and its share of the window of one step under
-    ``torch.profiler``, and the kernels that take most of it."""
+    ``torch.profiler``, and the kernels that take most of it. Taken with
+    no CPU side running (``quiet_host``)."""
     from ml_function_tpu_torch.models.base import as_tensors
     from ml_function_tpu_torch.tools.timing import event_ms, profile_device
     from ml_function_tpu_torch.train.loop import make_train_step
@@ -1312,22 +1359,24 @@ def step_rates(name: str, model, batches, what: str, host_steps: int = 20,
 
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     step = make_train_step(model, make_optimizer("adam", 1e-3).init(model))
-    for b in batches[:3]:
-        step(b)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for i in range(host_steps):
-        t = time.perf_counter()
-        step(batches[i % len(batches)])
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-    peak = torch.cuda.max_memory_allocated() / 2**20
     on_card = as_tensors(batches[0], torch.device("cuda"))
     reps, inner = event_reps
-    step_ms = event_ms(lambda: step(on_card), reps=reps, inner=inner)
+    with quiet_host():
+        for b in batches[:3]:
+            step(b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for i in range(host_steps):
+            t = time.perf_counter()
+            step(batches[i % len(batches)])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        step_ms = event_ms(lambda: step(on_card), reps=reps, inner=inner)
+        if profile:
+            by_kernel, busy, window = profile_device(lambda: step(on_card), 1)
     if profile:
-        by_kernel, busy, window = profile_device(lambda: step(on_card), 1)
         top = ", ".join(f"{k[:48]} {v:.3f}" for k, v in list(by_kernel.items())[:4])
         print(f"{name} training at B={len(batches[0]['label'])}, profiled: busy "
               f"{busy:.3f} ms of a {window:.3f} ms window a step ({100 * busy / window:.1f}% "
@@ -1459,24 +1508,25 @@ def score_rates(name: str, scorer, data, route: str, event_reps: tuple = (25, 10
     batching, copies and the forward, as a caller of predict_proba sees it)
     and one forward's device time on a batch already on the card (the
     median of ``event_reps[0]`` samples of ``event_reps[1]`` forwards),
-    which is returned."""
+    which is returned. Taken with no CPU side running (``quiet_host``)."""
     from ml_function_tpu_torch.models.base import as_tensors
     from ml_function_tpu_torch.tools.timing import event_ms
 
     b = scorer.batch_size
     full = _rows(data, 3 * b)
-    scorer.predict_proba(full)
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        scorer.predict_proba(full)
-        walls.append(time.perf_counter() - t)
-    wall = statistics.median(walls)
     batch = as_tensors(_rows(data, b), torch.device("cuda"))
-    with torch.inference_mode():
-        fwd_ms = event_ms(lambda: scorer.model(batch), reps=event_reps[0],
-                          inner=event_reps[1])
+    with quiet_host():
+        scorer.predict_proba(full)
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            scorer.predict_proba(full)
+            walls.append(time.perf_counter() - t)
+        with torch.inference_mode():
+            fwd_ms = event_ms(lambda: scorer.model(batch), reps=event_reps[0],
+                              inner=event_reps[1])
+    wall = statistics.median(walls)
     print(f"{name} at B={b} ({route} route): predict_proba {wall * 1e3:.3f} ms for "
           f"{3 * b} rows, {3 * b / wall:.1f} examples/s; one forward on "
           f"the card {fwd_ms:.4f} ms ({b / fwd_ms * 1e3:.1f} examples/s); "
@@ -2014,14 +2064,7 @@ def check_wide_cin(cin_mod) -> tuple:
         del ref
         if not all(torch.equal(a, c) for again in runs for a, c in zip(got, again)):
             fail(f"{bi} differs between three runs at {where}")
-        xk_b, w1_b, x0_b, dy_b = xk.bfloat16(), w1.bfloat16(), x0.bfloat16(), dy.bfloat16()
-        du_b = (x0.unsqueeze(-1) * dy.unsqueeze(2)).reshape(d * b, f * o).bfloat16()
-
-        def library_bwd():
-            torch.matmul(du_b, w1_b.t())
-            torch.matmul(xk_b.view(d * b, h).t(), du_b)
-            torch.einsum("dbh,hfo,dbo->dbf", xk_b, w1_b.view(h, f, o), dy_b)
-
+        library_fwd, library_bwd = _cin_library(xk, x0, w1, dy)
         shape = {"D": d, "B": b, "H": h, "F": f, "O": o}
         fb, fby = cin_bound(d, b, h, f, o)
         bb, bby = cin_bound(d, b, h, f, o, backward=True)
@@ -2030,9 +2073,7 @@ def check_wide_cin(cin_mod) -> tuple:
             "ms": event_ms(lambda: cin_mod.cin_layer_t(xk, x0, w1), reps=10, inner=3),
             "plain_ms": event_ms(lambda: cin_mod.cin_layer_t_reference(xk, x0, w1),
                                  reps=3, inner=1, warmup=1),
-            "library_ms": event_ms(lambda: torch.einsum(
-                "dbfo,dbf->dbo", torch.matmul(xk_b, w1_b).view(d, b, f, o), x0_b),
-                reps=5, inner=2),
+            "library_ms": event_ms(library_fwd, reps=5, inner=2),
             "bound_ms": fb, "bound_by": fby})
         bwd.append({
             "shape": shape, "path": False, "instance": bi,
@@ -2046,7 +2087,7 @@ def check_wide_cin(cin_mod) -> tuple:
                 reps=3, inner=1, warmup=1),
             "library_ms": event_ms(library_bwd, reps=5, inner=2),
             "bound_ms": bb, "bound_by": bby})
-        del got, runs, du_b
+        del got, runs, library_fwd, library_bwd
     for s in fwd:
         print(f"cin_fwd F6 {s['shape']} ({s['instance']}): max_abs_err "
               f"{s['max_abs_err']:.3e} (atol {s['atol']:.3e}), kernel {s['ms']:.4f} ms, plain "
@@ -2084,10 +2125,37 @@ def check_wide_cin(cin_mod) -> tuple:
           f"max |diff| {fdiff:.3e} ({both['cin_fwd_ms']:.4f} and {both['cin_fwd_wide_ms']:.4f} "
           f"ms), cin_bwd vs cin_bwd_wide max |diff| {bdiff:.3e} ({both['cin_bwd_ms']:.4f} "
           f"and {both['cin_bwd_wide_ms']:.4f} ms)")
+    library_fwd, library_bwd = _cin_library(xk, x0, w1, dy)
     rec = {"shape": dict(zip("DBHFO", CIN_BOTH)), "max_abs_diff_fwd": fdiff,
            "max_abs_diff_bwd": bdiff,
-           **{k: v for k, v in both.items() if k.endswith("_ms")}}
+           **{k: v for k, v in both.items() if k.endswith("_ms")},
+           "library_fwd_ms": event_ms(library_fwd, reps=5, inner=2),
+           "library_bwd_ms": event_ms(library_bwd, reps=5, inner=2),
+           "bound_fwd_ms": cin_bound(d, b, h, f, o)[0],
+           "bound_bwd_ms": cin_bound(d, b, h, f, o, backward=True)[0]}
+    print(f"CIN at {CIN_BOTH}: library (2 calls) {rec['library_fwd_ms']:.4f} ms, bound "
+          f"{rec['bound_fwd_ms']:.4f} ms; backward library (3 calls) "
+          f"{rec['library_bwd_ms']:.4f} ms, bound {rec['bound_bwd_ms']:.4f} ms")
     return fwd, bwd, rec
+
+
+def _cin_library(xk, x0, w1, dy):
+    """The library yardsticks of one CIN layer at the kernels' bf16 inputs:
+    the forward's GEMM and einsum, the backward's two GEMMs and einsum."""
+    d, b, h = xk.shape
+    f, o = x0.shape[2], dy.shape[2]
+    xk_b, w1_b, x0_b, dy_b = xk.bfloat16(), w1.bfloat16(), x0.bfloat16(), dy.bfloat16()
+    du_b = (x0.unsqueeze(-1) * dy.unsqueeze(2)).reshape(d * b, f * o).bfloat16()
+
+    def library_fwd():
+        torch.einsum("dbfo,dbf->dbo", torch.matmul(xk_b, w1_b).view(d, b, f, o), x0_b)
+
+    def library_bwd():
+        torch.matmul(du_b, w1_b.t())
+        torch.matmul(xk_b.view(d * b, h).t(), du_b)
+        torch.einsum("dbh,hfo,dbo->dbf", xk_b, w1_b.view(h, f, o), dy_b)
+
+    return library_fwd, library_bwd
 
 
 def check_wide_gru(gru_mod) -> tuple:
@@ -2436,6 +2504,167 @@ def topk_flips(card: list, cpu: list, rows_per_call: int):
     return rows, worst
 
 
+# Phases 18 to 22 take the CPU side of ``card_against_cpu`` (the same weights
+# scored and trained on the CPU) in CPU_WORKERS spawned processes, while the
+# card goes on to its next part and model; each comparison runs when its CPU
+# side is done. A worker runs as many threads as this process (a CPU
+# reduction's order follows the thread count, and the bf16 path's bars were
+# set on this process's order), on all cores but CARD_CORES, which it leaves
+# to this process's Python, with OpenMP's threads sleeping when idle
+CPU_WORKERS = 2
+CARD_CORES = 2
+_CPU_SIDE = {}
+
+
+def _cpu_worker_init(threads: int, cores) -> None:
+    if cores:
+        os.sched_setaffinity(0, cores)
+    torch.set_num_threads(threads)
+
+
+@contextlib.contextmanager
+def cpu_checks():
+    """Within the block ``card_against_cpu`` hands its CPU side to the
+    worker processes and returns once the card's part is done; its
+    comparisons run as the CPU sides finish (``finish_cpu_checks``), and
+    the block's end waits for every one of them, in order."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from ml_function_tpu_torch.ops.kernels import _build
+
+    mine = sorted(os.sched_getaffinity(0))
+    cores = set(mine[CARD_CORES:]) if len(mine) > 2 * CARD_CORES else None
+    wait_policy = os.environ.get("OMP_WAIT_POLICY")
+    os.environ["OMP_WAIT_POLICY"] = "PASSIVE"    # read by the workers at their start
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        pool = ProcessPoolExecutor(CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                                   initializer=_cpu_worker_init,
+                                   initargs=(torch.get_num_threads(), cores))
+        _CPU_SIDE.update(pool=pool, tmp=tmp, pending=[], jobs=0)
+        try:
+            yield
+            finish_cpu_checks(wait=True)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+            _CPU_SIDE.clear()
+            if wait_policy is None:
+                os.environ.pop("OMP_WAIT_POLICY")
+            else:
+                os.environ["OMP_WAIT_POLICY"] = wait_policy
+
+
+def finish_cpu_checks(wait: bool) -> None:
+    """Run the comparisons of the CPU sides that are done (with ``wait``:
+    of all of them), in the order their models came."""
+    pending = _CPU_SIDE.get("pending", [])
+    while pending and (wait or pending[0][0].done()):
+        fut, finish = pending.pop(0)
+        finish(fut.result())
+
+
+class _Wire:
+    """A CPU tensor as a numpy array for the pipe to and from the workers
+    (torch's own pickling of a tensor goes through shared memory, whose
+    size the card machine does not promise); bfloat16 as its int16 bits."""
+
+    def __init__(self, t: torch.Tensor):
+        t = t.detach().cpu().contiguous()
+        self.bf16 = t.dtype == torch.bfloat16
+        self.a = (t.view(torch.int16) if self.bf16 else t).numpy()
+
+    def tensor(self) -> torch.Tensor:
+        t = torch.from_numpy(self.a)
+        return t.view(torch.bfloat16) if self.bf16 else t
+
+
+def _wire(x, to_wire: bool):
+    """``x`` with every tensor in its dicts, lists and tuples made a
+    ``_Wire`` (``to_wire``) or made a tensor again."""
+    if isinstance(x, dict):
+        return {k: _wire(v, to_wire) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_wire(v, to_wire) for v in x)
+    if to_wire and isinstance(x, torch.Tensor):
+        return _Wire(x)
+    if not to_wire and isinstance(x, _Wire):
+        return x.tensor()
+    return x
+
+
+def _cpu_side_wired(job: dict) -> dict:
+    return _wire(_cpu_side(_wire(job, False)), True)
+
+
+def _checksums(state: dict) -> dict:
+    """Each tensor's shape and the int64 sum of its elements' bits (exact,
+    in any order), to hold two copies of the same weights to each other on
+    two devices without moving them."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for k, v in state.items():
+        v = v.detach().contiguous()
+        bits = v.view(ints[v.element_size()]) if v.is_floating_point() else v
+        out[k] = (tuple(v.shape), int(bits.to(torch.int64).sum()))
+    return out
+
+
+def _cpu_side(job: dict) -> dict:
+    """The CPU side of ``card_against_cpu``: the exported model loaded on
+    the CPU and scored on both matmul paths (its LSH buckets, top-k choices
+    and tower inputs recorded), then the same Adam steps as the card's from
+    the card's initial weights, each first step taking the card's (P)ReLU,
+    LSH and top-k decisions, then the aux terms."""
+    from ml_function_tpu_torch.serving import load_scorer
+
+    t0 = time.perf_counter()
+    scorer = load_scorer(job["dir"], batch_size=job["batch_size"], device="cpu")
+    model = scorer.model
+    out = {"scoring": {}, "training": {}}
+    for f32 in ("1", "0"):
+        os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
+        taps = []
+        if job["tower"]:
+            hook = dict(model.named_modules())[job["tower"]].register_forward_hook(
+                lambda mod, inp, o: taps.append(inp[0].detach().bfloat16().cpu()))
+        cpu_b, cpu_k = [], []
+        with lsh_buckets(model, cpu_b), topk_decisions(cpu_k):
+            ref = scorer.predict_proba(job["serve"])
+        if job["tower"]:
+            hook.remove()
+        out["scoring"][f32] = {
+            "ref": ref, "cpu_b": cpu_b, "cpu_k": cpu_k, "taps": taps,
+            "logits": scorer_logits(scorer, job["serve"]) if job["saturates"] else None}
+    # the card's initial weights are the exported ones: each tensor's
+    # checksum must be the card's
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    sums = _checksums(init)
+    if sums != job["init_sums"]:
+        bad = sorted(k for k in sums.keys() | job["init_sums"].keys()
+                     if sums.get(k) != job["init_sums"].get(k))
+        raise RuntimeError(f"the exported weights are not the card's initial ones: {bad[:5]}")
+    cpu_s = 0.0
+    for f32 in ("1", "0"):
+        os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
+        card = job["decisions"][f32]
+        flips, cpu_b, b_flips, cpu_k, k_gaps = [], [], [], [], []
+        with relu_decisions(model, card["masks"], True, flips), \
+                lsh_buckets(model, cpu_b, card["card_b"], b_flips) as lsh, \
+                topk_decisions(cpu_k, card["card_k"], k_gaps):
+            t = time.perf_counter()
+            losses, grads = _adam_steps(model, init, job["batches"])
+            cpu_s += time.perf_counter() - t
+        out["training"][f32] = {"losses": losses, "grads": grads, "flips": flips,
+                                "b_flips": b_flips, "k_gaps": k_gaps, "lsh": lsh}
+    os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+    model.load_state_dict(init)
+    with torch.no_grad():
+        out["aux"] = {k: float(v) for k, v in model(job["batches"][0])[2].items()}
+    out["cpu_s"] = cpu_s
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: list,
                      drive, launches_by_path, per_batch: dict, per_step: dict,
                      route: str = "no kernel", block_scaled: tuple = (),
@@ -2452,7 +2681,9 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
     the block's for the parameters under a prefix in ``block_scaled``, as
     ``parity_steps`` says), and each aux term other than ``emb_l2`` card
     against CPU. Returns the model and its scorer on the card, at the
-    weights they were built with.
+    weights they were built with. It runs inside ``cpu_checks``: the CPU
+    side (``_cpu_side``) runs in a worker process and the comparisons when
+    it is done.
 
     ``tower`` names the ``Dense`` whose input is the model's tower input
     (a pooled sequence, whose f32 sums on the two devices can differ by
@@ -2474,39 +2705,43 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
     ``TOPK_GAP_BAR``), and the CPU's first training step takes the card's
     choices."""
     from ml_function_tpu_torch.models import get_model
-    from ml_function_tpu_torch.ops.kernels import _build
     from ml_function_tpu_torch.serving import export_model, load_scorer
 
     t0 = time.perf_counter()
     model = get_model(name, fs, generator=torch.Generator().manual_seed(0), **hp)
     if next(model.parameters()).device.type != "cuda":
         fail(f"get_model did not place {label} on the card by default")
-    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
-        export_model(tmp, name, fs, model, hyperparams=hp)
-        scorer = load_scorer(tmp, batch_size=len(batches[0]["label"]))
-        cpu_scorer = load_scorer(tmp, batch_size=len(batches[0]["label"]), device="cpu")
+    if not _CPU_SIDE:
+        raise RuntimeError("card_against_cpu runs inside cpu_checks()")
+    _CPU_SIDE["jobs"] += 1
+    tmp = os.path.join(_CPU_SIDE["tmp"], f"{_CPU_SIDE['jobs']:03d}_{label}")
+    os.makedirs(tmp)
+    export_model(tmp, name, fs, model, hyperparams=hp)
+    scorer = load_scorer(tmp, batch_size=len(batches[0]["label"]))
     times = [time.perf_counter()]
     if next(scorer.model.parameters()).device.type != "cuda":
         fail(f"load_scorer did not place {label} on the card by default")
     n_rows = len(serve["label"])
     n_batches = -(-n_rows // scorer.batch_size)
     saturates = name in SATURATING
-    # with f32 matmuls the two devices compute one f32 function in
-    # another summation order; on the bf16 path an f32 value a few ulps
-    # apart can round to the neighbouring bf16 value (ROADMAP.md R3),
-    # which moves a logit by up to one bf16 step of its terms
+    lsh_heads = next((m.num_heads for m in scorer.model.modules() if hasattr(m, "rotation0")),
+                     None)
+    device = next(scorer.model.parameters()).device
+    # the card's part: scores on both matmul paths, with what the CPU's
+    # will be held against
+    card_scoring = {}
     for f32 in ("1", "0"):
         os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
         path = f"{label}_serving" + ("_f32" if f32 == "1" else "")
-        taps = {}
+        taps = []
         if tower:
-            hooks = [dict(m.named_modules())[tower].register_forward_hook(
-                lambda mod, inp, out, k=k: taps.setdefault(k, []).append(
-                    inp[0].detach().bfloat16().cpu()))
-                for k, m in (("card", scorer.model), ("cpu", cpu_scorer.model))]
-        card_b, cpu_b, card_k, cpu_k = [], [], [], []
+            hook = dict(scorer.model.named_modules())[tower].register_forward_hook(
+                lambda mod, inp, out: taps.append(inp[0].detach().bfloat16().cpu()))
+        card_b, card_k = [], []
         with lsh_buckets(scorer.model, card_b) as lsh, topk_decisions(card_k):
             scores = drive(path, lambda: scorer.predict_proba(serve))
+        if tower:
+            hook.remove()
         want = expect(**{k: v * n_batches for k, v in per_batch.items()})
         if launches_by_path[path] != want:
             fail(f"{label} scoring launched {launches_by_path[path]}, expected {want}")
@@ -2514,49 +2749,111 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
         if scores.shape != (len(serve["label"]),) or not np.isfinite(scores).all() \
                 or not in_range.all():
             fail(f"{label} scores are not finite probabilities")
-        with lsh_buckets(cpu_scorer.model, cpu_b), topk_decisions(cpu_k):
-            ref = cpu_scorer.predict_proba(serve)
+        card_scoring[f32] = {"scores": scores, "taps": taps, "card_b": card_b,
+                             "card_k": card_k, "lsh": lsh, "path": path,
+                             "launches": launches_by_path[path], "device": device,
+                             "rows_per_call": scorer.batch_size,
+                             "logits": scorer_logits(scorer, serve) if saturates else None}
+    os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+    times.append(time.perf_counter())
+    score_rates(f"{label}_serving", scorer, serve, route, BOARD_RATES_DEPTH["event_reps"])
+    times.append(time.perf_counter())
+
+    # the card's Adam steps on both matmul paths, recording the decisions
+    # the CPU's first step takes from them (see the comparison below)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    card_training, decisions = {}, {}
+    for f32 in ("1", "0"):
+        os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
+        path = f"{label}_training" + ("_f32" if f32 == "1" else "")
+        masks, card_b, card_k = {}, [], []
+        with relu_decisions(model, masks, False, []), lsh_buckets(model, card_b), \
+                topk_decisions(card_k):
+            losses, grads = drive(path, lambda: _adam_steps(model, init, batches))
+        want = expect(**{k: len(batches) * v for k, v in per_step.items()})
+        if launches_by_path[path] != want:
+            fail(f"{label} training launched {launches_by_path[path]}, expected {want}")
+        card_training[f32] = {"losses": losses, "grads": {n: g.cpu() for n, g in grads.items()},
+                              "n_decisions": sum(m.numel() for m in masks.values()),
+                              "n_keys": card_b[0][0].numel() if card_b else 0,
+                              "path": path, "launches": launches_by_path[path]}
+        decisions[f32] = {"masks": {i: m.cpu() for i, m in masks.items()},
+                          "card_b": card_b, "card_k": card_k}
+    os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+    model.load_state_dict(init)
+    with torch.no_grad():
+        card_aux = {k: float(v) for k, v in model(batches[0])[2].items()}
+    times.append(time.perf_counter())
+    job = {"dir": tmp, "batch_size": scorer.batch_size, "serve": serve, "batches": batches,
+           "tower": tower, "saturates": saturates, "init_sums": _checksums(init),
+           "decisions": decisions}
+
+    def finish(cpu: dict) -> None:
+        compare_card_cpu(label, serve, n_rows, saturates, lsh_heads, tower, block_scaled,
+                         model_scaled, decision_bf16_bar, len(batches[0]["label"]),
+                         card_scoring, card_training, card_aux, cpu)
+        print(f"{label} card against CPU: the card's part {times[-1] - t0:.1f} s (build, "
+              f"export and loads {times[0] - t0:.1f}, scoring {times[1] - times[0]:.1f}, rates "
+              f"{times[2] - times[1]:.1f}, training {times[3] - times[2]:.1f}); the CPU's "
+              f"{cpu['seconds']:.1f} s, of it its steps {cpu['cpu_s']:.1f} (in a worker "
+              f"process)")
+
+    fut = _CPU_SIDE["pool"].submit(_cpu_side_wired, _wire(job, True))
+    _CPU_SIDE["pending"].append((fut, lambda cpu: finish(_wire(cpu, False))))
+    finish_cpu_checks(wait=False)
+    return model, scorer
+
+
+def compare_card_cpu(label, serve, n_rows, saturates, lsh_heads, tower, block_scaled,
+                     model_scaled, decision_bf16_bar, b, card_scoring, card_training,
+                     card_aux, cpu) -> None:
+    """``card_against_cpu``'s comparisons of the card's part with the CPU
+    side's (``_cpu_side``)."""
+    # with f32 matmuls the two devices compute one f32 function in
+    # another summation order; on the bf16 path an f32 value a few ulps
+    # apart can round to the neighbouring bf16 value (ROADMAP.md R3),
+    # which moves a logit by up to one bf16 step of its terms
+    for f32 in ("1", "0"):
+        c, r = card_scoring[f32], cpu["scoring"][f32]
+        scores, ref, path = c["scores"], r["ref"], c["path"]
         lsh_rows = np.zeros(n_rows, bool)
-        if card_k:
-            rows, worst_gap = topk_flips(card_k, cpu_k, scorer.batch_size)
-            lsh_rows[[r for r in rows if r < n_rows]] = True
+        if c["card_k"]:
+            rows, worst_gap = topk_flips(c["card_k"], r["cpu_k"], c["rows_per_call"])
+            lsh_rows[[i for i in rows if i < n_rows]] = True
             print(f"{path}: soft search's top-k choices, card against CPU: {len(rows)} rows "
                   f"chose otherwise, largest gap of the chosen scores {worst_gap:.3e} of "
                   f"the row's largest (bar {TOPK_GAP_BAR:.1e})")
             if worst_gap > TOPK_GAP_BAR:
                 fail(f"{label}: a top-k choice differs between card and CPU by {worst_gap}")
-        if lsh:
-            heads = next(m.num_heads for m in scorer.model.modules() if hasattr(m, "rotation0"))
+        if c["lsh"]:
             n_flip, worst_margin, rows = bucket_flips(
-                card_b, cpu_b, scorer.batch_size, heads, set(np.nonzero(lsh_rows)[0].tolist()))
-            lsh_rows[[r for r in rows if r < n_rows]] = True
+                c["card_b"], r["cpu_b"], c["rows_per_call"], lsh_heads,
+                set(np.nonzero(lsh_rows)[0].tolist()))
+            lsh_rows[[i for i in rows if i < n_rows]] = True
             print(f"{path}: LSH bucket ids, card against CPU: {n_flip} of "
-                  f"{sum(a.numel() for a, _ in card_b)} keys on another bucket, in "
+                  f"{sum(a.numel() for a, _ in c['card_b'])} keys on another bucket, in "
                   f"{int(lsh_rows.sum())} rows, largest margin of a flipped key "
                   f"{worst_margin:.3e} (bar {LSH_MARGIN_BAR[f32]:.1e})")
             if worst_margin > LSH_MARGIN_BAR[f32]:
                 fail(f"{label}: an LSH bucket flips between card and CPU at margin "
                      f"{worst_margin}")
         if tower:
-            for h in hooks:
-                h.remove()
-            x, y = (torch.cat(taps[k])[:n_rows] for k in ("card", "cpu"))
+            x, y = (torch.cat(t)[:n_rows] for t in (c["taps"], r["taps"]))
             flipped = (x != y).reshape(n_rows, -1).any(dim=1).numpy()
         diff = float(np.abs(scores - ref).max())
         if saturates:
-            lg, ref_lg = scorer_logits(scorer, serve), scorer_logits(cpu_scorer, serve)
+            lg, ref_lg = c["logits"], r["logits"]
         else:
             lg, ref_lg = (np.log(p.astype(np.float64)) - np.log1p(-p.astype(np.float64))
                           for p in (scores, ref))
         gaps = np.abs(lg - ref_lg) / np.abs(ref_lg).max()
         lg_gap = float(gaps.max())
         mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
-        print(f"{path} ({mode}): {len(scores)} rows on "
-              f"{next(scorer.model.parameters()).device}, vs the same weights on "
+        print(f"{path} ({mode}): {len(scores)} rows on {c['device']}, vs the same weights on "
               f"the CPU: max |score diff| {diff:.3e}, max |logit diff|/max|logit| "
               f"{lg_gap:.3e} (99th percentile {np.quantile(gaps, 0.99):.3e}, rows "
               f"past 1e-4 {int((gaps > 1e-4).sum())}, past 2^-8 "
-              f"{int((gaps > BF16_PATH_RTOL).sum())}); launches {launches_by_path[path]}"
+              f"{int((gaps > BF16_PATH_RTOL).sum())}); launches {c['launches']}"
               + (f"; logits of the models, max |diff| {np.abs(lg - ref_lg).max():.3e} "
                  f"(probabilities at exactly 0 or 1: {int(((scores == 0) | (scores == 1)).sum())})"
                  if saturates else "")
@@ -2571,7 +2868,7 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
             past = np.abs(lg - ref_lg) > SATURATED_LOGIT_BAR
         else:
             past = np.abs(scores - ref) > 1e-4
-        if (tower and f32 == "0") or lsh or card_k:
+        if (tower and f32 == "0") or c["lsh"] or c["card_k"]:
             if (past & ~witnessed).any() or past.sum() > max(1, n_rows // 100):
                 fail(f"{label} scores differ from the CPU's past the bar in "
                      f"{int(past.sum())} rows (max |score diff| {diff}, logits {lg_gap} "
@@ -2581,10 +2878,6 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
             fail(f"{label} scores on the card differ from the CPU's ({mode}) in "
                  f"{int(past.sum())} rows: max |score diff| {diff}, logits {lg_gap} of "
                  "their max")
-    os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
-    times.append(time.perf_counter())
-    score_rates(f"{label}_serving", scorer, serve, route, BOARD_RATES_DEPTH["event_reps"])
-    times.append(time.perf_counter())
 
     # with f32 matmuls phase 5's bars hold every parameter; on the bf16
     # path the two devices' f32 sums can round a bf16 input cotangent of
@@ -2594,73 +2887,47 @@ def card_against_cpu(label: str, name: str, fs, hp: dict, serve: dict, batches: 
     # two devices, which moves the gradients of its example's rows (PNN:
     # one of 524,288); the CPU's first step takes the card's decisions,
     # and the run fails if one it overrides is not within 1e-5 of 0
-    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    cpu_model = cpu_scorer.model
-    cpu_init = {k: v.cpu() for k, v in init.items()}
-    cpu_s = 0.0
     for f32 in ("1", "0"):
-        os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
-        path = f"{label}_training" + ("_f32" if f32 == "1" else "")
-        masks, flips, card_b, cpu_b, b_flips = {}, [], [], [], []
-        card_k, cpu_k, k_gaps = [], [], []
-        with relu_decisions(model, masks, False, flips), lsh_buckets(model, card_b), \
-                topk_decisions(card_k):
-            losses, grads = drive(path, lambda: _adam_steps(model, init, batches))
-        with relu_decisions(cpu_model, masks, True, flips), \
-                lsh_buckets(cpu_model, cpu_b, card_b, b_flips) as lsh, \
-                topk_decisions(cpu_k, card_k, k_gaps):
-            t = time.perf_counter()
-            ref_losses, ref_grads = _adam_steps(cpu_model, cpu_init, batches)
-            cpu_s += time.perf_counter() - t
-        if k_gaps:
-            n_rows_k, gap = k_gaps[0]
+        c, r = card_training[f32], cpu["training"][f32]
+        path = c["path"]
+        if r["k_gaps"]:
+            n_rows_k, gap = r["k_gaps"][0]
             print(f"{path}: top-k choices the CPU's step 1 took from the card: {n_rows_k} "
                   f"rows, largest gap {gap:.3e} (bar {TOPK_GAP_BAR:.1e})")
             if gap > TOPK_GAP_BAR:
                 fail(f"{label}: a top-k choice differs between card and CPU by {gap}")
-        if lsh:
-            worst_margin = max(m for _, m in b_flips)
+        if r["lsh"]:
+            worst_margin = max(m for _, m in r["b_flips"])
             print(f"{path}: LSH buckets the CPU's step 1 took from the card: "
-                  f"{sum(n for n, _ in b_flips)} of {card_b[0][0].numel()} keys, largest "
+                  f"{sum(n for n, _ in r['b_flips'])} of {c['n_keys']} keys, largest "
                   f"margin {worst_margin:.3e} (bar {LSH_MARGIN_BAR[f32]:.1e})")
             if worst_margin > LSH_MARGIN_BAR[f32]:
                 fail(f"{label}: an LSH bucket flips between card and CPU at margin "
                      f"{worst_margin}")
+        flips = r["flips"]
         n_flips = sum(n for n, _ in flips)
         worst_z = max((z for _, z in flips), default=0.0)
         mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
-        compare_runs(f"{label} ({mode})", losses, grads, ref_losses, ref_grads,
+        dev = "cuda" if torch.cuda.is_available() else "cpu"
+        grads = {n: g.to(dev) for n, g in c["grads"].items()}
+        ref_grads = {n: g.to(dev) for n, g in r["grads"].items()}
+        compare_runs(f"{label} ({mode})", c["losses"], grads, r["losses"], ref_grads,
                      "the CPU run", block_scaled, model_scaled=model_scaled,
-                     note=f"launches {launches_by_path[path]}; "
+                     note=f"launches {c['launches']}; "
                      f"(P)ReLU pre-activations the CPU's step 1 took from the card: "
-                     f"{n_flips} of {sum(m.numel() for m in masks.values())} "
+                     f"{n_flips} of {c['n_decisions']} "
                      f"(largest |z| {worst_z:.2e} of its layer's max)",
-                     b=len(batches[0]["label"]),
-                     grad_rtol=RTOL if f32 == "1" else BF16_PATH_RTOL)
+                     b=b, grad_rtol=RTOL if f32 == "1" else BF16_PATH_RTOL)
         z_bar = 1e-5 if f32 == "1" else decision_bf16_bar
         if worst_z > z_bar:
             fail(f"{label}: a (P)ReLU pre-activation at {worst_z} of its layer's max "
                  f"falls on another side on the card than on the CPU (bar {z_bar})")
-        want = expect(**{k: len(batches) * v for k, v in per_step.items()})
-        if launches_by_path[path] != want:
-            fail(f"{label} training launched {launches_by_path[path]}, expected {want}")
-    os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
-    model.load_state_dict(init)
-    cpu_model.load_state_dict(cpu_init)
-    with torch.no_grad():
-        aux = [m(batches[0])[2] for m in (model, cpu_model)]
-    for k in sorted(set(aux[0]) - {"emb_l2"}):
-        got, ref = float(aux[0][k]), float(aux[1][k])
+    for k in sorted(set(card_aux) - {"emb_l2"}):
+        got, ref = card_aux[k], cpu["aux"][k]
         print(f"{label} {k} on the card {got:.7f}, on the CPU {ref:.7f}, "
               f"rel diff {abs(got - ref) / abs(ref):.3e}")
         if not abs(got - ref) <= RTOL * abs(ref):
             fail(f"{label}'s {k} differs from the CPU's by more than {RTOL}")
-    times.append(time.perf_counter())
-    print(f"{label} card against CPU: {times[-1] - t0:.1f} s (build, export and loads "
-          f"{times[0] - t0:.1f}, scoring {times[1] - times[0]:.1f}, rates "
-          f"{times[2] - times[1]:.1f}, training {times[3] - times[2]:.1f}, of it the CPU's "
-          f"steps {cpu_s:.1f})")
-    return model, scorer
 
 
 def interaction_phases(drive, launches_by_path, plain_fa) -> None:
@@ -3719,18 +3986,56 @@ def _cpu_rank(rank: int, io_dir: str) -> None:
     with np.load(os.path.join(io_dir, "batches.npz")) as d:
         batches = [{k: d[f"{k}{i}"] for k in ("dense", "sparse", "label")}
                    for i in range(CPU_RANK_STEPS + 1)]
+    from ml_function_tpu_torch.utils.hlo_stats import record_collectives
+
     model = get_model("xdeepfm", fs, device="cpu", **XDFM_HP)
     ts = create_sharded_state(model, make_optimizer("adam", 1e-3), mesh, init_params=init)
     step = make_sharded_train_step(ts.model, ts.optimizer, mesh)
-    losses = [float(step(shard_batch(b, mesh))["loss"]) for b in batches[:CPU_RANK_STEPS]]
+    # phase 27 (b) reads the first step's collectives
+    with record_collectives() as first:
+        losses = [float(step(shard_batch(batches[0], mesh))["loss"])]
+    losses += [float(step(shard_batch(b, mesh))["loss"]) for b in batches[1:CPU_RANK_STEPS]]
     ts.step = CPU_RANK_STEPS
     save_checkpoint(os.path.join(io_dir, "ckpt"), ts)
     with torch.no_grad(), sharded_embeddings(mesh):
         probs = torch.sigmoid(ts.model(batches[-1])[0]).numpy()
     full = _flat_tree(sharded_params_to_numpy(ts.model, ts.layout, mesh))
+    records = {"psum (1, 2)": _records(first), **_account_steps(ts, fs, batches[0], mesh)}
     if rank == 0:
         np.savez(os.path.join(io_dir, "cpu_ranks.npz"), probs=probs,
                  losses=np.asarray(losses), **full)
+        with open(os.path.join(io_dir, "records.json"), "w") as f:
+            json.dump(records, f)
+
+
+def _records(stats) -> list:
+    """A recorder's records as [op, bytes, group size, group kind, dtype]."""
+    return [[i.op, i.bytes, i.group_size, i.group, i.dtype] for i in stats.instrs]
+
+
+def _account_steps(ts, fs, batch, mesh) -> dict:
+    """Phase 27 (b)'s further steps on the CPU ranks, after phase 23 (d)'s
+    checkpoint and scores: one a2a step of ``ts`` on ``mesh``, then one psum
+    step of a fresh xDeepFM on a (2, 1) mesh of the same ranks (every
+    parameter replicated, so the step sums every gradient over a data group
+    of 2). Their records by name."""
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.parallel.mesh import make_mesh
+    from ml_function_tpu_torch.parallel.train import (create_sharded_state,
+                                                      make_sharded_train_step, shard_batch)
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+    from ml_function_tpu_torch.utils.hlo_stats import collective_stats
+
+    out = {}
+    step = make_sharded_train_step(ts.model, ts.optimizer, mesh, exchange="a2a")
+    out[f"a2a (1, {mesh.model})"] = _records(collective_stats(step, shard_batch(batch, mesh)))
+    dp = make_mesh(mesh.size, 1, device="cpu")
+    model = get_model("xdeepfm", fs, device="cpu", generator=torch.Generator().manual_seed(0),
+                      **XDFM_HP)
+    dts = create_sharded_state(model, make_optimizer("adam", 1e-3), dp)
+    step = make_sharded_train_step(dts.model, dts.optimizer, dp)
+    out[f"psum ({mesh.size}, 1)"] = _records(collective_stats(step, shard_batch(batch, dp)))
+    return out
 
 
 def shard_lookup_part(table, gids, mesh, fs) -> None:
@@ -3990,51 +4295,229 @@ def shard_cpu_ranks_part(fs, data, io_dir, ranks, drive, launches_by_path) -> No
              f"{same}, gap {gap}, files {files}")
 
 
-def sharded_phase(drive, launches_by_path) -> None:
-    """Phase 23: row-sharded tables over torch.distributed at xDeepFM's full
-    width: (a) the collective lookups, (b) ShardedScorer, (c) the CLI with a
-    sharded checkpoint and a resume, (d) two CPU gloo ranks that split a
-    table (started first, they train beside (a) to (c)), restored on the
-    card."""
+# Collective accounting of the sharded step (phase 27), on phase 23's NCCL
+# group of one rank and the steps phase 23 (d)'s CPU ranks recorded
+FLOOR_CALLS = 50                  # 4-byte all-reduces timed for the call floor
+ACCOUNT_TIMING = dict(reps=10, inner=5, warmup=2)
+DEEPFM_HP = {"hidden": (256, 128, 64)}
+
+
+def account_formulas(name: str, b_loc: int, f: int, d: int, m: int, n_data: int,
+                     param_bytes: int) -> list:
+    """The collectives one rank of a (n_data, m) mesh issues in one xDeepFM
+    step of exchange ``name`` ('psum' or 'a2a') at ``b_loc`` rows a rank, F
+    fields of width D: [op, bytes, group size, group, dtype, formula] each.
+    Two lookups read the tables, the rows (width D) and the linear weights
+    (width 1). psum: each an all-reduce of B_loc·F·W·4 over 'model' (its
+    backward issues none); a model axis of 1 takes the local gather. a2a:
+    each ships its ids as int32 (m·cap·4, cap = S = ⌈B_loc·F/m⌉, the
+    lossless capacity), the rows back (m·cap·W·4), gathers them (m·S·W·4)
+    and sends their cotangent back in the backward (m·cap·W·4). Over
+    'data': the weight sum (4), every parameter's gradient in one flat
+    all-reduce where the data axis is above 1 (``param_bytes``), the loss
+    pair (8)."""
+    n = b_loc * f
+    s_ = -(-n // m)
+    out = []
+    for w, what in ((d, "rows"), (1, "linear weights")):
+        if m == 1:
+            continue
+        if name == "psum":
+            out.append(["all-reduce", n * w * 4, m, "model", "float32",
+                        f"psum of the {what}: B_loc·F·{w}·4"])
+        else:
+            out += [["all-to-all", m * s_ * 4, m, "model", "int32",
+                     f"int32 id request of the {what}: m·cap·4"],
+                    ["all-to-all", m * s_ * w * 4, m, "model", "float32",
+                     f"the {what} back: m·cap·{w}·4"],
+                    ["all-gather", m * s_ * w * 4, m, "model", "float32",
+                     f"the {what} gathered: m·S·{w}·4"],
+                    ["all-to-all", m * s_ * w * 4, m, "model", "float32",
+                     f"the {what}' cotangent: m·cap·{w}·4"]]
+    out.append(["all-reduce", 4, n_data, "data", "float32", "the weight sum: 4"])
+    if n_data > 1:
+        out.append(["all-reduce", param_bytes, n_data, "data", "float32",
+                    "the flat gradient: every parameter's bytes"])
+    out.append(["all-reduce", 8, n_data, "data", "float32", "the loss pair: 8"])
+    return out
+
+
+def _key(r) -> tuple:
+    return tuple(r[:5])
+
+
+def account_card_part(mesh, data, drive, launches_by_path) -> dict:
+    """Phase 27 (a): one recorded step of the CLI's sharded xDeepFM step
+    (psum, the CLI's default) and of DeepFM's at phase 23 (c)'s width and
+    batch on the card, each step's time by events. Returns the step times
+    and xDeepFM's parameter bytes."""
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.models.base import as_tensors
+    from ml_function_tpu_torch.parallel.train import create_sharded_state, make_sharded_train_step
+    from ml_function_tpu_torch.tools.timing import event_ms
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+    from ml_function_tpu_torch.utils.hlo_stats import collective_stats
+
+    fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
+    batch = as_tensors({k: data[k][:BATCH] for k in ("dense", "sparse", "label")}, "cuda")
+    out = {}
+    for name, hp in (("xdeepfm", XDFM_HP), ("deepfm", DEEPFM_HP)):
+        model = get_model(name, fs, device="cuda", generator=torch.Generator().manual_seed(0),
+                          **hp)
+        ts = create_sharded_state(model, make_optimizer("adam", 1e-3), mesh)
+        step = make_sharded_train_step(ts.model, ts.optimizer, mesh)
+        step(batch)
+        torch.cuda.synchronize()
+        path = f"accounted_{name}_step"
+        stats = drive(path, lambda: collective_stats(step, batch))
+        ms = event_ms(lambda: step(batch), **ACCOUNT_TIMING)
+        kinds = sorted({(i.op, i.group, i.group_size, i.dtype) for i in stats.instrs})
+        print(f"phase 27 (a) {name} sharded step on the card (NCCL, mesh {mesh.data}x"
+              f"{mesh.model}, B {BATCH}): {stats.total_count} collectives, counts "
+              f"{stats.counts}, bytes {stats.bytes}, total {stats.total_bytes} bytes; kinds "
+              f"(op, group, size, dtype) {kinds}; records {_records(stats)}; wire bytes "
+              f"{stats.wire_bytes()}; launches {launches_by_path[path]}; the step "
+              f"{ms:.4f} ms by CUDA events ({ACCOUNT_TIMING['reps']} samples of "
+              f"{ACCOUNT_TIMING['inner']} steps back to back, the batch on the card)")
+        want = expect(cin_fwd=2, cin_bwd=2) if name == "xdeepfm" else expect()
+        if (launches_by_path[path] != want or stats.wire_bytes() != 0.0 or not stats.instrs
+                or any(i.group_size != 1 for i in stats.instrs)):
+            fail(f"phase 27 (a): the recorded {name} step launched {launches_by_path[path]} "
+                 f"(expected {want}) or recorded {_records(stats)}")
+        out[name] = ms
+        if name == "xdeepfm":
+            out["param_bytes"] = sum(p.numel() * p.element_size()
+                                     for p in ts.model.parameters())
+        del model, ts, step
+    return out
+
+
+def call_floor_ms(mesh) -> float:
+    """Phase 27 (c): the median of ``FLOOR_CALLS`` 4-byte all-reduces over
+    the mesh's data group (one rank), each between two CUDA events."""
+    from ml_function_tpu_torch.parallel import comm
+
+    x = torch.ones(1, device="cuda")
+    times = []
+    for i in range(FLOOR_CALLS + 5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        comm.all_reduce_(x, mesh.data_group)
+        b.record()
+        b.synchronize()
+        if i >= 5:
+            times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def account_phase(mesh, data, io_dir, smi: str, drive, launches_by_path) -> None:
+    """Phase 27: (a) the card's recorded steps, (b) the CPU ranks' records
+    against their formulas, (c) the NCCL call floor, (d) the projection."""
+    from ml_function_tpu_torch.utils.hlo_stats import (CollectiveInstr, LinkModel,
+                                                       projected_efficiency)
+
+    t = time.perf_counter()
+    card = account_card_part(mesh, data, drive, launches_by_path)
+    with open(os.path.join(io_dir, "records.json")) as f:
+        ranks = json.load(f)
+    shapes = {"psum (1, 2)": ("psum", 1, CPU_RANKS), "a2a (1, 2)": ("a2a", 1, CPU_RANKS),
+              "psum (2, 1)": ("psum", CPU_RANKS, 1)}
+    if sorted(ranks) != sorted(shapes):
+        fail(f"phase 27 (b): the CPU ranks recorded {sorted(ranks)}")
+    for name, (kind, n_data, m) in shapes.items():
+        want = account_formulas(kind, CPU_RANK_BATCH // n_data, 26, 8, m, n_data,
+                                card["param_bytes"])
+        got = ranks[name]
+        same = sorted(map(_key, got)) == sorted(map(_key, want))
+        print(f"phase 27 (b) the CPU gloo ranks' {name} step (xDeepFM, B {CPU_RANK_BATCH}): "
+              f"{len(got)} collectives, the formulas' {len(want)}, each kind's bytes equal to "
+              f"its formula: {same}")
+        for r in want:
+            print(f"    {r[0]} over '{r[3]}' (size {r[2]}, {r[4]}): {r[1]} bytes = {r[5]}")
+        if not same:
+            fail(f"phase 27 (b): the {name} step recorded {sorted(map(_key, got))}, the "
+                 f"formulas give {sorted(map(_key, want))}")
+    floor = call_floor_ms(mesh)
+    print(f"phase 27 (c) the floor of one NCCL call on this card: a 4-byte all-reduce at "
+          f"world size 1, {floor:.4f} ms (the median of {FLOOR_CALLS}, CUDA events; {smi})")
+    link = LinkModel(latency_s=floor * 1e-3)
+    for name, (kind, n_data, m) in shapes.items():
+        # the formulas held in (b), at the card's batch
+        recs = account_formulas(kind, BATCH, 26, 8, m, n_data, card["param_bytes"])
+        wire = sum(CollectiveInstr(r[0], r[1], r[2]).wire_bytes() for r in recs)
+        eff = [projected_efficiency(card["xdeepfm"] * 1e-3, wire, len(recs), link,
+                                    overlap=o) for o in (0.0, 0.5)]
+        print(f"phase 27 (d) xDeepFM at 2 cards, {name}: {len(recs)} collectives, "
+              f"{wire:.0f} wire bytes a step at B {BATCH} a card, "
+              f"{1e3 * eff[0]['t_comm_s']:.4f} ms of "
+              f"communication on NVLink 4 at {link.gbps_per_direction:.0f} GB/s a direction "
+              f"(data sheet) and {floor:.4f} ms a call; the card's step "
+              f"{card['xdeepfm']:.4f} ms: projected efficiency {eff[0]['efficiency']:.4%} "
+              f"exposed, {eff[1]['efficiency']:.4%} at 50% overlap ({smi})")
+    print(f"phase 27 step times for tools/scaling_report: "
+          f"{json.dumps({k: card[k] for k in ('xdeepfm', 'deepfm')})}")
+    print(f"wall time of phase 27: {time.perf_counter() - t:.1f} s", flush=True)
+
+
+@contextlib.contextmanager
+def sharded_ranks():
+    """Phase 23's data and part (d)'s two CPU gloo ranks, started on entry
+    (they need nothing of the card, so they train beside whatever the card
+    runs meanwhile) and joined on exit, whatever fails, before their
+    directory goes. Yields (fs, data, tmp, io_dir, the ranks' future)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ml_function_tpu_torch.features.schema import criteo_feature_set
     from ml_function_tpu_torch.features.synthetic import make_criteo_like
-    from ml_function_tpu_torch.models import get_model
     from ml_function_tpu_torch.ops.kernels import _build
-    from ml_function_tpu_torch.parallel.launch import init_single
-    from ml_function_tpu_torch.parallel.mesh import make_mesh
 
     fs = criteo_feature_set([100_000] * 26, n_dense=13, embed_dim=8)
     _, data = make_criteo_like(n_rows=3 * BATCH + 1000, vocab_size=100_000, seed=0)
-    # the pool's exit joins the CPU ranks, whatever fails, before tmp goes
     with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp, ThreadPoolExecutor(1) as pool:
         io_dir, ranks = start_cpu_ranks(fs, data, tmp, pool)
+        yield fs, data, tmp, io_dir, ranks
+
+
+def sharded_phase(drive, launches_by_path, smi: str, started) -> None:
+    """Phase 23: row-sharded tables over torch.distributed at xDeepFM's full
+    width: (a) the collective lookups, (b) ShardedScorer, (c) the CLI with a
+    sharded checkpoint and a resume, (d) two CPU gloo ranks that split a
+    table (``started``: what ``sharded_ranks`` yields, entered before phase
+    22; they train beside the card's parts), restored on the card; then
+    phase 27 (``account_phase``) on the same group, with the ranks'
+    records."""
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.parallel.launch import init_single
+    from ml_function_tpu_torch.parallel.mesh import make_mesh
+
+    fs, data, tmp, io_dir, ranks = started
+    t = time.perf_counter()
+    init_single(tmp)
+    mesh = make_mesh(device="cuda")
+    print(f"process group: NCCL at world size 1, mesh {mesh}")
+    try:
+        model = get_model("xdeepfm", fs, device="cuda",
+                          generator=torch.Generator().manual_seed(0), **XDFM_HP)
+        gids = (torch.as_tensor(data["sparse"][:BATCH], device="cuda").long()
+                + torch.as_tensor(fs.sparse_offsets(), device="cuda")[None, :])
+        with torch.no_grad():
+            table = model.embedding.table.detach()
+        shard_lookup_part(table, gids, mesh, fs)
+        print(f"wall time of phase 23 (a): {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        init_single(tmp)
-        mesh = make_mesh(device="cuda")
-        print(f"process group: NCCL at world size 1, mesh {mesh}")
-        try:
-            model = get_model("xdeepfm", fs, device="cuda",
-                              generator=torch.Generator().manual_seed(0), **XDFM_HP)
-            gids = (torch.as_tensor(data["sparse"][:BATCH], device="cuda").long()
-                    + torch.as_tensor(fs.sparse_offsets(), device="cuda")[None, :])
-            with torch.no_grad():
-                table = model.embedding.table.detach()
-            shard_lookup_part(table, gids, mesh, fs)
-            print(f"wall time of phase 23 (a): {time.perf_counter() - t:.1f} s")
-            t = time.perf_counter()
-            shard_scorer_part(model, data, mesh, drive, launches_by_path)
-            del model
-            print(f"wall time of phase 23 (b): {time.perf_counter() - t:.1f} s")
-            t = time.perf_counter()
-            shard_cli_part(tmp, drive, launches_by_path)
-            print(f"wall time of phase 23 (c): {time.perf_counter() - t:.1f} s")
-            t = time.perf_counter()
-            shard_cpu_ranks_part(fs, data, io_dir, ranks, drive, launches_by_path)
-            print(f"wall time of phase 23 (d): {time.perf_counter() - t:.1f} s")
-        finally:
-            torch.distributed.destroy_process_group()
+        shard_scorer_part(model, data, mesh, drive, launches_by_path)
+        del model
+        print(f"wall time of phase 23 (b): {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        shard_cli_part(tmp, drive, launches_by_path)
+        print(f"wall time of phase 23 (c): {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        shard_cpu_ranks_part(fs, data, io_dir, ranks, drive, launches_by_path)
+        print(f"wall time of phase 23 (d): {time.perf_counter() - t:.1f} s")
+        account_phase(mesh, data, io_dir, smi, drive, launches_by_path)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 
@@ -4548,18 +5031,22 @@ CHAIN_PARITY_GROUPS = 4
 # hold the train logloss and AUC: CHAIN_DEFAULT_FITS unchained fits, then
 # the chained one, whose metrics must lie within CHAIN_DEFAULT_FACTOR times
 # the larger of the unchained fits' largest pair gap in this run and
-# CHAIN_PAIR_GAP, the largest such gap of a calibration run (6 unchained
-# fits a path, 15 pairs, on an H100; PERF.md, the chained train step): DIEN's
-# index_add_ moves its logloss by up to 4.3e-5 and its AUC by 1.4e-4;
-# xDeepFM's metrics moved by one f32 step (2^-24 at these values), and
-# AutoInt's, whose parameters moved by 2.8e-8 of a tensor's largest, are
-# given that step too; SIM's fits were bitwise alike, so its bar is bitwise
-# while its unchained fits agree. The parameters' gaps are printed beside
-# the metrics
+# CHAIN_PAIR_GAP, the largest gap between two fits of the same function
+# seen on an H100 (calibration runs of 6 unchained fits a path, 15 pairs,
+# and of 16 unchained and 16 chained fits a path, ``--chain-noise 16``;
+# PERF.md, the chained train step): DIEN's index_add_ moves its logloss by
+# up to 4.3e-5 and its AUC by 1.4e-4; xDeepFM's metrics moved by one f32
+# step (2^-24 at these values) in both calibrations, but its AUC by six
+# (3.576e-7) between a chained and an unchained fit in one run of this
+# script on another H100, whose parity fits had the same bits: its binned
+# AUC moves in steps when an example crosses a bin. AutoInt's, whose
+# parameters moved by 2.8e-8 of a tensor's largest, are given one step;
+# SIM's fits were bitwise alike, so its bar is bitwise while its unchained
+# fits agree. The parameters' gaps are printed beside the metrics
 F32_STEP = 2.0 ** -24      # one f32 step of a value in [0.5, 1)
 CHAIN_DEFAULT_FITS = 2
 CHAIN_DEFAULT_FACTOR = 4.0
-CHAIN_PAIR_GAP = {"xdeepfm": {"logloss": F32_STEP, "auc": F32_STEP},
+CHAIN_PAIR_GAP = {"xdeepfm": {"logloss": F32_STEP, "auc": 6 * F32_STEP},
                   "autoint": {"logloss": F32_STEP, "auc": F32_STEP},
                   "dien": {"logloss": 4.292e-5, "auc": 1.373e-4},
                   "sim_flash": {"logloss": 0.0, "auc": 0.0}}
@@ -4896,6 +5383,89 @@ def chained_phase(drive, launches_by_path, smi: str) -> None:
     print("chained fit rates: " + json.dumps(rates))
 
 
+def card_settings() -> None:
+    """f32 products without TF32; AutoInt's attention takes the
+    field-attention kernel only with the reference's opt-in switch, read at
+    call time."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["ML_FUNCTION_TPU_FIELD_ATTN"] = "1"
+
+
+def make_drive(launches_by_path: dict, instances_by_path: dict):
+    """``drive(path, fn)``: runs one main path with every kernel's count at
+    0 and keeps the counts it ends with (and the CIN and (AU)GRU instances
+    it launched) under ``path``."""
+    from ml_function_tpu_torch.ops.kernels import cin as cin_mod
+    from ml_function_tpu_torch.ops.kernels import embedding_grad as eg_mod
+    from ml_function_tpu_torch.ops.kernels import field_attention as fa_mod
+    from ml_function_tpu_torch.ops.kernels import flash_attention as fl_mod
+    from ml_function_tpu_torch.ops.kernels import gru as gru_mod
+
+    modules = {"cin_fwd": cin_mod, "cin_bwd": cin_mod, "field_attn_fwd": fa_mod,
+               "field_attn_bwd": fa_mod, "gru_fwd": gru_mod, "gru_bwd": gru_mod,
+               "merge_scatter": eg_mod, "flash_fwd": fl_mod, "flash_bwd_dq": fl_mod,
+               "flash_bwd_dkv": fl_mod}
+    counters = {name: (modules[name], f"{name}_launches") for name in KERNELS}
+
+    def drive(path, fn):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        cin_mod.instance_launches.clear()
+        gru_mod.instance_launches.clear()
+        out = fn()
+        launches_by_path[path] = {name: getattr(mod, attr)
+                                  for name, (mod, attr) in counters.items()}
+        instances_by_path[path] = {**cin_mod.instance_launches,
+                                   **gru_mod.instance_launches}
+        return out
+
+    return drive
+
+
+def chain_noise(n_fits: int) -> int:
+    """The calibration of CHAIN_PAIR_GAP, run as ``python3 chip_smoke.py
+    --chain-noise N``: on each chained path, N unchained and N chained rate
+    fits of phase 26 (the default mode, Adam 1e-3, from the same weights,
+    the two kinds taken in turn), and one JSON line a path with each fit's
+    train logloss and AUC and the largest gap between two unchained fits,
+    between two chained fits and between a chained and an unchained one."""
+    from ml_function_tpu_torch.ops.kernels import _build
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip()
+    print(smi)
+    card_settings()
+    _build.build_all()
+    launches_by_path = {}
+    drive = make_drive(launches_by_path, {})
+    for path in CHAINED_PATHS:
+        t = time.perf_counter()
+        model, data, b, route = chained_model(path)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        got = {"unchained": [], "chained": []}
+        for _ in range(n_fits):
+            for kind, spc in (("unchained", 1), ("chained", CHAIN_K)):
+                model.load_state_dict(init)
+                res, _, _ = chained_fit(path, f"noise_{kind}", model, data, b, route, drive,
+                                        launches_by_path, learning_rate=1e-3,
+                                        steps_per_call=spc)
+                got[kind].append({m: res.train_metrics[m] for m in ("logloss", "auc")})
+        gaps = {}
+        for m in ("logloss", "auc"):
+            u = [r[m] for r in got["unchained"]]
+            c = [r[m] for r in got["chained"]]
+            gaps[m] = {"unchained_pairs": max(abs(x - y) for x in u for y in u),
+                       "chained_pairs": max(abs(x - y) for x in c for y in c),
+                       "chained_to_unchained": max(abs(x - y) for x in c for y in u)}
+        print(json.dumps({"path": path, "fits": n_fits, "gaps": gaps, "metrics": got,
+                          "seconds": time.perf_counter() - t, "card": smi}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -4905,18 +5475,12 @@ def main() -> int:
     from ml_function_tpu_torch.ops import attention, interactions
     from ml_function_tpu_torch.ops.kernels import _build
     from ml_function_tpu_torch.ops.kernels import cin as cin_mod
-    from ml_function_tpu_torch.ops.kernels import embedding_grad as eg_mod
     from ml_function_tpu_torch.ops.kernels import field_attention as fa_mod
-    from ml_function_tpu_torch.ops.kernels import flash_attention as fl_mod
     from ml_function_tpu_torch.ops.kernels import gru as gru_mod
     from ml_function_tpu_torch.serving import export_model, load_scorer
     from ml_function_tpu_torch.tools.timing import event_ms
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # AutoInt's attention takes the field-attention kernel only with the
-    # reference's opt-in switch, read at call time
-    os.environ["ML_FUNCTION_TPU_FIELD_ATTN"] = "1"
+    card_settings()
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -4946,27 +5510,8 @@ def main() -> int:
     # 3. kernels against their plain versions
     kernels = [check_cin_kernel(cin_mod), check_cin_bwd_kernel(cin_mod),
                *check_field_attn_kernels(fa_mod)]
-    counters = {name: (mod, f"{name}_launches")
-                for mod, name in ((cin_mod, "cin_fwd"), (cin_mod, "cin_bwd"),
-                                  (fa_mod, "field_attn_fwd"),
-                                  (fa_mod, "field_attn_bwd"), (gru_mod, "gru_fwd"),
-                                  (gru_mod, "gru_bwd"), (eg_mod, "merge_scatter"),
-                                  (fl_mod, "flash_fwd"), (fl_mod, "flash_bwd_dq"),
-                                  (fl_mod, "flash_bwd_dkv"))}
     launches_by_path, instances_by_path = {}, {}
-
-    def drive(path, fn):
-        """Run one main path with every count at 0; returns its launches."""
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-        cin_mod.instance_launches.clear()
-        gru_mod.instance_launches.clear()
-        out = fn()
-        launches_by_path[path] = {name: getattr(mod, attr)
-                                  for name, (mod, attr) in counters.items()}
-        instances_by_path[path] = {**cin_mod.instance_launches,
-                                   **gru_mod.instance_launches}
-        return out
+    drive = make_drive(launches_by_path, instances_by_path)
 
     # the plain versions, forced in both directions (hooks of this script,
     # not options of the package)
@@ -5048,33 +5593,49 @@ def main() -> int:
     # 17. DIEN at kd 128: serving and training on the wide (AU)GRU instances
     dien_wide_phase(drive, launches_by_path, instances_by_path)
     lap("phases 15-17")
-    # 18. the interaction models and MMoE at the board's width, card against CPU
-    t = time.perf_counter()
-    interaction_phases(drive, launches_by_path, plain_fa)
-    print(f"interaction models: {time.perf_counter() - t:.1f} s")
-    lap("phase 18")
-    # 19. the sequence tier at the board's shapes, card against CPU, and
-    # DSIN, SeqFM and DMIN on K3 against its plain versions
-    t = time.perf_counter()
-    sequence_phases(drive, launches_by_path, plain_fa)
-    print(f"sequence tier: {time.perf_counter() - t:.1f} s")
-    lap("phase 19")
-    # 20. DSSM, DeepMCP and DICM (DICM's training also on K1), and the meta
-    # step over DeepFM
-    last_models_phase(drive, launches_by_path, kernels)
-    lap("phase 20")
-    # 21. the store: mixed widths, the sparse-row path, int8 scoring
-    store_phase(drive, launches_by_path)
-    lap("phase 21")
-    # 22. train from files and resume: xDeepFM from a Criteo TSV (CIN), DIEN
-    # from a behavior CSV ((AU)GRU, merge-scatter), checkpoints
-    file_phase(drive, launches_by_path)
-    lap("phase 22")
-    # 23. row-sharded tables over torch.distributed: the collective lookups,
-    # ShardedScorer, the CLI with a sharded checkpoint and a resume (CIN),
-    # and two CPU gloo ranks' sharded checkpoint restored on the card
-    sharded_phase(drive, launches_by_path)
-    lap("phase 23")
+    # 18.-21.: each model's CPU side in worker processes beside the card's
+    # part (cpu_checks); the block's end, after phase 22, waits for the last
+    # comparisons. Phase 23 (d)'s CPU ranks start before phase 22 and are
+    # joined after phase 27
+    with contextlib.ExitStack() as ranks_23:
+        with cpu_checks():
+            # 18. the interaction models and MMoE at the board's width, card
+            # against CPU
+            t = time.perf_counter()
+            interaction_phases(drive, launches_by_path, plain_fa)
+            print(f"interaction models: {time.perf_counter() - t:.1f} s")
+            lap("phase 18")
+            # 19. the sequence tier at the board's shapes, card against CPU,
+            # and DSIN, SeqFM and DMIN on K3 against its plain versions
+            t = time.perf_counter()
+            sequence_phases(drive, launches_by_path, plain_fa)
+            print(f"sequence tier: {time.perf_counter() - t:.1f} s")
+            lap("phase 19")
+            # 20. DSSM, DeepMCP and DICM (DICM's training also on K1), and
+            # the meta step over DeepFM
+            last_models_phase(drive, launches_by_path, kernels)
+            lap("phase 20")
+            # 21. the store: mixed widths, the sparse-row path, int8 scoring
+            store_phase(drive, launches_by_path)
+            lap("phase 21")
+            started_23 = ranks_23.enter_context(sharded_ranks())
+            # 22. train from files and resume: xDeepFM from a Criteo TSV
+            # (CIN), DIEN from a behavior CSV ((AU)GRU, merge-scatter),
+            # checkpoints, while the workers finish the last CPU sides
+            file_phase(drive, launches_by_path)
+            lap("phase 22")
+            t = time.perf_counter()
+        print(f"phases 18-21: the last CPU sides and comparisons after phase 22 took "
+              f"{time.perf_counter() - t:.1f} s")
+        lap("phases 18-21's last CPU sides")
+        # 23. row-sharded tables over torch.distributed: the collective
+        # lookups, ShardedScorer, the CLI with a sharded checkpoint and a
+        # resume (CIN), and two CPU gloo ranks' sharded checkpoint restored
+        # on the card, then
+        # 27. collective accounting of the sharded step, on phase 23's
+        # group and its CPU ranks' records: printed after phase 23's parts
+        sharded_phase(drive, launches_by_path, smi, started_23)
+    lap("phases 23 and 27")
     # 24. item 8b over NCCL at world size 1: the sequence-sharded search,
     # ring and dist attention, the pipeline on AutoInt (K3, 16 + 16 a step),
     # and two CPU gloo ranks that split SIM's stream and AutoInt's blocks,
@@ -5093,7 +5654,7 @@ def main() -> int:
     chained_phase(drive, launches_by_path, smi)
     lap("phase 26")
 
-    # 27. result lines: each kernel's launches are those of the newest path
+    # 28. result lines: each kernel's launches are those of the newest path
     # that runs it whose counts its wrapper made (phase 26's last unchained
     # rate fits; the chained fits' counts, which their replays added and the
     # profiler checked, ride along with every path's own),
@@ -5119,4 +5680,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--chain-noise"]:
+        sys.exit(chain_noise(int(sys.argv[2])))
     sys.exit(main())

@@ -27,9 +27,20 @@ collective in the reference:
   is the reverse permute of the cotangent (``lax.ppermute``'s transpose).
 
 ``all_max`` (``pmax``) takes no gradient, as the reference stops it.
+
+Every collective of the port goes through the primitives here
+(``all_reduce_``, ``all_min``, ``all_max``, ``all_gather_tensor``,
+``all_to_all``, ``_permute``, ``broadcast_objects``): no other module calls
+``torch.distributed``'s collectives. So while ``utils/hlo_stats.record_collectives`` is active each
+primitive records what it issues (its kind, the bytes of the dtype it sends,
+its group's size and kind); without a recorder it pays one check. A call
+with ``group=None`` issues nothing and records nothing.
 """
 
 from __future__ import annotations
+
+import pickle
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -40,6 +51,32 @@ import torch.distributed as dist
 _gather_into = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
+# the active recorders (``utils/hlo_stats.record_collectives``): each takes
+# (op, bytes, group size, group kind, dtype)
+RECORDERS: list = []
+# each mesh group's kind ('data' or 'model'), set by ``mesh.make_mesh``
+_KINDS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def name_group(group, kind: str) -> None:
+    """Mark ``group`` as a mesh axis's (``kind`` 'data' or 'model') for the
+    records; any other group records as 'other'."""
+    _KINDS[group] = kind
+
+
+def _record(op: str, x: torch.Tensor, group, nbytes=None) -> None:
+    """Hand each recorder what a collective of ``x`` (``nbytes``, by default
+    ``x``'s bytes) over ``group`` sends."""
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("collectives are not recorded under CUDA-graph capture")
+    if nbytes is None:
+        nbytes = x.numel() * x.element_size()
+    rec = (op, nbytes, group_size(group), _KINDS.get(group, "other"),
+           str(x.dtype).replace("torch.", ""))
+    for r in RECORDERS:
+        r(*rec)
+
+
 def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
@@ -48,11 +85,22 @@ def group_rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
+def _reduce_(x: torch.Tensor, group, op) -> torch.Tensor:
+    if group is not None:
+        if RECORDERS:
+            _record("all-reduce", x, group)
+        dist.all_reduce(x, op=op, group=group)
+    return x
+
+
 def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     """In-place sum over ``group`` (no gradient)."""
-    if group is not None:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
-    return x
+    return _reduce_(x, group, dist.ReduceOp.SUM)
+
+
+def all_min(x: torch.Tensor, group) -> torch.Tensor:
+    """In-place elementwise min over ``group`` (no gradient)."""
+    return _reduce_(x, group, dist.ReduceOp.MIN)
 
 
 def all_gather_tensor(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -63,6 +111,8 @@ def all_gather_tensor(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     n = group_size(group)
     x = x.contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    if RECORDERS:   # the gathered output, as HLO counts an all-gather
+        _record("all-gather", x, group, out.numel() * out.element_size())
     _gather_into(out, x, group=group)
     if dim == 0:
         return out
@@ -77,16 +127,15 @@ def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
         return x
     x = x.contiguous()
     out = torch.empty_like(x)
+    if RECORDERS:
+        _record("all-to-all", x, group)
     dist.all_to_all_single(out, x, group=group)
     return out
 
 
 def all_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max over ``group`` (no gradient)."""
-    out = x.detach().clone()
-    if group is not None:
-        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
-    return out
+    return _reduce_(x.detach().clone(), group, dist.ReduceOp.MAX)
 
 
 def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
@@ -96,6 +145,8 @@ def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     r = group_rank(group)
     x = x.contiguous()
     out = torch.empty_like(x)
+    if RECORDERS:
+        _record("collective-permute", x, group)
     # P2POp takes global ranks; NCCL and gloo both refuse a send to self,
     # which a shift of 0 mod n (handled above) would be
     ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (r + shift) % n), group),
@@ -103,6 +154,19 @@ def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+def broadcast_objects(objs: list, src: int = 0, group=None) -> list:
+    """``objs`` (picklable) from global rank ``src`` to every rank of
+    ``group`` (the world by default) in place; recorded as a 'broadcast' of
+    the pickled payload. Without a process group, the identity."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return objs
+    if RECORDERS:
+        _record("broadcast", torch.empty(0, dtype=torch.uint8), group or dist.group.WORLD,
+                len(pickle.dumps(objs)))
+    dist.broadcast_object_list(objs, src=src, group=group)
+    return objs
 
 
 def barrier(group=None) -> None:

@@ -34,6 +34,12 @@ over the rank's table block:
 ``compress='bf16'`` ships the exchanged rows (and their cotangents) in
 bfloat16; the ids stay integers. Under psum each row has one non-zero
 contributor, so that costs only the cast.
+
+The ids go over the wire as int32, as the reference's do (``jnp.int32``
+buffers), and come back to int64 only where an index needs it. So a table
+whose padded row count (the sentinel r·m) does not fit int32 is refused
+(``check_int32_rows``), where the reference's ``astype(jnp.int32)`` would
+wrap.
 """
 
 from __future__ import annotations
@@ -46,6 +52,17 @@ import torch
 from ..features.schema import FeatureSet
 from . import comm
 from .mesh import Mesh
+
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def check_int32_rows(padded_rows: int) -> None:
+    """Refuse a row-sharded table whose padded row count, the exchanges'
+    sentinel, does not fit the int32 ids they ship."""
+    if padded_rows > INT32_MAX:
+        raise ValueError(f"a sharded table of {padded_rows} padded rows does not fit the "
+                         f"int32 ids of the exchanges (at most {INT32_MAX})")
 
 
 def rows_per_shard(total_vocab: int, num_shards: int) -> int:
@@ -127,12 +144,13 @@ def _fetch(shard, mine, j: int, m: int, group, cap: int, compress):
     ``cap`` in their owner's bucket."""
     r, w = shard.shape
     sentinel = r * m
+    check_int32_rows(sentinel)
     order, s_ids, s_owner, pos, _ = _bucket(mine, r, m)
     live = (s_owner < m) & (pos < cap)
-    send = mine.new_full((m + 1, cap), sentinel)
+    send = torch.full((m + 1, cap), sentinel, dtype=torch.int32, device=mine.device)
     # duplicates write the same id to the same slot
-    send[s_owner[live], pos[live]] = s_ids[live]
-    req = comm.all_to_all(send[:m], group)                    # (m, cap)
+    send[s_owner[live], pos[live]] = s_ids[live].int()
+    req = comm.all_to_all(send[:m], group)                    # (m, cap), int32
     local = req - j * r
     ok = (local >= 0) & (local < r)
     safe = local.clamp(0, r - 1).reshape(-1)

@@ -83,7 +83,8 @@ def seq_sharded_soft_search(mesh: Mesh, fs: FeatureSet, long_fields: Sequence[st
     sel_mask = torch.gather(masks, 1, loc_i)
     group = mesh.model_group
     cat_s = comm.all_gather_tensor(loc_s, group, dim=1)
-    cat_i = comm.all_gather_tensor(gidx, group, dim=1)
+    # positions ship as int32, as the reference's (L is far below 2^31)
+    cat_i = comm.all_gather_tensor(gidx.int(), group, dim=1).long()
     cat_m = comm.all_gather_tensor(sel_mask, group, dim=1)
     # the key (−score, position): sort by position, then stably by score
     by_pos = torch.argsort(cat_i, dim=1, stable=True)

@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from .._device import DeviceLike, resolve_device
+from . import comm
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -121,4 +122,6 @@ def make_mesh(data: Optional[int] = None, model: int = 1,
         g = dist.new_group([ranks[row * model + col] for row in range(data)])
         if col == j:
             data_group = g
+    comm.name_group(model_group, MODEL_AXIS)
+    comm.name_group(data_group, DATA_AXIS)
     return Mesh(data, model, (i, j), ranks, data_group, model_group, dev)

@@ -25,9 +25,11 @@ A step:
      pairs of its model column over the data group, dedups the whole N and
      masks to the rows it owns.
 
-   Either way the row optimizer updates the rows this block owns (the
-   other slots clip to a row of the block with exact-zero deltas), and its
-   moments live beside their rows.
+   Either way the ids ship as int32, as the reference's (a table past
+   int32's rows is refused, ``embedding.check_int32_rows``), and the row
+   optimizer updates the rows this block owns (the other slots clip to a
+   row of the block with exact-zero deltas); its moments live beside their
+   rows.
 
 All vocab-row tables take this path: the fused column groups and the
 auxiliary tables (FFM's ``ffm``, OENN's ``order{k}``), row-sharded like the
@@ -47,7 +49,7 @@ from ..train.sparse import (SparseTrainState, dedup_sum, row_table_groups,
                             sparse_dense_tree, sparse_step_core)
 from . import comm
 from .context import sharded_embeddings
-from .embedding import ShardedLookup, _bucket, _wire
+from .embedding import ShardedLookup, _bucket, _wire, check_int32_rows
 from .mesh import Mesh
 from .train import (_is_expert_name, _is_table_name, global_loss, shard_model_,
                     sync_grads)
@@ -100,7 +102,8 @@ def _owned(table, sid, g, is_end, j):
 def row_update_allgather(row_opt, table, state, gids, grads, mesh: Mesh) -> None:
     """Every (id, row) pair of the model column gathered over the data
     group, deduped, masked to this block's rows, applied in place."""
-    ids_all = comm.all_gather_tensor(gids, mesh.data_group)
+    check_int32_rows(table.shape[0] * mesh.model)
+    ids_all = comm.all_gather_tensor(gids.int(), mesh.data_group).long()
     g_all = comm.all_gather_tensor(grads, mesh.data_group)
     sid, g, is_end = dedup_sum(ids_all, g_all)
     row_opt.apply_rows(table, state, *_owned(table, sid, g, is_end, mesh.model_index))
@@ -114,6 +117,7 @@ def row_update_a2a(row_opt, table, state, gids, grads, mesh: Mesh,
     n = gids.shape[0]
     s = -(-n // m)
     sentinel = r * m
+    check_int32_rows(sentinel)
     ids_p = torch.cat([gids, gids.new_full((s * m - n,), sentinel)])
     g_p = torch.cat([grads, grads.new_zeros((s * m - n, w))])
     mine, mine_g = ids_p[j * s:(j + 1) * s], g_p[j * s:(j + 1) * s]
@@ -121,14 +125,14 @@ def row_update_a2a(row_opt, table, state, gids, grads, mesh: Mesh,
     s_g = mine_g[order]
     cap = capacity or s
     live = (s_owner < m) & (pos < cap)
-    send_ids = gids.new_full((m + 1, cap), sentinel)
-    send_ids[s_owner[live], pos[live]] = s_ids[live]
+    send_ids = torch.full((m + 1, cap), sentinel, dtype=torch.int32, device=gids.device)
+    send_ids[s_owner[live], pos[live]] = s_ids[live].int()
     send_g = grads.new_zeros((m + 1, cap, w))
     # duplicates add into their unique id's slot: the dedup-sum before the wire
     send_g.index_put_((s_owner[live], pos[live]), s_g[live], accumulate=True)
     recv_ids = comm.all_to_all(send_ids[:m], mesh.model_group)
     recv_g = comm.all_to_all(_wire(send_g[:m], compress), mesh.model_group)
-    all_ids = comm.all_gather_tensor(recv_ids.reshape(-1), mesh.data_group)
+    all_ids = comm.all_gather_tensor(recv_ids.reshape(-1), mesh.data_group).long()
     all_g = comm.all_gather_tensor(recv_g.reshape(-1, w), mesh.data_group).to(grads.dtype)
     sid, g, is_end = dedup_sum(all_ids, all_g)
     row_opt.apply_rows(table, state, *_owned(table, sid, g, is_end, j))

@@ -8,6 +8,10 @@ step <device> ms (CUDA events, ...)``. This pairs the two logs' lines by
 name, batch and description and prints both times of each and their
 ratios (after over before), then the median ratio of each clock. Compare
 two logs of one call: host-clock times move up to 2x between calls.
+``chip_smoke.py`` takes every such line with none of its CPU-side processes
+running (``quiet_host``); a log whose phases 18 to 22 took theirs beside
+its CPU-side workers reads slower there with no change of code, and pairs
+with no other log.
 """
 
 from __future__ import annotations

@@ -70,7 +70,6 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed
 
 from ..bridge import flat_params, params_from_numpy, state_buffers
 from ..utils.logging import logger
@@ -419,7 +418,7 @@ def _restore_latest_consensus(ckpt_dir: str, ts_template):
                     os.replace(path, path + ".corrupt")
                 except OSError:
                     pass
-    torch.distributed.broadcast_object_list(sel, src=0)
+    comm.broadcast_objects(sel, src=0)
     if sel[0] < 0:
         return None, {}, ""
     path = os.path.join(ckpt_dir, f"ckpt_{sel[0]:010d}")

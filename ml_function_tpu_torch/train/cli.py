@@ -117,8 +117,7 @@ def _all_have(has: bool, mesh) -> bool:
     if not (dist.is_available() and dist.is_initialized()):
         return has
     flag = torch.tensor([1 if has else 0], device=mesh.device)
-    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
-    return bool(flag.item())
+    return bool(comm.all_min(flag, dist.group.WORLD).item())
 
 
 def _log(msg: str) -> None:

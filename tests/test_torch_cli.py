@@ -7,7 +7,8 @@ group as their tables cross the model group.
 Each run starts from the JAX CLI's initial parameters, bridged (the test
 wraps both packages' ``create_sharded_state`` and
 ``create_sparse_sharded_state``), on the same data (``build_data`` bit for
-bit), and is held to the JAX CLI's run on the same arguments: the same
+bit), and is held to the JAX CLI's run on the same arguments (each test's
+JAX runs in a child process of its own, ``jax_runs``): the same
 number of steps and of eval rows, and the eval AUC and logloss within 2e-3
 (the JAX package's bar for a sharded run against a single-device one: the
 two meshes sum the global batch's gradients in another order, and here the
@@ -21,13 +22,14 @@ sequence-sharded search or the pipeline flag, to the same run without it.
 import json
 import os
 import pickle
+import signal
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-import jax
-import ml_function_tpu.parallel.sparse as jsparse
 import torch_parallel_worker as worker
 from ml_function_tpu.train import cli as jcli
 from ml_function_tpu.train.config import Config as JConfig
@@ -78,30 +80,44 @@ def _f32():
         os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = old
 
 
-def _np(tree):
-    return jax.tree_util.tree_map(np.asarray, tree)
+CHILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jax_cli_child.py")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def jax_run(argv):
-    """The JAX CLI's result on ``argv`` and its initial ``(params,
-    model_state)`` as numpy (padded for its model axis)."""
-    seen = {}
+def jax_runs(argvs, io_dir):
+    """The JAX CLI's runs on each of ``argvs`` (its result and its initial
+    ``(params, model_state)`` as numpy), all in one child process
+    (``jax_cli_child.py``, under ``python -X faulthandler``), set up as
+    ``tests/conftest.py`` sets this one up. XLA's CPU runtime can abort a
+    process in the jitted step (``ROADMAP.md`` D6); in a child that takes
+    down the child alone, and the failure carries its exit signal and its
+    stderr. No retry."""
+    src, dst = os.path.join(io_dir, "jax_in.pkl"), os.path.join(io_dir, "jax_out.pkl")
+    with open(src, "wb") as f:
+        pickle.dump(list(argvs), f)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    # XLA's CPU collectives end the process when a device's thread waits 40 s
+    # in a rendezvous ("Termination timeout for `all reduce ...` of 40 seconds
+    # exceeded"), which a child starved by the other test workers met; the
+    # guard against a hang stays, at 180 s
+    env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
+                        + " --xla_cpu_collective_call_terminate_timeout_seconds=180").strip()
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [q for q in env.get("PYTHONPATH", "").split(os.pathsep) if q])
+    out = subprocess.run([sys.executable, "-X", "faulthandler", CHILD, src, dst], env=env,
+                         cwd=REPO, capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        how = (f"signal {signal.Signals(-out.returncode).name}" if out.returncode < 0
+               else f"exit code {out.returncode}")
+        pytest.fail(f"the JAX CLI's child process ended with {how}; its stderr:\n"
+                    f"{out.stderr[-20000:]}", pytrace=False)
+    with open(dst, "rb") as f:
+        return pickle.load(f)
 
-    def capture(make):
-        def wrapped(*args, **kw):
-            ts = make(*args, **kw)
-            seen["init"] = (_np(ts.params), _np(ts.model_state))
-            return ts
-        return wrapped
 
-    real = jcli.create_sharded_state, jsparse.create_sparse_sharded_state
-    jcli.create_sharded_state = capture(real[0])
-    jsparse.create_sparse_sharded_state = capture(real[1])
-    try:
-        res = jcli.main(argv)
-    finally:
-        jcli.create_sharded_state, jsparse.create_sparse_sharded_state = real
-    return res, seen["init"]
+def jax_run(argv, io_dir):
+    """The JAX CLI's run on ``argv`` alone (``jax_runs``)."""
+    return jax_runs([argv], io_dir)[0]
 
 
 def port_run(argv, init, monkeypatch):
@@ -138,8 +154,8 @@ def ranks(tmp_path_factory):
     """The four ranks' runs, and the JAX CLI's on the same arguments."""
     io_dir = str(tmp_path_factory.mktemp("cli"))
     ck = os.path.join(io_dir, "ck")
-    want = {"sparse_row": jax_run(SPARSE_ROW), "auto_capacity": jax_run(AUTO_CAPACITY),
-            "uninterrupted": jax_run(FM_TWO_EPOCHS)}
+    want = dict(zip(("sparse_row", "auto_capacity", "uninterrupted"),
+                    jax_runs([SPARSE_ROW, AUTO_CAPACITY, FM_TWO_EPOCHS], io_dir)))
     fm_init = want["uninterrupted"][1]
     cpu = ["--device=cpu"]
     runs = [("sparse_row", SPARSE_ROW + cpu, want["sparse_row"][1]),
@@ -171,8 +187,8 @@ def test_cli_builds_the_reference_data():
     _same_tree(data, jdata)
 
 
-def test_cli_synthetic_train_eval(monkeypatch):
-    want, init = jax_run(SYNTH)
+def test_cli_synthetic_train_eval(tmp_path, monkeypatch):
+    want, init = jax_run(SYNTH, str(tmp_path))
     res = port_run(SYNTH, init, monkeypatch)
     assert_matches_jax(res, want)
     assert np.isfinite(res["train"]["logloss"])
@@ -200,7 +216,7 @@ def test_cli_stream_source(tmp_path, monkeypatch):
             f"--config.data.eval_path={eval_p}", "--config.data.n_dense=3",
             "--config.data.n_sparse=4", "--config.data.hash_buckets=256",
             "--config.train.batch_size=64", "--config.train.log_every=0"]
-    want, init = jax_run(argv)
+    want, init = jax_run(argv, str(tmp_path))
     res = port_run(argv, init, monkeypatch)
     assert res["steps"] == 600 // 64
     assert res["eval"]["count"] == 128

@@ -376,21 +376,27 @@ def attention_case(case, mesh):
             "dv": comm.all_reduce_(v.grad.clone(), mesh.model_group).numpy()}
 
 
+def search_inputs(case, mesh):
+    """A search case's feature set, and this rank's table block, long
+    stream rows and candidate rows."""
+    fs = sim_feature_set(**case["data_kw"])
+    table = torch.tensor(case["table"])
+    b = len(case["ids"]) // mesh.data
+    rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+    r = rows_per_shard(table.shape[0], mesh.model)
+    block = pad_table_for_shards(table, mesh.model)[mesh.model_index * r:
+                                                    (mesh.model_index + 1) * r]
+    return fs, block, torch.tensor(case["ids"][rows]), torch.tensor(case["cand"][rows])
+
+
 def search_case(case, mesh):
     """The sequence-sharded soft search on this rank's rows, and the
     unsharded soft search's choice (the whole table, ``top_k_indices``) on
     the same rows."""
     from ml_function_tpu_torch.models.longseq import top_k_indices
     from ml_function_tpu_torch.parallel.longseq import seq_sharded_soft_search
-    fs = sim_feature_set(**case["data_kw"])
+    fs, block, ids, cand = search_inputs(case, mesh)
     table = torch.tensor(case["table"])
-    b = len(case["ids"]) // mesh.data
-    rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
-    ids = torch.tensor(case["ids"][rows])
-    cand = torch.tensor(case["cand"][rows])
-    r = rows_per_shard(table.shape[0], mesh.model)
-    block = pad_table_for_shards(table, mesh.model)[mesh.model_index * r:
-                                                    (mesh.model_index + 1) * r]
     top, red = seq_sharded_soft_search(mesh, fs, ("hist_long",), case["k"], block,
                                        {"hist_long": ids}, cand,
                                        capacity=case.get("capacity"))
@@ -466,3 +472,41 @@ def gpipe_cases(rank, io_dir):
         out[kind] = {name: fn(case, meshes[case["mesh"]])
                      for name, case in inputs[kind].items()}
     save_results(io_dir, rank, out)
+
+
+def recorded_step(case, mesh):
+    """One DeepFM step of ``case`` (the exchange, the row optimizer and its
+    gradient exchange) on this rank under the collective recorder
+    (``tools/scaling_report.record_step`` at ``tests/test_hlo_stats.py``'s
+    shapes): its records as (op, bytes, group size, group kind, dtype)
+    tuples, and the sizes of the parameters whose gradients the step sums
+    over the data group."""
+    from ml_function_tpu_torch.features.schema import criteo_feature_set
+    from ml_function_tpu_torch.tools.scaling_report import record_step
+
+    fs = criteo_feature_set([50] * 4, n_dense=2, embed_dim=4)
+    row = record_step({"model": "deepfm", **case}, mesh, case["batch"] // mesh.data, fs,
+                      {"hidden": (8,)})
+    return {"instrs": [tuple(r) for r in row["records"]],
+            "synced_numels": row["synced_numels"]}
+
+
+def recorded_search(case, mesh):
+    """The sequence-sharded soft search of ``search_case`` under the
+    collective recorder: its records as ``recorded_step``'s."""
+    from ml_function_tpu_torch.parallel.longseq import seq_sharded_soft_search
+    from ml_function_tpu_torch.utils.hlo_stats import collective_stats
+
+    fs, block, ids, cand = search_inputs(case, mesh)
+    stats = collective_stats(seq_sharded_soft_search, mesh, fs, ("hist_long",), case["k"],
+                             block, {"hist_long": ids}, cand)
+    return {"instrs": [(i.op, i.bytes, i.group_size, i.group, i.dtype)
+                       for i in stats.instrs]}
+
+
+def hlo_stats_cases(rank, io_dir):
+    inputs = load_inputs(io_dir)
+    mesh = make_mesh(*inputs["mesh"], device="cpu")
+    save_results(io_dir, rank, {name: (recorded_search if name == "seq_search" else
+                                       recorded_step)(case, mesh)
+                                for name, case in inputs["cases"].items()})
