@@ -346,11 +346,10 @@ import time
 import numpy as np
 import torch
 
+from ml_function_tpu_torch.tools.timing import (PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_F32_FLOPS,
+                                                PEAK_TF32_FLOPS)
+
 BATCH = 4096
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12     # H100 SXM f32 rate outside the tensor cores
-PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
-PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate
 SPLIT_TF32_PASSES = 3      # hi·hi + hi·lo + lo·hi: an f32-accurate product
 # exponentials a second: 132 SMs × 16 a clock an SM on the SFU (CUDA C
 # Programming Guide, arithmetic instruction throughput, compute capability
@@ -362,12 +361,14 @@ KERNELS = ("cin_fwd", "cin_bwd", "field_attn_fwd", "field_attn_bwd", "gru_fwd",
 # AutoInt's attention at Criteo width: 26 fields + the dense pseudo-field,
 # 2 heads of 16; then the gate's two edges (lq·lk = 4096, Dh 64; Lk 4096)
 FA_MAIN = (BATCH, 27, 27, 2, 16)
-# the gate's two edges (the block instances), then the warp instance's
-# 4-byte copies at AutoInt's L with a ragged B, SIM's top-8 ESU, and the
-# L-64 instances with Lq ≠ Lk and a B not a multiple of their 2 batch rows
-# a block
+# AutoInt at the AutoInt paper's 2 heads of 32 (phase 7b; the wide instances)
+FA_WIDE = (BATCH, 27, 27, 2, 32)
+# the gate's two edges (Dh 64 on the wide instances, Lk 4096 on the block
+# ones), then the warp instance's 4-byte copies at AutoInt's L with a
+# ragged B, SIM's top-8 ESU, the L-64 instances with Lq ≠ Lk and a B not a
+# multiple of their 2 batch rows a block, and H past 8 (the wide instances)
 FA_EDGES = ((512, 64, 64, 2, 64), (300, 1, 4096, 2, 8), (1001, 27, 27, 2, 13),
-            (129, 8, 8, 2, 4), (1001, 64, 48, 2, 8))
+            (129, 8, 8, 2, 4), (1001, 64, 48, 2, 8), (1001, 12, 12, 10, 8))
 # the sequence tier's attention under the flag (phase 19): DSIN's sessions at
 # the board's row (B 2048 · 8 sessions of 8, 2 heads of 8; the warp
 # instances) and DMIN's refiner at L 64 (exactly 4096 scores; the L-64
@@ -488,6 +489,126 @@ def _entry(name: str, replaces: str, shapes: list, calls: str) -> dict:
         "per": f"the {len(main)} calls of one pass of the main path",
         "library_calls": calls, "per_shape": shapes,
     }
+
+
+# AutoInt at the AutoInt paper's attention width (Song et al., CIKM 2019,
+# §5.1: 3 interacting layers of 2 heads of d' = 32): at the Criteo width
+# each layer's attention is (B, 27, 27, 2, 32), past the warp instances'
+# Dh 16, on the wide instances
+AUTOINT_WIDE_HP = {"n_layers": 3, "num_heads": 2, "head_dim": 32}
+
+
+def _logit_rule(label: str, scores, ref, flipped) -> None:
+    """The bf16 path's bar (PERF.md §2, the sequence tier's): each logit
+    within one bf16 step (2^-8) of the largest |logit|, but for at most 1%
+    of rows, each of whose tower input rounds to another bf16 value on the
+    two routes (``flipped``)."""
+    lg, ref_lg = (np.log(p.astype(np.float64)) - np.log1p(-p.astype(np.float64))
+                  for p in (scores, ref))
+    gaps = np.abs(lg - ref_lg) / np.abs(ref_lg).max()
+    past = gaps > BF16_PATH_RTOL
+    print(f"{label}: max |logit diff|/max|logit| {gaps.max():.3e} (rows past 2^-8 "
+          f"{int(past.sum())}, rows past 0 {int((gaps > 0).sum())}); rows whose tower "
+          f"input rounds to another bf16 value {int(flipped.sum())} of {len(scores)}")
+    if (past & ~flipped).any() or past.sum() > max(1, len(scores) // 100):
+        fail(f"{label}: {int(past.sum())} logits past one bf16 step of their max, "
+             f"{int((past & ~flipped).sum())} of them with the same tower input")
+
+
+def autoint_wide_phase(drive, launches_by_path, instances_by_path, plain_fa, fs,
+                       data) -> None:
+    """AutoInt (``AUTOINT_WIDE_HP``) at the Criteo width, B 4096, under the
+    flag, on random weights from seed 0. Serving: ``export_model`` →
+    ``load_scorer`` → ``predict_proba`` on ``data``'s rows on both matmul
+    paths against the same scorer on K3's plain versions: with f32 matmuls
+    the scores within 1e-4; on the bf16 path ``_logit_rule`` (the tower
+    input: ``head``'s, rounded to bf16); 3 ``field_attn_fwd_wide`` a batch.
+    Training: ``CPU_CHECK_STEPS`` Adam steps on both paths against the
+    plain route (``parity_steps``: losses within 1e-3, step-1 gradients at
+    1e-3·max|g| with f32 matmuls and ``BF16_PATH_RTOL`` on the bf16 path),
+    3 + 3 wide launches a step. Then where the time goes: a forward and a
+    train step under the profiler, K3's share of the busy time."""
+    from ml_function_tpu_torch.models import get_model
+    from ml_function_tpu_torch.models.base import as_tensors
+    from ml_function_tpu_torch.ops.kernels import _build
+    from ml_function_tpu_torch.serving import export_model, load_scorer
+    from ml_function_tpu_torch.tools.timing import event_ms, profile_device
+    from ml_function_tpu_torch.train.loop import iter_batches, make_train_step
+    from ml_function_tpu_torch.train.optimizers import make_optimizer
+
+    model = get_model("autoint", fs, generator=torch.Generator().manual_seed(0),
+                      **AUTOINT_WIDE_HP)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD) as tmp:
+        export_model(tmp, "autoint", fs, model, hyperparams=AUTOINT_WIDE_HP)
+        scorer = load_scorer(tmp, batch_size=BATCH)
+    n_rows = len(data["label"])
+    n_batches = -(-n_rows // BATCH)
+    for f32 in ("1", "0"):
+        os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
+        path = "autoint_wide_serving" + ("_f32" if f32 == "1" else "")
+        taps = []
+        hook = scorer.model.head.register_forward_hook(
+            lambda mod, inp, out: taps.append(inp[0].detach().bfloat16()))
+        scores = drive(path, lambda: scorer.predict_proba(data))
+        with plain_fa():
+            ref = scorer.predict_proba(data)
+        hook.remove()
+        print(f"{path}: {n_rows} rows in {n_batches} batches of {BATCH}, launches "
+              f"{launches_by_path[path]}, by instance {instances_by_path[path]}")
+        if launches_by_path[path] != expect(field_attn_fwd=3 * n_batches) \
+                or instances_by_path[path] != {"field_attn_fwd_wide": 3 * n_batches}:
+            fail(f"{path}: expected 3 field_attn_fwd_wide launches a batch")
+        if scores.shape != (n_rows,) or not np.isfinite(scores).all() \
+                or not ((scores > 0) & (scores < 1)).all():
+            fail(f"{path}: scores are not finite probabilities")
+        diff = float(np.abs(scores - ref).max())
+        print(f"{path} vs the plain version: max |score diff| {diff:.3e}")
+        if f32 == "1":
+            if diff > 1e-4:
+                fail(f"{path}: scores differ from the plain version's by {diff}")
+        else:
+            # the scorer pads the last batch to B: the taps' rows past
+            # n_rows are padding
+            kernel_taps = torch.cat(taps[:n_batches])[:n_rows]
+            plain_taps = torch.cat(taps[n_batches:])[:n_rows]
+            flipped = (kernel_taps != plain_taps).reshape(n_rows, -1).any(dim=1).cpu().numpy()
+            _logit_rule(path, scores, ref, flipped)
+    os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+    batch = score_rates("autoint_wide_serving", scorer, data, "kernel", (5, 2))
+    del scorer
+
+    batches = list(iter_batches(_rows(data, CPU_CHECK_STEPS * BATCH), BATCH))
+    per_step = {"field_attn_fwd": 3, "field_attn_bwd": 3}
+    for f32 in ("1", "0"):
+        os.environ["ML_FUNCTION_TPU_F32_MATMUL"] = f32
+        mode = "f32 matmuls" if f32 == "1" else "bf16 matmul inputs"
+        path = "autoint_wide_training_parity" + ("_f32" if f32 == "1" else "")
+        parity_steps(f"autoint_wide ({mode})", model, batches, plain_fa, drive,
+                     launches_by_path, path, per_step,
+                     grad_rtol=RTOL if f32 == "1" else BF16_PATH_RTOL)
+        want = {"field_attn_fwd_wide": 3 * len(batches),
+                "field_attn_bwd_wide": 3 * len(batches)}
+        if instances_by_path[path] != want:
+            fail(f"{path} launched {instances_by_path[path]}, not {want}")
+    os.environ.pop("ML_FUNCTION_TPU_F32_MATMUL")
+
+    # where the time goes: a forward and a train step at B 4096 on the card
+    step = make_train_step(model, make_optimizer("adam", 1e-3).init(model))
+    on_card = as_tensors(batches[0], torch.device("cuda"))
+    with quiet_host():
+        with torch.inference_mode():
+            fwd_ms = event_ms(lambda: model(batch), reps=5, inner=2)
+            fwd = profile_device(lambda: model(batch), 3)
+        step_ms = event_ms(lambda: step(on_card), reps=5, inner=2)
+        trained = profile_device(lambda: step(on_card), 3)
+    for what, ms, (by_kernel, busy, window) in (("forward", fwd_ms, fwd),
+                                                ("train step", step_ms, trained)):
+        k3 = sum(v for k, v in by_kernel.items() if "field_attn" in k)
+        top = ", ".join(f"{k[:56]} {v:.4f}" for k, v in list(by_kernel.items())[:6])
+        print(f"autoint_wide {what} at B={BATCH}: {ms:.4f} ms by events (median of 5 "
+              f"samples of 2); profiled: busy {busy:.4f} ms of a {window:.4f} ms window "
+              f"({100 * busy / window:.1f}% busy), K3 {k3:.4f} ms "
+              f"({100 * k3 / busy:.1f}% of busy); most: {top} ms")
 
 
 def check_cin_kernel(cin_mod) -> dict:
@@ -614,58 +735,30 @@ def check_cin_bwd_kernel(cin_mod) -> dict:
     return entry
 
 
-def fa_bound(b: int, lq: int, lk: int, h: int, dh: int, backward: bool = False):
-    """Least time of one field-attention call on the card: f32 products over
-    the f32 CUDA-core rate against each input read and each output written
-    once. Forward: 4·B·H·Lq·Lk·Dh flops; q, k, v, bias in, o out. Backward:
-    10·B·H·Lq·Lk·Dh (the weights recomputed, dA, dV, dQ, dK); q, k, v, bias,
-    dO in, dQ, dK, dV out."""
-    n_q, n_k = b * lq * h * dh, b * lk * h * dh
-    if backward:
-        flops = 10 * b * h * lq * lk * dh
-        nbytes = 4 * (2 * n_q + 2 * n_k + b * lk + n_q + 2 * n_k)
-    else:
-        flops = 4 * b * h * lq * lk * dh
-        nbytes = 4 * (n_q + 2 * n_k + b * lk + n_q)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
-
-
-def _fa_inputs(gen, b, lq, lk, h, dh, masked):
-    """q, k, v, dO from the generator; with ``masked``, a random key mask
-    that keeps key 0, and batch row 1 with every key masked."""
-    q, do = (torch.randn(b, lq, h, dh, device="cuda", generator=gen) for _ in range(2))
-    k, v = (torch.randn(b, lk, h, dh, device="cuda", generator=gen) for _ in range(2))
-    bias = torch.zeros(b, lk, device="cuda")
-    if masked:
-        mask = torch.rand(b, lk, device="cuda", generator=gen) > 0.3
-        mask[:, 0] = True
-        mask[1] = False
-        bias = torch.where(mask, 0.0, -1e9)
-    return q, k, v, bias, do, 1.0 / dh ** 0.5
-
-
 def check_field_attn_kernels(fa_mod) -> list:
     """field_attention and field_attention_backward against their plain
     versions at AutoInt's shape, the gate's edges and the sequence tier's
     shapes, with times, and whether the forward has the plain version's
     bits (it must at DMIN's shape, ``FA_SEQ[1]``). Where the wrapper picks
     another instance than the block one, the block instance is held and
-    timed beside it (the backward's beside the L-64 instance). The library
+    timed beside it (the backward's beside the L-64 and wide instances),
+    on the device too at the paths' shapes and the wide ones'. The library
     yardstick is ``scaled_dot_product_attention`` in f32 with the bias as
     its mask: its forward, and its forward plus backward through
     ``torch.autograd.grad`` less the forward."""
     import torch.nn.functional as F
 
+    from ml_function_tpu_torch.tools.field_attn_instances import bound_ms, inputs
     from ml_function_tpu_torch.tools.timing import event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     fwd_shapes, bwd_shapes = [], []
-    for shape in (FA_MAIN,) + FA_EDGES + FA_SEQ:
+    for shape in (FA_MAIN, FA_WIDE) + FA_EDGES + FA_SEQ:
         b, lq, lk, h, dh = shape
         masked = shape in FA_EDGES
-        timed = not masked     # the paths' shapes: on the device too
-        q, k, v, bias, do, scale = _fa_inputs(gen, b, lq, lk, h, dh, masked)
+        q, k, v, bias, do, scale = inputs(gen, b, lq, lk, h, dh, masked)
+        wide = fa_mod.forward_instance(q, k, v, bias).endswith("_wide")
+        timed = not masked or wide    # the paths' and the wide shapes: on the device too
         got = fa_mod.field_attention(q, k, v, bias, scale)
         grads = fa_mod.field_attention_backward(q, k, v, bias, do, scale)
         torch.cuda.synchronize()
@@ -708,10 +801,11 @@ def check_field_attn_kernels(fa_mod) -> list:
                 block["device_ms"] = launch_ms(lambda: fa_mod.field_attention_forward(
                     q, k, v, bias, scale, instance="field_attn_fwd"))
 
-        # the backward's block instance where the wrapper picks the L-64 one
+        # the backward's block instance where the wrapper picks the L-64 or
+        # the wide one
         bwd_instance = fa_mod.backward_instance(q, k, v, bias)
         bwd_block = None
-        if bwd_instance.endswith("_l64"):
+        if bwd_instance.endswith(("_l64", "_wide")):
             block_g = fa_mod.field_attention_backward(q, k, v, bias, do, scale,
                                                       instance="field_attn_bwd")
             torch.cuda.synchronize()
@@ -738,7 +832,7 @@ def check_field_attn_kernels(fa_mod) -> list:
                                 **KERNEL_RATES_DEPTH)
         common = {"shape": {"B": b, "Lq": lq, "Lk": lk, "H": h, "Dh": dh},
                   "masked": masked}
-        fb, fby = fa_bound(b, lq, lk, h, dh)
+        fb, fby = bound_ms(b, lq, lk, h, dh)
         fwd_shapes.append({
             **common, "instance": instance, "max_abs_err": err, "atol": atol,
             "plain_bits": plain_bits,
@@ -752,7 +846,7 @@ def check_field_attn_kernels(fa_mod) -> list:
                 **KERNEL_RATES_DEPTH),
             "library_ms": sdpa_fwd_ms, "library_max_abs_diff": sdpa_err,
             "bound_ms": fb, "bound_by": fby})
-        bb, bby = fa_bound(b, lq, lk, h, dh, backward=True)
+        bb, bby = bound_ms(b, lq, lk, h, dh, backward=True)
         bwd_shapes.append({
             **common, "instance": bwd_instance, "block_instance": bwd_block,
             "max_abs_err": max(e for e, _ in errs),
@@ -761,7 +855,7 @@ def check_field_attn_kernels(fa_mod) -> list:
             "ms": event_ms(lambda: fa_mod.field_attention_backward(
                 q, k, v, bias, do, scale), **KERNEL_RATES_DEPTH),
             "device_ms": (launch_ms(lambda: fa_mod.field_attention_backward(
-                q, k, v, bias, do, scale)) if shape in FA_SEQ else None),
+                q, k, v, bias, do, scale)) if shape in FA_SEQ or wide else None),
             "plain_ms": event_ms(lambda: fa_mod.field_attention_backward_reference(
                 q, k, v, bias, do, scale), **KERNEL_RATES_DEPTH),
             "library_ms": sdpa_both_ms - sdpa_fwd_ms,
@@ -1215,7 +1309,8 @@ def _one_bf16_step(g, r):
 
 
 def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path,
-                 path: str, per_step: dict, block_scaled: tuple = ()) -> None:
+                 path: str, per_step: dict, block_scaled: tuple = (),
+                 grad_rtol: float = RTOL) -> None:
     """Adam steps on the kernels, one a batch of ``batches`` (5 on most
     paths), against the same steps from the same weights on the plain
     versions (``plain_route()`` forces every kernel of
@@ -1228,7 +1323,8 @@ def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path
     under a prefix in ``block_scaled`` max|g| is the block's: the gradients
     of DIEN's target-attention MLP biases are residues of sums that cancel
     (the softmax over steps does not see a shift of every score, so its
-    head bias's gradient is zero but for rounding)."""
+    head bias's gradient is zero but for rounding). ``grad_rtol`` replaces
+    the 1e-3 of max|g| (the bf16 path's ``BF16_PATH_RTOL``)."""
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     losses, grads = drive(path, lambda: _adam_steps(model, init, batches))
     with plain_route():
@@ -1236,7 +1332,7 @@ def parity_steps(name: str, model, batches, plain_route, drive, launches_by_path
     model.load_state_dict(init)
     compare_runs(name, losses, grads, ref_losses, ref_grads, "the plain run",
                  block_scaled, f"launches {launches_by_path[path]}",
-                 len(batches[0]["label"]))
+                 len(batches[0]["label"]), grad_rtol)
     if launches_by_path[path] != expect(**{k: len(batches) * v for k, v in per_step.items()}):
         fail(f"expected {per_step} launches per train step")
 
@@ -2039,6 +2135,7 @@ def check_wide_cin(cin_mod) -> tuple:
     instances named and timed; at ``CIN_BOTH`` the two instances of each
     direction against each other. Returns the per-shape records of the
     forward and of the backward."""
+    from ml_function_tpu_torch.tools.cin_instances import library_calls
     from ml_function_tpu_torch.tools.timing import event_ms
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -2064,7 +2161,7 @@ def check_wide_cin(cin_mod) -> tuple:
         del ref
         if not all(torch.equal(a, c) for again in runs for a, c in zip(got, again)):
             fail(f"{bi} differs between three runs at {where}")
-        library_fwd, library_bwd = _cin_library(xk, x0, w1, dy)
+        library_fwd, library_bwd = library_calls(xk, x0, w1, dy)
         shape = {"D": d, "B": b, "H": h, "F": f, "O": o}
         fb, fby = cin_bound(d, b, h, f, o)
         bb, bby = cin_bound(d, b, h, f, o, backward=True)
@@ -2125,7 +2222,7 @@ def check_wide_cin(cin_mod) -> tuple:
           f"max |diff| {fdiff:.3e} ({both['cin_fwd_ms']:.4f} and {both['cin_fwd_wide_ms']:.4f} "
           f"ms), cin_bwd vs cin_bwd_wide max |diff| {bdiff:.3e} ({both['cin_bwd_ms']:.4f} "
           f"and {both['cin_bwd_wide_ms']:.4f} ms)")
-    library_fwd, library_bwd = _cin_library(xk, x0, w1, dy)
+    library_fwd, library_bwd = library_calls(xk, x0, w1, dy)
     rec = {"shape": dict(zip("DBHFO", CIN_BOTH)), "max_abs_diff_fwd": fdiff,
            "max_abs_diff_bwd": bdiff,
            **{k: v for k, v in both.items() if k.endswith("_ms")},
@@ -2137,25 +2234,6 @@ def check_wide_cin(cin_mod) -> tuple:
           f"{rec['bound_fwd_ms']:.4f} ms; backward library (3 calls) "
           f"{rec['library_bwd_ms']:.4f} ms, bound {rec['bound_bwd_ms']:.4f} ms")
     return fwd, bwd, rec
-
-
-def _cin_library(xk, x0, w1, dy):
-    """The library yardsticks of one CIN layer at the kernels' bf16 inputs:
-    the forward's GEMM and einsum, the backward's two GEMMs and einsum."""
-    d, b, h = xk.shape
-    f, o = x0.shape[2], dy.shape[2]
-    xk_b, w1_b, x0_b, dy_b = xk.bfloat16(), w1.bfloat16(), x0.bfloat16(), dy.bfloat16()
-    du_b = (x0.unsqueeze(-1) * dy.unsqueeze(2)).reshape(d * b, f * o).bfloat16()
-
-    def library_fwd():
-        torch.einsum("dbfo,dbf->dbo", torch.matmul(xk_b, w1_b).view(d, b, f, o), x0_b)
-
-    def library_bwd():
-        torch.matmul(du_b, w1_b.t())
-        torch.matmul(xk_b.view(d * b, h).t(), du_b)
-        torch.einsum("dbh,hfo,dbo->dbf", xk_b, w1_b.view(h, f, o), dy_b)
-
-    return library_fwd, library_bwd
 
 
 def check_wide_gru(gru_mod) -> tuple:
@@ -5394,8 +5472,8 @@ def card_settings() -> None:
 
 def make_drive(launches_by_path: dict, instances_by_path: dict):
     """``drive(path, fn)``: runs one main path with every kernel's count at
-    0 and keeps the counts it ends with (and the CIN and (AU)GRU instances
-    it launched) under ``path``."""
+    0 and keeps the counts it ends with (and the CIN, field-attention and
+    (AU)GRU instances it launched) under ``path``."""
     from ml_function_tpu_torch.ops.kernels import cin as cin_mod
     from ml_function_tpu_torch.ops.kernels import embedding_grad as eg_mod
     from ml_function_tpu_torch.ops.kernels import field_attention as fa_mod
@@ -5411,12 +5489,12 @@ def make_drive(launches_by_path: dict, instances_by_path: dict):
     def drive(path, fn):
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
-        cin_mod.instance_launches.clear()
-        gru_mod.instance_launches.clear()
+        for mod in (cin_mod, fa_mod, gru_mod):
+            mod.instance_launches.clear()
         out = fn()
         launches_by_path[path] = {name: getattr(mod, attr)
                                   for name, (mod, attr) in counters.items()}
-        instances_by_path[path] = {**cin_mod.instance_launches,
+        instances_by_path[path] = {**cin_mod.instance_launches, **fa_mod.instance_launches,
                                    **gru_mod.instance_launches}
         return out
 
@@ -5566,8 +5644,13 @@ def main() -> int:
                 launches_by_path)
 
     lap("phases 6-7")
-    # 8.-10. DIEN: its kernels, serving and training
+    # 7b. AutoInt at the AutoInt paper's attention width, each layer's
+    # attention on the wide instances: serving and training against the
+    # plain route, and where its time goes
     del scorer, batch
+    autoint_wide_phase(drive, launches_by_path, instances_by_path, plain_fa, fs, data)
+    lap("phase 7b")
+    # 8.-10. DIEN: its kernels, serving and training
     kernels += dien_phases(drive, launches_by_path)
     lap("phases 8-10")
 

@@ -1,6 +1,7 @@
 // Pieces shared by the field-attention kernels (field_attn_fwd.cu,
 // field_attn_bwd.cu): first those of the block instances, then those of the
-// warp instances, then those of the L-64 instances.
+// warp instances, then those of the L-64 instances, then those of the wide
+// instances.
 //
 // Block instances: one block of THREADS threads works on one (batch row b,
 // head h): the rows of q, k, v, dO for that pair are the Dh contiguous floats
@@ -339,6 +340,150 @@ __device__ __forceinline__ float exps64(float (&e)[L64], const float (&x)[DP], c
 __device__ __forceinline__ float div_rn(float e, float sum, float r) {
   const float q = __fmul_rn(e, r);
   return fmaf(fmaf(-sum, q, e), r, q);
+}
+
+// ---- wide instances: one warp a (b, h) and 32 queries (or keys), any H ----
+//
+// For up to 64 queries and keys at any head width of the gate (Dh <= 64) and
+// any H. The rows of one (b, h) are staged into shared memory apart from
+// every other pair's, so a block holds no batch row whole: WIDE_THREADS
+// threads take 64 / L pairs, where L (32 or 64, a template parameter) is
+// max(Lq, Lk) rounded up, and each pair's L threads (L / 32 warps) copy its
+// rows with cp.async (16 bytes a copy where Dh is a multiple of 4 and the
+// rows are 16-byte aligned, else 4), L rows of wide_stride(dh) floats: the
+// columns past Dh and the rows past Lq or Lk are zero-filled by the copy
+// itself (a source size of 0), and the bias is -inf past Lk, so the loops
+// over keys and queries run over L with constant indices and test no bound
+// (a second template instance tests one a group of WIDE_GROUP, to skip the
+// groups that are padding). A lane works through the head
+// dimension WIDE_CHUNK columns at a time, so its registers hold L sums and
+// one chunk of a row, whatever Dh.
+
+constexpr int WIDE_THREADS = 64;   // two warps a block
+constexpr int WIDE_CHUNK = 16;     // columns of a row a lane holds at a time
+constexpr int WIDE_GROUP = 8;      // keys (queries) skipped at a time past lk (lq)
+constexpr int WIDE_MAX_DH = 64;    // the gate's head width
+
+// The shapes the wide instances take (the wrappers give them those past the
+// warp and L-64 instances' Dh 16 and H 8 up to 64 positions:
+// field_attention.py).
+__host__ __device__ inline bool wide_fits(int lq, int lk, int h, int dh) {
+  return lq <= L64 && lk <= L64 && dh <= WIDE_MAX_DH;
+}
+
+// Floats of one staged row: Dh rounded up to a chunk, and 4 more, so that
+// the 16-byte loads of 8 lanes reading 8 neighbouring rows (a lane's own
+// row) hit 32 distinct banks (the stride / 4 is odd).
+__host__ __device__ inline int wide_stride(int dh) {
+  return (dh + WIDE_CHUNK - 1) / WIDE_CHUNK * WIDE_CHUNK + 4;
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, n) of one (b, h) of a (B, n, H, dh) tensor (src: its row 0, rows
+// stride floats apart) into L rows of s floats at dst, by the pair's L
+// threads (t its thread), as cp.async copies in flight until the caller
+// waits for them: the columns [dh, s - 4) and the rows [n, L) zero.
+template <int L, bool VEC>
+__device__ __forceinline__ void wide_rows_in(float* dst, const float* __restrict__ src, int n,
+                                             int stride, int dh, int s, int t) {
+  constexpr int W = VEC ? 4 : 1;   // floats a copy
+  const int per = (s - 4) / W;     // copies a row
+  for (int u = t; u < L * per; u += L) {
+    const int r = u / per, c = W * (u - r * per);
+    const bool ok = r < n && c < dh;
+    const float* g = ok ? src + size_t(r) * stride + c : src;
+    if (VEC)
+      cp_async16(dst + r * s + c, g, ok ? 16 : 0);
+    else
+      cp_async4(dst + r * s + c, g, ok ? 4 : 0);
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void wide_rows_in(float* dst, const float* __restrict__ src, int n,
+                                             int stride, int dh, int s, int t, bool vec) {
+  if (vec)
+    wide_rows_in<L, true>(dst, src, n, stride, dh, s, t);
+  else
+    wide_rows_in<L, false>(dst, src, n, stride, dh, s, t);
+}
+
+// The sum of e[0..L) (zeros past the row's keys) in torch.softmax's order:
+// for L 64 fa::softmax_sum64; for L 32 its warp butterfly over 32 slots,
+// a key a slot (pairs 16 apart, then 8, 4, 2, 1), which with zeros past the
+// keys is also its order for 16 keys or fewer.
+template <int L>
+__device__ __forceinline__ float wide_sum(const float (&e)[L]) {
+  if constexpr (L == L64) {
+    return softmax_sum64(e);
+  } else {
+    static_assert(L == WARP_L, "32 or 64 positions");
+    float t[16];
+#pragma unroll
+    for (int l = 0; l < 16; ++l) t[l] = e[l] + e[l + 16];
+#pragma unroll
+    for (int l = 0; l < 8; ++l) t[l] += t[l + 8];
+#pragma unroll
+    for (int l = 0; l < 4; ++l) t[l] += t[l + 4];
+    t[0] += t[2];
+    t[1] += t[3];
+    return t[0] + t[1];
+  }
+}
+
+// e[j] += x . (row j of m), for the WIDE_GROUP rows from j0 (row j at m +
+// j * s, a chunk of WIDE_CHUNK columns broadcast from shared memory as
+// 16-byte loads): each row's FMAs in order over the columns, the rows
+// unrolled for the compiler to interleave.
+template <int L>
+__device__ __forceinline__ void wide_dots(float (&e)[L], int j0, const float (&x)[WIDE_CHUNK],
+                                          const float* m, int s) {
+#pragma unroll
+  for (int j = j0; j < j0 + WIDE_GROUP; ++j) {
+    float y[WIDE_CHUNK];
+    load_row<WIDE_CHUNK>(y, m + j * s);
+#pragma unroll
+    for (int c = 0; c < WIDE_CHUNK; ++c) e[j] = fmaf(x[c], y[c], e[j]);
+  }
+}
+
+// The WIDE_CHUNK floats x * scale to row p's columns [c0, c0 + WIDE_CHUNK)
+// in device memory, those below dh: 16-byte stores with vec.
+__device__ __forceinline__ void wide_store(float* __restrict__ p, const float (&x)[WIDE_CHUNK],
+                                           int c0, int dh, float scale, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < WIDE_CHUNK; c += 4)
+      if (c0 + c < dh)
+        *reinterpret_cast<float4*>(p + c0 + c) =
+            make_float4(x[c] * scale, x[c + 1] * scale, x[c + 2] * scale, x[c + 3] * scale);
+  } else {
+#pragma unroll
+    for (int c = 0; c < WIDE_CHUNK; ++c)
+      if (c0 + c < dh) p[c0 + c] = x[c] * scale;
+  }
 }
 
 }  // namespace fa

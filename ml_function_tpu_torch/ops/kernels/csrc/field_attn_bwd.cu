@@ -1,5 +1,5 @@
 // Field-attention backward for Hopper (sm_90a), with a plain C interface for
-// ctypes: three instances of one contract, chosen by the wrapper from the
+// ctypes: four instances of one contract, chosen by the wrapper from the
 // shape (kernels/field_attention.py).
 //
 // Replaces ml_function_tpu/ops/kernels/field_attention.py::_bwd_kernel
@@ -66,6 +66,31 @@
 // two 128-thread blocks at DMIN's shape; under a cap of 128 the compiler
 // spilled kilobytes a thread.
 //
+// field_attn_bwd_wide, for every other shape up to 64 queries and keys (Dh
+// 17 to 64, or H past 8): the wide forward's pairs, staged rows (q, dO, k,
+// v) and 16-column chunks, and the L-64 backward's two passes. In pass 1 a
+// lane on query i keeps its L logits (then weights) and dA_ij (then dS_ij)
+// in registers, forms dQ_i and leaves (max, 1 / sum, rowsum) in shared
+// memory; after the block's one barrier a lane on key j recomputes a_ij
+// and dS_ij for every query with the same operations (so the same bits)
+// and forms dV_j and then dK_j. Each loop over d forms one product, so a
+// lane holds L sums and one chunk at a time (no spill at L 64); a second
+// template instance skips the groups of 8 padded keys or queries, as the
+// forward's, whose branches cost 3-5% where nothing is skipped (at
+// AutoInt's shape 0.2312-0.2321 against 0.2220-0.2237 ms on the device, at
+// the gate's edge 0.3766-0.3773 against 0.3573-0.3586, in turns on one
+// NVIDIA H100 80GB HBM3 at 700 W). At AutoInt's (4096, 27, 27, 2, 32) the work is 1.9 GFLOP for
+// 199 MB (59 us at 3.35 TB/s); it takes 0.217-0.224 ms on the device
+// (0.231-0.239 by events) on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/field_attn_instances.py, chip_smoke.py), against 0.55 for the
+// block instance and 0.54-0.74 for SDPA's f32 backward: 3.7x its bound.
+// What holds it, by inference (no hardware counter was read): 141
+// registers a thread and 38 KB of shared memory a block of two pairs keep
+// 10 warps an SM, each lane's sums chains of dependent FMAs, about a third
+// of the issue rate. At the gate's (512, 64, 64, 2, 64) a thread takes 254
+// registers and a pair 71 KB: 6 warps an SM, 0.33-0.36 ms on the device,
+// 8-9x its 0.0401 ms bound.
+//
 // field_attn_bwd, for every other shape inside the gate (Lq * Lk <= 4096,
 // Dh <= 64): one block of 128 threads per (b, h). The weights a and the
 // cotangent dA (then dS, in place) are two (Lq, Lk) matrices held whole in
@@ -75,7 +100,7 @@
 // phases a block, each issue-bound on loads and index arithmetic around its
 // FMAs.
 //
-// Neither a nor dS reaches device memory in either instance; each block
+// Neither a nor dS reaches device memory in any instance; each block
 // writes its own rows of dQ, dK and dV: no atomics, and the same inputs give
 // the same bits.
 //
@@ -373,6 +398,193 @@ __global__ void __launch_bounds__(32 * WARP_MAX_H, 1)
   }
 }
 
+// ---- field_attn_bwd_wide: one warp a (b, h) and 32 queries or keys, any H and Dh ----
+
+// Floats of shared memory of one (b, h): L staged rows each of q, dO, k and
+// v, the bias (L floats, -inf past lk) and each query's statistics (max,
+// 1 / sum, rowsum(a * dA), one float4 a query).
+__host__ __device__ size_t wide_pair_floats(int l, int dh) {
+  return size_t(4 * l) * fa::wide_stride(dh) + l + 4 * l;
+}
+
+template <int L, bool SKIP>
+__global__ void __launch_bounds__(fa::WIDE_THREADS)
+    field_attn_bwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ bias,
+                               const float* __restrict__ dout, float* __restrict__ dq,
+                               float* __restrict__ dk, float* __restrict__ dv, float scale,
+                               int nbatch, int lq, int lk, int h, int dh, bool vec) {
+  constexpr int PAIRS = fa::WIDE_THREADS / L;   // (b, h) pairs a block, L threads each
+  constexpr int CW = fa::WIDE_CHUNK, G = fa::WIDE_GROUP;
+  extern __shared__ __align__(16) float smem[];
+  const int s = fa::wide_stride(dh), cols = s - 4, stride = h * dh;
+  const int slot = threadIdx.x / L, t = threadIdx.x % L;
+  const long long pair = static_cast<long long>(blockIdx.x) * PAIRS + slot;
+  const bool live = pair < static_cast<long long>(nbatch) * h;
+  const int b = live ? static_cast<int>(pair / h) : 0, hh = live ? static_cast<int>(pair % h) : 0;
+  float* qs = smem + slot * wide_pair_floats(L, dh);   // L rows: q, zero past lq
+  float* dos = qs + L * s;                             // dO, zero past lq
+  float* ks = dos + L * s;                             // k, zero past lk
+  float* vs = ks + L * s;                              // v, zero past lk
+  float* bs = vs + L * s;                              // bias, -inf past lk
+  float4* st = reinterpret_cast<float4*>(bs + L);      // query i's statistics at st[i]
+  const size_t qoff = (size_t(b) * lq * h + hh) * dh, koff = (size_t(b) * lk * h + hh) * dh;
+  if (live) {
+    fa::wide_rows_in<L>(qs, q + qoff, lq, stride, dh, s, t, vec);
+    fa::wide_rows_in<L>(dos, dout + qoff, lq, stride, dh, s, t, vec);
+    fa::wide_rows_in<L>(ks, k + koff, lk, stride, dh, s, t, vec);
+    fa::wide_rows_in<L>(vs, v + koff, lk, stride, dh, s, t, vec);
+    bs[t] = t < lk ? bias[size_t(b) * lk + t] : -CUDART_INF_F;
+  }
+  fa::cp_async_commit();
+  fa::cp_async_wait<0>();
+  __syncthreads();
+
+  // pass 1, lane on query i (a zero row past lq): its logits, then dA_ij =
+  // dO_i . v_j, in registers, each the FMAs over d in order, a chunk of q_i
+  // (then dO_i) at a time against k_j (then v_j) broadcast; the weights a =
+  // e * (1 / sum), rowsum(a * dA), dS_ij = a_ij (dA_ij - rowsum) in place of
+  // dA, dQ_i = scale * sum_j dS_ij k_j, and the statistics to st[i]. Keys
+  // past lk, a group of G at a time, add nothing and are skipped.
+  {
+    const int i = t;
+    float a[L], d[L];   // the logits, exponentials, then weights; dA, then dS
+#pragma unroll
+    for (int j = 0; j < L; ++j) a[j] = d[j] = 0.f;
+#pragma unroll 1
+    for (int c0 = 0; c0 < cols; c0 += CW) {
+      float x[CW];
+      fa::load_row<CW>(x, qs + i * s + c0);
+#pragma unroll
+      for (int j0 = 0; j0 < L; j0 += G)
+        if (!SKIP || j0 < lk) fa::wide_dots<L>(a, j0, x, ks + c0, s);
+    }
+#pragma unroll 1
+    for (int c0 = 0; c0 < cols; c0 += CW) {
+      float y[CW];
+      fa::load_row<CW>(y, dos + i * s + c0);
+#pragma unroll
+      for (int j0 = 0; j0 < L; j0 += G)
+        if (!SKIP || j0 < lk) fa::wide_dots<L>(d, j0, y, vs + c0, s);
+    }
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      a[j] = __fadd_rn(__fmul_rn(a[j], scale), bs[j]);
+      m = fmaxf(m, a[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) a[j] = expf(a[j] - m);
+    const float inv = __frcp_rn(fa::wide_sum<L>(a));
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      a[j] *= inv;
+      rs = fmaf(a[j], d[j], rs);
+    }
+#pragma unroll
+    for (int j = 0; j < L; ++j) d[j] = a[j] * (d[j] - rs);
+    if (live && i < lq) {
+      float* dqi = dq + qoff + size_t(i) * stride;
+#pragma unroll 1
+      for (int c0 = 0; c0 < cols; c0 += CW) {
+        float acc[CW];
+#pragma unroll
+        for (int c = 0; c < CW; ++c) acc[c] = 0.f;
+#pragma unroll
+        for (int j0 = 0; j0 < L; j0 += G) {
+          if (!SKIP || j0 < lk) {
+#pragma unroll
+            for (int j = j0; j < j0 + G; ++j) {
+              float r[CW];
+              fa::load_row<CW>(r, ks + j * s + c0);
+#pragma unroll
+              for (int c = 0; c < CW; ++c) acc[c] = fmaf(d[j], r[c], acc[c]);
+            }
+          }
+        }
+        fa::wide_store(dqi, acc, c0, dh, scale, vec);
+      }
+    }
+    st[i] = make_float4(m, inv, rs, 0.f);
+  }
+  __syncthreads();
+
+  // pass 2, lane on key j (a zero row past lk, whose bias is -inf): a_ij
+  // and dS_ij recomputed for every query from q_i, dO_i and st[i] with the
+  // same operations as pass 1 (so the same bits), in registers; dV_j =
+  // sum_i a_ij dO_i and dK_j = scale * sum_i dS_ij q_i, a chunk of columns
+  // at a time. Queries past lq (zero rows, which would add exact zeros), a
+  // group of G at a time, are skipped.
+  {
+    const int j = t;
+    float a[L], d[L];   // the logits, then weights; dA, then dS (by query)
+#pragma unroll
+    for (int i = 0; i < L; ++i) a[i] = d[i] = 0.f;
+#pragma unroll 1
+    for (int c0 = 0; c0 < cols; c0 += CW) {
+      float kj[CW];
+      fa::load_row<CW>(kj, ks + j * s + c0);
+#pragma unroll
+      for (int i0 = 0; i0 < L; i0 += G)
+        if (!SKIP || i0 < lq) fa::wide_dots<L>(a, i0, kj, qs + c0, s);   // fmaf(k, q) = fmaf(q, k)
+    }
+#pragma unroll 1
+    for (int c0 = 0; c0 < cols; c0 += CW) {
+      float vj[CW];
+      fa::load_row<CW>(vj, vs + j * s + c0);
+#pragma unroll
+      for (int i0 = 0; i0 < L; i0 += G)
+        if (!SKIP || i0 < lq) fa::wide_dots<L>(d, i0, vj, dos + c0, s);
+    }
+    const float bj = bs[j];
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      const float4 sti = st[i];
+      a[i] = expf(__fadd_rn(__fmul_rn(a[i], scale), bj) - sti.x) * sti.y;
+      d[i] = a[i] * (d[i] - sti.z);
+    }
+    if (live && j < lk) {
+      float* dkj = dk + koff + size_t(j) * stride;
+      float* dvj = dv + koff + size_t(j) * stride;
+#pragma unroll 1
+      for (int c0 = 0; c0 < cols; c0 += CW) {
+        float acc[CW];
+#pragma unroll
+        for (int c = 0; c < CW; ++c) acc[c] = 0.f;
+#pragma unroll
+        for (int i0 = 0; i0 < L; i0 += G) {
+          if (!SKIP || i0 < lq) {
+#pragma unroll
+            for (int i = i0; i < i0 + G; ++i) {
+              float r[CW];
+              fa::load_row<CW>(r, dos + i * s + c0);
+#pragma unroll
+              for (int c = 0; c < CW; ++c) acc[c] = fmaf(a[i], r[c], acc[c]);
+            }
+          }
+        }
+        fa::wide_store(dvj, acc, c0, dh, 1.f, vec);
+#pragma unroll
+        for (int c = 0; c < CW; ++c) acc[c] = 0.f;
+#pragma unroll
+        for (int i0 = 0; i0 < L; i0 += G) {
+          if (!SKIP || i0 < lq) {
+#pragma unroll
+            for (int i = i0; i < i0 + G; ++i) {
+              float r[CW];
+              fa::load_row<CW>(r, qs + i * s + c0);
+#pragma unroll
+              for (int c = 0; c < CW; ++c) acc[c] = fmaf(d[i], r[c], acc[c]);
+            }
+          }
+        }
+        fa::wide_store(dkj, acc, c0, dh, scale, vec);
+      }
+    }
+  }
+}
+
 // ---- field_attn_bwd: one block a (b, h) ----
 
 // dS = a * (dA - rowsum(a * dA)) in place of dA, one warp a row.
@@ -514,6 +726,62 @@ int field_attn_bwd_l64(const float* q, const float* k, const float* v, const flo
     LAUNCH(8)
   else
     LAUNCH(16)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract for Lq, Lk <= 64 at any H and Dh of the gate (the
+// wrapper gives it those shapes past the warp and L-64 instances' Dh 16
+// and H 8); anything else returns cudaErrorInvalidValue and launches
+// nothing.
+int field_attn_bwd_wide(const float* q, const float* k, const float* v, const float* bias,
+                        const float* dout, float* dq, float* dk, float* dv, float scale, int b,
+                        int lq, int lk, int h, int dh, void* stream) {
+  if (!fa::wide_fits(lq, lk, h, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies and stores where every row starts 16-byte aligned
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                          reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
+                          reinterpret_cast<uintptr_t>(dv);
+  const bool vec = dh % 4 == 0 && bases % 16 == 0;
+  const long long pairs = static_cast<long long>(b) * h;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // shared memory up to the largest shape the instance takes (the same for
+  // both L: 64 / L pairs of L rows), set once
+  const int most = static_cast<int>(wide_pair_floats(fa::L64, fa::WIDE_MAX_DH) * 4);
+#define LAUNCH(L, SKIP)                                                                       \
+  {                                                                                           \
+    static bool ready = false;                                                                \
+    if (!ready) {                                                                             \
+      const cudaError_t e = cudaFuncSetAttribute(                                             \
+          field_attn_bwd_wide_kernel<L, SKIP>, cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+          most);                                                                              \
+      if (e != cudaSuccess) return static_cast<int>(e);                                       \
+      ready = true;                                                                           \
+    }                                                                                         \
+    constexpr int per = fa::WIDE_THREADS / L;                                                 \
+    const size_t smem = per * wide_pair_floats(L, dh) * sizeof(float);                        \
+    field_attn_bwd_wide_kernel<L, SKIP><<<static_cast<unsigned>((pairs + per - 1) / per),     \
+                                    fa::WIDE_THREADS, smem, st>>>(                            \
+        q, k, v, bias, dout, dq, dk, dv, scale, b, lq, lk, h, dh, vec);                       \
+  }
+  // the instance that skips groups of keys (queries) past lk (lq) only
+  // where a whole group is padding: the skips' branches cost the others 3-5%
+  // (the header)
+  constexpr int G = fa::WIDE_GROUP;
+  const int top = lq <= fa::WARP_L && lk <= fa::WARP_L ? fa::WARP_L : fa::L64;
+  const bool skip = (lk + G - 1) / G * G < top || (lq + G - 1) / G * G < top;
+  if (top == fa::WARP_L) {
+    if (skip)
+      LAUNCH(32, true)
+    else
+      LAUNCH(32, false)
+  } else {
+    if (skip)
+      LAUNCH(64, true)
+    else
+      LAUNCH(64, false)
+  }
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Field-attention forward for Hopper (sm_90a), with a plain C interface for
-// ctypes: three instances of one contract, chosen by the wrapper from the
+// ctypes: four instances of one contract, chosen by the wrapper from the
 // shape (kernels/field_attention.py: forward_instance).
 //
 // Replaces ml_function_tpu/ops/kernels/field_attention.py::_fwd_kernel
@@ -10,7 +10,7 @@
 // with q (B, Lq, H, Dh), k and v (B, Lk, H, Dh), bias (B, Lk), o (B, Lq, H, Dh),
 // all f32, for Lq * Lk <= 4096 and Dh <= 64. Products and sums are f32 on the
 // CUDA cores: the reference is f32 throughout, and TF32 or bf16 tensor cores
-// would change the numbers. Both instances form a logit as the plain version
+// would change the numbers. Every instance forms a logit as the plain version
 // does, the product times scale, then plus the bias (two roundings: an FMA
 // would round the -1e9 of a masked key differently, and a row whose keys are
 // all masked would stop being uniform), then expf(s - max) and a division by
@@ -75,6 +75,34 @@
 // key) pair a lane, 38 M warp instructions at DMIN's shape, would take
 // about 36 us at full issue.
 //
+// field_attn_fwd_wide, for every other shape up to 64 queries and keys: Dh
+// 17 to 64 (AutoInt at the AutoInt paper's 2 heads of 32, the gate's Dh-64
+// edge) or H past 8, where a row no longer fits a lane's registers and a
+// block of whole batch rows no longer fits shared memory. At AutoInt's
+// (B 4096, L 27, H 2, Dh 32) the work is 0.76 GFLOP (11 us at 67 TFLOP/s)
+// for 113 MB in and out (34 us at 3.35 TB/s): memory bounds it. One warp a
+// (b, h) and 32 queries: the pair's rows of q, k and v (L of each, L =
+// max(Lq, Lk) rounded up to 32 or 64) are staged apart from every other
+// pair's by cp.async (fa::wide_rows_in), so a block of 64 threads holds
+// 64 / L pairs whatever H is, and no pair waits on another: q and k in one
+// group of copies, v in a second that lands while the logits are formed.
+// A lane on query i keeps its L logits in registers and reads q_i and k_j
+// 16 columns at a time (fa::wide_dots), so it holds L sums and one chunk of
+// a row at any Dh; the logit, the softmax (torch.softmax's sum order,
+// fa::div_rn) and o_i are the L-64 instance's arithmetic, so at AutoInt's
+// shape o has the plain version's bits. A second template instance skips
+// the groups of 8 keys past Lk where a whole group is padding (at Lk 12 of
+// 32, say); where nothing is skipped its branches cost 5-6% at AutoInt's
+// shape (0.0706-0.0710 against 0.0670-0.0672 ms on the device, in turns on
+// one NVIDIA H100 80GB HBM3 at 700 W), so the other instance has none. At
+// AutoInt's shape it takes 0.0668-0.0675 ms on the device (0.073-0.091 a
+// call by events, the wrapper's host time showing) on that card
+// (tools/field_attn_instances.py, chip_smoke.py), against 0.21 ms for the
+// block instance and 0.28 for SDPA's f32 forward: 2.0x its bound. At the
+// gate's (512, 64, 64, 2, 64) it takes 0.063-0.065 ms on the device, on a
+// par with SDPA's 0.068-0.075 by events: 52 KB of shared memory a pair and
+// 167 registers a thread keep 8 warps an SM there.
+//
 // field_attn_fwd, for every other shape inside the gate: one block of 128
 // threads per (b, h), reading the projections' (B, L, H, Dh) layout in
 // place: it stages row tiles of q and k in shared memory, forms the whole
@@ -85,7 +113,7 @@
 // behind barriers, with a division per staged element.
 //
 // The TPU kernel transposed q, k, v to (H, L, Dh, B) so the batch filled its
-// 128 lanes; neither instance transposes, and ragged B, Lq != Lk and any
+// 128 lanes; no instance transposes, and ragged B, Lq != Lk and any
 // Dh <= 64 need no padding in device memory. Nothing but o reaches device
 // memory.
 //
@@ -277,6 +305,113 @@ __global__ void __launch_bounds__(32 * fa::WARP_MAX_H, 2)
     fa::slab_out<DP, false>(o + qoff, qs, nb, lq, h, dh);
 }
 
+// ---- field_attn_fwd_wide: one warp a (b, h) and 32 queries, any H and Dh ----
+
+// Floats of shared memory of one (b, h): L staged rows each of q, k and v,
+// and the bias (L floats, -inf past lk).
+__host__ __device__ size_t wide_pair_floats(int l, int dh) {
+  return size_t(3 * l) * fa::wide_stride(dh) + l;
+}
+
+template <int L, bool SKIP>
+__global__ void __launch_bounds__(fa::WIDE_THREADS)
+    field_attn_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ bias,
+                               float* __restrict__ o, float scale, int nbatch, int lq, int lk,
+                               int h, int dh, bool vec) {
+  constexpr int PAIRS = fa::WIDE_THREADS / L;   // (b, h) pairs a block, L threads each
+  constexpr int CW = fa::WIDE_CHUNK, G = fa::WIDE_GROUP;
+  extern __shared__ __align__(16) float smem[];
+  const int s = fa::wide_stride(dh), cols = s - 4, stride = h * dh;
+  const int slot = threadIdx.x / L, t = threadIdx.x % L;
+  const long long pair = static_cast<long long>(blockIdx.x) * PAIRS + slot;
+  const bool live = pair < static_cast<long long>(nbatch) * h;
+  const int b = live ? static_cast<int>(pair / h) : 0, hh = live ? static_cast<int>(pair % h) : 0;
+  float* qs = smem + slot * wide_pair_floats(L, dh);   // L rows: q, zero past lq
+  float* ks = qs + L * s;                              // k, zero past lk
+  float* vs = ks + L * s;                              // v, zero past lk
+  float* bs = vs + L * s;                              // bias, -inf past lk
+  const size_t qoff = (size_t(b) * lq * h + hh) * dh, koff = (size_t(b) * lk * h + hh) * dh;
+  // two groups of copies: q and k for the logits, then v for o behind them
+  if (live) {
+    fa::wide_rows_in<L>(qs, q + qoff, lq, stride, dh, s, t, vec);
+    fa::wide_rows_in<L>(ks, k + koff, lk, stride, dh, s, t, vec);
+    bs[t] = t < lk ? bias[size_t(b) * lk + t] : -CUDART_INF_F;
+  }
+  fa::cp_async_commit();
+  if (live) fa::wide_rows_in<L>(vs, v + koff, lk, stride, dh, s, t, vec);
+  fa::cp_async_commit();
+  fa::cp_async_wait<1>();
+  __syncthreads();
+
+  // lane on query i: its L logits in registers, each the FMAs over d in
+  // order (a chunk of q_i at a time against k_j broadcast, fa::wide_dots),
+  // then times scale, plus the bias; the max, the exponentials and their
+  // sum in torch.softmax's order, then the weights e / sum in place. Keys
+  // past lk, a group of G at a time, add nothing and are skipped.
+  const int i = t;
+  float e[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) e[j] = 0.f;
+#pragma unroll 1
+  for (int c0 = 0; c0 < cols; c0 += CW) {
+    float x[CW];
+    fa::load_row<CW>(x, qs + i * s + c0);
+#pragma unroll
+    for (int j0 = 0; j0 < L; j0 += G)
+      if (!SKIP || j0 < lk) fa::wide_dots<L>(e, j0, x, ks + c0, s);
+  }
+  float m = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    e[j] = __fadd_rn(__fmul_rn(e[j], scale), bs[j]);
+    m = fmaxf(m, e[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < L; ++j) e[j] = expf(e[j] - m);
+  const float sum = fa::wide_sum<L>(e);
+  // fa::div_rn's range: the largest e is 1, so 1 <= sum <= 64; an e in
+  // (0, 2^-64) takes the IEEE division for the whole row
+  bool tiny = false;
+#pragma unroll
+  for (int j = 0; j < L; ++j) tiny |= e[j] > 0.f && e[j] < 0x1p-64f;
+  if (tiny) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) e[j] = e[j] / sum;
+  } else {
+    const float r = __frcp_rn(sum);
+#pragma unroll
+    for (int j = 0; j < L; ++j) e[j] = fa::div_rn(e[j], sum, r);
+  }
+
+  fa::cp_async_wait<0>();
+  __syncthreads();
+  // o_i = sum_j a_ij v_j, the FMAs over the keys in order, a chunk of
+  // columns at a time against v_j's broadcast, stored from the registers
+  if (live && i < lq) {
+    float* oi = o + qoff + size_t(i) * stride;
+#pragma unroll 1
+    for (int c0 = 0; c0 < cols; c0 += CW) {
+      float acc[CW];
+#pragma unroll
+      for (int c = 0; c < CW; ++c) acc[c] = 0.f;
+#pragma unroll
+      for (int j0 = 0; j0 < L; j0 += G) {
+        if (!SKIP || j0 < lk) {
+#pragma unroll
+          for (int j = j0; j < j0 + G; ++j) {
+            float y[CW];
+            fa::load_row<CW>(y, vs + j * s + c0);
+#pragma unroll
+            for (int c = 0; c < CW; ++c) acc[c] = fmaf(e[j], y[c], acc[c]);
+          }
+        }
+      }
+      fa::wide_store(oi, acc, c0, dh, 1.f, vec);
+    }
+  }
+}
+
 // ---- field_attn_fwd: one block a (b, h) ----
 
 __global__ void __launch_bounds__(fa::THREADS)
@@ -389,6 +524,59 @@ int field_attn_fwd_l64(const float* q, const float* k, const float* v, const flo
     LAUNCH(8)
   else
     LAUNCH(16)
+#undef LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract for Lq, Lk <= 64 at any H and Dh of the gate (the
+// wrapper gives it those shapes past the warp and L-64 instances' Dh 16
+// and H 8); anything else returns cudaErrorInvalidValue and launches
+// nothing.
+int field_attn_fwd_wide(const float* q, const float* k, const float* v, const float* bias,
+                        float* o, float scale, int b, int lq, int lk, int h, int dh,
+                        void* stream) {
+  if (!fa::wide_fits(lq, lk, h, dh)) return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies and stores where every row starts 16-byte aligned
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  const bool vec = dh % 4 == 0 && bases % 16 == 0;
+  const long long pairs = static_cast<long long>(b) * h;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // shared memory up to the largest shape the instance takes (the same for
+  // both L: 64 / L pairs of L rows), set once
+  const int most = static_cast<int>(wide_pair_floats(fa::L64, fa::WIDE_MAX_DH) * 4);
+#define LAUNCH(L, SKIP)                                                                       \
+  {                                                                                           \
+    static bool ready = false;                                                                \
+    if (!ready) {                                                                             \
+      const cudaError_t e = cudaFuncSetAttribute(                                             \
+          field_attn_fwd_wide_kernel<L, SKIP>, cudaFuncAttributeMaxDynamicSharedMemorySize,   \
+          most);                                                                              \
+      if (e != cudaSuccess) return static_cast<int>(e);                                       \
+      ready = true;                                                                           \
+    }                                                                                         \
+    constexpr int per = fa::WIDE_THREADS / L;                                                 \
+    const size_t smem = per * wide_pair_floats(L, dh) * sizeof(float);                        \
+    field_attn_fwd_wide_kernel<L, SKIP><<<static_cast<unsigned>((pairs + per - 1) / per),     \
+                                    fa::WIDE_THREADS, smem, st>>>(q, k, v, bias, o, scale, b, \
+                                                                  lq, lk, h, dh, vec);        \
+  }
+  // the instance that skips groups of keys past lk only where a whole
+  // group is padding: the skips' branches cost the others 5-6% (the header)
+  constexpr int G = fa::WIDE_GROUP;
+  const int top = lq <= fa::WARP_L && lk <= fa::WARP_L ? fa::WARP_L : fa::L64;
+  const bool skip = (lk + G - 1) / G * G < top;
+  if (top == fa::WARP_L) {
+    if (skip)
+      LAUNCH(32, true)
+    else
+      LAUNCH(32, false)
+  } else {
+    if (skip)
+      LAUNCH(64, true)
+    else
+      LAUNCH(64, false)
+  }
 #undef LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,12 +4,26 @@ plain versions.
 Counterpart of ``ml_function_tpu/ops/kernels/field_attention.py``. The
 kernels (``csrc/field_attn_fwd.cu``, ``csrc/field_attn_bwd.cu``) replace the
 Pallas ``_fwd_kernel`` and ``_bwd_kernel``; the source notes say what bounds
-them on the H100 and how the design answers that. Each direction has three
-instances of one contract: a warp a (batch row, head) for up to 32 queries
-and keys (AutoInt's fields, SIM's top-k), a warp a (batch row, head) with a
-query's logits in registers for up to 64 (DMIN's refiner), and a block a
-(batch row, head) for the rest of the gate (``forward_instance``,
-``backward_instance``).
+them on the H100 and how the design answers that. Each direction has four
+instances of one contract (``forward_instance``, ``backward_instance``):
+
+- warp: a warp a (batch row, head) for up to 32 queries and keys at Dh ≤ 16
+  and H ≤ 8 (AutoInt's fields at its default head width, SIM's top-k);
+- l64: a warp a (batch row, head) with a query's logits in registers for up
+  to 64 at the same Dh and H (DMIN's refiner);
+- wide: a warp a (batch row, head) and 32 queries (or keys), for up to 64
+  at any Dh of the gate and any H, the rows of one (batch row, head)
+  staged apart and a lane's registers holding its logits and 16 columns
+  of a row at a time (AutoInt at the AutoInt paper's 2 heads of 32, the
+  gate's Dh-64 edge). At AutoInt's (B 4096, L 27, H 2, Dh 32) memory
+  bounds it (113 MB, 0.034 ms at 3.35 TB/s, forward; 199 MB, 0.059 ms,
+  backward), and it takes 0.0668–0.0675 ms forward and 0.2169–0.2211 ms
+  backward on the device on an NVIDIA H100 80GB HBM3 at 700 W
+  (``chip_smoke.py``, ``tools/field_attn_instances.py``), against the
+  block instances' 0.21 and 0.55;
+- block: a block a (batch row, head) for the rest of the gate (Lq or Lk
+  past 64, with Lq·Lk ≤ 4096).
+
 Attention over a few positions (AutoInt's feature fields) at a large batch:
 
     o = softmax(q·kᵀ·scale + bias) · v
@@ -45,14 +59,18 @@ NDIMS = {"q": 4, "k": 4, "v": 4, "bias": 2, "do": 4}
 # (a row of q, k or v in a lane's registers) and H ≤ 8 (a block's warps);
 # the L-64 instances the rest up to Lq, Lk ≤ 64 (a lane on a query, then on
 # a second 32 further, its 64 logits in registers) at the same Dh and H;
-# every other shape inside the gate takes the block ones.
+# the wide instances every other shape up to Lq, Lk ≤ 64 (any Dh of the
+# gate, any H); the block ones the rest of the gate. ``_instance`` takes the
+# first of ``INSTANCES`` that fits.
 WARP_MAX_L, WARP_MAX_HEAD_DIM, WARP_MAX_HEADS = 32, 16, 8
 L64_MAX_L = 64
-INSTANCES = ("warp", "l64", "block")
+INSTANCES = ("warp", "l64", "wide", "block")
 
-# Launches of each CUDA kernel since its count was last set to 0.
+# Launches of each CUDA kernel since its count was last set to 0, and of
+# each instance (C function) by name.
 field_attn_fwd_launches = 0
 field_attn_bwd_launches = 0
+instance_launches: dict = {}
 
 
 def _probs(q, k, bias, scale):
@@ -131,14 +149,24 @@ def _shape(what: str, q, k, v, bias):
     return b, lq, lk, h, dh
 
 
+def instance_fits(kind: str, lq: int, lk: int, h: int, dh: int) -> bool:
+    """Whether the instance ``kind`` takes the shape: the limits its C entry
+    checks (``fa::warp_fits``, ``fa::l64_fits``, ``fa::wide_fits`` in
+    ``csrc/field_attn.cuh``; the block instance takes every shape of the
+    gate)."""
+    if kind == "block":
+        return True
+    if kind == "wide":
+        return lq <= L64_MAX_L and lk <= L64_MAX_L
+    small = dh <= WARP_MAX_HEAD_DIM and h <= WARP_MAX_HEADS
+    top = WARP_MAX_L if kind == "warp" else L64_MAX_L
+    return small and lq <= top and lk <= top
+
+
 def _instance(lq: int, lk: int, h: int, dh: int) -> str:
-    """Which instance takes the shape: "warp" within ``fa::warp_fits``,
-    "l64" within ``fa::l64_fits`` (``csrc/field_attn.cuh``; each C entry
-    refuses the shapes past its own limits), else "block"."""
-    if dh > WARP_MAX_HEAD_DIM or h > WARP_MAX_HEADS:
-        return "block"
-    longest = max(lq, lk)
-    return "warp" if longest <= WARP_MAX_L else "l64" if longest <= L64_MAX_L else "block"
+    """Which instance takes the shape: the first of ``INSTANCES`` that fits
+    it (each C entry refuses the shapes past its own limits)."""
+    return next(kind for kind in INSTANCES if instance_fits(kind, lq, lk, h, dh))
 
 
 def _c_name(direction: str, kind: str) -> str:
@@ -149,7 +177,8 @@ def _c_name(direction: str, kind: str) -> str:
 def forward_instance(q, k, v, bias) -> str:
     """The C function of ``csrc/field_attn_fwd.cu`` that takes these inputs'
     shape: ``field_attn_fwd_warp`` within the warp instance's limits,
-    ``field_attn_fwd_l64`` past them up to 64 positions, else
+    ``field_attn_fwd_l64`` past them up to 64 positions at the same Dh and
+    H, ``field_attn_fwd_wide`` for the rest up to 64 positions, else
     ``field_attn_fwd``. Raises where ``_shape`` does."""
     _, lq, lk, h, dh = _shape("field_attention", q, k, v, bias)
     return _c_name("fwd", _instance(lq, lk, h, dh))
@@ -157,16 +186,16 @@ def forward_instance(q, k, v, bias) -> str:
 
 def backward_instance(q, k, v, bias) -> str:
     """The C function of ``csrc/field_attn_bwd.cu`` that takes these inputs'
-    shape: ``field_attn_bwd_warp``, ``field_attn_bwd_l64`` or
-    ``field_attn_bwd``, by the forward's limits. Raises where ``_shape``
-    does."""
+    shape: ``field_attn_bwd_warp``, ``field_attn_bwd_l64``,
+    ``field_attn_bwd_wide`` or ``field_attn_bwd``, by the forward's limits.
+    Raises where ``_shape`` does."""
     _, lq, lk, h, dh = _shape("field_attention backward", q, k, v, bias)
     return _c_name("bwd", _instance(lq, lk, h, dh))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib(name: str) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu`` with its three C functions bound."""
+    """The library of ``csrc/<name>.cu`` with its four C functions bound."""
     lib = _build.load(name)
     n_ptr = 5 if name == "field_attn_fwd" else 8
     for fname in (_c_name(name[-3:], kind) for kind in INSTANCES):
@@ -182,9 +211,9 @@ def field_attention_forward(q, k, v, bias, scale: float,
     """The forward kernel (``csrc/field_attn_fwd.cu``) on CUDA tensors: the
     contract of ``field_attention_reference``, through ``instance``
     (default: the one ``forward_instance`` picks; the block instance takes
-    every shape of the gate, the warp and L-64 instances raise outside
-    their limits). Raises on anything the kernel does not take; never runs
-    the plain version."""
+    every shape of the gate, the others raise outside their limits).
+    Raises on anything the kernel does not take; never runs the plain
+    version."""
     global field_attn_fwd_launches
     check_cuda_inputs("field_attention", NDIMS, q=q, k=k, v=v, bias=bias)
     b, lq, lk, h, dh = _shape("field_attention", q, k, v, bias)
@@ -202,6 +231,7 @@ def field_attention_forward(q, k, v, bias, scale: float,
     if err:
         raise RuntimeError(f"{fname} launch failed with CUDA error {err}")
     field_attn_fwd_launches += 1
+    instance_launches[fname] = instance_launches.get(fname, 0) + 1
     return o
 
 
@@ -233,4 +263,5 @@ def field_attention_backward(q, k, v, bias, do, scale: float,
     if err:
         raise RuntimeError(f"{fname} launch failed with CUDA error {err}")
     field_attn_bwd_launches += 1
+    instance_launches[fname] = instance_launches.get(fname, 0) + 1
     return dq, dk, dv

@@ -1,12 +1,13 @@
 """The kernels' launch counters, read and moved together.
 
 Each wrapper adds one to its module's counter (``cin.cin_fwd_launches``
-and the rest) where it launches its kernel, and the CIN and (AU)GRU
-wrappers also count by instance (``instance_launches``). A CUDA graph
-launches what it captured without passing through the wrappers, so the
-chained train step (``train/loop.py``) takes each counter's change over
-its capture (``since``), takes it back, and adds it again at every replay
-(``add``): the counts stay those of the kernels that ran.
+and the rest) where it launches its kernel, and the CIN, field-attention
+and (AU)GRU wrappers also count by instance (``instance_launches``). A
+CUDA graph launches what it captured without passing through the
+wrappers, so the chained train step (``train/loop.py``) takes each
+counter's change over its capture (``since``), takes it back, and adds it
+again at every replay (``add``): the counts stay those of the kernels that
+ran.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ COUNTERS = ((cin, "cin_fwd_launches"), (cin, "cin_bwd_launches"),
             (flash_attention, "flash_fwd_launches"),
             (flash_attention, "flash_bwd_dq_launches"),
             (flash_attention, "flash_bwd_dkv_launches"))
-BY_INSTANCE = (cin, gru)
+BY_INSTANCE = (cin, field_attention, gru)
 
 # (module, attribute, instance name or None) → launches
 Counts = Dict[Tuple[object, str, Optional[str]], int]

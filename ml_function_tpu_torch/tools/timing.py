@@ -1,5 +1,5 @@
-"""Device timing on the CUDA card: CUDA events, and device time by kernel
-name from ``torch.profiler``."""
+"""Device timing on the CUDA card: CUDA events, device time by kernel name
+from ``torch.profiler``, and the card's peak rates."""
 
 from __future__ import annotations
 
@@ -10,6 +10,13 @@ from typing import Callable
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+# The H100 SXM's peak rates (NVIDIA's data sheet), against which the bounds
+# of a kernel's time are taken.
+PEAK_BF16_FLOPS = 989e12   # dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12     # f32 rate outside the tensor cores
+PEAK_BYTES = 3.35e12       # HBM3 rate
+PEAK_TF32_FLOPS = 495e12   # dense TF32 tensor-core rate
 
 
 def event_ms(fn: Callable[[], object], reps: int = 25, inner: int = 10,

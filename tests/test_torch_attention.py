@@ -4,7 +4,8 @@
 On the CPU the port's ``field_attention`` runs its plain versions, forward
 and backward; the JAX one runs the Pallas kernels in interpret mode, as
 tests/test_field_attention.py does, at that file's three shapes, at
-AutoInt's (B 256, L 27, H 2, Dh 16) and at two shapes past 32 positions. Both are f32 throughout and differ only
+AutoInt's (B 256, L 27, H 2, Dh 16), at two shapes past 32 positions and at
+three past Dh 16 or H 8. Both are f32 throughout and differ only
 in the order of f32 sums: the forward is held to rtol 1e-5/atol 1e-6 and
 dQ, dK, dV to ``jax.grad`` within rtol 1e-4/atol 1e-5, the tolerances of
 tests/test_field_attention.py.
@@ -40,9 +41,12 @@ torch.set_num_threads(1)
 
 # tests/test_field_attention.py's three shapes, AutoInt's, then past 32
 # positions, where the port's L-64 instances take over on the card: DMIN's
-# refiner (L 64, H 2, Dh 8) and Lq ≠ Lk
+# refiner (L 64, H 2, Dh 8) and Lq ≠ Lk; then past Dh 16 or H 8, where the
+# wide instances take over: AutoInt at 2 heads of 32, the gate's Dh-64
+# edge and H 10
 SHAPES = [(37, 5, 7, 2, 4), (130, 27, 27, 2, 16), (64, 1, 9, 3, 8),
-          (256, 27, 27, 2, 16), (9, 64, 64, 2, 8), (6, 40, 48, 3, 16)]
+          (256, 27, 27, 2, 16), (9, 64, 64, 2, 8), (6, 40, 48, 3, 16),
+          (130, 27, 27, 2, 32), (9, 64, 64, 2, 64), (33, 12, 12, 10, 8)]
 
 
 def _inputs(shape, seed=0):

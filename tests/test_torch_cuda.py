@@ -305,10 +305,13 @@ def test_train_step_on_the_card_matches_the_cpu(card):
 
 # (B, Lq, Lk, H, Dh, masked): AutoInt's shape, then the gate's two edges,
 # then DSIN's sessions at the board's row (B 2048 · 8 sessions of 8) and
-# DMIN's refiner at L 64 (exactly 4096 scores: the L-64 instances)
+# DMIN's refiner at L 64 (exactly 4096 scores: the L-64 instances), FiGNN's
+# fields, then AutoInt at the AutoInt paper's 2 heads of 32 and H past 8
+# (the wide instances)
 FA_SHAPES = [(4096, 27, 27, 2, 16, False), (512, 64, 64, 2, 64, True),
              (300, 1, 4096, 2, 8, True), (16384, 8, 8, 2, 8, True),
-             (4096, 64, 64, 2, 8, True), (4096, 26, 26, 2, 4, False)]
+             (4096, 64, 64, 2, 8, True), (4096, 26, 26, 2, 4, False),
+             (4096, 27, 27, 2, 32, False), (1001, 12, 12, 10, 8, True)]
 
 
 def _fa_inputs(card, b, lq, lk, h, dh, masked):
@@ -341,26 +344,33 @@ def test_field_attention_kernels_match_plain_versions(card, b, lq, lk, h, dh, ma
 
 # (B, Lq, Lk, H, Dh, instance): the backward's instances either side of
 # the warp instance's limits (L 32, Dh 16, H 8) and of the L-64 instance's
-# (L 64 at the same Dh and H), B not a multiple of a block's batch rows
-# (4 / H), Dh not a multiple of 4 (4-byte copies), SIM's top-8 ESU (Dh 4)
-# and AutoInt's L 27, Lq ≠ Lk both ways past 32, then DSIN's sessions and
-# DMIN's refiner at their board shapes
+# (L 64 at the same Dh and H), past which the wide instance takes every
+# Dh and H up to L 64 and the block instance the rest, B not a multiple of
+# a block's batch rows (4 / H) or pairs (64 / L), Dh not a multiple of 4
+# (4-byte copies), SIM's top-8 ESU (Dh 4) and AutoInt's L 27, Lq ≠ Lk both
+# ways past 32, then DSIN's sessions and DMIN's refiner at their board
+# shapes, then the wide instance at AutoInt's 2 heads of 32, the gate's
+# Dh-64 edge, 64 queries against one key and H 100
 FA_BWD_CASES = [(4097, 27, 27, 2, 16, "warp"), (129, 8, 8, 2, 4, "warp"),
                 (7, 1, 1, 1, 8, "warp"), (9, 8, 8, 4, 8, "warp"),
                 (5, 32, 32, 1, 16, "warp"), (10, 27, 27, 2, 13, "warp"),
                 (6, 8, 32, 4, 8, "warp"), (11, 32, 8, 3, 16, "warp"),
-                (6, 33, 33, 2, 16, "l64"), (5, 27, 27, 2, 17, "block"),
-                (3, 64, 64, 4, 64, "block"), (4, 1, 64, 1, 8, "l64"),
-                (3, 8, 8, 9, 8, "block"), (16384, 8, 8, 2, 8, "warp"),
+                (6, 33, 33, 2, 16, "l64"), (5, 27, 27, 2, 17, "wide"),
+                (3, 64, 64, 4, 64, "wide"), (4, 1, 64, 1, 8, "l64"),
+                (3, 8, 8, 9, 8, "wide"), (16384, 8, 8, 2, 8, "warp"),
                 (4096, 64, 64, 2, 8, "l64"), (4096, 26, 26, 2, 4, "warp"),
                 (3, 64, 64, 8, 16, "l64"), (5, 65, 63, 2, 8, "block"),
-                (4, 64, 64, 2, 17, "block"), (3, 40, 40, 9, 8, "block"),
+                (4, 64, 64, 2, 17, "wide"), (3, 40, 40, 9, 8, "wide"),
                 (9, 64, 64, 2, 8, "l64"), (5, 33, 64, 3, 16, "l64"),
-                (6, 64, 40, 1, 13, "l64"), (1001, 64, 48, 2, 8, "l64")]
+                (6, 64, 40, 1, 13, "l64"), (1001, 64, 48, 2, 8, "l64"),
+                (4097, 27, 27, 2, 32, "wide"), (513, 64, 64, 2, 64, "wide"),
+                (5, 64, 1, 3, 36, "wide"), (7, 12, 12, 100, 8, "wide"),
+                (3, 1, 65, 2, 32, "block")]
 
 
 def _instance_name(kind, direction="bwd"):
-    return f"field_attn_{direction}" + {"warp": "_warp", "l64": "_l64", "block": ""}[kind]
+    return f"field_attn_{direction}" + {"warp": "_warp", "l64": "_l64", "wide": "_wide",
+                                        "block": ""}[kind]
 
 
 @pytest.mark.parametrize("b,lq,lk,h,dh,kind", FA_BWD_CASES)
@@ -383,7 +393,7 @@ def test_field_attention_backward_matches_plain_version(card, b, lq, lk, h, dh, 
     assert tfa.backward_instance(q, k, v, bias) == _instance_name(kind)
     want = tfa.field_attention_backward_reference(q, k, v, bias, do, scale)
     names = {tfa.backward_instance(q, k, v, bias)}
-    if kind == "l64":
+    if kind in ("l64", "wide"):
         names.add("field_attn_bwd")
     for name in names:
         before = tfa.field_attn_bwd_launches
@@ -417,14 +427,14 @@ def test_field_attention_forward_instances_match_plain_version(card, b, lq, lk, 
         assert torch.equal(got, again), name
 
 
-def test_field_attention_l64_instances_replay_in_a_cuda_graph(card):
-    """DMIN's refiner (B 4096, L 64, H 2, Dh 8): a forward and a backward on
-    the L-64 instances captured into one CUDA graph (the chained train
-    step's way of running them) and replayed into zeroed outputs give the
-    eager calls' bits; the capture counts 1 + 1 launches."""
-    q, k, v, bias, do, scale = _fa_inputs(card, 4096, 64, 64, 2, 8, True)
+def _fa_graph_replays(card, shape, kind):
+    """A forward and a backward on the instances ``kind`` captured into one
+    CUDA graph (the chained train step's way of running them) and replayed
+    into zeroed outputs give the eager calls' bits; the capture counts
+    1 + 1 launches."""
+    q, k, v, bias, do, scale = _fa_inputs(card, *shape, True)
     assert (tfa.forward_instance(q, k, v, bias), tfa.backward_instance(q, k, v, bias)) == (
-        "field_attn_fwd_l64", "field_attn_bwd_l64")
+        _instance_name(kind, "fwd"), _instance_name(kind))
 
     def both():
         return (tfa.field_attention_forward(q, k, v, bias, scale),
@@ -443,6 +453,17 @@ def test_field_attention_l64_instances_replay_in_a_cuda_graph(card):
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(outs, eager))
     _close(outs[0], tfa.field_attention_reference(q, k, v, bias, scale))
+
+
+def test_field_attention_l64_instances_replay_in_a_cuda_graph(card):
+    """DMIN's refiner (B 4096, L 64, H 2, Dh 8) on the L-64 instances."""
+    _fa_graph_replays(card, (4096, 64, 64, 2, 8), "l64")
+
+
+def test_field_attention_wide_instances_replay_in_a_cuda_graph(card):
+    """AutoInt at the AutoInt paper's 2 heads of 32 (B 4096, L 27) on the
+    wide instances."""
+    _fa_graph_replays(card, (4096, 27, 27, 2, 32), "wide")
 
 
 def test_l64_forward_division_gives_the_ieee_quotient(card):
@@ -473,6 +494,14 @@ def test_forward_instances_refuse_what_they_do_not_take(card):
                                      instance="field_attn_bwd_l64")
     with pytest.raises(ValueError, match="no backward instance"):
         tfa.field_attention_backward(q, q, q, bias, q, 0.25, instance="field_attn_fwd")
+    long_k = torch.zeros(2, 65, 2, 8, device=card)
+    long_bias = torch.zeros(2, 65, device=card)
+    with pytest.raises(RuntimeError, match="field_attn_fwd_wide"):
+        tfa.field_attention_forward(q, long_k, long_k, long_bias, 0.25,
+                                    instance="field_attn_fwd_wide")
+    with pytest.raises(RuntimeError, match="field_attn_bwd_wide"):
+        tfa.field_attention_backward(q, long_k, long_k, long_bias, q, 0.25,
+                                     instance="field_attn_bwd_wide")
     with pytest.raises(RuntimeError, match="gru_fwd_warp"):
         tgru.gru_sequence_forward(xw, wh, mask, att, h0, instance="gru_fwd_warp")
     with pytest.raises(ValueError, match="no forward instance"):

@@ -205,12 +205,17 @@ def _meta(b, lq, lk, h, dh):
 
 # (Lq, Lk, H, Dh, instance): each limit of the warp instances and one past
 # it, then each limit of the L-64 instances (L 64, Dh 16, H 8) and one past
-# it, and the gate's edges (Dh 64, Lk 4096), which the block ones take
+# it, which the wide instances take up to L 64 at any Dh and H (AutoInt at
+# the AutoInt paper's 2 heads of 32, the gate's Dh-64 edge, H 9 and 65,535
+# at one position), and one position past L 64 either way, and the gate's
+# Lk-4096 edge, which the block ones take
 INSTANCE_CASES = [(32, 32, 8, 16, "warp"), (1, 1, 1, 1, "warp"), (27, 27, 2, 16, "warp"),
-                  (33, 32, 2, 16, "l64"), (32, 33, 2, 16, "l64"), (27, 27, 2, 17, "block"),
-                  (27, 27, 9, 16, "block"), (64, 64, 2, 64, "block"), (1, 4096, 2, 8, "block"),
+                  (33, 32, 2, 16, "l64"), (32, 33, 2, 16, "l64"), (27, 27, 2, 17, "wide"),
+                  (27, 27, 9, 16, "wide"), (64, 64, 2, 64, "wide"), (1, 4096, 2, 8, "block"),
                   (64, 64, 8, 16, "l64"), (65, 63, 2, 8, "block"), (1, 65, 2, 8, "block"),
-                  (64, 64, 2, 17, "block"), (40, 40, 9, 8, "block")]
+                  (64, 64, 2, 17, "wide"), (40, 40, 9, 8, "wide"), (27, 27, 2, 32, "wide"),
+                  (32, 32, 9, 1, "wide"), (64, 64, 9, 16, "wide"), (1, 1, 65535, 1, "wide"),
+                  (65, 63, 2, 32, "block"), (63, 65, 9, 8, "block"), (1, 65, 2, 64, "block")]
 
 
 @pytest.mark.parametrize("lq,lk,h,dh,kind", INSTANCE_CASES)
@@ -218,7 +223,7 @@ def test_forward_instance_by_shape(lq, lk, h, dh, kind):
     """On meta tensors (no card, no memory); the backward takes the same
     limits, by the same predicate."""
     args = _meta(3, lq, lk, h, dh)
-    suffix = {"warp": "_warp", "l64": "_l64", "block": ""}[kind]
+    suffix = {"warp": "_warp", "l64": "_l64", "wide": "_wide", "block": ""}[kind]
     assert tfa.forward_instance(*args) == "field_attn_fwd" + suffix
     assert tfa.backward_instance(*args) == "field_attn_bwd" + suffix
 
